@@ -140,29 +140,42 @@ def resolve_device(device: str | torch.device) -> torch.device:
 # SomaticCallerParameters.json / PedigreeCallerParameters.json /
 # QualityScoreParameters.json / CanvasPartitionParameters.json next to the
 # binaries and deserializes them at startup.  load_parameter_file applies a
-# file of the same shape: CanvasConfig fields by snake_case name.
+# file of the same shape: CanvasConfig fields by snake_case name, somatic
+# caller constants by their PascalCase JSON name.
 # ---------------------------------------------------------------------------
 
-# SomaticCallerParameters.json keys: they set somatic-caller constants, and
-# the somatic caller is not part of this package yet
-SOMATIC_JSON_FIELDS = (
-    "MaximumCopyNumber", "MinimumVariantFrequenciesForInformativeSegment",
-    "CoverageWeighting", "CoverageWeightingWithMafSegmentation",
-    "EvennessScoreThreshold", "MinEvennessScore",
-    "LowerCoverageLevelWeightingFactor", "UpperCoverageLevelWeightingFactor",
-    "DeviationFactor", "DeviationIndexCutoff", "PrecisionWeightingFactor",
-    "HeterogeneityWeight", "DistanceRatio", "MinimumCallSize",
-)
+# SomaticCallerParameters.json name -> canvas_tpu_torch.models.somatic
+# attribute
+SOMATIC_JSON_FIELDS = {
+    "MaximumCopyNumber": "MAX_COPY_NUMBER",
+    "MinimumVariantFrequenciesForInformativeSegment": "MIN_VF_FOR_INFORMATIVE",
+    "CoverageWeighting": "COVERAGE_WEIGHTING",
+    "CoverageWeightingWithMafSegmentation": "COVERAGE_WEIGHTING_WITH_MAF",
+    "EvennessScoreThreshold": "EVENNESS_THRESHOLD",
+    "MinEvennessScore": "MIN_EVENNESS",
+    "LowerCoverageLevelWeightingFactor": "LOWER_COVERAGE_FACTOR",
+    "UpperCoverageLevelWeightingFactor": "UPPER_COVERAGE_FACTOR",
+    "DeviationFactor": "DEVIATION_FACTOR",
+    "DeviationIndexCutoff": "DEVIATION_INDEX_CUTOFF",
+    "PrecisionWeightingFactor": "PRECISION_WEIGHTING_FACTOR",
+    "HeterogeneityWeight": "HETEROGENEITY_WEIGHT",
+    "DistanceRatio": "DISTANCE_RATIO",
+    "MinimumCallSize": "MINIMUM_CALL_SIZE",
+}
 
 
 def load_parameter_file(path, config: "CanvasConfig | None" = None
                         ) -> "CanvasConfig":
     """Apply a reference-style JSON parameter file.
 
-    snake_case keys update CanvasConfig fields.  Unknown keys raise (typos
-    in tuned parameter files must not be silently ignored)."""
+    snake_case keys update CanvasConfig fields; PascalCase keys matching
+    SomaticCallerParameters.json update the somatic module constants.
+    Unknown keys raise (typos in tuned parameter files must not be
+    silently ignored)."""
     import json
     from pathlib import Path
+
+    from canvas_tpu_torch.models import somatic
 
     data = json.loads(Path(path).read_text())
     config = config or CanvasConfig()
@@ -171,9 +184,7 @@ def load_parameter_file(path, config: "CanvasConfig | None" = None
         if key in field_names:
             setattr(config, key, value)
         elif key in SOMATIC_JSON_FIELDS:
-            raise NotImplementedError(
-                f"{key!r} in {path} sets a somatic-caller constant; the "
-                f"somatic caller is not ported to canvas_tpu_torch yet")
+            setattr(somatic, SOMATIC_JSON_FIELDS[key], value)
         elif key == "QualityScoreParameters":
             config.qscore.update(value)
         else:

@@ -5,6 +5,9 @@ canvas_tpu_torch so far.
     python -m canvas_tpu_torch SmallPedigree-WGS --bams f.bam m.bam p.bam \
         --names father mother proband --types Father Mother Proband \
         -r refdir -o outdir [--device cuda|cpu]
+    python -m canvas_tpu_torch Tumor-normal-enrichment -b tumor.bam \
+        --normal-bam normal.bam --manifest targets.bed -n tumor \
+        -r refdir -o outdir [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -53,9 +56,10 @@ def _common(parser: argparse.ArgumentParser) -> None:
                              "'CanvasBin,-m Fragment' (repeatable; the "
                              "reference's --custom-parameters)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                        help="device for binning, segmentation and the "
-                             "pedigree likelihood (default cuda; asking for "
-                             "cuda without a CUDA device is an error)")
+                        help="device for binning, segmentation (HMM decode, "
+                             "CBS frontier engine) and the pedigree "
+                             "likelihood (default cuda; asking for cuda "
+                             "without a CUDA device is an error)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,6 +72,38 @@ def build_parser() -> argparse.ArgumentParser:
     # (ModeParserTests.Parse_ModeWithVersion_ReturnsSuccessAndDisplaysVersion)
     p.add_argument("-v", "--version", action="version", version=__version__)
     sub = p.add_subparsers(dest="mode", required=True)
+
+    for mode in ("Somatic-Enrichment", "Tumor-normal-enrichment"):
+        s = sub.add_parser(mode)
+        s.add_argument("-b", "--bam", required=True, help="tumor BAM")
+        s.add_argument("-n", "--sample-name", required=True)
+        s.add_argument("--normal-bam", default=None)
+        s.add_argument("--sample-b-allele-vcf", default=None)
+        s.add_argument("--population-b-allele-vcf", default=None,
+                       help="dbSNP-style population SNV sites (exclusive "
+                            "with --sample-b-allele-vcf)")
+        s.add_argument("--somatic-vcf", default=None)
+        s.add_argument("--control-bams", nargs="*", default=None,
+                       help="control/panel-of-normals BAMs merged into the "
+                            "reference track (CanvasNormalize)")
+        s.add_argument("--control-binned", default=None,
+                       help="precomputed control .binned file to use for "
+                            "normalization (exclusive with --control-bams)")
+        s.add_argument("--control-ploidy-vcf", default=None,
+                       help="regions of known ploidy for the control "
+                            ".binned data")
+        s.add_argument("--pca-model-file", default=None,
+                       help="PCA normalization model (gz TSV: chrom start "
+                            "stop mean axis1..axisN)")
+        s.add_argument("--normalize-mode", default=None,
+                       choices=["WeightedAverage", "BestLR2", "PCA"],
+                       help="reference-track generator (CanvasNormalize -m)")
+        s.add_argument("--manifest", default=None,
+                       help="Nextera manifest / target BED (enrichment modes)")
+        s.add_argument("--training-mode", action="store_true",
+                       help="somatic model training: exceptions produce an "
+                            "empty VCF instead of failing")
+        _common(s)
 
     sp = sub.add_parser("SmallPedigree-WGS")
     sp.add_argument("--bams", nargs="+", default=None)
@@ -96,6 +132,38 @@ def build_parser() -> argparse.ArgumentParser:
                     help="bed of population CNVs forced into segmentation")
     _common(sp)
     return p
+
+
+def _dispatch_enrichment(args, ctx, config, pop_vcf):
+    """Somatic-Enrichment / Tumor-normal-enrichment: tumor, normal and
+    controls from the arguments."""
+    tumor = runner.Sample(args.sample_name, args.bam,
+                          normal_vcf=args.sample_b_allele_vcf or pop_vcf,
+                          ploidy_vcf=args.ploidy_vcf,
+                          is_dbsnp_vcf=bool(pop_vcf))
+    normal = runner.Sample(args.sample_name + "_N", args.normal_bam) \
+        if args.normal_bam else None
+    if args.manifest is None:
+        print("enrichment modes need --manifest (whole-genome binning is "
+              "not ported to canvas_tpu_torch yet)", file=sys.stderr)
+        return 2
+    if args.normalize_mode:
+        config.normalize_mode = args.normalize_mode
+    if args.control_bams and (args.control_binned
+                              or args.control_ploidy_vcf):
+        # SomaticEnrichmentModeParser.cs:81-84
+        print("--control-bams cannot be combined with --control-binned/"
+              "--control-ploidy-vcf", file=sys.stderr)
+        return 2
+    ctrl = [runner.Sample(f"{args.sample_name}_C{i}", b)
+            for i, b in enumerate(args.control_bams or [])]
+    return runner.somatic_wgs(ctx, tumor, normal,
+                              somatic_vcf=args.somatic_vcf,
+                              manifest_path=args.manifest,
+                              controls=ctrl,
+                              control_binned=args.control_binned,
+                              control_ploidy_vcf=args.control_ploidy_vcf,
+                              pca_model_file=args.pca_model_file)
 
 
 def _dispatch(args, ctx, pop_vcf):
@@ -183,6 +251,8 @@ def main(argv=None) -> int:
         custom_params.apply_custom_parameters(
             config, custom_params.parse_custom_parameters(
                 args.custom_parameters))
+    if getattr(args, "training_mode", False):
+        config.somatic_training_mode = True
     # required-file validation at parse time, with the reference's message
     # (FileOption.cs:27 "Error: {location} does not exist"; the kmer fasta
     # is a required FileOption, CommonOptionsParser.cs:8)
@@ -211,7 +281,10 @@ def main(argv=None) -> int:
         device=args.device)
 
     try:
-        out = _dispatch(args, ctx, pop_vcf)
+        if args.mode == "SmallPedigree-WGS":
+            out = _dispatch(args, ctx, pop_vcf)
+        else:
+            out = _dispatch_enrichment(args, ctx, config, pop_vcf)
     except runner.StopAfterCheckpoint as e:
         # -s/--stop-checkpoint: clean exit after the named stage — but a
         # typo'd -c must still fail loudly on the truncated run

@@ -8,11 +8,14 @@ resumes from completed stages — the same contract as Isas
 ICheckpointRunner (SURVEY.md §5).
 
 Modes ported so far (Canvas/Program.cs:13-23):
-  SmallPedigree-WGS     per-sample HMM, joint pedigree caller
+  SmallPedigree-WGS        per-sample HMM, joint pedigree caller
+  Somatic-Enrichment       manifest-driven, CBS, somatic caller
+  Tumor-normal-enrichment  as above with a normal ratio
 
 The run's device (WorkflowContext.device) is explicit: binning runs kernel
-B1 there, the PerSampleHMM decode kernels B2 and B3, and the pedigree
-joint likelihood its float64 contraction.
+B1 there, the PerSampleHMM decode kernels B2 and B3, the pedigree joint
+likelihood its float64 contraction, and CBS its frontier engine with the
+arc-scan kernel B4 (on a CUDA device; on the CPU the host CBS path runs).
 """
 
 from __future__ import annotations
@@ -32,9 +35,12 @@ from canvas_tpu_torch.io import vcf_write
 from canvas_tpu_torch.io.bins import BinSet
 from canvas_tpu_torch.io.ploidy import PloidyInfo, load_ploidy_vcf
 from canvas_tpu_torch.models import pedigree as pedigree_caller
+from canvas_tpu_torch.models import qscore
+from canvas_tpu_torch.models import somatic as somatic_caller
 from canvas_tpu_torch.models.segment_model import (
-    SEGMENT_SIZE_CUTOFF, merge_segments_multisample, set_filters)
-from canvas_tpu_torch.ops import binning, hmm, normalize
+    SEGMENT_SIZE_CUTOFF, merge_segments, merge_segments_multisample,
+    set_filters)
+from canvas_tpu_torch.ops import binning, cbs, hmm, normalize, ratio
 from canvas_tpu_torch.ops import stats as seg_stats
 from canvas_tpu_torch.ops import segments as segops
 from canvas_tpu_torch.pipeline import profiling, segments_io
@@ -410,19 +416,30 @@ def run_partition(
 
     Returns sample -> contig -> list[Segment] (with confidence intervals)."""
     cfg = ctx.config
-    if method in ("HMM", "Wavelets", "CBS"):
+    if method in ("HMM", "Wavelets"):
         raise NotImplementedError(
             f"partition method {method!r} is not ported to canvas_tpu_torch "
             f"yet")
-    if method != "PerSampleHMM":
+    if method not in ("PerSampleHMM", "CBS"):
         raise ValueError(f"unknown partition method {method}")
     per_sample_spans: dict[str, dict[str, list[segops.Span]]] = {}
     cov_cache = {name: coverage_by_contig(b) for name, b in samples_bins.items()}
+    if method == "CBS":   # reset so post-stage attribution is never stale
+        cbs._LAST_ENGINE.update(engine=None, host_workers=None, levels=None)
 
     for name, bins in samples_bins.items():
         cov = cov_cache[name]
-        # all contigs in one batched decode on the run's device
-        bps = hmm.segment_coverage_batched(cov, device=ctx.device)
+        if method == "PerSampleHMM":
+            # all contigs in one batched decode on the run's device
+            bps = hmm.segment_coverage_batched(cov, device=ctx.device)
+        else:
+            # the frontier engine (kernel B4) on a CUDA device, the host
+            # path on the CPU
+            lens = cbs.run_cbs(cov, alpha=cfg.cbs_alpha, device=ctx.device)
+            bps = {}
+            for c, lengths in lens.items():
+                ends = np.cumsum(lengths)
+                bps[c] = [0] + [int(e) for e in ends[:-1]]
         spans = {}
         slices = bins.contig_slices()
         for c, sl in slices.items():
@@ -432,7 +449,7 @@ def run_partition(
         per_sample_spans[name] = spans
 
     if len(samples_bins) > 1:
-        # SplitOverlappingSegments across samples
+        # SplitOverlappingSegments across samples (PerSampleHMM / CBS paths)
         contigs_all = set()
         for spans in per_sample_spans.values():
             contigs_all.update(spans)
@@ -549,6 +566,230 @@ def _write_visualization(ctx, sample_name, segments, diploid_coverage,
     # bigwig only when the external converter exists (reference behavior)
     _guarded("coverage bigwig", viz.bedgraph_to_bigwig,
              cov_bg, ctx.contigs, out / f"{sample_name}_CNV.Coverage.bw")
+
+
+def run_bin_predefined(ctx: WorkflowContext, sample: Sample,
+                       manifest) -> BinSet:
+    """Enrichment binning: count into manifest target bins (host numpy)."""
+    from canvas_tpu_torch.io.manifest import predefined_bins
+
+    ckpt = ctx.checkpointer
+    name = f"CanvasBin_{sample.name}.binned.gz"
+
+    def produce():
+        mode = ctx.config.coverage_mode
+        pb = predefined_bins(manifest)
+        if mode == "Fragment":
+            # FragmentBinner: properly-paired fragments assigned to the
+            # max-overlap bin with pair-undo bookkeeping
+            # (FragmentBinner.cs:26-81,256-312)
+            from canvas_tpu_torch.ops import fragments as fragops
+
+            bam = bamio.BamFile.read(sample.bam_path)
+            cid, st, en, gc, cnt = [], [], [], [], []
+            for i, cname in enumerate(ctx.contigs.names):
+                if cname not in pb or cname not in ctx.tracks:
+                    continue
+                starts, ends = pb[cname]
+                t = ctx.tracks[cname]
+                idx = bam.ref_index(cname)
+                recs = (r for r in bam.records(want_seq=False)
+                        if r.ref_id == idx)
+                counts, _ = fragops.bin_fragments(recs, starts, ends)
+                g, _ = binning.bin_predefined_np(
+                    t["possible"], np.zeros(t["length"], np.uint8),
+                    t["is_gc"], starts, ends)
+                cid.append(np.full(len(starts), i, np.int32))
+                st.append(starts); en.append(ends); gc.append(g)
+                cnt.append(counts.astype(np.float32))
+            return BinSet(ctx.contigs, np.concatenate(cid),
+                          np.concatenate(st), np.concatenate(en),
+                          np.concatenate(gc), np.concatenate(cnt))
+        if mode == "GCContentWeighted":
+            raise NotImplementedError(
+                "GCContentWeighted binning is not ported to canvas_tpu_torch "
+                "yet")
+        obs = ingest_observed(ctx, sample)
+        cid, st, en, gc, cnt = [], [], [], [], []
+        for i, cname in enumerate(ctx.contigs.names):
+            if cname not in pb or cname not in ctx.tracks:
+                continue
+            starts, ends = pb[cname]
+            t = ctx.tracks[cname]
+            g, c = binning.bin_predefined_np(
+                t["possible"], obs.get(cname, np.zeros(t["length"], np.uint8)),
+                t["is_gc"], starts, ends, mode=mode)
+            cid.append(np.full(len(starts), i, np.int32))
+            st.append(starts); en.append(ends); gc.append(g); cnt.append(c)
+        return BinSet(ctx.contigs, np.concatenate(cid), np.concatenate(st),
+                      np.concatenate(en), np.concatenate(gc),
+                      np.concatenate(cnt))
+
+    return ckpt.run(name, produce,
+                    load=lambda p: BinSet.read_text(p, ctx.contigs),
+                    save=lambda b, p: b.write_text(p))
+
+
+def _bin_ploidy_array(bins: BinSet, ploidy: PloidyInfo | None) -> np.ndarray | None:
+    """Per-bin reference ploidy from a ploidy VCF
+    (CanvasNormalizeUtilities.RatiosToCounts honors the ploidy VCF)."""
+    if ploidy is None:
+        return None
+    out = np.full(len(bins), 2.0)
+    names = bins.contigs.names
+    for chrom in ploidy.by_chromosome:
+        if chrom not in names:
+            continue
+        ci = names.index(chrom)
+        idx = np.flatnonzero(bins.contig_id == ci)
+        for i in idx:
+            out[i] = ploidy.reference_copy_number(
+                chrom, int(bins.start[i]), int(bins.end[i]))
+    return out
+
+
+def somatic_wgs(ctx: WorkflowContext, tumor: Sample,
+                normal: Sample | None = None,
+                somatic_vcf: str | None = None,
+                manifest_path: str | None = None,
+                controls: list[Sample] | None = None,
+                control_binned: str | None = None,
+                control_ploidy_vcf: str | None = None,
+                pca_model_file: str | None = None) -> Path:
+    """Somatic-Enrichment / Tumor-normal-enrichment (manifest bins + CBS):
+    bin -> [T/N(panel) ratio] -> clean -> partition -> somatic caller.
+    Normalization runs on BINNED counts and CanvasClean on the ratio
+    pseudo-counts, matching the reference stage order
+    (CanvasRunner.NormalizeCoverage inside InvokeCanvasBin, :246-251,473-481
+    -> CanvasClean :810).  Somatic-WGS (no manifest) needs the wavelet
+    partition and the evenness metric, which are not ported yet."""
+    from canvas_tpu_torch.io.manifest import Manifest
+    from canvas_tpu_torch.ops import smooth as smooth_ops
+
+    if manifest_path is None:
+        raise NotImplementedError(
+            "Somatic-WGS (no --manifest) needs the wavelet partition and "
+            "the evenness metric, which are not ported to canvas_tpu_torch "
+            "yet")
+    manifest = Manifest.read(manifest_path)
+    ploidy = load_ploidy_vcf(tumor.ploidy_vcf) if tumor.ploidy_vcf else None
+    prof = profiling.reset(ctx.device)
+    prof.gate = ctx.checkpointer.stage   # -c/-s start/stop-checkpoint
+    all_controls = ([normal] if normal else []) + list(controls or [])
+    with prof.stage("CanvasBin"):
+        t_bins = run_bin_predefined(ctx, tumor, manifest)
+        if ctx.config.smooth_enrichment_bins:
+            t_bins = smooth_ops.smooth(t_bins)
+    work_bins = t_bins
+    if all_controls or pca_model_file or control_binned:
+        with prof.stage("CanvasNormalize"):
+            c_bins: list[BinSet] = []
+            if control_binned:
+                # precomputed Canvas control .binned data
+                # (SomaticEnrichmentModeParser ControlBinned ->
+                # Manifest.CanvasControlBinnedPath, CanvasRunner.cs:501-505)
+                c_bins.append(BinSet.read_text(control_binned, ctx.contigs))
+            for c in all_controls:
+                cb = run_bin_predefined(ctx, c, manifest)
+                if ctx.config.smooth_enrichment_bins:
+                    cb = smooth_ops.smooth(cb)
+                c_bins.append(cb)
+            mode = ctx.config.normalize_mode
+            if pca_model_file or mode == "PCA":
+                if not pca_model_file:
+                    raise ValueError("PCA normalize mode needs a model file")
+                _, mu, axes = ratio.load_pca_model(pca_model_file)
+                if len(mu) != len(t_bins):
+                    raise ValueError(
+                        f"PCA model has {len(mu)} bins but the sample has "
+                        f"{len(t_bins)}; bins must match the model")
+                reference = ratio.pca_reference(t_bins, axes, mu)
+                ratios = ratio.raw_ratios(t_bins, reference)
+            elif mode == "BestLR2":
+                reference = ratio.best_lr2_reference(t_bins, c_bins)
+                ratios = ratio.lsnorm_ratios(t_bins, reference)
+            else:   # WeightedAverage (default)
+                reference = ratio.weighted_average_reference(c_bins)
+                ratios = ratio.lsnorm_ratios(t_bins, reference)
+            ratio.write_cnd_file(
+                t_bins, reference, ratios,
+                Path(ctx.output_dir) / f"{tumor.name}.cnd")
+            ref_ploidy = ploidy
+            if ref_ploidy is None and control_ploidy_vcf:
+                ref_ploidy = load_ploidy_vcf(control_ploidy_vcf)
+            work_bins = ratio.ratios_to_counts(
+                ratios, _bin_ploidy_array(ratios, ref_ploidy))
+    with prof.stage("CanvasClean", bins=len(work_bins)):
+        work, _ = run_clean(ctx, tumor, work_bins)
+    with prof.stage("CanvasSNV"):
+        vf = run_snv(ctx, tumor, is_somatic=True)
+    with prof.stage("CanvasPartition", bins=len(work)):
+        parts = run_partition(
+            ctx, {tumor.name: work}, ctx.config.partition_method or "CBS",
+            is_germline=False, ploidy=ploidy)
+    if cbs.last_engine():   # attribute which CBS engine ran
+        prof.note("CanvasPartitionCbsEngine", cbs_engine=cbs.last_engine(),
+                  host_workers=cbs._LAST_ENGINE["host_workers"],
+                  frontier_levels=cbs._LAST_ENGINE["levels"])
+    segs_by_contig = parts[tumor.name]
+    attach_alleles(ctx, tumor, segs_by_contig, vf)
+    segs = _flatten(segs_by_contig, ctx.contigs)
+    genome_length = int(np.sum(ctx.contigs.lengths_array))
+    ploidy_fn = ploidy.segment_ploidy_fn() if ploidy else None
+    with prof.stage("CanvasSomaticCaller", segments=len(segs)):
+        # failure policy (SomaticCaller.cs:404-438): too-few usable
+        # segments -> no CNV calls but a valid VCF; uncallable data is
+        # fatal for the workflow
+        vafs = snvio.load_somatic_snv_vafs(somatic_vcf) \
+            if somatic_vcf else None
+        try:
+            model, headers = somatic_caller.call_somatic(
+                segs, genome_length, evenness_score=None,
+                somatic_vafs=vafs, ref_ploidy_fn=ploidy_fn,
+                is_enrichment=True,
+                debug_dir=Path(ctx.output_dir) / f"TempCNV_{tumor.name}")
+        except Exception as e:
+            import logging
+
+            log = logging.getLogger(__name__)
+            if ctx.config.somatic_training_mode:
+                # training mode (SomaticCaller.cs:409-422): a parameter
+                # trial outside the testable range must terminate normally
+                # with an EMPTY vcf so the sweep penalizes it
+                log.warning("Training mode: not calling any CNVs. "
+                            "Reason: %s", e)
+                segs = []
+                model = somatic_caller.PurityModel(0.0, 0.0)
+                headers = []
+            elif isinstance(
+                    e, somatic_caller.NotEnoughUsableSegmentsException):
+                log.error("Not calling any CNVs. Reason: %s", e)
+                model = somatic_caller.PurityModel(0.0, 0.0)
+                headers = []
+            else:
+                # UncallableDataException and the rest are fatal for the
+                # workflow in production (SomaticCaller.cs:423-438)
+                raise
+    qscore.assign_quality_scores(segs, "Logistic", ctx.config.qscore)
+    # enrichment merges with a 1 bp span so calls never bridge the gaps
+    # between off-adjacent targets (SomaticCaller.cs:455-456)
+    merged = merge_segments(segs, somatic_caller.MINIMUM_CALL_SIZE,
+                            maximum_merge_span=1)
+    qscore.assign_quality_scores(merged, "Logistic", ctx.config.qscore)
+    set_filters(merged, ctx.config.quality_filter_threshold,
+                SEGMENT_SIZE_CUTOFF)
+    headers.append(
+        f"##EstimatedChromosomeCount={somatic_caller.estimate_chromosome_count(merged):.2f}")
+    out = Path(ctx.output_dir) / f"{tumor.name}_CNV.vcf.gz"
+    vcf_write.write_segments(
+        out, [merged], [tumor.name], ctx.contigs,
+        diploid_coverage=model.diploid_coverage, extra_headers=headers,
+        reference_cn_fn=(lambda i, s: ploidy.reference_copy_number(
+            s.chrom, s.begin, s.end)) if ploidy else None,
+        quality_threshold=ctx.config.quality_filter_threshold,
+        reference_path=str(ctx.genome_fasta))
+    prof.write(Path(ctx.output_dir) / f"{tumor.name}_profile.json")
+    return out
 
 
 def small_pedigree_wgs(ctx: WorkflowContext, samples: list[Sample],

@@ -106,3 +106,59 @@ def test_batched_joint_likelihood_on_card_equals_cpu(dev):
             pl, cl, ped.transition_matrix(), device="cpu")
         for a, b in zip(got, want):
             assert dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+def _arc_rows(seed, npad, B):
+    """Cumsums f32 [B, npad] of centred noise with planted steps, their
+    lengths and sums of squares."""
+    rng = np.random.default_rng(seed)
+    cs = np.zeros((B, npad), np.float32)
+    n = np.zeros(B, np.int32)
+    tss = np.zeros(B, np.float32)
+    for i in range(B):
+        L = int(rng.integers(npad // 2 + 1, npad + 1))
+        r = rng.normal(0, 1, L)
+        if i % 2 == 0:
+            s = int(rng.integers(0, L // 2))
+            r[s:s + L // 4] += 1.0
+        r -= r.mean()
+        cs[i, :L] = np.cumsum(r)
+        n[i] = L
+        tss[i] = np.sum(r * r)
+    return cs, n, tss
+
+
+@pytest.mark.parametrize("npad,B", [(8, 3), (256, 4), (4096, 16),
+                                    (32768, 2)])
+def test_arc_scan_kernel_matches_plain(dev, npad, B):
+    from canvas_tpu_torch.ops import arc_scan_cuda, cbs_device
+
+    cs, n, tss = _arc_rows(npad, npad, B)
+    csd = torch.as_tensor(cs, device=dev)
+    nd = torch.as_tensor(n, device=dev)
+    before = arc_scan_cuda.LAUNCHES["arc_scan"]
+    got = cbs_device.tmax_batch(csd, nd, torch.as_tensor(tss, device=dev),
+                                npad, 2)
+    torch.cuda.synchronize()
+    assert arc_scan_cuda.LAUNCHES["arc_scan"] == before + 1
+    want = cbs_device.tmax_batch(torch.as_tensor(cs), torch.as_tensor(n),
+                                 torch.as_tensor(tss), npad, 2)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_frontier_engine_on_card_equals_cpu(dev):
+    from canvas_tpu_torch.ops import cbs, cbs_device
+
+    rng = np.random.default_rng(5)
+    cov = {}
+    for c in range(3):
+        r = rng.normal(0, 1, 3000)
+        r[500:900] += 2.0
+        r[2000:2100] -= 3.0
+        cov[f"chr{c}"] = r
+    got = cbs.run_cbs(cov, n_perm=1000, device=dev)
+    assert cbs.last_engine() == "frontier"
+    want = cbs_device.run_cbs_device(cov, n_perm=1000, device="cpu")
+    for k in cov:
+        np.testing.assert_array_equal(got[k], want[k])

@@ -28,6 +28,17 @@ def test_package_and_cli_import_without_jax():
         "sys.modules['jax'] = None\n"
         "import canvas_tpu_torch, canvas_tpu_torch.pipeline.cli\n"
         "import canvas_tpu_torch.pipeline.runner\n"
+        "import canvas_tpu_torch.ops.cbs, canvas_tpu_torch.ops.cbs_device\n"
+        "import canvas_tpu_torch.ops.arc_scan_cuda\n"
+        "import canvas_tpu_torch.ops.threefry\n"
+        "import canvas_tpu_torch.ops.smooth, canvas_tpu_torch.ops.ratio\n"
+        "import canvas_tpu_torch.ops.fragments\n"
+        "import canvas_tpu_torch.ops.clustering\n"
+        "import canvas_tpu_torch.ops.meanshift\n"
+        "import canvas_tpu_torch.io.manifest\n"
+        "import canvas_tpu_torch.models.diploid\n"
+        "import canvas_tpu_torch.models.somatic\n"
+        "import canvas_tpu_torch.models.somatic_grid\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m == 'canvas_tpu' or m.startswith('canvas_tpu.')\n"
         "            or m.split('.')[0] == 'jax')]\n"
