@@ -14,9 +14,13 @@
 // best takes it (bl0 = the sub-block's first lag).
 //
 // Bound on the H100: compute, up to npad^2/2 pair terms per segment before
-// pruning (5e8 at npad 32,768), each a shared-memory load and three f32
-// operations.  The TPU kernel walks the blocks of a segment in sequence,
-// carrying the running best; here that walk is split in two:
+// pruning (5e8 at npad 32,768), each a shared-memory load, a subtraction,
+// two multiplications and a maximum: four f32 issue slots, none an FMA.
+// The function needs the terms of the blocks its walk visits against the
+// running best (the plain version counts them); phase 1 below computes
+// every block that the seed admits, a superset.  The TPU kernel walks the
+// blocks of a segment in sequence, carrying the running best; here that
+// walk is split in two:
 //   phase 1 (arc_scan_blocks): one thread block per (position tile, lag
 //     block, segment), in parallel and in no order.  A block works only
 //     when its lag block passes the bound against the seed, which every

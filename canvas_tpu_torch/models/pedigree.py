@@ -38,6 +38,7 @@ import torch
 from scipy import stats as sps
 from scipy.special import gammaln, xlogy
 
+from canvas_tpu_torch.config import resolve_device
 from canvas_tpu_torch.models.segment_model import Segment
 from canvas_tpu_torch.ops import stats
 
@@ -449,7 +450,7 @@ def pedigree_joint_likelihood_batched(
     trans: np.ndarray,                   # [max_cn, max_cn]
     max_cn: int = MAX_COPY_NUMBER,
     parents_top_k: int | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> list[JointResult]:
     """GetPedigreeCopyNumbers over ALL segments at once (SURVEY §7(5)): the
     (parent1CN x parent2CN x offspring-genotype) contraction runs as one
@@ -457,7 +458,9 @@ def pedigree_joint_likelihood_batched(
     (VariantCaller.cs:319-380).  Returns one JointResult per segment with
     identical best/marginal/config semantics to pedigree_joint_likelihood
     (validated in tests).  On a CUDA device the contraction runs in torch
-    float64 there; on the CPU in float64 numpy — bit-equal either way."""
+    float64 there; on the CPU in float64 numpy — bit-equal either way.
+    Asking for a missing card raises."""
+    dev = resolve_device(device)
     G = parent_liks.shape[0]
     C = child_liks.shape[1]
     if parents_top_k is None:
@@ -482,7 +485,6 @@ def pedigree_joint_likelihood_batched(
         key_totals[j] = t
 
     spec = (trans, A, Bv, totals, key_id, J, parents_top_k, child_top_k)
-    dev = torch.device(device)
     if dev.type == "cpu":
         keyed, present = joint_keyed_likelihoods_np(
             np.asarray(parent_liks, np.float64),
@@ -739,14 +741,16 @@ def call_pedigree(
     ploidy_fns: dict[str, object] | None = None,
     quality_threshold: int = 10,
     max_cn: int = MAX_COPY_NUMBER,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> dict[str, list[Segment]]:
     """CallVariants core (CanvasPedigreeCaller.cs:74-158 + VariantCaller).
 
     Segment lists must be position-aligned across samples.  Assigns
     CopyNumber, QScore, Filter, and DQ in place; returns the input map.
-    The pedigree joint likelihood runs on `device`.
+    The pedigree joint likelihood runs on `device`; asking for a missing
+    card raises.
     """
+    device = resolve_device(device)
     ploidy_fns = ploidy_fns or {}
     names = list(segments_by_sample.keys())
     parents = [n for n in names if sample_types[n] in ("Father", "Mother")]

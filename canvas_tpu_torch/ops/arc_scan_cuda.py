@@ -70,9 +70,13 @@ def _block_gate(k: int, blk: int, n, lag_hi, psd2, al0: int):
     return in_range, w_bound * psd2[:, k]
 
 
-def arc_scan_plain(cs, n, lag_hi, seed, psd2, al0: int):
+def arc_scan_plain(cs, n, lag_hi, seed, psd2, al0: int,
+                   count: dict | None = None):
     """Plain torch version of B4: the sequential loop over blocks and
-    sub-blocks, each sub-block evaluated as a [B, sub, npad] tile."""
+    sub-blocks, each sub-block evaluated as a [B, sub, npad] tile.  With a
+    `count` dict, count["blocks"] and count["terms"] gain the blocks the
+    walk visits and their pair terms (lag L of a row of n bins has n - L):
+    the work the function needs on these inputs."""
     B, npad = cs.shape
     blk, sub, nblk, nsub = geometry(npad)
     dev = cs.device
@@ -87,6 +91,15 @@ def arc_scan_plain(cs, n, lag_hi, seed, psd2, al0: int):
         go = in_range & (gate > best)
         if not bool(go.any()):
             continue
+        if count is not None:
+            nn = n.to(torch.int64)
+            lo = max(k * blk, al0)
+            hi = torch.minimum(torch.clamp(lag_hi.to(torch.int64),
+                                           max=k * blk + blk - 1), nn - 1)
+            cnt = torch.clamp(hi - lo + 1, min=0)
+            count["blocks"] = count.get("blocks", 0) + int(go.sum())
+            count["terms"] = count.get("terms", 0) + int(
+                (go * (cnt * nn - (lo + hi) * cnt // 2)).sum())
         for q in range(nsub):
             L0 = k * blk + q * sub
             lags = L0 + t_off                                      # [sub]

@@ -35,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from canvas_tpu_torch.config import resolve_device
 from canvas_tpu_torch.ops import prefix_cuda, stats
 
 TRUNCATED_CAP = 10
@@ -242,7 +243,7 @@ def bin_sample(
     bin_size: int,
     mode: str = "TruncatedDynamicRange",
     force_fused: bool | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ):
     """Bin all contigs of one sample.
 
@@ -254,8 +255,9 @@ def bin_sample(
     numpy path (bin_contig_np) runs by default, as in canvas_tpu;
     `force_fused=True` runs the fused path with B1's plain torch version.
     Both are exact (int32 prefix differences), so outputs are identical.
+    The device is resolved first: asking for a missing card raises.
     """
-    dev = torch.device(device)
+    dev = resolve_device(device)
     use_fused = (dev.type == "cuda") if force_fused is None else force_fused
     if mode not in _FUSED_CAPS:
         raise NotImplementedError(

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from scipy import stats as sps
 
+from canvas_tpu_torch.config import resolve_device
 from canvas_tpu_torch.ops import stats
 
 DEFAULT_ALPHA = 0.01      # CBSRunner.cs:11
@@ -751,7 +752,7 @@ def run_cbs(
     n_perm: int = DEFAULT_NPERM,
     undo_method: str = "none",
     seed: int = 0,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> dict[str, np.ndarray]:
     """CBSRunner.Run equivalent: per-contig change points with deterministic
     per-contig RNG streams.  Returns contig -> segment lengths (in finite-bin
@@ -763,8 +764,9 @@ def run_cbs(
     with threefry streams (a documented Monte-Carlo-level deviation from
     the host path).  On the CPU, or for a longer contig (the device arc scan
     is O(n^2) before pruning; the host branch-and-bound prunes harder), the
-    host path runs.  A device failure raises; nothing falls back."""
-    device = torch.device(device)
+    host path runs.  A device failure raises; nothing falls back, and
+    asking for a missing card raises."""
+    device = resolve_device(device)
     if (device.type == "cuda" and coverage_by_contig
             and max(len(np.asarray(v)) for v in coverage_by_contig.values())
             <= 65536):

@@ -49,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from canvas_tpu_torch.config import resolve_device
 from canvas_tpu_torch.ops import arc_scan_cuda, threefry
 from canvas_tpu_torch.ops import cbs as _cbs
 
@@ -504,15 +505,15 @@ def run_cbs_device(
     n_min: int = _cbs.DEFAULT_NMIN,
     undo_prune: float = 0.05,
     undo_sd: float = 3.0,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
     levels: list | None = None,
 ) -> dict[str, np.ndarray]:
     """CBSRunner.Run with the frontier engine on `device` (see module
     docstring).  Same contract as ops.cbs.run_cbs: contig -> segment
     lengths.  With `levels` given, one record per frontier level is
     appended to it: buckets, segments, seconds (after a device sync) and
-    B4 launches."""
-    device = torch.device(device)
+    B4 launches.  Asking for a missing card raises."""
+    device = resolve_device(device)
     names = list(coverage_by_contig)
     rows = [np.asarray(coverage_by_contig[k], np.float64) for k in names]
     if sum(len(r) for r in rows) == 0:

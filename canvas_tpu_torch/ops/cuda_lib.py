@@ -22,10 +22,13 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+# ptxas's report (registers, shared memory, spills per kernel) of each
+# source built by this process
+PTXAS_LOG: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -41,7 +44,7 @@ def build(name: str) -> Path:
     """Compile csrc/<name>.cu into _build/lib<name>.so unless the library
     is newer than its source.  The library is written to a temporary name
     and renamed into place, so concurrent builds never load a partial
-    file."""
+    file.  ptxas's report of a build goes to PTXAS_LOG[name]."""
     src = CSRC_DIR / f"{name}.cu"
     out = BUILD_DIR / f"lib{name}.so"
     if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
@@ -57,6 +60,7 @@ def build(name: str) -> Path:
                 f"nvcc failed to build {src.name} (exit {res.returncode}):\n"
                 f"{' '.join(cmd)}\n{res.stderr}")
         os.replace(tmp, out)
+        PTXAS_LOG[name] = res.stdout + res.stderr
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -17,8 +17,9 @@ Decode: the chunked Viterbi.  T splits into T/chunk chunks, one lane per
 chunk of each sequence; kernel B2 folds each chunk into a (max,+) transfer
 matrix, a sequential scan over chunks gives the chunk-start scores, kernel
 B3 recomputes each chunk's DP with backpointers and backtracks all S
-assumed chunk-end states, and a pointer chase over chunk boundaries picks
-the realized path (ops/viterbi_cuda.py holds the kernels' wrappers).
+assumed chunk-end states, and the chunk boundary maps, composed by pointer
+doubling, pick the realized path (ops/viterbi_cuda.py holds the kernels'
+wrappers).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from canvas_tpu_torch.config import resolve_device
 from canvas_tpu_torch.ops import stats, viterbi_cuda
 
 N_STATES = 5
@@ -132,8 +134,9 @@ def viterbi_decode_chunked(
          the chunk-end and chunk-start score vectors;
       3+4a. per-chunk forward DP with backpointers and the backtrack of all
          S assumed chunk-end states (kernel B3);
-      4b. chunk-end states resolve by a reverse pointer chase over the
-         chunk boundary maps, and the realized paths are gathered.
+      4b. chunk-end states resolve by composing the chunk boundary maps
+         (pointer doubling, log2 of the chunk count rounds), and the
+         realized paths are gathered.
 
     All in-chunk state is lane-last ([S, L] and [S, S, L] with
     L = B * n_chunks).  Masks must be prefix masks (padded tails): each
@@ -188,15 +191,23 @@ def viterbi_decode_chunked(
     paths_all, prev_end = phase3(em, base, lane_len, ss, log_trans,
                                  log_init)
 
-    # phase 4b: resolve chunk-end states right to left
+    # phase 4b: resolve chunk-end states right to left.  Chunk c's end
+    # state is f_{c+1}(f_{c+2}(... f_{nC-1}(last_end))), with f_c(s) =
+    # prev_end of chunk c from end state s.  comp[c] starts as f_{c+1}
+    # (the identity for the last chunk) and after the round with stride d
+    # holds f_{c+1} o ... o f_{c+2d}: ceil(log2 nC) rounds of gathers,
+    # exact integer work equal to the sequential chase.
     last_end = torch.argmax(scores_end[:, -1], dim=-1)               # [B]
     pe = prev_end.to(torch.int64).reshape(S, B, nC).permute(2, 1, 0)  # [nC,B,S]
-    ces = torch.empty((nC, B), dtype=torch.int64, device=dev)
-    cur = last_end
-    for c in range(nC - 1, -1, -1):
-        ces[c] = cur
-        cur = torch.gather(pe[c], 1, cur[:, None])[:, 0]
-    sel = ces.T.reshape(1, 1, L)
+    ident = torch.arange(S, device=dev).expand(1, B, S)
+    comp = torch.cat([pe[1:], ident])
+    d = 1
+    while d < nC:
+        later = torch.cat([comp[d:], ident.expand(d, B, S)])
+        comp = torch.gather(comp, 2, later)
+        d *= 2
+    ces = torch.gather(comp, 2, last_end[None, :, None].expand(nC, B, 1))
+    sel = ces[:, :, 0].T.reshape(1, 1, L)
 
     states = torch.gather(paths_all.to(torch.int64), 1,
                           sel.expand(chunk, 1, L))[:, 0]           # [chunk,L]
@@ -344,7 +355,7 @@ def batched_emissions(
     coverage_by_contig: dict[str, np.ndarray],  # contig -> [T_c] (one sample)
     n_states: int = N_STATES,
     min_size: int = 10,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ):
     """The PerSampleHMM decode's inputs for all contigs of one sample.
 
@@ -356,7 +367,9 @@ def batched_emissions(
 
     Returns (live contig names, their lengths, log_em f32 [B, T, S] and
     mask bool [B, T] on `device`, log_trans [S, S], log_init [S]); live is
-    empty when no contig has more than min_size bins."""
+    empty when no contig has more than min_size bins.  Asking for a
+    missing card raises."""
+    dev = resolve_device(device)
     names = list(coverage_by_contig)
     lengths = {n: len(np.atleast_1d(coverage_by_contig[n]).squeeze())
                for n in names}
@@ -391,7 +404,6 @@ def batched_emissions(
                                          1e-300)), NEG_INF)
     logt = np.asarray(logt_np[:, 0, :], np.float32)        # [S, V]
 
-    dev = torch.device(device)
     cov_t = torch.as_tensor(cov, device=dev)
     mask_t = torch.as_tensor(mask, device=dev)
     logt_t = torch.as_tensor(logt, device=dev)
@@ -409,12 +421,13 @@ def segment_coverage_batched(
     n_states: int = N_STATES,
     min_size: int = 10,
     chunk: int = 256,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> dict[str, list[int]]:
     """Per-sample HMM over ALL contigs in one batched decode on `device`
     (see batched_emissions).  On a CUDA device the decode runs kernels B2
     and B3; on the CPU their plain versions.  Returns contig ->
-    breakpoint indices."""
+    breakpoint indices.  Asking for a missing card raises."""
+    device = resolve_device(device)
     live, lengths, log_em, mask, log_trans, log_init = batched_emissions(
         coverage_by_contig, n_states, min_size, device)
     out: dict[str, list[int]] = {n: [0] for n in coverage_by_contig

@@ -12,8 +12,9 @@ as one uint8 per position.  ocum and gccum wrap modulo 2^32 (stored as
 int32 bits); callers only take differences.  pcum is bounded by the contig
 length, so it stays monotone for searchsorted.
 
-On a CUDA tensor `fused_prefix_sums` launches csrc/prefix_scan.cu; on a
-CPU tensor it runs `fused_prefix_sums_plain`.
+On a CUDA tensor `fused_prefix_sums` launches csrc/prefix_scan.cu (one
+single-pass scan with decoupled look-back); on a CPU tensor it runs
+`fused_prefix_sums_plain`.
 """
 
 from __future__ import annotations
@@ -92,15 +93,20 @@ def fused_prefix_sums(p_bits: torch.Tensor, obs: torch.Tensor,
         raise ValueError(f"Lp={n_pos} is not a multiple of {TILE}")
     if obs.data_ptr() % 16:
         raise ValueError("obs must be 16-byte aligned")
+    if p_bits.data_ptr() % 2 or gc_bits.data_ptr() % 2:
+        raise ValueError("p_bits and gc_bits must be 2-byte aligned")
     lib = cuda_lib.load("prefix_scan", _SIGNATURES)
     if lib.prefix_scan_tile() != TILE:
         raise RuntimeError("prefix_scan.cu tile size differs from TILE")
     pcum, ocum, gccum = (torch.empty(n_pos, dtype=torch.int32, device=dev)
                          for _ in range(3))
-    totals = torch.empty(3 * (n_pos // TILE), dtype=torch.int32, device=dev)
+    # the tile counter and three status words per tile, cleared by the
+    # entry point with one cudaMemsetAsync
+    state = torch.empty(1 + 3 * (n_pos // TILE), dtype=torch.int64,
+                        device=dev)
     status = lib.prefix_scan(
         p_bits.data_ptr(), obs.data_ptr(), gc_bits.data_ptr(),
-        pcum.data_ptr(), ocum.data_ptr(), gccum.data_ptr(), totals.data_ptr(),
+        pcum.data_ptr(), ocum.data_ptr(), gccum.data_ptr(), state.data_ptr(),
         n_pos, int(offset), int(real_len), int(cap),
         cuda_lib.current_stream(dev))
     cuda_lib.check(status, "prefix_scan")

@@ -12,7 +12,9 @@ log_init + e.
   forward_backtrack  (B3): per lane, the forward DP from the chunk-start
                      scores with first-max backpointers, then the backtrack
                      from all S assumed chunk-end states; int8 paths
-                     [chunk, S, L] and prev_end [S, L]
+                     [chunk, S, L] and prev_end [S, L].  The kernel keeps
+                     the backpointers in shared memory, so chunk is at
+                     most viterbi_max_chunk() on CUDA tensors
 
 On CUDA tensors the wrappers launch csrc/viterbi.cu; on CPU tensors they
 run the plain versions.  Both only add and take maxima in f32, in the
@@ -38,9 +40,10 @@ _F32P = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     "viterbi_chunk_matrices": [ctypes.c_void_p] * 4
     + [ctypes.c_int, ctypes.c_longlong, _F32P, _F32P, ctypes.c_void_p],
-    "viterbi_forward_backtrack": [ctypes.c_void_p] * 7
+    "viterbi_forward_backtrack": [ctypes.c_void_p] * 6
     + [ctypes.c_int, ctypes.c_longlong, _F32P, _F32P, ctypes.c_void_p],
     "viterbi_n_states": [],
+    "viterbi_max_chunk": [],
 }
 
 
@@ -160,13 +163,16 @@ def forward_backtrack(em, base, length, start, log_trans, log_init):
     chunk, S, L = em.shape
     lt, li = _model_args(log_trans, log_init)
     lib = cuda_lib.load("viterbi", _SIGNATURES)
+    if not 1 <= chunk <= lib.viterbi_max_chunk():
+        raise ValueError(f"chunk {chunk} outside [1, "
+                         f"{lib.viterbi_max_chunk()}]: the kernel keeps a "
+                         f"block's backpointers in shared memory")
     dev = em.device
     paths = torch.empty((chunk, S, L), dtype=torch.int8, device=dev)
     prev_end = torch.empty((S, L), dtype=torch.int8, device=dev)
-    scratch = torch.empty((chunk, S, L), dtype=torch.int8, device=dev)
     status = lib.viterbi_forward_backtrack(
         em.data_ptr(), base.data_ptr(), length.data_ptr(), start.data_ptr(),
-        paths.data_ptr(), prev_end.data_ptr(), scratch.data_ptr(),
+        paths.data_ptr(), prev_end.data_ptr(),
         chunk, L, lt, li, cuda_lib.current_stream(dev))
     cuda_lib.check(status, "viterbi_forward_backtrack")
     LAUNCHES["forward_backtrack"] += 1

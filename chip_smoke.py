@@ -5,15 +5,20 @@
 
 Phases, one JSON line each; any failure exits non-zero:
 
-  1. build   nvcc-builds the kernels from csrc/ and prints the build time
-             and the card's name and power limit;
+  1. build   nvcc-builds the kernels from csrc/ and prints the build time,
+             ptxas's lines on each kernel's registers, shared memory and
+             spills (-Xptxas -v) and the card's name and power limit;
   2. B1      the prefix-scan kernel at chr1 length (248,956,422 positions,
              tracks made by numpy from --seed) against its plain torch
-             version on the card: int32 equality, both times;
+             version on the card: int32 equality, both times, and the
+             times of torch.cumsum over the unpacked, masked [3, Lp] int32
+             tracks (the one library call for the same function; the port
+             never calls it) and of three 1-D cumsums, one a track;
   3. B2/B3   the chunked-Viterbi kernels at the production decode shape
              (24 contigs padded to 32 lanes x 524,288 bins x 5 states,
              chunk 256, NB emissions, ragged prefix masks) against their
-             plain versions on the card: exact equality, both times;
+             plain versions on the card: exact equality, both times, B3's
+             device-memory allocations, and the whole decode's time;
   4. e2e     SmallPedigree-WGS through the CLI entry point on a synthetic
              trio (4 contigs, 20 Mbp, 12.5x) with --device cuda and again
              with --device cpu: identical VCFs, the planted shared gain and
@@ -23,7 +28,8 @@ Phases, one JSON line each; any failure exits non-zero:
              level of 20,000-target contigs would bucket them; 64 x 4,096:
              a deep level; cumsums of noise with planted steps from --seed)
              against its plain torch version on the card: best bit for
-             bit, bl0 and the derived t2/ti/tj equal, both times;
+             bit, bl0 and the derived t2/ti/tj equal, both times, and the
+             blocks and pair terms of the plain version's walk;
   6. e2e-enrichment
              the host CBS stopping boundary that every CBS run of a process
              needs first (timed, then cached), then Tumor-normal-enrichment
@@ -40,6 +46,10 @@ Phases, one JSON line each; any failure exits non-zero:
 
 It then prints the card's name and power limit, one JSON line with the
 kernels' results, and as its last line {"ok": true, "device": {...}}.
+Each kernel's `bound_ms` is the least time the card could take for the
+work this run's inputs need: the larger of its bytes (each input read
+once, each output written once; emissions of live steps only) over
+HBM_BPS and its operations over F32_OPS / FLOPS_PER_OP.
 """
 
 from __future__ import annotations
@@ -83,6 +93,14 @@ TYPES = {"father": "Father", "mother": "Mother", "proband": "Proband"}
 
 KERNEL_SOURCES = ("prefix_scan", "viterbi", "arc_scan")
 
+# NVIDIA H100 SXM peaks (data sheet, 700 W): device memory, and f32 outside
+# the tensor cores.  The f32 peak counts an FMA as two operations; the
+# kernels' adds, subtractions, multiplications and maxima are none, and
+# each takes an FMA's issue slot, so it counts as two of F32_OPS.
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
+FLOPS_PER_OP = 2
+
 # B4 at two frontier shapes: (segments, padded length)
 B4_SHAPES = ((8, 32_768), (64, 4_096))
 
@@ -103,19 +121,49 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
     """Mean milliseconds of fn() on the card, from CUDA events, after one
-    warm-up call."""
+    warm-up call.  Back-to-back calls time the device only where it is
+    slower than the host that enqueues them; with queued=True a sleep
+    kernel holds the stream while the host enqueues all reps calls, so the
+    events time the device work alone (a kernel's time, not its
+    wrapper's)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        # 2e9 cycles a second is above the card's clock: the sleep lasts
+        # at least as long as the enqueueing, twice over
+        torch.cuda._sleep(int(min(2 * reps * host_s, 2.0) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least milliseconds on the card, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BPS * 1e3
+    t_ops = n_ops * FLOPS_PER_OP / F32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_report() -> dict[str, list[str]]:
+    """Per source, the lines of this process's -Xptxas -v report that name
+    a kernel and give its registers, shared memory and spills."""
+    from canvas_tpu_torch.ops import cuda_lib
+
+    keep = ("entry function", "spill", "Used")
+    return {name: [ln.strip() for ln in log.splitlines()
+                   if any(k in ln for k in keep)]
+            for name, log in cuda_lib.PTXAS_LOG.items()}
 
 
 def gpu_line() -> str:
@@ -146,7 +194,8 @@ def phase_build() -> dict:
     if not native.available():
         fail("the native BAM scanner did not build")
     return {"phase": "build", "seconds": secs,
-            "native_seconds": time.perf_counter() - t0, "gpu": gpu_line()}
+            "native_seconds": time.perf_counter() - t0,
+            "ptxas": ptxas_report(), "gpu": gpu_line()}
 
 
 def phase_b1(seed: int, dev: torch.device) -> dict:
@@ -178,14 +227,36 @@ def phase_b1(seed: int, dev: torch.device) -> dict:
         fail(f"B1 differs from its plain version (max |diff| {err})")
     del got, want
     ms = cuda_ms(lambda: pc.fused_prefix_sums(p_t, o_t, g_t, offset, L, cap),
-                 reps=20)
+                 reps=20, queued=True)
     plain_ms = cuda_ms(
         lambda: pc.fused_prefix_sums_plain(p_t, o_t, g_t, offset, L, cap),
         reps=3)
+    # the library call: torch.cumsum over the unpacked, masked tracks
+    p = pc._unpack_bits(p_t)
+    p = p * ((torch.arange(Lp, device=dev) >= offset)
+             & (torch.arange(Lp, device=dev) < L))
+    tracks = torch.stack([p, torch.clamp(o_t.to(torch.int64), max=cap) * p,
+                          pc._unpack_bits(g_t)]).to(torch.int32)
+    del p
     torch.cuda.empty_cache()
+    library_ms = cuda_ms(
+        lambda: torch.cumsum(tracks, dim=1, dtype=torch.int32), reps=10,
+        queued=True)
+    # beside it, three cumsums of one track each (not one call)
+    rows_ms = cuda_ms(lambda: [torch.cumsum(t, 0, dtype=torch.int32)
+                               for t in tracks], reps=10, queued=True)
+    del tracks
+    torch.cuda.empty_cache()
+    # reads 2 bits and a byte, writes three int32 per position; three adds
+    n_bytes = Lp // 8 * 2 + Lp + 12 * Lp
+    bound_ms, bound_by = bound(n_bytes, 3 * Lp)
     return {"phase": "B1", "positions": L, "padded": Lp, "equal": True,
             "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-            "write_GBps": 12 * Lp / (ms * 1e-3) / 1e9}
+            "library_ms": library_ms, "library_rows_ms": rows_ms,
+            "bytes": n_bytes,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms,
+            "GBps": n_bytes / (ms * 1e-3) / 1e9}
 
 
 def decode_inputs(seed: int, dev: torch.device):
@@ -231,11 +302,19 @@ def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, dict]:
     b2_err = float((m_k - m_p).abs().max())
     if not torch.equal(m_k, m_p):
         fail(f"B2 differs from its plain version (max |diff| {b2_err})")
-    # B3 against its plain version, from the same chunk-start scores
+    # B3 against its plain version, from the same chunk-start scores; it
+    # allocates its outputs and nothing else in device memory
     ss = torch.randn((S, L), generator=torch.Generator(dev).manual_seed(seed),
                      device=dev) * 1000.0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     p_k, e_k = vc.forward_backtrack(em, base, lane_len, ss, lt, li)
     torch.cuda.synchronize()
+    b3_alloc = torch.cuda.max_memory_allocated() - mem0
+    if b3_alloc > p_k.nbytes + e_k.nbytes + (1 << 20):
+        fail(f"B3 allocated {b3_alloc} bytes for {p_k.nbytes + e_k.nbytes} "
+             f"bytes of outputs")
     p_p, e_p = vc.forward_backtrack_plain(em, base, lane_len, ss, lt, li)
     b3_err = int(max((p_k.to(torch.int32) - p_p.to(torch.int32)).abs().max(),
                      (e_k.to(torch.int32) - e_p.to(torch.int32)).abs().max()))
@@ -251,11 +330,13 @@ def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, dict]:
         fail(f"decoded paths differ from the plain decode at {n} bins")
     called = int(((path_k != 2) & mask).sum())
 
-    b2_ms = cuda_ms(lambda: vc.chunk_matrices(em, base, lane_len, lt, li), 10)
+    b2_ms = cuda_ms(lambda: vc.chunk_matrices(em, base, lane_len, lt, li), 20,
+                    queued=True)
     b2_plain = cuda_ms(
         lambda: vc.chunk_matrices_plain(em, base, lane_len, lt, li), 2)
     b3_ms = cuda_ms(
-        lambda: vc.forward_backtrack(em, base, lane_len, ss, lt, li), 10)
+        lambda: vc.forward_backtrack(em, base, lane_len, ss, lt, li), 20,
+        queued=True)
     b3_plain = cuda_ms(
         lambda: vc.forward_backtrack_plain(em, base, lane_len, ss, lt, li), 2)
     dec_ms = cuda_ms(
@@ -264,14 +345,33 @@ def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, dict]:
     dec_plain = cuda_ms(
         lambda: hmm.viterbi_decode_chunked(log_em, mask, lt, li, chunk=CHUNK,
                                            plain=True), 1)
+    # both kernels read em only at live steps (base + k < length): 20
+    # bytes each; base and length are read once per lane
+    live = int(torch.clamp(lane_len.to(torch.int64) - base, 0, CHUNK).sum())
+    lanes_in = 8 * L
+    # B2: per live step 25 (max,+) entries of 5 adds, 4 maxima and one add;
+    # writes the f32 [S, S, L] matrices
+    b2_bytes = 20 * live + lanes_in + 4 * S * S * L
+    b2_bound, b2_by = bound(b2_bytes, 250 * live)
+    # B3: per live step 25 adds, 20 comparisons and 5 adds; reads the f32
+    # start scores, writes int8 paths [chunk, S, L] and prev_end [S, L]
+    b3_bytes = 20 * live + lanes_in + 4 * S * L + CHUNK * S * L + S * L
+    b3_bound, b3_by = bound(b3_bytes, 50 * live)
     shape = [B, T, S]
     b2 = {"phase": "B2", "shape": shape, "chunk": CHUNK, "lanes": L,
-          "equal": True, "max_abs_err": b2_err, "ms": b2_ms,
-          "plain_ms": b2_plain}
+          "live_steps": live, "equal": True, "max_abs_err": b2_err,
+          "ms": b2_ms, "plain_ms": b2_plain,
+          "library_ms": None,
+          "bytes": b2_bytes, "bound_ms": b2_bound, "bound_by": b2_by,
+          "bound_share": b2_bound / b2_ms}
     b3 = {"phase": "B3", "shape": shape, "chunk": CHUNK, "lanes": L,
-          "equal": True, "max_abs_err": b3_err, "ms": b3_ms,
-          "plain_ms": b3_plain, "decode_ms": dec_ms,
-          "decode_plain_ms": dec_plain, "non_diploid_bins": called}
+          "live_steps": live, "equal": True, "max_abs_err": b3_err,
+          "ms": b3_ms, "plain_ms": b3_plain,
+          "library_ms": None,
+          "bytes": b3_bytes, "bound_ms": b3_bound, "bound_by": b3_by,
+          "bound_share": b3_bound / b3_ms, "alloc_bytes": b3_alloc,
+          "decode_ms": dec_ms, "decode_plain_ms": dec_plain,
+          "non_diploid_bins": called}
     return b2, b3
 
 
@@ -442,13 +542,13 @@ def phase_b4(seed: int, dev: torch.device) -> dict:
     shapes = []
     for B, npad in B4_SHAPES:
         cs, n, tss = b4_inputs(seed + npad, B, npad, dev)
-        blk = ac.geometry(npad)[0]
         seed_v, lag_hi, psd2, _ti0, _tj0 = cd.arc_scan_inputs(cs, n, npad,
                                                                al0)
         args = (cs, n, lag_hi, seed_v, psd2, al0)
         best_k, bl0_k = ac.arc_scan(*args)
         torch.cuda.synchronize()
-        best_p, bl0_p = ac.arc_scan_plain(*args)
+        walk: dict = {"blocks": 0, "terms": 0}
+        best_p, bl0_p = ac.arc_scan_plain(*args, count=walk)
         torch.cuda.synchronize()
         bits_equal = torch.equal(best_k.view(torch.int32),
                                  best_p.view(torch.int32))
@@ -464,22 +564,23 @@ def phase_b4(seed: int, dev: torch.device) -> dict:
             if not torch.equal(a.cpu(), b):
                 fail(f"tmax_batch {name} differs between B4 and its plain "
                      f"version at {B} x {npad}")
-        nblk = psd2.shape[1]
-        # blocks phase 1 computes: those the bound admits against the seed
-        admitted = 0
-        for k in range(nblk):
-            in_range, gate = ac._block_gate(k, blk, n, lag_hi, psd2, al0)
-            admitted += int((in_range & (gate > seed_v)).sum())
-        ms = cuda_ms(lambda: ac.arc_scan(*args), reps=20)
+        # the walk's pair terms, each a subtraction, two multiplications
+        # and a maximum; cs, psd2 and the four [B] vectors read once
+        b4_bound, b4_by = bound(4 * (cs.numel() + psd2.numel() + 4 * B),
+                                4 * walk["terms"])
+        ms = cuda_ms(lambda: ac.arc_scan(*args), reps=20, queued=True)
         plain_ms = cuda_ms(lambda: ac.arc_scan_plain(*args), reps=2)
         tmax_ms = cuda_ms(lambda: cd.tmax_batch(cs, n, tss, npad, al0),
                           reps=10)
         shapes.append({
-            "segments": B, "npad": npad, "blocks": nblk * B,
-            "blocks_admitted": admitted, "hits": int((bl0_k >= 0).sum()),
+            "segments": B, "npad": npad, "blocks": psd2.numel(),
+            "blocks_visited": walk["blocks"], "hits": int((bl0_k >= 0).sum()),
             "equal": True, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "tmax_batch_ms": tmax_ms,
-            "pairs_dense": int(B * npad * (npad - 1) // 2)})
+            "plain_ms": plain_ms, "library_ms": None,
+            "tmax_batch_ms": tmax_ms,
+            "pairs_dense": int(B * npad * (npad - 1) // 2),
+            "pair_terms": walk["terms"], "bound_ms": b4_bound,
+            "bound_by": b4_by, "bound_share": b4_bound / ms})
     torch.cuda.empty_cache()
     return {"phase": "B4", "shapes": shapes}
 
@@ -635,7 +736,8 @@ def phase_e2e_enrichment(seed: int, workdir: Path) -> dict:
             "genome_bp": sum(ENR_CONTIGS.values()),
             "contigs": len(ENR_CONTIGS), "targets": panel["targets"],
             "rate": ENR_RATE, "generate_s": gen_s,
-            "cbs_boundary_s": boundary_s, "vcf_cuda_equals_cpu": True, "launches": launches,
+            "cbs_boundary_s": boundary_s, "vcf_cuda_equals_cpu": True,
+            "launches": launches,
             "frontier_levels": n_levels, "events": calls,
             "cuda": runs["cuda"], "cpu": runs["cpu"]}
 
@@ -723,6 +825,11 @@ def trace_frontier(cov: dict, dev: torch.device) -> dict:
                                for us, k, n in top[:8]]}}
 
 
+def _timing(res: dict) -> dict:
+    return {k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -759,27 +866,21 @@ def main() -> int:
         {"name": "prefix_scan", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/prefix_scan.cu",
          "replaces": "canvas_tpu/ops/prefix_pallas.py:80",
-         "launches": launches["prefix_scan"],
-         "max_abs_err": b1["max_abs_err"], "ms": b1["ms"],
-         "plain_ms": b1["plain_ms"]},
+         "launches": launches["prefix_scan"], **_timing(b1)},
         {"name": "chunk_matrix", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/viterbi.cu",
          "replaces": "canvas_tpu/ops/viterbi_pallas.py:100",
-         "launches": launches["chunk_matrix"],
-         "max_abs_err": b2["max_abs_err"], "ms": b2["ms"],
-         "plain_ms": b2["plain_ms"]},
+         "launches": launches["chunk_matrix"], **_timing(b2)},
         {"name": "forward_backtrack", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/viterbi.cu",
          "replaces": "canvas_tpu/ops/viterbi_pallas.py:139",
-         "launches": launches["forward_backtrack"],
-         "max_abs_err": b3["max_abs_err"], "ms": b3["ms"],
-         "plain_ms": b3["plain_ms"]},
+         "launches": launches["forward_backtrack"], **_timing(b3)},
         {"name": "arc_scan", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/arc_scan.cu",
          "replaces": "canvas_tpu/ops/cbs_device.py:200",
          "launches": enr["launches"]["arc_scan"],
-         "max_abs_err": max(sh["max_abs_err"] for sh in b4["shapes"]),
-         "ms": top["ms"], "plain_ms": top["plain_ms"]},
+         **_timing(top), "max_abs_err": max(sh["max_abs_err"]
+                                            for sh in b4["shapes"])},
     ]
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})

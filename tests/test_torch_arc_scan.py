@@ -109,6 +109,46 @@ def test_plain_arc_scan_equals_pallas_interpret(npad, planted):
         assert _pruned_by_running_best(*args, psd2_t) > 0
 
 
+@pytest.mark.parametrize("case", ["every_block", "running_best", "no_block"])
+def test_plain_walk_counts_pair_terms(case):
+    """The walk's count of visited blocks and their pair terms: every block
+    in range when no bound prunes, none when the seed is above every gate,
+    and with the real bounds at npad 2,048 fewer than the seed alone admits
+    (later blocks fall to the running best)."""
+    npad, B = 2048, 4
+    _rows_, cs, n, _tss = _rows(npad + 1, npad, B, True)
+    seed, lag_hi, psdiff, _psd2 = _pallas_inputs(cs, n, npad)
+    cs_t, n_t = torch.as_tensor(cs), torch.as_tensor(n)
+    lag_t = torch.as_tensor(np.array(lag_hi))
+    psd2_t = tdev._block_d2_bound(cs_t, torch.as_tensor(np.array(psdiff)),
+                                  npad, 512)
+    seed_t = torch.as_tensor(np.array(seed))
+    if case == "every_block":
+        psd2_t = torch.full_like(psd2_t, float("inf"))
+    elif case == "no_block":
+        seed_t = torch.full((B,), float("inf"))
+    count: dict = {}
+    arc_scan_cuda.arc_scan_plain(cs_t, n_t, lag_t, seed_t, psd2_t, AL0,
+                                 count=count)
+    got = (count.get("blocks", 0), count.get("terms", 0))
+    # lag by lag, the pair terms of every block that the seed admits
+    blk, _sub, nblk, _nsub = arc_scan_cuda.geometry(npad)
+    blocks, terms = 0, 0
+    for k in range(nblk):
+        in_range, gate = arc_scan_cuda._block_gate(k, blk, n_t, lag_t, psd2_t,
+                                                   AL0)
+        for b in np.flatnonzero((in_range & (gate > seed_t)).numpy()):
+            blocks += 1
+            for L in range(max(k * blk, AL0),
+                           min(int(lag_t[b]), k * blk + blk - 1) + 1):
+                terms += max(int(n[b]) - L, 0)
+    if case == "running_best":
+        assert 0 < got[0] < blocks and 0 < got[1] < terms
+    else:
+        assert got == (blocks, terms)
+        assert (blocks == 0) == (case == "no_block")
+
+
 @pytest.mark.parametrize("npad,planted", CASES)
 def test_tmax_batch_equals_pallas_interpret(npad, planted):
     _rows_, cs, n, tss = _rows(npad + planted, npad, 4, planted)

@@ -118,5 +118,6 @@ def test_bin_sample_matches_canvas_tpu(mode, force_fused):
 
 def test_bin_sample_gc_weighted_not_ported():
     with pytest.raises(NotImplementedError):
-        binning.bin_sample(_sample_tracks(1), 97, mode="GCContentWeighted")
+        binning.bin_sample(_sample_tracks(1), 97, mode="GCContentWeighted",
+                           device="cpu")
 

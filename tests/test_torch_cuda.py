@@ -25,24 +25,38 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("L,offset,cap", [
-    (3 * prefix_cuda.TILE + 1234, 77, 10),
-    (prefix_cuda.TILE, 0, 1),
-    (40 * prefix_cuda.TILE - 5, 4097, 10),
+@pytest.mark.parametrize("n_tiles,offset,real_len,cap,dense", [
+    (4, 77, 3 * prefix_cuda.TILE + 1234, 10, False),
+    (1, 0, prefix_cuda.TILE, 1, False),                  # exactly one tile
+    (40, 4097, 40 * prefix_cuda.TILE - 5, 10, False),
+    # offset and real_len inside the same tile
+    (3, prefix_cuda.TILE + 100, prefix_cuda.TILE + 3000, 10, False),
+    # look-back chains across several waves of blocks; ocum wraps past 2^31
+    (6000, 1000, 6000 * prefix_cuda.TILE - 77, 255, True),
 ])
-def test_prefix_kernel_matches_plain(dev, L, offset, cap):
-    rng = np.random.default_rng(L)
-    Lp = L + (-L) % prefix_cuda.TILE
-    p = torch.as_tensor(rng.integers(0, 256, Lp // 8, dtype=np.uint8)).to(dev)
-    g = torch.as_tensor(rng.integers(0, 256, Lp // 8, dtype=np.uint8)).to(dev)
-    o = torch.as_tensor(rng.integers(0, 16, Lp, dtype=np.uint8)).to(dev)
+def test_prefix_kernel_matches_plain(dev, n_tiles, offset, real_len, cap,
+                                     dense):
+    rng = np.random.default_rng(n_tiles)
+    Lp = n_tiles * prefix_cuda.TILE
+    if dense:
+        p = rng.choice(np.array([255, 254, 127], np.uint8), Lp // 8)
+        o = rng.integers(200, 256, Lp, dtype=np.uint8)
+    else:
+        p = rng.integers(0, 256, Lp // 8, dtype=np.uint8)
+        o = rng.integers(0, 16, Lp, dtype=np.uint8)
+    g = rng.integers(0, 256, Lp // 8, dtype=np.uint8)
+    p, o, g = (torch.as_tensor(x).to(dev) for x in (p, o, g))
     before = prefix_cuda.LAUNCHES["prefix_scan"]
-    got = prefix_cuda.fused_prefix_sums(p, o, g, offset, L, cap)
+    runs = [prefix_cuda.fused_prefix_sums(p, o, g, offset, real_len, cap)
+            for _ in range(3)]
     torch.cuda.synchronize()
-    assert prefix_cuda.LAUNCHES["prefix_scan"] == before + 1
-    want = prefix_cuda.fused_prefix_sums_plain(p, o, g, offset, L, cap)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    assert prefix_cuda.LAUNCHES["prefix_scan"] == before + 3
+    want = prefix_cuda.fused_prefix_sums_plain(p, o, g, offset, real_len, cap)
+    if dense:
+        assert bool((want[1] < 0).any())          # ocum passed 2^31
+    for got in runs:                               # the same on every launch
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 def test_prefix_kernel_rejects_unpadded_length(dev):
@@ -82,6 +96,40 @@ def test_viterbi_kernels_match_plain(dev, chunk):
     np.testing.assert_array_equal(
         got.cpu().numpy(),
         hmm.viterbi_decode_np_chunked(log_em, lt, li, mask, chunk=chunk))
+
+
+@pytest.mark.parametrize("chunk,ties", [(64, False), (64, True),
+                                        (256, False), (256, True),
+                                        (512, True)])
+def test_forward_backtrack_kernel_matches_plain(dev, chunk, ties):
+    """B3 alone, bit for bit: ragged lengths (0, 1, chunk + 1, ...), and
+    integer emissions, transitions and start scores that force ties."""
+    rng = np.random.default_rng(chunk + ties)
+    lengths = [0, 1, chunk + 1, chunk, 3 * chunk - 7, 37 * chunk + 5]
+    B, nC, S = len(lengths), 40, viterbi_cuda.N_STATES
+    L = B * nC
+    em = rng.normal(size=(chunk, S, L)) * 2
+    lt = rng.normal(size=(S, S)) - 2
+    start = rng.normal(size=(S, L)) * 10
+    if ties:
+        em, lt, start = np.round(em), np.round(lt), np.round(start)
+    li = np.log(np.full(S, 0.2, np.float32))
+    em_t = torch.as_tensor(em, dtype=torch.float32, device=dev)
+    start_t = torch.as_tensor(start, dtype=torch.float32, device=dev)
+    base = (torch.arange(nC, dtype=torch.int32, device=dev) * chunk).repeat(B)
+    lane_len = torch.as_tensor(lengths, dtype=torch.int32,
+                               device=dev).repeat_interleave(nC)
+    lt = lt.astype(np.float32)
+    before = viterbi_cuda.LAUNCHES["forward_backtrack"]
+    got = viterbi_cuda.forward_backtrack(em_t, base, lane_len, start_t, lt,
+                                         li)
+    torch.cuda.synchronize()
+    assert viterbi_cuda.LAUNCHES["forward_backtrack"] == before + 1
+    want = viterbi_cuda.forward_backtrack_plain(em_t, base, lane_len,
+                                                start_t, lt, li)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.int8
+        assert torch.equal(a, b)
 
 
 def test_segment_coverage_batched_on_card_equals_cpu(dev):

@@ -64,6 +64,25 @@ def test_plain_decode_matches_pallas_and_numpy(case, uniform, integer_em):
     np.testing.assert_array_equal(got[mask], seq[mask])
 
 
+@pytest.mark.parametrize("n_chunks", [1, 2, 3, 8, 33])
+def test_chunk_end_states_resolve_at_any_chunk_count(n_chunks):
+    """Phase 4b composes the chunk boundary maps by pointer doubling; at
+    chunk counts on and off powers of two the paths equal the sequential
+    decode."""
+    chunk = 8
+    T = chunk * n_chunks
+    lengths = [T, max(T - 5, 1), 1]
+    log_em, lt, li, mask = _problem(n_chunks, 3, T, False, True, lengths)
+    got = hmm.viterbi_decode_chunked(
+        torch.as_tensor(log_em), torch.as_tensor(mask), lt, li,
+        chunk=chunk).numpy()
+    np.testing.assert_array_equal(
+        got, jax_hmm.viterbi_decode_np_chunked(log_em, lt, li, mask,
+                                               chunk=chunk))
+    seq = jax_hmm.viterbi_decode_np(log_em, lt, li, mask)
+    np.testing.assert_array_equal(got[mask], seq[mask])
+
+
 def test_decode_rejects_non_prefix_masks():
     log_em, lt, li, mask = _problem(0, 1, 50, True, False, [50])
     mask[0, 10] = False
