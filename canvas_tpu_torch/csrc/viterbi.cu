@@ -12,23 +12,42 @@
 // log_init + e.  A masked step passes the carry through.
 //
 // Exactness: both kernels only add and take maxima in f32, in the order of
-// the general (max,+) chain of canvas_tpu/ops/hmm.py:viterbi_decode_chunked,
-// with strictly-greater first-max ties for the backpointers.  Neither
-// multiplies, so no multiply-add is contracted, and the results equal the
-// plain torch versions bit for bit.
+// their plain torch versions, with strictly-greater first-max ties for the
+// backpointers.  Neither multiplies, so no multiply-add is contracted, and
+// the results equal the plain versions bit for bit.
 //
 // Bound on the H100.  A kernel reads em only for live steps (20 bytes a
 // lane-step); B3 also writes one int8 path entry per step and state.  At
 // the production decode shape (32 x 524,288 x 5, chunk 256, 65,536 lanes,
 // 6,176,550 of 16,777,216 lane-steps live) B3 must move 209.6 MB, 0.0626
 // ms at 3.35 TB/s, and its 50 adds and maxima a live lane-step take less.
-// B2 moves 130.6 MB (0.0390 ms) but does 250 adds and maxima a live
-// lane-step, each an f32 issue slot: 0.0461 ms at 33.5 T slots a second,
-// so operations bound it.
+// B2 moves 130.6 MB, 0.0390 ms.  The decode's model is uniform, for which
+// B2 needs 100 adds and maxima a live lane-step (below), 0.0184 ms of f32
+// issue slots at 33.5 T a second, so bytes bound it; a general model needs
+// 250, 0.0461 ms.
 //
-// chunk_matrix_kernel (B2): one thread per lane, with the carry in
-// registers (25 floats for the transfer matrix) for the whole chunk; the
-// transition matrix is a kernel argument.
+// chunk_matrix_kernel (B2).  At the production shape only about 24,100
+// lanes' worth of steps are live, too few for one thread a lane to hide
+// the memory latency of each step.  So:
+//   * row i of the transfer matrix depends only on row i, so a block of 5
+//     warps holds 32 lanes and warp r the row r of each: five times the
+//     warps of one thread a lane, and stores of out[(i*S+j)*L + lane] stay
+//     coalesced;
+//   * the emissions of a block's 32 lanes reach shared memory once, not
+//     once per row-warp: thread (r, l) copies e[k][r] of lane l with a
+//     4-byte cp.async.  Steps go in groups of kCmGroup, one commit group
+//     and one barrier a group, through a ring of kCmRing groups, so
+//     (kCmRing - 2) to (kCmRing - 1) groups are in flight while one runs;
+//   * a uniform model (equal diagonal `self`, equal off-diagonal `off`,
+//     off < self; the decode's 0.99 / 0.0025) takes the chain of the TPU
+//     kernel (canvas_tpu/ops/viterbi_pallas.py:_uniform_trans):
+//       max_q(M[i][q] + lt[q][j]) = max(M[i][j] + self, rowmax_i + off),
+//     bit for bit, because fl(x + c) is monotone in x (the max commutes
+//     with the add) and M[i][j] + off <= M[i][j] + self.  Per row: 4 maxima
+//     for the row maximum, 1 add, then 5 adds, 5 maxima and 5 adds, 20
+//     operations; 100 a lane-step.  Any other model keeps the general
+//     chain.  What holds B2 now is the emission stream, as for B3: with
+//     the chain taken out it takes most of its time (kernel_variants.py).
 //
 // forward_backtrack_kernel (B3), redesigned.  The first CUDA version kept
 // its backpointers in an int8 [chunk, S, lanes] scratch in device memory
@@ -61,7 +80,10 @@ namespace {
 
 constexpr int S = 5;
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;          // chunk_matrix_kernel
+constexpr int kCmLanes = 32;           // lanes per B2 block
+constexpr int kCmThreads = S * kCmLanes;   // thread (row, lane)
+constexpr int kCmGroup = 8;            // B2 steps per commit group/barrier
+constexpr int kCmRing = 6;             // B2 ring slots, in groups
 constexpr int kFbLanes = 128;          // lanes (threads) per B3 block
 constexpr int kFbBlocksPerSm = 2;      // B3 blocks an SM holds at chunk 256
 constexpr int kRing = 16;              // em slots: kRing - 1 steps in flight
@@ -76,55 +98,6 @@ struct Model {
   float lt[S][S];   // log transition, lt[from][to]
   float li[S];      // log initial distribution
 };
-
-__global__ void __launch_bounds__(kThreads) chunk_matrix_kernel(
-    const float* __restrict__ em, const int32_t* __restrict__ base,
-    const int32_t* __restrict__ length, float* __restrict__ out, int chunk,
-    int64_t n_lanes, Model model) {
-  const int64_t lane = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  if (lane >= n_lanes) return;
-  const int32_t b = base[lane];
-  const int32_t len = length[lane];
-  float M[S][S];
-#pragma unroll
-  for (int i = 0; i < S; ++i)
-#pragma unroll
-    for (int j = 0; j < S; ++j) M[i][j] = i == j ? 0.0f : kNegInf;
-
-  for (int k = 0; k < chunk; ++k) {
-    const int32_t t = b + k;
-    if (t >= len) break;             // prefix mask: every later step too
-    float e[S];
-#pragma unroll
-    for (int j = 0; j < S; ++j) e[j] = em[(int64_t(k) * S + j) * n_lanes + lane];
-    if (t == 0) {
-#pragma unroll
-      for (int i = 0; i < S; ++i)
-#pragma unroll
-        for (int j = 0; j < S; ++j) M[i][j] = model.li[j] + e[j];
-    } else {
-      float N[S][S];
-#pragma unroll
-      for (int i = 0; i < S; ++i) {
-#pragma unroll
-        for (int j = 0; j < S; ++j) {
-          float a = M[i][0] + model.lt[0][j];
-#pragma unroll
-          for (int q = 1; q < S; ++q) a = fmaxf(a, M[i][q] + model.lt[q][j]);
-          N[i][j] = a + e[j];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < S; ++i)
-#pragma unroll
-        for (int j = 0; j < S; ++j) M[i][j] = N[i][j];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < S; ++i)
-#pragma unroll
-    for (int j = 0; j < S; ++j) out[(int64_t(i) * S + j) * n_lanes + lane] = M[i][j];
-}
 
 // 4-byte asynchronous copy from device to shared memory (Ampere and later),
 // and the group operations that order a thread's copies
@@ -142,6 +115,101 @@ __device__ __forceinline__ void commit_copies() {
 template <int N>
 __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// B2.  Block x holds lanes 32x .. 32x + 31; thread (r, l) = (warp, lane of
+// the warp) carries row r of lane 32x + l's transfer matrix in registers
+// and copies e[k][r] of that lane for every step k it has.  The block runs
+// the steps its longest lane has; a thread skips a step past its own
+// lane's prefix (the carry passes through), and a block whose lanes are
+// all past their sequences writes the identity.
+template <bool kUniform>
+__global__ void __launch_bounds__(kCmThreads) chunk_matrix_kernel(
+    const float* __restrict__ em, const int32_t* __restrict__ base,
+    const int32_t* __restrict__ length, float* __restrict__ out, int chunk,
+    int64_t n_lanes, Model model) {
+  // ring[slot][step of the group][state][lane of the block]
+  __shared__ float ring[kCmRing][kCmGroup][S][kCmLanes];
+  __shared__ int s_steps;         // the most steps a lane of the block has
+  const int row = threadIdx.x / kCmLanes;
+  const int ln = threadIdx.x % kCmLanes;
+  const int64_t lane = int64_t(blockIdx.x) * kCmLanes + ln;
+  const bool valid = lane < n_lanes;
+  int32_t b = 0;
+  int n_live = 0;                 // steps k < n_live are live (prefix mask)
+  if (valid) {
+    b = base[lane];
+    n_live = int(min(max(length[lane] - b, 0), chunk));
+  }
+  if (threadIdx.x == 0) s_steps = 0;
+  __syncthreads();
+  if (row == 0 && n_live > 0) atomicMax(&s_steps, n_live);
+  __syncthreads();
+  const int n_groups = (s_steps + kCmGroup - 1) / kCmGroup;
+  const float* __restrict__ src = em + int64_t(row) * n_lanes + lane;
+  const int64_t step = int64_t(S) * n_lanes;
+  auto fetch = [&](int g) {
+    if (g < n_groups) {
+#pragma unroll
+      for (int s = 0; s < kCmGroup; ++s) {
+        const int k = g * kCmGroup + s;
+        if (k < n_live)
+          copy_async4(&ring[g % kCmRing][s][row][ln], src + k * step);
+      }
+    }
+    commit_copies();              // one group per step group, maybe empty
+  };
+  float M[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) M[j] = j == row ? 0.0f : kNegInf;
+  const float self_p = model.lt[0][0];     // used when kUniform
+  const float off = model.lt[0][1];
+
+  for (int g = 0; g < kCmRing - 1; ++g) fetch(g);
+  for (int g = 0; g < n_groups; ++g) {
+    wait_copies<kCmRing - 2>();   // this thread's copies of group g landed
+    // every thread's copies of group g are visible, and every thread is
+    // done with group g - 1, whose slot the next fetch refills
+    __syncthreads();
+    fetch(g + kCmRing - 1);
+    const int slot = g % kCmRing;
+#pragma unroll
+    for (int s = 0; s < kCmGroup; ++s) {
+      const int k = g * kCmGroup + s;
+      if (k >= n_live) break;     // prefix mask: every later step too
+      float e[S];
+#pragma unroll
+      for (int j = 0; j < S; ++j) e[j] = ring[slot][s][j][ln];
+      if (b + k == 0) {
+#pragma unroll
+        for (int j = 0; j < S; ++j) M[j] = model.li[j] + e[j];
+      } else if (kUniform) {
+        float rowmax = M[0];
+#pragma unroll
+        for (int q = 1; q < S; ++q) rowmax = fmaxf(rowmax, M[q]);
+        const float via_off = rowmax + off;
+#pragma unroll
+        for (int j = 0; j < S; ++j) M[j] = fmaxf(M[j] + self_p, via_off) + e[j];
+      } else {
+        float N[S];
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          float a = M[0] + model.lt[0][j];
+#pragma unroll
+          for (int q = 1; q < S; ++q) a = fmaxf(a, M[q] + model.lt[q][j]);
+          N[j] = a + e[j];
+        }
+#pragma unroll
+        for (int j = 0; j < S; ++j) M[j] = N[j];
+      }
+    }
+  }
+  wait_copies<0>();               // no copy outlives the thread
+  if (valid) {
+#pragma unroll
+    for (int j = 0; j < S; ++j)
+      out[(int64_t(row) * S + j) * n_lanes + lane] = M[j];
+  }
 }
 
 // Dynamic shared memory: the emission ring, f32 [kRing][S][kFbLanes], then
@@ -262,14 +330,19 @@ extern "C" int viterbi_n_states() { return S; }
 extern "C" int viterbi_max_chunk() { return kMaxChunk; }
 
 // em f32 [chunk, S, n_lanes]; base, length int32 [n_lanes];
-// out f32 [S, S, n_lanes].  log_trans (S*S) and log_init (S) are host arrays.
+// out f32 [S, S, n_lanes].  log_trans (S*S) and log_init (S) are host
+// arrays.  uniform != 0 takes the uniform chain; the caller sets it only
+// for a uniform log_trans (equal diagonal, equal off-diagonal, off < self).
 extern "C" int viterbi_chunk_matrices(const void* em, const void* base,
                                       const void* length, void* out, int chunk,
                                       long long n_lanes, const float* log_trans,
-                                      const float* log_init, void* stream) {
+                                      const float* log_init, int uniform,
+                                      void* stream) {
   if (n_lanes == 0) return 0;
-  chunk_matrix_kernel<<<n_blocks(n_lanes, kThreads), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = uniform ? chunk_matrix_kernel<true>
+                        : chunk_matrix_kernel<false>;
+  kernel<<<n_blocks(n_lanes, kCmLanes), kCmThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(em), static_cast<const int32_t*>(base),
       static_cast<const int32_t*>(length), static_cast<float*>(out), chunk,
       n_lanes, make_model(log_trans, log_init));

@@ -18,9 +18,17 @@ first lag of the last sub-block that did (-1 when the seed was never
 beaten).  cbs_device.tmax_batch recovers (i, j) inside that sub-block.
 
 On CUDA tensors `arc_scan` launches csrc/arc_scan.cu; on CPU tensors it
-runs `arc_scan_plain`.  Both compute every term as w * (d * d) with
-correctly rounded f32 operations and no contraction, so `best` is equal
-bit for bit and `bl0` equal.
+runs `arc_scan_plain`.  The plain version forms every term as w * (d * d)
+with correctly rounded f32 operations.  The kernel factors w out of the
+maximum over positions: fl(d * d) is monotone in |d| and fl(w * x) in x
+for w > 0, so max_i fl(w * fl(d_i * d_i)) = fl(w * fl(D * D)) with
+D = max_i |d_i|, bit for bit.  It computes, in parallel, every block that
+the seed admits and no finished block has pruned (one subtraction and one
+|.|-maximum a term, w once a lag), then replays the walk above over the
+blocks' sub-block maxima; so `best` is equal bit for bit and `bl0` equal.
+That pruning needs psd2 to bound d^2 in each block, as `_block_d2_bound`
+does.  The bound counts the pair terms the walk visits
+(`arc_scan_plain(..., count=)`) at two f32 issue slots each.
 """
 
 from __future__ import annotations
@@ -135,8 +143,10 @@ def arc_scan(cs, n, lag_hi, seed, psd2, al0: int):
         return arc_scan_plain(cs, n, lag_hi, seed, psd2, al0)
     if cs.device.type != "cuda":
         raise ValueError(f"unsupported device {cs.device}")
-    if B > 65535:
-        raise ValueError(f"at most 65535 segments per launch, got {B}")
+    # grid limits: segments, and 4 thread blocks a lag block (kSplit)
+    if B > 65535 or nblk * 4 > 65535:
+        raise ValueError(f"at most 65535 segments and 16,383 lag blocks per "
+                         f"launch, got {B} and {nblk}")
     dev = cs.device
     cuda_lib.require_cuda_tensor("cs", cs, torch.float32)
     for name, x, dt in (("n", n, torch.int32), ("lag_hi", lag_hi, torch.int32),
@@ -144,7 +154,9 @@ def arc_scan(cs, n, lag_hi, seed, psd2, al0: int):
                         ("psd2", psd2, torch.float32)):
         cuda_lib.require_cuda_tensor(name, x, dt, dev)
     lib = cuda_lib.load("arc_scan", _SIGNATURES)
-    scratch = torch.empty((B, nblk, MAX_SUB), dtype=torch.int32, device=dev)
+    # the kernel's sub-block maxima [B, nblk, MAX_SUB] and floors [B, nblk]
+    scratch = torch.empty(B * nblk * (MAX_SUB + 1), dtype=torch.int32,
+                          device=dev)
     best = torch.empty(B, dtype=torch.float32, device=dev)
     bl0 = torch.empty(B, dtype=torch.int32, device=dev)
     status = lib.arc_scan(

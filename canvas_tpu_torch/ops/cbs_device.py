@@ -683,8 +683,8 @@ def _accept(seg, rows, i1, i2, n_perm, alpha, seed, cps, next_frontier,
 
 
 def _walk_pending(pending, rows, sbdry, n_perm, alpha,
-                  seed, min_width, kmax, cps, next_frontier,
-                  fused=None, device="cpu"):
+                  seed, min_width, kmax, cps, next_frontier, fused,
+                  device):
     """Permutation tests for segments that need them: the level's fused
     chunk-0 stats feed each walk first; walks that don't terminate within
     a chunk get continuation chunks from _perm_stats (same key sequence,

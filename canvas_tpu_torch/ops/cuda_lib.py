@@ -40,12 +40,12 @@ def nvcc_path() -> str:
     return str(Path(cuda_home) / "bin" / "nvcc")
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu into _build/lib<name>.so unless the library
-    is newer than its source.  The library is written to a temporary name
-    and renamed into place, so concurrent builds never load a partial
-    file.  ptxas's report of a build goes to PTXAS_LOG[name]."""
-    src = CSRC_DIR / f"{name}.cu"
+def build(name: str, src: Path | None = None) -> Path:
+    """Compile csrc/<name>.cu (or `src`) into _build/lib<name>.so unless
+    the library is newer than its source.  The library is written to a
+    temporary name and renamed into place, so concurrent builds never load
+    a partial file.  ptxas's report of a build goes to PTXAS_LOG[name]."""
+    src = src or CSRC_DIR / f"{name}.cu"
     out = BUILD_DIR / f"lib{name}.so"
     if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
         return out
@@ -67,14 +67,15 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
-    """The ctypes library for csrc/<name>.cu, built on first use.  Every
-    entry point returns an int (a cudaError_t); `signatures` gives each
-    one's argtypes."""
+def load(name: str, signatures: dict[str, list],
+         src: Path | None = None) -> ctypes.CDLL:
+    """The ctypes library for csrc/<name>.cu (or `src`), built on first
+    use.  Every entry point returns an int (a cudaError_t); `signatures`
+    gives each one's argtypes."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            lib = ctypes.CDLL(str(build(name, src)))
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int

@@ -7,7 +7,9 @@ Phases, one JSON line each; any failure exits non-zero:
 
   1. build   nvcc-builds the kernels from csrc/ and prints the build time,
              ptxas's lines on each kernel's registers, shared memory and
-             spills (-Xptxas -v) and the card's name and power limit;
+             spills (-Xptxas -v), the instructions of one interior run of
+             B4's lag loop in its SASS (cuobjdump) and the card's name and
+             power limit;
   2. B1      the prefix-scan kernel at chr1 length (248,956,422 positions,
              tracks made by numpy from --seed) against its plain torch
              version on the card: int32 equality, both times, and the
@@ -18,15 +20,21 @@ Phases, one JSON line each; any failure exits non-zero:
              (24 contigs padded to 32 lanes x 524,288 bins x 5 states,
              chunk 256, NB emissions, ragged prefix masks) against their
              plain versions on the card: exact equality, both times, B3's
-             device-memory allocations, and the whole decode's time;
+             device-memory allocations, and the whole decode's time.  B2
+             runs the decode's uniform model (the chain it took is
+             printed) and, checked and timed beside it, a non-uniform
+             model from --seed (the general chain);
   4. e2e     SmallPedigree-WGS through the CLI entry point on a synthetic
              trio (4 contigs, 20 Mbp, 12.5x) with --device cuda and again
              with --device cpu: identical VCFs, the planted shared gain and
-             de novo loss called, and every kernel launched by the CUDA run;
-  5. B4      the CBS arc-scan kernel at two synthetic frontier shapes
+             de novo loss called, every kernel launched by the CUDA run and
+             B2 on its uniform chain;
+  5. B4      the CBS arc-scan kernel at three synthetic frontier shapes
              (8 x 32,768: eight segments of 19,661-32,768 bins, as the top
              level of 20,000-target contigs would bucket them; 64 x 4,096:
-             a deep level; cumsums of noise with planted steps from --seed)
+             a deep level; 1 x 32,768 with 19,930 bins: the enrichment
+             panel's top level; cumsums of noise with planted steps from
+             --seed)
              against its plain torch version on the card: best bit for
              bit, bl0 and the derived t2/ti/tj equal, both times, and the
              blocks and pair terms of the plain version's walk;
@@ -101,8 +109,9 @@ HBM_BPS = 3.35e12
 F32_OPS = 67e12
 FLOPS_PER_OP = 2
 
-# B4 at two frontier shapes: (segments, padded length)
-B4_SHAPES = ((8, 32_768), (64, 4_096))
+# B4 at three frontier shapes: (segments, padded length, length of every
+# segment or None for lengths drawn in (0.6 npad, npad])
+B4_SHAPES = ((8, 32_768, None), (64, 4_096, None), (1, 32_768, 19_930))
 
 # the Tumor-normal-enrichment panel, after benchmarks/e2e_enrichment.py
 ENR_CONTIGS = {f"chr{i}": 10_000_000 for i in range(1, 4)}
@@ -166,6 +175,76 @@ def ptxas_report() -> dict[str, list[str]]:
             for name, log in cuda_lib.PTXAS_LOG.items()}
 
 
+def interior_run_mix(sass: str, kernel: str, terms: int) -> dict:
+    """From cuobjdump -sass text: one interior run of `kernel`'s lag loop.
+    The run's body is the longest straight line of FADD and FMNMX; a
+    conditional branch jumps over the edge path into it, and the nearest
+    backward branch after it closes the loop.  Its instructions are the
+    loop's less the edge path's."""
+    import re
+
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = next((f for f in funcs if kernel in f.split("\n")[0]), None)
+    if body is None:
+        return {"error": f"{kernel} not in the dump"}
+    ins = []
+    for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)"
+                         r"([^;]*);", body):
+        ins.append((int(m.group(1), 16), m.group(3), m.group(4)))
+    best, start, i = (0, 0), None, 0
+    while i < len(ins):
+        j = i
+        while j < len(ins) and ins[j][1].split(".")[0] in ("FADD", "FMNMX"):
+            j += 1
+        if j - i > best[0] - best[1]:
+            best = (j, i)
+        i = j + 1
+    end, first = best
+    if end - first < 2:
+        return {"error": "no run of FADD and FMNMX"}
+    start = ins[first][0]
+    step = ins[1][0] - ins[0][0]
+    into = [a for a, op, rest in ins
+            if op == "BRA" and a < start and rest.strip() == f"0x{start:x}"]
+    back = [(a, int(t, 16)) for a, op, rest in ins
+            if op == "BRA" and a > start
+            for t in re.findall(r"0x([0-9a-f]+)", rest)
+            if into and int(t, 16) < into[-1]]
+    if not into or not back:
+        return {"error": "no branch into the run or no loop around it"}
+    loop_end, loop_head = back[0]
+    edge = (start - into[-1]) // step - 1
+    n_run = (loop_end - loop_head) // step + 1 - edge
+    run = ins[first:end]
+    return {"instructions": n_run, "terms": terms,
+            "per_term": n_run / terms,
+            "FADD": sum(op.startswith("FADD") for _, op, _ in run),
+            "FMNMX_abs": sum(op.startswith("FMNMX") and "|" in rest
+                             for _, op, rest in run)}
+
+
+def b4_sass() -> dict:
+    """cuobjdump -sass of the built B4 library, read by interior_run_mix
+    for phase 1's kernel; kPos * kRun terms a run."""
+    import re
+    import shutil
+
+    from canvas_tpu_torch.ops import cuda_lib
+
+    src = (cuda_lib.CSRC_DIR / "arc_scan.cu").read_text()
+    k = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+         for name in ("kPos", "kRun")}
+    tool = shutil.which("cuobjdump") or str(
+        Path(cuda_lib.nvcc_path()).parent / "cuobjdump")
+    res = subprocess.run([tool, "-sass",
+                          str(cuda_lib.BUILD_DIR / "libarc_scan.so")],
+                         capture_output=True, text=True, timeout=120)
+    if res.returncode != 0:
+        return {"error": res.stderr[-400:]}
+    return interior_run_mix(res.stdout, "arc_scan_blocks",
+                            k["kPos"] * k["kRun"])
+
+
 def gpu_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -193,9 +272,14 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     if not native.available():
         fail("the native BAM scanner did not build")
-    return {"phase": "build", "seconds": secs,
-            "native_seconds": time.perf_counter() - t0,
-            "ptxas": ptxas_report(), "gpu": gpu_line()}
+    native_s = time.perf_counter() - t0
+    try:
+        sass = b4_sass()
+    except (OSError, subprocess.SubprocessError, AttributeError) as e:
+        sass = {"error": repr(e)}       # a report only: it fails nothing
+    return {"phase": "build", "seconds": secs, "native_seconds": native_s,
+            "ptxas": ptxas_report(), "b4_interior_run": sass,
+            "gpu": gpu_line()}
 
 
 def phase_b1(seed: int, dev: torch.device) -> dict:
@@ -295,13 +379,25 @@ def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, dict]:
     base = (torch.arange(nC, device=dev, dtype=torch.int32) * CHUNK).repeat(B)
     lane_len = lengths.repeat_interleave(nC)
 
-    # B2 against its plain version
-    m_k = vc.chunk_matrices(em, base, lane_len, lt, li)
-    torch.cuda.synchronize()
-    m_p = vc.chunk_matrices_plain(em, base, lane_len, lt, li)
-    b2_err = float((m_k - m_p).abs().max())
-    if not torch.equal(m_k, m_p):
-        fail(f"B2 differs from its plain version (max |diff| {b2_err})")
+    # B2 against its plain version, on the decode's model and on a
+    # non-uniform one
+    lt_general = np.log(np.random.default_rng(seed + 4).dirichlet(
+        np.ones(S), size=S)).astype(np.float32)
+    b2_err, chains = 0.0, {}
+    for name, model in (("uniform", lt), ("general", lt_general)):
+        before = dict(vc.CHAINS)
+        m_k = vc.chunk_matrices(em, base, lane_len, model, li)
+        torch.cuda.synchronize()
+        chains[name] = [k for k in vc.CHAINS if vc.CHAINS[k] > before[k]]
+        m_p = vc.chunk_matrices_plain(em, base, lane_len, model, li)
+        err = float((m_k - m_p).abs().max())
+        if not torch.equal(m_k.view(torch.int32), m_p.view(torch.int32)):
+            fail(f"B2 ({name} model) differs from its plain version (max "
+                 f"|diff| {err})")
+        b2_err = max(b2_err, err)
+        del m_k, m_p
+    if chains != {"uniform": ["uniform"], "general": ["general"]}:
+        fail(f"B2 took the wrong chains: {chains}")
     # B3 against its plain version, from the same chunk-start scores; it
     # allocates its outputs and nothing else in device memory
     ss = torch.randn((S, L), generator=torch.Generator(dev).manual_seed(seed),
@@ -332,6 +428,9 @@ def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, dict]:
 
     b2_ms = cuda_ms(lambda: vc.chunk_matrices(em, base, lane_len, lt, li), 20,
                     queued=True)
+    b2_general_ms = cuda_ms(
+        lambda: vc.chunk_matrices(em, base, lane_len, lt_general, li), 20,
+        queued=True)
     b2_plain = cuda_ms(
         lambda: vc.chunk_matrices_plain(em, base, lane_len, lt, li), 2)
     b3_ms = cuda_ms(
@@ -349,10 +448,14 @@ def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, dict]:
     # bytes each; base and length are read once per lane
     live = int(torch.clamp(lane_len.to(torch.int64) - base, 0, CHUNK).sum())
     lanes_in = 8 * L
-    # B2: per live step 25 (max,+) entries of 5 adds, 4 maxima and one add;
-    # writes the f32 [S, S, L] matrices
+    # B2 writes the f32 [S, S, L] matrices.  Per live step, on the
+    # decode's uniform model: per row 4 maxima for the row maximum, 1 add,
+    # then 5 adds, 5 maxima and 5 adds, 100 operations; a general model's
+    # 25 (max,+) entries of 5 adds, 4 maxima and one add would be 250
+    uniform = vc.uniform_transitions(lt) is not None
     b2_bytes = 20 * live + lanes_in + 4 * S * S * L
-    b2_bound, b2_by = bound(b2_bytes, 250 * live)
+    b2_bound, b2_by = bound(b2_bytes, (100 if uniform else 250) * live)
+    b2_general_bound, b2_general_by = bound(b2_bytes, 250 * live)
     # B3: per live step 25 adds, 20 comparisons and 5 adds; reads the f32
     # start scores, writes int8 paths [chunk, S, L] and prev_end [S, L]
     b3_bytes = 20 * live + lanes_in + 4 * S * L + CHUNK * S * L + S * L
@@ -360,10 +463,15 @@ def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, dict]:
     shape = [B, T, S]
     b2 = {"phase": "B2", "shape": shape, "chunk": CHUNK, "lanes": L,
           "live_steps": live, "equal": True, "max_abs_err": b2_err,
+          "chain": "uniform" if uniform else "general",
           "ms": b2_ms, "plain_ms": b2_plain,
           "library_ms": None,
           "bytes": b2_bytes, "bound_ms": b2_bound, "bound_by": b2_by,
-          "bound_share": b2_bound / b2_ms}
+          "bound_share": b2_bound / b2_ms,
+          "general_model": {"ms": b2_general_ms,
+                            "bound_ms": b2_general_bound,
+                            "bound_by": b2_general_by,
+                            "bound_share": b2_general_bound / b2_general_ms}}
     b3 = {"phase": "B3", "shape": shape, "chunk": CHUNK, "lanes": L,
           "live_steps": live, "equal": True, "max_abs_err": b3_err,
           "ms": b3_ms, "plain_ms": b3_plain,
@@ -467,6 +575,7 @@ def read_launches() -> dict:
 
 
 def phase_e2e(seed: int, workdir: Path) -> dict:
+    from canvas_tpu_torch.ops import viterbi_cuda
     from canvas_tpu_torch.pipeline import cli
 
     t0 = time.perf_counter()
@@ -480,11 +589,14 @@ def phase_e2e(seed: int, workdir: Path) -> dict:
         out = workdir / f"out_{dev}"
         if dev == "cuda":
             reset_launches()
+            chains0 = dict(viterbi_cuda.CHAINS)
         t0 = time.perf_counter()
         rc = cli.main([*args, "-o", str(out), "--device", dev])
         if dev == "cuda":
             torch.cuda.synchronize()
             launches = read_launches()
+            chains = {k: v - chains0[k]
+                      for k, v in viterbi_cuda.CHAINS.items()}
         wall = time.perf_counter() - t0
         if rc != 0:
             fail(f"CLI run on {dev} exited {rc}")
@@ -498,6 +610,8 @@ def phase_e2e(seed: int, workdir: Path) -> dict:
     short = {k: (launches[k], v) for k, v in need.items() if launches[k] < v}
     if short:
         fail(f"kernels launched fewer times than the path needs: {short}")
+    if chains["general"] or chains["uniform"] < n_samples:
+        fail(f"B2 did not run the uniform chain for every sample: {chains}")
     for vcf in ["CNV.vcf.gz", *[f"{n}_CNV.vcf.gz" for n in PLANS]]:
         if vcf_body(workdir / "out_cuda" / vcf) != \
                 vcf_body(workdir / "out_cpu" / vcf):
@@ -507,19 +621,22 @@ def phase_e2e(seed: int, workdir: Path) -> dict:
             "contigs": n_contigs, "samples": n_samples,
             "depth_x": TRIO_RATE * 50, "generate_s": gen_s,
             "vcf_cuda_equals_cpu": True, "launches": launches,
+            "b2_chains": chains,
             "calls": calls, "cuda": runs["cuda"], "cpu": runs["cpu"]}
 
 
-def b4_inputs(seed: int, B: int, npad: int, dev: torch.device):
+def b4_inputs(seed: int, B: int, npad: int, length: int | None,
+              dev: torch.device):
     """Cumsums f32 [B, npad] of centred unit noise with two planted steps
-    (0.3-1.0 sd, 2-10 % of the segment each) per row, lengths in
-    (0.6 npad, npad], and their sums of squares, made by numpy."""
+    (0.3-1.0 sd, 2-10 % of the segment each) per row, lengths `length` or,
+    where it is None, in (0.6 npad, npad], and their sums of squares, made
+    by numpy."""
     rng = np.random.default_rng(seed + 3)
     cs = np.zeros((B, npad), np.float32)
     n = np.zeros(B, np.int32)
     tss = np.zeros(B, np.float32)
     for i in range(B):
-        L = int(rng.integers(int(0.6 * npad) + 1, npad + 1))
+        L = length or int(rng.integers(int(0.6 * npad) + 1, npad + 1))
         r = rng.normal(0.0, 1.0, L)
         for _ in range(2):
             w = int(rng.uniform(0.02, 0.10) * L)
@@ -540,8 +657,8 @@ def phase_b4(seed: int, dev: torch.device) -> dict:
 
     al0 = 2
     shapes = []
-    for B, npad in B4_SHAPES:
-        cs, n, tss = b4_inputs(seed + npad, B, npad, dev)
+    for B, npad, length in B4_SHAPES:
+        cs, n, tss = b4_inputs(seed + npad, B, npad, length, dev)
         seed_v, lag_hi, psd2, _ti0, _tj0 = cd.arc_scan_inputs(cs, n, npad,
                                                                al0)
         args = (cs, n, lag_hi, seed_v, psd2, al0)
@@ -564,10 +681,11 @@ def phase_b4(seed: int, dev: torch.device) -> dict:
             if not torch.equal(a.cpu(), b):
                 fail(f"tmax_batch {name} differs between B4 and its plain "
                      f"version at {B} x {npad}")
-        # the walk's pair terms, each a subtraction, two multiplications
-        # and a maximum; cs, psd2 and the four [B] vectors read once
+        # the walk's pair terms, each a subtraction and a maximum of |d|
+        # (w is factored out of the maximum over positions, once a lag);
+        # cs, psd2 and the four [B] vectors read once
         b4_bound, b4_by = bound(4 * (cs.numel() + psd2.numel() + 4 * B),
-                                4 * walk["terms"])
+                                2 * walk["terms"])
         ms = cuda_ms(lambda: ac.arc_scan(*args), reps=20, queued=True)
         plain_ms = cuda_ms(lambda: ac.arc_scan_plain(*args), reps=2)
         tmax_ms = cuda_ms(lambda: cd.tmax_batch(cs, n, tss, npad, al0),
@@ -790,7 +908,8 @@ def phase_cbs(workdir: Path, dev: torch.device) -> dict:
 def trace_frontier(cov: dict, dev: torch.device) -> dict:
     """One more frontier run on CUDA tensors under torch.profiler: its wall
     seconds, the device time of its kernels and copies (the events on the
-    card, summed: its busy time on one stream), and its kernel launches."""
+    card, summed: its busy time on one stream), B4's part of it, and its
+    kernel launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -804,13 +923,15 @@ def trace_frontier(cov: dict, dev: torch.device) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     stats = prof.key_averages()
-    device_us = 0.0
+    device_us = b4_us = 0.0
     top = []
     for ev in stats:
         if ev.device_type != DeviceType.CUDA:   # host ops repeat their kernels
             continue
         us = ev.self_device_time_total
         device_us += us
+        if "arc_scan" in ev.key:                # B4's two kernels
+            b4_us += us
         top.append((us, ev.key, ev.count))
     launches = sum(ev.count for ev in stats
                    if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
@@ -820,6 +941,8 @@ def trace_frontier(cov: dict, dev: torch.device) -> dict:
             "profile": {
                 "wall_s": wall, "device_busy_s": device_us / 1e6,
                 "busy_share": device_us / 1e6 / wall,
+                "b4_device_s": b4_us / 1e6,
+                "b4_share_of_busy": b4_us / device_us if device_us else None,
                 "kernel_launches": launches,
                 "top_device": [{"name": k[:80], "ms": us / 1e3, "count": n}
                                for us, k, n in top[:8]]}}

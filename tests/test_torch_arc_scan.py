@@ -3,10 +3,13 @@ canvas_tpu's Pallas kernel in interpret mode, bit for bit, and the port's
 tmax_batch against canvas_tpu's _tmax_batch_pallas, its _tmax_one and the
 host oracle cbs.tmax_o."""
 
+import hypothesis
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from canvas_tpu.ops import cbs as jax_cbs
 from canvas_tpu.ops import cbs_device as jdev
@@ -200,6 +203,83 @@ def test_arc_scan_rejects_bad_shapes():
     with pytest.raises(ValueError, match="psd2"):
         arc_scan_cuda.arc_scan(torch.zeros((2, 64)), n, n, torch.zeros(2),
                                torch.zeros(2, 3), AL0)
+
+
+def _lag_max_per_term(cs2, c, w):
+    """max_i fl(w * fl(d_i * d_i)) over d_i = cs2[i] - c[i], in f32."""
+    d = (cs2 - c).astype(np.float32)
+    return np.max(np.float32(w) * (d * d))
+
+
+def _lag_max_factored(cs2, c, w):
+    """fl(w * fl(D * D)) with D = max_i |cs2[i] - c[i]|, in f32: the form
+    kernel B4 takes, one square and one product a lag."""
+    D = np.max(np.abs((cs2 - c).astype(np.float32)))
+    return np.float32(w) * (D * D)
+
+
+_F32 = st.floats(-1e6, 1e6, width=32, allow_nan=False, allow_infinity=False)
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(base=st.lists(_F32, min_size=2, max_size=24),
+       ints=st.lists(st.integers(-40, 40), min_size=2, max_size=24),
+       near=st.integers(1, 4), integer=st.booleans(),
+       n=st.integers(3, 40_000), lag=st.integers(1, 39_999))
+def test_factoring_w_out_of_the_position_maximum_is_exact(base, ints, near,
+                                                          integer, n, lag):
+    """B4's identity, bit for bit: on f32 cumsum values (arbitrary, and
+    integers with planted near-ties: pairs whose |d| differ by a few ulps
+    or are equal with opposite signs), the per-term maximum of
+    fl(w fl(d d)) equals fl(w fl(D D)) for the f32 weight w(L) of a real
+    lag."""
+    hypothesis.assume(lag < n)
+    m = min(len(base), len(ints))
+    c = np.asarray(base[:m], np.float32)
+    if integer:
+        c = np.round(c).astype(np.float32)
+    cs2 = (c + np.asarray(ints[:m], np.float32)).astype(np.float32)
+    # near-ties: the pair after the first one differs from |d_0| by `near`
+    # ulps, and the one after that is -d_0 (an exact tie in |d|)
+    d0 = np.float32(cs2[0] - c[0])
+    if m > 2:
+        tgt = np.float32(abs(d0))
+        for _ in range(near):
+            tgt = np.nextafter(tgt, np.float32(np.inf), dtype=np.float32)
+        c[1], cs2[1] = np.float32(0.0), tgt
+        c[2], cs2[2] = np.float32(0.0), -abs(d0)
+    w = arc_scan_cuda._w_of(torch.tensor([lag]), torch.tensor([n])).numpy()[0]
+    want = _lag_max_per_term(cs2, c, w)
+    got = _lag_max_factored(cs2, c, w)
+    assert _bits(got) == _bits(want)
+    # torch's f32 arithmetic, as the plain version forms the terms
+    d_t = torch.as_tensor(cs2) - torch.as_tensor(c)
+    w_t = torch.as_tensor(w)
+    assert _bits((w_t * (d_t * d_t)).amax().numpy()) == _bits(got)
+
+
+@pytest.mark.parametrize("planted", [True, False])
+def test_every_term_of_a_block_is_under_its_gate(planted):
+    """What kernel B4's floors rest on: in f32, w_bound * psd2[b, k] is at
+    least every term of lag block k (a block's maximum is found by the
+    plain walk with only that block open and the seed at -1)."""
+    npad, B = 2048, 4
+    _rows_, cs, n, _tss = _rows(npad + 7 + planted, npad, B, planted)
+    seed, lag_hi, psdiff, _psd2 = _pallas_inputs(cs, n, npad)
+    cs_t, n_t = torch.as_tensor(cs), torch.as_tensor(n)
+    lag_t = torch.as_tensor(np.array(lag_hi))
+    psd2_t = tdev._block_d2_bound(cs_t, torch.as_tensor(np.array(psdiff)),
+                                  npad, 512)
+    blk, _sub, nblk, _nsub = arc_scan_cuda.geometry(npad)
+    for k in range(nblk):
+        only_k = torch.full_like(psd2_t, -float("inf"))
+        only_k[:, k] = float("inf")
+        top, _ = arc_scan_cuda.arc_scan_plain(
+            cs_t, n_t, lag_t, torch.full((B,), -1.0), only_k, AL0)
+        in_range, gate = arc_scan_cuda._block_gate(k, blk, n_t, lag_t,
+                                                   psd2_t, AL0)
+        assert bool((top[in_range] <= gate[in_range]).all())
+        assert bool((top[in_range] >= 0).all())
 
 
 def test_geometry():

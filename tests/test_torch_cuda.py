@@ -66,10 +66,13 @@ def test_prefix_kernel_rejects_unpadded_length(dev):
         prefix_cuda.fused_prefix_sums(p, o, p, 0, 10, 10)
 
 
-def _decode_problem(seed, B, T, lengths):
+def _decode_problem(seed, B, T, lengths, model="dirichlet"):
     rng = np.random.default_rng(seed)
     log_em = np.round(rng.normal(size=(B, T, 5)) * 2).astype(np.float32)
-    lt = np.log(rng.dirichlet(np.ones(5), size=5)).astype(np.float32)
+    if model == "uniform":
+        lt = hmm.log_transition()
+    else:
+        lt = np.log(rng.dirichlet(np.ones(5), size=5)).astype(np.float32)
     li = np.log(np.full(5, 0.2, np.float32))
     mask = np.zeros((B, T), dtype=bool)
     for b, n in enumerate(lengths):
@@ -78,16 +81,20 @@ def _decode_problem(seed, B, T, lengths):
     return log_em, lt, li, mask
 
 
+@pytest.mark.parametrize("model", ["uniform", "dirichlet"])
 @pytest.mark.parametrize("chunk", [64, 256])
-def test_viterbi_kernels_match_plain(dev, chunk):
+def test_viterbi_kernels_match_plain(dev, chunk, model):
     log_em, lt, li, mask = _decode_problem(
-        chunk, 6, 3000, [3000, 2999, 1500, 257, 1, 0])
+        chunk, 6, 3000, [3000, 2999, 1500, 257, 1, 0], model)
     em_t = torch.as_tensor(log_em, device=dev)
     mask_t = torch.as_tensor(mask, device=dev)
     before = dict(viterbi_cuda.LAUNCHES)
+    chains = dict(viterbi_cuda.CHAINS)
     got = hmm.viterbi_decode_chunked(em_t, mask_t, lt, li, chunk=chunk)
     torch.cuda.synchronize()
     assert viterbi_cuda.LAUNCHES["chunk_matrix"] == before["chunk_matrix"] + 1
+    chain = "uniform" if model == "uniform" else "general"
+    assert viterbi_cuda.CHAINS[chain] == chains[chain] + 1
     assert viterbi_cuda.LAUNCHES["forward_backtrack"] == \
         before["forward_backtrack"] + 1
     want = hmm.viterbi_decode_chunked(em_t, mask_t, lt, li, chunk=chunk,
@@ -130,6 +137,41 @@ def test_forward_backtrack_kernel_matches_plain(dev, chunk, ties):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype == torch.int8
         assert torch.equal(a, b)
+
+
+def _b2_lanes(dev, chunk, uniform):
+    """B2 inputs at ragged lengths (0, 1, chunk + 1, ...) with integer
+    emissions that force ties, on the card."""
+    rng = np.random.default_rng(chunk + uniform)
+    lengths = [0, 1, chunk + 1, chunk, 3 * chunk - 7, 37 * chunk + 5]
+    B, nC, S = len(lengths), 40, viterbi_cuda.N_STATES
+    em = np.round(rng.normal(size=(chunk, S, B * nC)) * 2)
+    if uniform:
+        lt = hmm.log_transition()
+    else:
+        lt = np.round(rng.normal(size=(S, S)) - 2).astype(np.float32)
+    li = np.log(np.full(S, 0.2, np.float32))
+    em_t = torch.as_tensor(em, dtype=torch.float32, device=dev)
+    base = (torch.arange(nC, dtype=torch.int32, device=dev) * chunk).repeat(B)
+    lane_len = torch.as_tensor(lengths, dtype=torch.int32,
+                               device=dev).repeat_interleave(nC)
+    return em_t, base, lane_len, lt, li
+
+
+@pytest.mark.parametrize("uniform", [True, False])
+@pytest.mark.parametrize("chunk", [8, 64, 256, 1000])
+def test_chunk_matrix_kernel_matches_plain(dev, chunk, uniform):
+    """B2 alone, bit for bit, on both chains: ragged lengths and integer
+    emissions (and, for the general chain, integer transitions)."""
+    args = _b2_lanes(dev, chunk, uniform)
+    assert (viterbi_cuda.uniform_transitions(args[3]) is not None) == uniform
+    chain = "uniform" if uniform else "general"
+    before = viterbi_cuda.CHAINS[chain]
+    got = viterbi_cuda.chunk_matrices(*args)
+    torch.cuda.synchronize()
+    assert viterbi_cuda.CHAINS[chain] == before + 1
+    want = viterbi_cuda.chunk_matrices_plain(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_segment_coverage_batched_on_card_equals_cpu(dev):
@@ -193,6 +235,54 @@ def test_arc_scan_kernel_matches_plain(dev, npad, B):
                                  torch.as_tensor(tss), npad, 2)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+def _arc_scan_both(cs, n, npad):
+    """(kernel, plain) (best, bl0) of B4 on the rows cs f32 [B, npad]."""
+    from canvas_tpu_torch.ops import arc_scan_cuda, cbs_device
+
+    out = []
+    for d in (torch.device("cuda"), torch.device("cpu")):
+        cs_d = torch.as_tensor(cs, device=d)
+        n_d = torch.as_tensor(n, device=d)
+        seed, lag_hi, psd2, _ti0, _tj0 = cbs_device.arc_scan_inputs(
+            cs_d, n_d, npad, 2)
+        out.append([x.cpu() for x in arc_scan_cuda.arc_scan(
+            cs_d, n_d, lag_hi, seed, psd2, 2)])
+    return out
+
+
+def test_arc_scan_kernel_at_the_panels_top_level(dev):
+    """One segment of 19,930 bins in a 32,768 bucket, as the enrichment
+    panel's top frontier level gives B4."""
+    cs, n, _tss = _arc_rows(11, 32768, 1)
+    n[0] = 19930
+    cs[0, 19930:] = 0.0
+    (best_k, bl0_k), (best_p, bl0_p) = _arc_scan_both(cs, n, 32768)
+    assert torch.equal(best_k.view(torch.int32), best_p.view(torch.int32))
+    assert torch.equal(bl0_k, bl0_p)
+
+
+def test_arc_scan_kernel_ties_across_blocks(dev):
+    """Integer cumsums whose best term ties across lag blocks: a spike of
+    height V at n - 2 pairs with position n - 4 at lag 2 (block 0) and
+    with position 0 at lag n - 2 (the last block), and w(2) = w(n - 2)
+    bit for bit; a shallow valley mid-row keeps the extrema seed below
+    them.  The walk keeps the first strict maximum, bl0 = 0.  Lengths are
+    not multiples of the 1,024-position tile; one more row is an integer
+    random walk."""
+    npad = 2048
+    n = np.array([1500, 2000, 2047, 1999], np.int32)
+    cs = np.zeros((4, npad), np.float32)
+    for r in range(3):
+        cs[r, n[r] - 2] = 40.0
+        cs[r, n[r] // 2] = -1.0
+    rng = np.random.default_rng(3)
+    cs[3, :n[3]] = np.cumsum(rng.integers(-1, 2, n[3]))
+    (best_k, bl0_k), (best_p, bl0_p) = _arc_scan_both(cs, n, npad)
+    assert torch.equal(best_k.view(torch.int32), best_p.view(torch.int32))
+    assert torch.equal(bl0_k, bl0_p)
+    assert bl0_p[:3].tolist() == [0, 0, 0]
 
 
 def test_frontier_engine_on_card_equals_cpu(dev):

@@ -55,6 +55,18 @@ def test_source_has_no_jax_or_reference_package(source):
     assert "torch.compile" not in text
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_variants.py"])
+def test_chip_scripts_import_without_jax(script):
+    """The scripts run on the card's machine, which has no JAX."""
+    text = (REPO / script).read_text()
+    assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
+    assert not re.search(r"canvas_tpu\.", text)
+    res = _python("import sys\n"
+                  "sys.modules['jax'] = None\n"
+                  f"import {script[:-3]}\n")
+    assert res.returncode == 0, res.stderr
+
+
 def test_cuda_device_raises_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
