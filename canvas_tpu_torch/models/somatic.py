@@ -29,7 +29,8 @@ Reference flow (SomaticCaller.cs:366-476 -> CallCNVUsingSNVFrequency :2546):
 
 The reference's ~10^4-model x per-segment loop is expressed here as a
 batched computation: distances [models, points, segments] evaluated in
-chunks by vectorized float64 numpy (models/somatic_grid.py).
+chunks of models, float64 torch on a CUDA device and vectorized float64
+numpy on the CPU (models/somatic_grid.py).
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ import math
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
+from canvas_tpu_torch.config import resolve_device
 from canvas_tpu_torch.models.segment_model import Segment
 from canvas_tpu_torch.models.diploid import estimate_diploid_maf
 from canvas_tpu_torch.ops import stats
@@ -530,9 +533,10 @@ def grid_search(
     user_diploid_coverage: float | None = None,
     cluster_ids: np.ndarray | None = None,
     n_clusters: int = 0,
+    device: str | torch.device = "cuda",
 ) -> tuple[PurityModel, list[PurityModel]]:
-    """The coverage x purity grid (:1875-1933) + model selection
-    (:1939-2056).  Returns (best model, all acceptable models)."""
+    """The coverage x purity grid (:1875-1933) on `device` + model
+    selection (:1939-2056).  Returns (best model, all acceptable models)."""
     from canvas_tpu_torch.models import somatic_grid
 
     ploidies = initialize_ploidies(mean_coverage)
@@ -559,7 +563,7 @@ def grid_search(
         np.asarray(grid_cov, np.float64),
         np.asarray(grid_pur, np.float64) / 100.0,
         infos, ploidies, coverage_weight, genome_length,
-        cluster_ids, n_clusters, mean_coverage)
+        cluster_ids, n_clusters, mean_coverage, device=device)
     all_models: list[PurityModel] = []
     best_deviation = np.inf
     for k in range(len(grid_cov)):
@@ -1074,11 +1078,14 @@ def call_somatic(
     user_purity: float | None = None,
     clustering_mode: str = "MeanShift",
     debug_dir=None,
+    device: str | torch.device = "cuda",
 ) -> tuple[PurityModel, list[str]]:
     """Core somatic calling (CallCNVUsingSNVFrequency without file I/O).
 
     clustering_mode is MeanShift (the reference default, Program.cs:46-47)
-    or Density; assigns copy numbers in place; returns (model, headers)."""
+    or Density; assigns copy numbers in place; returns (model, headers).
+    The model grid runs on `device` (somatic_grid.evaluate_grid)."""
+    device = resolve_device(device)
     infos, _ = usable_segments_with_relaxation(segments, is_enrichment)
     if len(infos) < 3:
         raise NotEnoughUsableSegmentsException(
@@ -1186,7 +1193,7 @@ def call_somatic(
         min_purity_hard_limit=min_purity_hard_limit,
         min_minor_allele_coverage=min_minor_allele_coverage,
         user_purity=user_purity, cluster_ids=cluster_ids,
-        n_clusters=n_clusters)
+        n_clusters=n_clusters, device=device)
 
     ploidies = initialize_ploidies(mean_coverage)
     model_deviation(model, ploidies, infos, cw, cluster_ids, n_clusters,

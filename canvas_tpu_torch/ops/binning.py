@@ -198,6 +198,67 @@ def bin_contig_device_fused(
     ])
 
 
+def bin_contig_weighted(
+    possible: torch.Tensor,  # bool [L]
+    capped: torch.Tensor,    # float32 [L] capped per-position hit values
+    is_gc: torch.Tensor,     # bool [L]
+    offset: int,             # leading-n skip
+    bin_size: int,
+) -> tuple[torch.Tensor, ...]:
+    """Device binning of float-valued counts (GCContentWeighted), the
+    counterpart of canvas_tpu's non-fused pass: bins by searchsorted on the
+    int32 prefix of possible positions, as in bin_contig_device_fused.
+
+    A possible position belongs to bin k when its prefix lies in
+    (k*bin_size, (k+1)*bin_size], so the live possible positions, gathered
+    in order, fall into bins of exactly bin_size each: the first
+    n_bins * bin_size of their capped values, viewed [n_bins, bin_size], are
+    the bins' members.  Each row is summed in float64 and banker's-rounded
+    (C# Math.Round): a fixed order on each device, no atomics, and the two
+    devices' sums agree far below the 0.5 that rounding needs.
+
+    Returns (start, end, gc_count, count) for the whole bins: int64 starts
+    and exclusive ends, int32 GC counts, float64 rounded counts."""
+    dev = possible.device
+    L = possible.shape[0]
+    p = possible.clone()
+    p[:offset] = False
+    pcum = torch.cumsum(p, 0, dtype=torch.int32)
+    total = int(pcum[-1]) if L else 0
+    n_bins = total // bin_size
+    if n_bins == 0:
+        z = torch.zeros(0, dtype=torch.int64, device=dev)
+        return z, z, z.to(torch.int32), z.to(torch.float64)
+    targets = torch.arange(1, n_bins + 1, dtype=torch.int32,
+                           device=dev) * bin_size
+    ends = torch.searchsorted(pcum, targets, right=False)
+    starts = torch.cat([torch.full((1,), offset, dtype=ends.dtype,
+                                   device=dev), ends[:-1] + 1])
+    gccum0 = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                        torch.cumsum(is_gc, 0, dtype=torch.int32)])
+    gc_count = gccum0[ends + 1] - gccum0[starts]
+    members = capped[p][:n_bins * bin_size].view(n_bins, bin_size)
+    counts = torch.round(members.to(torch.float64).sum(dim=1))
+    return starts, ends + 1, gc_count, counts
+
+
+def _bin_weighted(t: dict, bin_size: int, dev: torch.device):
+    """One contig of GCContentWeighted binning on `dev`: per-position
+    values min(10, observed / weight) in float32 (CanvasBin.cs:626-636),
+    then bin_contig_weighted."""
+    obs = torch.as_tensor(np.asarray(t["observed"], dtype=np.uint8)).to(dev)
+    weights = torch.as_tensor(
+        np.asarray(t["gc_weights"], dtype=np.float32)).to(dev)
+    capped = torch.clamp(obs.to(torch.float32) / weights, max=TRUNCATED_CAP)
+    s, e, g, c = bin_contig_weighted(
+        torch.as_tensor(np.asarray(t["possible"], dtype=bool)).to(dev),
+        capped, torch.as_tensor(np.asarray(t["is_gc"], dtype=bool)).to(dev),
+        int(t["offset"]), bin_size)
+    s, e = s.cpu().numpy(), e.cpu().numpy()
+    return (s, e, _gc_pct_host(g.cpu().numpy(), e - s),
+            c.cpu().numpy().astype(np.float32))
+
+
 _FUSED_CAPS = {"TruncatedDynamicRange": TRUNCATED_CAP, "Binary": 1}
 
 
@@ -248,21 +309,25 @@ def bin_sample(
     """Bin all contigs of one sample.
 
     `tracks[contig]` holds {"possible": bool[L], "observed": uint8[L],
-    "is_gc": bool[L], "offset": int}.  Returns dict contig -> (start, end,
-    gc, count) numpy arrays.
+    "is_gc": bool[L], "offset": int} and, for GCContentWeighted,
+    "gc_weights": float32[L].  Returns dict contig -> (start, end, gc,
+    count) numpy arrays.
 
     On a CUDA device the fused path runs kernel B1.  On the CPU the exact
     numpy path (bin_contig_np) runs by default, as in canvas_tpu;
     `force_fused=True` runs the fused path with B1's plain torch version.
     Both are exact (int32 prefix differences), so outputs are identical.
+    GCContentWeighted takes bin_contig_weighted on the run's device, CUDA
+    or CPU, as canvas_tpu takes its non-fused device pass on every backend.
     The device is resolved first: asking for a missing card raises.
     """
     dev = resolve_device(device)
     use_fused = (dev.type == "cuda") if force_fused is None else force_fused
+    if mode == "GCContentWeighted":
+        return {name: _bin_weighted(t, bin_size, dev)
+                for name, t in tracks.items()}
     if mode not in _FUSED_CAPS:
-        raise NotImplementedError(
-            f"device binning of coverage mode {mode!r} is not ported to "
-            f"canvas_tpu_torch yet")
+        raise ValueError(f"unknown coverage mode {mode!r}")
     out = {}
     pending: dict[str, torch.Tensor] = {}
     host_batch: list[str] = []

@@ -1,7 +1,11 @@
 """Command-line interface — the Canvas.exe mode surface
-(Canvas/Program.cs:13-23 + CommandLineParsing/), for the modes ported to
-canvas_tpu_torch so far.
+(Canvas/Program.cs:13-23 + CommandLineParsing/).
 
+    python -m canvas_tpu_torch Germline-WGS -b sample.bam -n SampleName \
+        -r refdir -o outdir [--sample-b-allele-vcf normal.vcf] \
+        [--device cuda|cpu]
+    python -m canvas_tpu_torch Somatic-WGS -b tumor.bam -n tumor \
+        [--normal-bam normal.bam] -r refdir -o outdir [--device cuda|cpu]
     python -m canvas_tpu_torch SmallPedigree-WGS --bams f.bam m.bam p.bam \
         --names father mother proband --types Father Mother Proband \
         -r refdir -o outdir [--device cuda|cpu]
@@ -57,9 +61,10 @@ def _common(parser: argparse.ArgumentParser) -> None:
                              "reference's --custom-parameters)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="device for binning, segmentation (HMM decode, "
-                             "CBS frontier engine) and the pedigree "
-                             "likelihood (default cuda; asking for cuda "
-                             "without a CUDA device is an error)")
+                             "CBS frontier engine), the pedigree "
+                             "likelihood and the somatic model grid "
+                             "(default cuda; asking for cuda without a CUDA "
+                             "device is an error)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,7 +78,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--version", action="version", version=__version__)
     sub = p.add_subparsers(dest="mode", required=True)
 
-    for mode in ("Somatic-Enrichment", "Tumor-normal-enrichment"):
+    g = sub.add_parser("Germline-WGS", help="germline single-sample WGS")
+    g.add_argument("-b", "--bam", required=True)
+    g.add_argument("-n", "--sample-name", required=True)
+    g.add_argument("--sample-b-allele-vcf", default=None)
+    g.add_argument("--population-b-allele-vcf", default=None,
+                   help="dbSNP-style population SNV sites (exclusive with "
+                        "--sample-b-allele-vcf)")
+    _common(g)
+
+    for mode in ("Somatic-WGS", "Somatic-Enrichment",
+                 "Tumor-normal-enrichment"):
         s = sub.add_parser(mode)
         s.add_argument("-b", "--bam", required=True, help="tumor BAM")
         s.add_argument("-n", "--sample-name", required=True)
@@ -134,19 +149,27 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _dispatch_enrichment(args, ctx, config, pop_vcf):
-    """Somatic-Enrichment / Tumor-normal-enrichment: tumor, normal and
-    controls from the arguments."""
+def _dispatch_germline(args, ctx, pop_vcf):
+    """Germline-WGS: one sample from the arguments."""
+    sample = runner.Sample(args.sample_name, args.bam,
+                           normal_vcf=args.sample_b_allele_vcf or pop_vcf,
+                           ploidy_vcf=args.ploidy_vcf,
+                           is_dbsnp_vcf=bool(pop_vcf))
+    return runner.germline_wgs(ctx, sample)
+
+
+def _dispatch_somatic(args, ctx, config, pop_vcf):
+    """Somatic-WGS / Somatic-Enrichment / Tumor-normal-enrichment: tumor,
+    normal and controls from the arguments."""
     tumor = runner.Sample(args.sample_name, args.bam,
                           normal_vcf=args.sample_b_allele_vcf or pop_vcf,
                           ploidy_vcf=args.ploidy_vcf,
                           is_dbsnp_vcf=bool(pop_vcf))
     normal = runner.Sample(args.sample_name + "_N", args.normal_bam) \
         if args.normal_bam else None
-    if args.manifest is None:
-        print("enrichment modes need --manifest (whole-genome binning is "
-              "not ported to canvas_tpu_torch yet)", file=sys.stderr)
-        return 2
+    if args.manifest is None and "nrichment" in args.mode:
+        print("warning: enrichment mode without --manifest; "
+              "running whole-genome binning", file=sys.stderr)
     if args.normalize_mode:
         config.normalize_mode = args.normalize_mode
     if args.control_bams and (args.control_binned
@@ -283,8 +306,10 @@ def main(argv=None) -> int:
     try:
         if args.mode == "SmallPedigree-WGS":
             out = _dispatch(args, ctx, pop_vcf)
+        elif args.mode == "Germline-WGS":
+            out = _dispatch_germline(args, ctx, pop_vcf)
         else:
-            out = _dispatch_enrichment(args, ctx, config, pop_vcf)
+            out = _dispatch_somatic(args, ctx, config, pop_vcf)
     except runner.StopAfterCheckpoint as e:
         # -s/--stop-checkpoint: clean exit after the named stage — but a
         # typo'd -c must still fail loudly on the truncated run

@@ -100,7 +100,7 @@ def current() -> RunProfile:
     return _ACTIVE
 
 
-def reset(device: str | torch.device = "cpu") -> RunProfile:
+def reset(device: str | torch.device) -> RunProfile:
     global _ACTIVE
     _ACTIVE = RunProfile(device=torch.device(device))
     return _ACTIVE

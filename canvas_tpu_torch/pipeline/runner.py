@@ -7,15 +7,19 @@ work directory (BinSet text files, partitioned files, VF files) so a rerun
 resumes from completed stages — the same contract as Isas
 ICheckpointRunner (SURVEY.md §5).
 
-Modes ported so far (Canvas/Program.cs:13-23):
-  SmallPedigree-WGS        per-sample HMM, joint pedigree caller
+Modes (Canvas/Program.cs:13-23):
+  Germline-WGS             single sample, wavelets (germline), diploid caller
+  Somatic-WGS              tumor[/normal], wavelets, somatic caller
   Somatic-Enrichment       manifest-driven, CBS, somatic caller
   Tumor-normal-enrichment  as above with a normal ratio
+  SmallPedigree-WGS        per-sample HMM, joint pedigree caller
 
 The run's device (WorkflowContext.device) is explicit: binning runs kernel
-B1 there, the PerSampleHMM decode kernels B2 and B3, the pedigree joint
-likelihood its float64 contraction, and CBS its frontier engine with the
-arc-scan kernel B4 (on a CUDA device; on the CPU the host CBS path runs).
+B1 there (GCContentWeighted its float64 row sums), the PerSampleHMM decode
+kernels B2 and B3, the pedigree joint likelihood and the somatic model grid
+their float64 contractions, and CBS its frontier engine with the arc-scan
+kernel B4 (on a CUDA device; on the CPU the host CBS path runs).  The
+wavelet partition and the coverage metrics are host numpy on every device.
 """
 
 from __future__ import annotations
@@ -34,13 +38,15 @@ from canvas_tpu_torch.io import snv as snvio
 from canvas_tpu_torch.io import vcf_write
 from canvas_tpu_torch.io.bins import BinSet
 from canvas_tpu_torch.io.ploidy import PloidyInfo, load_ploidy_vcf
+from canvas_tpu_torch.models import diploid as diploid_caller
 from canvas_tpu_torch.models import pedigree as pedigree_caller
 from canvas_tpu_torch.models import qscore
 from canvas_tpu_torch.models import somatic as somatic_caller
 from canvas_tpu_torch.models.segment_model import (
     SEGMENT_SIZE_CUTOFF, merge_segments, merge_segments_multisample,
-    set_filters)
-from canvas_tpu_torch.ops import binning, cbs, hmm, normalize, ratio
+    merge_segments_using_excluded_intervals, set_filters)
+from canvas_tpu_torch.ops import (binning, cbs, hmm, metrics, normalize,
+                                  ratio, wavelets)
 from canvas_tpu_torch.ops import stats as seg_stats
 from canvas_tpu_torch.ops import segments as segops
 from canvas_tpu_torch.pipeline import profiling, segments_io
@@ -278,6 +284,52 @@ def ingest_observed(ctx: WorkflowContext,
     return observed
 
 
+def ingest_observed_with_fragments(
+    ctx: WorkflowContext, sample: Sample,
+) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray]]:
+    """GCContentWeighted ingest: per-contig observed counts AND stored
+    forward-fragment lengths (CanvasBin.cs:261-266); one native streaming
+    pass when available, else the Python reader."""
+    from canvas_tpu_torch import native
+
+    refs = native.read_bam_refs(sample.bam_path) if native.available() else None
+    if refs is not None:
+        wanted = set(ctx.canonical)
+        lengths = [L if name in wanted else 0 for name, L in refs]
+        res = native.scan_with_fragments_all(sample.bam_path, lengths)
+        if res is not None:
+            per_obs, per_frag = res
+            obs_by = {name: per_obs[i] for i, (name, _) in enumerate(refs)}
+            frag_by = {name: per_frag[i] for i, (name, _) in enumerate(refs)}
+            zeros = lambda c, dt: np.zeros(ctx.contigs.length(c), dt)
+            return ({c: obs_by.get(c, zeros(c, np.uint8))
+                     for c in ctx.canonical},
+                    {c: frag_by.get(c, zeros(c, np.int16))
+                     for c in ctx.canonical})
+    bam = bamio.BamFile.read(sample.bam_path)
+    observed, fragments = {}, {}
+    for contig in ctx.canonical:
+        obs, frag = bamio.read_start_counts(bam, contig,
+                                            mode="GCContentWeighted")
+        observed[contig], fragments[contig] = obs, frag
+    return observed, fragments
+
+
+def _gc_weight_tracks(ctx: WorkflowContext,
+                      observed: dict[str, np.ndarray],
+                      fragments: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Per-position GC-correction weights (CanvasBin.cs:330-506): per-read
+    fragment GC percent -> genome-wide observed/expected-by-GC ratio ->
+    weight = ratio[readGC[pos]]."""
+    mean_frag = binning.mean_fragment_size(fragments)
+    read_gc = {c: binning.read_gc_content(
+        np.asarray(ctx.tracks[c]["is_gc"], bool), fragments[c], mean_frag)
+        for c in fragments}
+    obs_vs_exp = binning.observed_vs_expected_gc(read_gc, observed)
+    return {c: binning.gc_weights_for_contig(read_gc[c], obs_vs_exp)
+            for c in read_gc}
+
+
 def autosome_rates(ctx: WorkflowContext,
                    observed: dict[str, np.ndarray]) -> list[float]:
     from canvas_tpu_torch.genome.contigs import is_autosome
@@ -305,11 +357,17 @@ def run_bin(ctx: WorkflowContext, sample: Sample,
             raise ValueError(
                 "Fragment coverage mode needs predefined bins (enrichment "
                 "manifest); CanvasBin requires -n with -m Fragment")
-        if mode == "GCContentWeighted":
-            raise NotImplementedError(
-                "GCContentWeighted binning is not ported to canvas_tpu_torch "
-                "yet")
-        obs = observed if observed is not None else ingest_observed(ctx, sample)
+        gc_weights = None
+        if mode == "GCContentWeighted" and observed is None:
+            obs, fragments = ingest_observed_with_fragments(ctx, sample)
+            gc_weights = _gc_weight_tracks(ctx, obs, fragments)
+        elif observed is not None:
+            # SmallPedigree-WGS hands its observed counts in, so no weights
+            # are made and GCContentWeighted bins as TruncatedDynamicRange,
+            # as canvas_tpu does (ROADMAP Queue C, C1)
+            obs = observed
+        else:
+            obs = ingest_observed(ctx, sample)
         bs = bin_size or ctx.config.fixed_bin_size or \
             binning.bin_size_from_rates(
                 ctx.config.counts_per_bin, autosome_rates(ctx, obs))
@@ -317,8 +375,11 @@ def run_bin(ctx: WorkflowContext, sample: Sample,
         tracks = {c: dict(possible=ctx.tracks[c]["possible"],
                           observed=obs[c],
                           is_gc=ctx.tracks[c]["is_gc"],
-                          offset=ctx.tracks[c]["offset"])
+                          offset=ctx.tracks[c]["offset"],
+                          gc_weights=(gc_weights or {}).get(c))
                   for c in ctx.canonical}
+        if mode == "GCContentWeighted" and gc_weights is None:
+            mode = "TruncatedDynamicRange"
         per_contig = binning.bin_sample(tracks, bs, mode=mode,
                                         device=ctx.device)
         cid, st, en, gc, cnt = [], [], [], [], []
@@ -416,22 +477,29 @@ def run_partition(
 
     Returns sample -> contig -> list[Segment] (with confidence intervals)."""
     cfg = ctx.config
-    if method in ("HMM", "Wavelets"):
+    if method == "HMM":
         raise NotImplementedError(
             f"partition method {method!r} is not ported to canvas_tpu_torch "
             f"yet")
-    if method not in ("PerSampleHMM", "CBS"):
+    if method not in ("PerSampleHMM", "Wavelets", "CBS"):
         raise ValueError(f"unknown partition method {method}")
     per_sample_spans: dict[str, dict[str, list[segops.Span]]] = {}
     cov_cache = {name: coverage_by_contig(b) for name, b in samples_bins.items()}
-    if method == "CBS":   # reset so post-stage attribution is never stale
-        cbs._LAST_ENGINE.update(engine=None, host_workers=None, levels=None)
+    # reset so post-stage attribution is never stale
+    cbs._LAST_ENGINE.update(engine=None, host_workers=None, levels=None)
 
     for name, bins in samples_bins.items():
         cov = cov_cache[name]
         if method == "PerSampleHMM":
             # all contigs in one batched decode on the run's device
             bps = hmm.segment_coverage_batched(cov, device=ctx.device)
+        elif method == "Wavelets":
+            # host numpy on every device, as in canvas_tpu
+            cv = metrics.coverage_variability(cov, cfg.evenness_score_window)
+            cmads = metrics.factor_of_three_cmads(cov)
+            bps = wavelets.segment_coverage(
+                cov, is_germline, cv, cmads, mad_factor=cfg.mad_factor,
+                threshold_lower=cfg.threshold_lower_maf)
         else:
             # the frontier engine (kernel B4) on a CUDA device, the host
             # path on the CPU
@@ -530,6 +598,40 @@ def _flatten(segments_by_contig: dict[str, list], contigs: ContigTable):
 # Mode workflows
 # ---------------------------------------------------------------------------
 
+def germline_wgs(ctx: WorkflowContext, sample: Sample) -> Path:
+    """Germline-WGS: bin -> clean -> wavelets (germline) -> diploid caller."""
+    prof = profiling.reset(ctx.device)
+    prof.gate = ctx.checkpointer.stage   # -c/-s start/stop-checkpoint
+    ploidy = load_ploidy_vcf(sample.ploidy_vcf) if sample.ploidy_vcf else None
+    with prof.stage("CanvasBin"):
+        bins, _ = run_bin(ctx, sample)
+    with prof.stage("CanvasClean", bins=len(bins)):
+        cleaned, _ = run_clean(ctx, sample, bins)
+    with prof.stage("CanvasSNV"):
+        vf = run_snv(ctx, sample, is_somatic=False)
+    with prof.stage("CanvasPartition", bins=len(cleaned)):
+        parts = run_partition(ctx, {sample.name: cleaned},
+                              ctx.config.partition_method or "Wavelets",
+                              is_germline=True, ploidy=ploidy)
+    segs_by_contig = parts[sample.name]
+    mean_allele_cov = attach_alleles(ctx, sample, segs_by_contig, vf)
+    segs = _flatten(segs_by_contig, ctx.contigs)
+    with prof.stage("CanvasDiploidCaller", segments=len(segs)):
+        called, dip_cov = diploid_caller.call_variants(
+            segs, ctx.config.quality_filter_threshold, ctx.config.qscore,
+            mean_allele_coverage=mean_allele_cov)
+    out = Path(ctx.output_dir) / f"{sample.name}_CNV.vcf.gz"
+    vcf_write.write_segments(
+        out, [called], [sample.name], ctx.contigs, diploid_coverage=dip_cov,
+        reference_cn_fn=(lambda i, s: ploidy.reference_copy_number(
+            s.chrom, s.begin, s.end)) if ploidy else None,
+        quality_threshold=ctx.config.quality_filter_threshold,
+        reference_path=str(ctx.genome_fasta))
+    _write_visualization(ctx, sample.name, called, dip_cov, ploidy)
+    prof.write(Path(ctx.output_dir) / f"{sample.name}_profile.json")
+    return out
+
+
 def _write_visualization(ctx, sample_name, segments, diploid_coverage,
                          ploidy=None):
     """Coverage/VF plot data + bedgraph tracks (SingleSampleCallset outputs).
@@ -605,11 +707,12 @@ def run_bin_predefined(ctx: WorkflowContext, sample: Sample,
             return BinSet(ctx.contigs, np.concatenate(cid),
                           np.concatenate(st), np.concatenate(en),
                           np.concatenate(gc), np.concatenate(cnt))
+        gc_weights = {}
         if mode == "GCContentWeighted":
-            raise NotImplementedError(
-                "GCContentWeighted binning is not ported to canvas_tpu_torch "
-                "yet")
-        obs = ingest_observed(ctx, sample)
+            obs, fragments = ingest_observed_with_fragments(ctx, sample)
+            gc_weights = _gc_weight_tracks(ctx, obs, fragments)
+        else:
+            obs = ingest_observed(ctx, sample)
         cid, st, en, gc, cnt = [], [], [], [], []
         for i, cname in enumerate(ctx.contigs.names):
             if cname not in pb or cname not in ctx.tracks:
@@ -618,7 +721,8 @@ def run_bin_predefined(ctx: WorkflowContext, sample: Sample,
             t = ctx.tracks[cname]
             g, c = binning.bin_predefined_np(
                 t["possible"], obs.get(cname, np.zeros(t["length"], np.uint8)),
-                t["is_gc"], starts, ends, mode=mode)
+                t["is_gc"], starts, ends, mode=mode,
+                gc_weights=gc_weights.get(cname))
             cid.append(np.full(len(starts), i, np.int32))
             st.append(starts); en.append(ends); gc.append(g); cnt.append(c)
         return BinSet(ctx.contigs, np.concatenate(cid), np.concatenate(st),
@@ -656,30 +760,29 @@ def somatic_wgs(ctx: WorkflowContext, tumor: Sample,
                 control_binned: str | None = None,
                 control_ploidy_vcf: str | None = None,
                 pca_model_file: str | None = None) -> Path:
-    """Somatic-Enrichment / Tumor-normal-enrichment (manifest bins + CBS):
+    """Somatic-WGS (wavelets) / Somatic-Enrichment (manifest bins + CBS):
     bin -> [T/N(panel) ratio] -> clean -> partition -> somatic caller.
     Normalization runs on BINNED counts and CanvasClean on the ratio
     pseudo-counts, matching the reference stage order
     (CanvasRunner.NormalizeCoverage inside InvokeCanvasBin, :246-251,473-481
-    -> CanvasClean :810).  Somatic-WGS (no manifest) needs the wavelet
-    partition and the evenness metric, which are not ported yet."""
+    -> CanvasClean :810)."""
     from canvas_tpu_torch.io.manifest import Manifest
     from canvas_tpu_torch.ops import smooth as smooth_ops
 
-    if manifest_path is None:
-        raise NotImplementedError(
-            "Somatic-WGS (no --manifest) needs the wavelet partition and "
-            "the evenness metric, which are not ported to canvas_tpu_torch "
-            "yet")
-    manifest = Manifest.read(manifest_path)
+    is_enrichment = manifest_path is not None
+    manifest = Manifest.read(manifest_path) if is_enrichment else None
     ploidy = load_ploidy_vcf(tumor.ploidy_vcf) if tumor.ploidy_vcf else None
     prof = profiling.reset(ctx.device)
     prof.gate = ctx.checkpointer.stage   # -c/-s start/stop-checkpoint
     all_controls = ([normal] if normal else []) + list(controls or [])
     with prof.stage("CanvasBin"):
-        t_bins = run_bin_predefined(ctx, tumor, manifest)
-        if ctx.config.smooth_enrichment_bins:
-            t_bins = smooth_ops.smooth(t_bins)
+        if is_enrichment:
+            t_bins = run_bin_predefined(ctx, tumor, manifest)
+            if ctx.config.smooth_enrichment_bins:
+                t_bins = smooth_ops.smooth(t_bins)
+            t_bs = None
+        else:
+            t_bins, t_bs = run_bin(ctx, tumor)
     work_bins = t_bins
     if all_controls or pca_model_file or control_binned:
         with prof.stage("CanvasNormalize"):
@@ -690,9 +793,14 @@ def somatic_wgs(ctx: WorkflowContext, tumor: Sample,
                 # Manifest.CanvasControlBinnedPath, CanvasRunner.cs:501-505)
                 c_bins.append(BinSet.read_text(control_binned, ctx.contigs))
             for c in all_controls:
-                cb = run_bin_predefined(ctx, c, manifest)
-                if ctx.config.smooth_enrichment_bins:
-                    cb = smooth_ops.smooth(cb)
+                if is_enrichment:
+                    cb = run_bin_predefined(ctx, c, manifest)
+                    if ctx.config.smooth_enrichment_bins:
+                        cb = smooth_ops.smooth(cb)
+                else:
+                    # shared bin size -> identical boundaries (bins
+                    # accumulate possible positions, not observed counts)
+                    cb, _ = run_bin(ctx, c, bin_size=t_bs or None)
                 c_bins.append(cb)
             mode = ctx.config.normalize_mode
             if pca_model_file or mode == "PCA":
@@ -720,12 +828,31 @@ def somatic_wgs(ctx: WorkflowContext, tumor: Sample,
             work_bins = ratio.ratios_to_counts(
                 ratios, _bin_ploidy_array(ratios, ref_ploidy))
     with prof.stage("CanvasClean", bins=len(work_bins)):
-        work, _ = run_clean(ctx, tumor, work_bins)
+        work, local_sd = run_clean(ctx, tumor, work_bins,
+                                   compute_local_sd=not is_enrichment)
     with prof.stage("CanvasSNV"):
         vf = run_snv(ctx, tumor, is_somatic=True)
+    evenness = None
+    if not is_enrichment:
+        # canvas_tpu's one guard here, kept as it is: a coverage whose
+        # evenness cannot be scored (too few bins for a window, so no
+        # quartiles) leaves the score None and writes no EvennessMetric
+        # file; it sends no stage to another device
+        try:
+            evenness = metrics.evenness_score(
+                coverage_by_contig(work), ctx.config.evenness_score_window)
+            # EvennessMetric file, CanvasPartition -> SomaticCaller handoff
+            # (Segmentation.cs:260-268, CanvasRunner.cs:950-960)
+            ctx.checkpointer.path(
+                f"EvennessMetric_{tumor.name}.txt").write_text(
+                    f"{evenness:.4f}\n")
+        except Exception:
+            pass
     with prof.stage("CanvasPartition", bins=len(work)):
         parts = run_partition(
-            ctx, {tumor.name: work}, ctx.config.partition_method or "CBS",
+            ctx, {tumor.name: work},
+            ctx.config.partition_method
+            or ("CBS" if is_enrichment else "Wavelets"),
             is_germline=False, ploidy=ploidy)
     if cbs.last_engine():   # attribute which CBS engine ran
         prof.note("CanvasPartitionCbsEngine", cbs_engine=cbs.last_engine(),
@@ -744,10 +871,11 @@ def somatic_wgs(ctx: WorkflowContext, tumor: Sample,
             if somatic_vcf else None
         try:
             model, headers = somatic_caller.call_somatic(
-                segs, genome_length, evenness_score=None,
+                segs, genome_length, evenness_score=evenness,
                 somatic_vafs=vafs, ref_ploidy_fn=ploidy_fn,
-                is_enrichment=True,
-                debug_dir=Path(ctx.output_dir) / f"TempCNV_{tumor.name}")
+                is_enrichment=is_enrichment,
+                debug_dir=Path(ctx.output_dir) / f"TempCNV_{tumor.name}",
+                device=ctx.device)
         except Exception as e:
             import logging
 
@@ -770,11 +898,18 @@ def somatic_wgs(ctx: WorkflowContext, tumor: Sample,
                 # UncallableDataException and the rest are fatal for the
                 # workflow in production (SomaticCaller.cs:423-438)
                 raise
+    if local_sd is not None:
+        headers.append(f"##LocalSDmetric={local_sd:.2f}")
     qscore.assign_quality_scores(segs, "Logistic", ctx.config.qscore)
     # enrichment merges with a 1 bp span so calls never bridge the gaps
-    # between off-adjacent targets (SomaticCaller.cs:455-456)
-    merged = merge_segments(segs, somatic_caller.MINIMUM_CALL_SIZE,
-                            maximum_merge_span=1)
+    # between off-adjacent targets; WGS merges across everything except
+    # filter-bed intervals (SomaticCaller.cs:455-456)
+    if is_enrichment:
+        merged = merge_segments(segs, somatic_caller.MINIMUM_CALL_SIZE,
+                                maximum_merge_span=1)
+    else:
+        merged = merge_segments_using_excluded_intervals(
+            segs, somatic_caller.MINIMUM_CALL_SIZE, ctx.excluded_intervals)
     qscore.assign_quality_scores(merged, "Logistic", ctx.config.qscore)
     set_filters(merged, ctx.config.quality_filter_threshold,
                 SEGMENT_SIZE_CUTOFF)

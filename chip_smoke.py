@@ -50,10 +50,45 @@ Phases, one JSON line each; any failure exits non-zero:
   7. CBS     the frontier engine on the tumor's ratio coverage of that
              panel, on CUDA tensors (B4) and on CPU tensors (plain B4):
              equal segments and the per-level profile; then one more CUDA
-             run under torch.profiler: device busy time and kernel launches.
+             run under torch.profiler: device busy time and kernel launches;
+  8. e2e-germline
+             Germline-WGS through the CLI entry point on the trio's proband
+             BAM with --device cuda and again with --device cpu: identical
+             VCFs, the proband's CN 3 gain on chr1 and CN 1 loss on chr2
+             called, B1 launched once a contig by the CUDA run, the stage
+             times of both runs;
+  9. e2e-somatic-wgs
+             Somatic-WGS through the CLI entry point on the panel's tumor
+             and normal BAMs and het-site VCF, without --manifest (whole-
+             genome bins over the 30 Mbp), with --device cuda and again with
+             --device cpu: identical VCFs, every planted event called with
+             its copy number (check_enrichment_calls' rule), the evenness
+             score and ##LocalSDmetric, the CUDA run's model grid on the
+             card (somatic_grid.CALLS), B1 once a contig and sample, the
+             stage times of both runs;
+ 10. gc-bin  GCContentWeighted binning (binning.bin_sample) at chr1 length
+             (tracks, counts and GC weights made by numpy from --seed) on
+             the card and on the CPU: equal starts, ends, GC and counts,
+             both times;
+ 11. wgs-partition
+             the Wavelets partition on the host, as both packages run it, at
+             whole-genome size: 24 hg38 contigs at 500 bp bins (6,176,550
+             bins) of NB coverage from --seed with planted gains, losses,
+             homozygous deletions and N-gaps.  The seconds of
+             coverage_variability, factor_of_three_cmads, evenness_score
+             and segment_coverage (germline and somatic, and germline one
+             contig after another without its thread pool), and for chr1
+             alone of decompose, hard_threshold, reconstruct,
+             heal_bad_splits and refine_segments one by one; every planted
+             event has a breakpoint within WGS_MISS_BINS of each end, and
+             the share of ends with one within 2 bins is printed (the
+             unbalanced Haar split lands a few bins off on about 5 % of
+             ends, in both packages alike).
 
-It then prints the card's name and power limit, one JSON line with the
-kernels' results, and as its last line {"ok": true, "device": {...}}.
+Each phase's line carries its seconds (`phase_s`).  It then prints the
+phases' seconds and the total, the card's name and power limit, one JSON
+line with the kernels' results, and as its last line
+{"ok": true, "device": {...}}.
 Each kernel's `bound_ms` is the least time the card could take for the
 work this run's inputs need: the larger of its bytes (each input read
 once, each output written once; emissions of live steps only) over
@@ -120,6 +155,17 @@ TARGET_LEN, TARGET_SPACING = 400, 500
 EVENT_KINDS = [(1, 0), (3, 1), (0, 0), (4, 1)]   # (total CN, B alleles)
 MARGIN_BP, GAP_BP = 500_000, 1_200_000
 SIZE_RANGE = (800_000, 1_600_000)
+
+# the whole-genome wavelet partition: NB coverage at 500 bp bins, mean 100
+WGS_MEAN, WGS_NB_SIZE = 100.0, 100.0
+# (kind, mean over WGS_MEAN, bins low, bins high), cycled along each contig
+WGS_EVENTS = [("loss", 0.5, 100, 2_000), ("gain", 1.5, 100, 2_000),
+              ("hom_del", 0.0, 20, 200), ("gain", 1.5, 100, 2_000),
+              ("n_gap", 0.0, 1_000, 5_000), ("loss", 0.5, 100, 2_000)]
+WGS_EVENT_SPACING = (2_000, 20_000)
+# an end with no breakpoint this close counts as missed
+WGS_MISS_BINS = 25
+GC_BIN_SIZE = 400
 
 
 def emit(obj: dict) -> None:
@@ -554,6 +600,47 @@ def vcf_body(path: Path) -> list[str]:
             if not ln.startswith("##fileDate")]
 
 
+def profile_stages(path: Path) -> dict:
+    prof = json.loads(path.read_text())
+    return {st["name"]: st["seconds"] for st in prof["stages"]
+            if "seconds" in st}
+
+
+def run_both(args: list[str], out_prefix: Path, profile: str) -> dict:
+    """The CLI on --device cuda, then on --device cpu; the CUDA run's
+    kernel launches and model-grid calls, both runs' wall and stage
+    seconds."""
+    from canvas_tpu_torch.models import somatic_grid
+    from canvas_tpu_torch.pipeline import cli
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        out = Path(f"{out_prefix}_{dev}")
+        if dev == "cuda":
+            reset_launches()
+            grid0 = dict(somatic_grid.CALLS)
+        t0 = time.perf_counter()
+        rc = cli.main([*args, "-o", str(out), "--device", dev])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = read_launches()
+            grid = {k: v - grid0[k] for k, v in somatic_grid.CALLS.items()}
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"{args[0]} on {dev} exited {rc}")
+        runs[dev] = {"wall_s": wall, "out": out,
+                     "stages": profile_stages(out / profile)}
+    return {"launches": launches, "grid_calls": grid, **runs}
+
+
+def same_vcf(a: Path, b: Path) -> None:
+    body_a, body_b = vcf_body(a), vcf_body(b)
+    if body_a != body_b:
+        diff = sorted(set(body_a) ^ set(body_b))
+        fail(f"{a.name} differs between --device cuda and --device cpu: "
+             f"{diff[:12]}")
+
+
 def all_launch_counts() -> list[dict]:
     from canvas_tpu_torch.ops import arc_scan_cuda, prefix_cuda, viterbi_cuda
 
@@ -796,7 +883,7 @@ def check_enrichment_calls(vcf: Path, plan: dict) -> list[dict]:
     return got
 
 
-def phase_e2e_enrichment(seed: int, workdir: Path) -> dict:
+def phase_e2e_enrichment(seed: int, workdir: Path) -> tuple[dict, dict]:
     from canvas_tpu_torch.ops import cbs
     from canvas_tpu_torch.pipeline import cli
 
@@ -857,7 +944,7 @@ def phase_e2e_enrichment(seed: int, workdir: Path) -> dict:
             "cbs_boundary_s": boundary_s, "vcf_cuda_equals_cpu": True,
             "launches": launches,
             "frontier_levels": n_levels, "events": calls,
-            "cuda": runs["cuda"], "cpu": runs["cpu"]}
+            "cuda": runs["cuda"], "cpu": runs["cpu"]}, panel
 
 
 def phase_cbs(workdir: Path, dev: torch.device) -> dict:
@@ -948,6 +1035,227 @@ def trace_frontier(cov: dict, dev: torch.device) -> dict:
                                for us, k, n in top[:8]]}}
 
 
+def phase_e2e_germline(workdir: Path) -> dict:
+    """Germline-WGS on the trio's proband (phase e2e's BAM and reference)."""
+    n_contigs = len(TRIO_CONTIGS)
+    runs = run_both(["Germline-WGS", "-b", str(workdir / "proband.bam"),
+                     "-n", "proband", "-r", str(workdir / "ref")],
+                    workdir / "germline", "proband_profile.json")
+    if runs["launches"]["prefix_scan"] != n_contigs:
+        fail(f"B1 launched {runs['launches']['prefix_scan']} times for "
+             f"{n_contigs} contigs")
+    vcf = runs["cuda"]["out"] / "proband_CNV.vcf.gz"
+    same_vcf(vcf, runs["cpu"]["out"] / "proband_CNV.vcf.gz")
+    calls = check_enrichment_calls(vcf, {GAIN[0]: [(GAIN[1], GAIN[2], 3, 1)],
+                                         LOSS[0]: [(LOSS[1], LOSS[2], 1, 0)]})
+    return {"phase": "e2e-germline", "genome_bp": sum(TRIO_CONTIGS.values()),
+            "contigs": n_contigs, "vcf_cuda_equals_cpu": True,
+            "launches": runs["launches"], "events": calls,
+            **{dev: {"wall_s": runs[dev]["wall_s"],
+                     "stages": runs[dev]["stages"]}
+               for dev in ("cuda", "cpu")}}
+
+
+def phase_e2e_somatic_wgs(panel: dict, workdir: Path) -> dict:
+    """Somatic-WGS (no manifest) on the enrichment phase's tumor, normal and
+    het-site VCF, whose reads cover the whole 30 Mbp."""
+    import re
+
+    n_contigs = len(ENR_CONTIGS)
+    runs = run_both(["Somatic-WGS", "-b", str(panel["tumor"]), "-n", "tumor",
+                     "--normal-bam", str(panel["normal"]),
+                     "--sample-b-allele-vcf", str(panel["het"]),
+                     "-r", str(panel["ref"])],
+                    workdir / "somatic_wgs", "tumor_profile.json")
+    if runs["launches"]["prefix_scan"] != 2 * n_contigs:
+        fail(f"B1 launched {runs['launches']['prefix_scan']} times for "
+             f"{n_contigs} contigs of tumor and normal")
+    if runs["grid_calls"] != {"device": 1, "numpy": 0}:
+        fail(f"the CUDA run did not take the device grid: "
+             f"{runs['grid_calls']}")
+    vcf = runs["cuda"]["out"] / "tumor_CNV.vcf.gz"
+    same_vcf(vcf, runs["cpu"]["out"] / "tumor_CNV.vcf.gz")
+    calls = check_enrichment_calls(vcf, panel["plan"])
+    header = gzip.open(vcf, "rt").read()
+    local_sd = re.search(r"^##LocalSDmetric=(.*)$", header, re.M)
+    even = runs["cuda"]["out"] / "Checkpoints" / "EvennessMetric_tumor.txt"
+    bins = sum(1 for _ in gzip.open(runs["cuda"]["out"] / "Checkpoints"
+                                    / "CanvasClean_tumor.cleaned.gz", "rt"))
+    return {"phase": "e2e-somatic-wgs", "genome_bp": sum(ENR_CONTIGS.values()),
+            "contigs": n_contigs, "cleaned_bins": bins,
+            "vcf_cuda_equals_cpu": True, "launches": runs["launches"],
+            "grid_calls": runs["grid_calls"],
+            "evenness": (float(even.read_text()) if even.exists() else None),
+            "local_sd_metric": local_sd.group(1) if local_sd else None,
+            "events": calls,
+            **{dev: {"wall_s": runs[dev]["wall_s"],
+                     "stages": runs[dev]["stages"]}
+               for dev in ("cuda", "cpu")}}
+
+
+def gc_tracks(seed: int, length: int) -> dict:
+    """One contig's tracks for GCContentWeighted binning, made by numpy:
+    80 % possible positions, 41 % G/C, read starts at 0.3 a position and
+    per-position weights from a 101-entry observed/expected table."""
+    rng = np.random.default_rng(seed + 50)
+    ratio = rng.uniform(0.5, 2.0, 101).astype(np.float32)
+    return {"possible": rng.integers(0, 5, length, dtype=np.uint8) != 0,
+            "observed": rng.poisson(0.3, length).astype(np.uint8),
+            "is_gc": rng.integers(0, 100, length, dtype=np.uint8) < 41,
+            "offset": 10_000,
+            "gc_weights": ratio[rng.integers(0, 101, length, dtype=np.uint8)]}
+
+
+def phase_gc_bin(seed: int, dev: torch.device) -> dict:
+    """GCContentWeighted binning at chr1 length on the card and on the
+    CPU (float64 row sums, rounded): equal bins, both times."""
+    from canvas_tpu_torch.ops import binning
+
+    tracks = {"chr1": gc_tracks(seed, CHR1_LEN)}
+    res, secs = {}, {}
+    for name, d in (("cuda", dev), ("cuda_again", dev),
+                    ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        res[name] = binning.bin_sample(tracks, GC_BIN_SIZE,
+                                       mode="GCContentWeighted",
+                                       device=d)["chr1"]
+        secs[name] = time.perf_counter() - t0
+    for field, a, b in zip(("start", "end", "gc", "count"), res["cuda"],
+                           res["cpu"]):
+        if not np.array_equal(a, b):
+            n = int((a != b).sum()) if a.shape == b.shape else -1
+            fail(f"GC-weighted {field} differs between cuda and cpu at {n} "
+                 f"bins")
+    counts = res["cuda"][3]
+    return {"phase": "gc-bin", "positions": CHR1_LEN, "bin_size": GC_BIN_SIZE,
+            "bins": len(counts), "count_sum": float(counts.sum(dtype=np.float64)),
+            "equal": True, "cuda_s": secs["cuda"],
+            "cuda_again_s": secs["cuda_again"], "cpu_s": secs["cpu"]}
+
+
+def wgs_coverage(seed: int, lengths: list[int]) -> tuple[dict, dict]:
+    """NB(WGS_MEAN) coverage of each contig at 500 bp bins with the
+    WGS_EVENTS cycled along it; returns (coverage, events as (kind, start
+    bin, end bin))."""
+    rng = np.random.default_rng(seed + 40)
+    p = WGS_NB_SIZE / (WGS_NB_SIZE + WGS_MEAN)
+    cov, events = {}, {}
+    k = 0
+    for i, length in enumerate(lengths):
+        name = f"chr{i + 1}"
+        n = -(-length // DECODE_BIN)
+        c = rng.negative_binomial(WGS_NB_SIZE, p, n).astype(np.float64)
+        evs = []
+        pos = int(rng.integers(*WGS_EVENT_SPACING))
+        while True:
+            kind, scale, lo, hi = WGS_EVENTS[k % len(WGS_EVENTS)]
+            size = int(rng.integers(lo, hi))
+            if pos + size + WGS_EVENT_SPACING[0] > n:
+                break
+            k += 1
+            if scale:
+                q = WGS_NB_SIZE / (WGS_NB_SIZE + WGS_MEAN * scale)
+                c[pos:pos + size] = rng.negative_binomial(WGS_NB_SIZE, q, size)
+            else:
+                c[pos:pos + size] = 0.0
+            evs.append((kind, pos, pos + size))
+            pos += size + int(rng.integers(*WGS_EVENT_SPACING))
+        cov[name], events[name] = c, evs
+    return cov, events
+
+
+def phase_wgs_partition(seed: int, lengths: list[int] = HG38) -> dict:
+    """The Wavelets partition on the host at whole-genome size, timed stage
+    by stage, with chr1's segmentation timed step by step."""
+    from canvas_tpu_torch.config import CanvasConfig
+    from canvas_tpu_torch.ops import metrics, stats, wavelets
+
+    cfg = CanvasConfig()
+    t0 = time.perf_counter()
+    cov, events = wgs_coverage(seed, lengths)
+    secs = {"generate": time.perf_counter() - t0}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    cv = timed("coverage_variability", metrics.coverage_variability, cov,
+               cfg.evenness_score_window)
+    cmads = timed("factor_of_three_cmads", metrics.factor_of_three_cmads, cov)
+    evenness = timed("evenness_score", metrics.evenness_score, cov,
+                     cfg.evenness_score_window)
+    bps = {}
+    for flavour, germline in (("germline", True), ("somatic", False)):
+        bps[flavour] = timed(
+            f"segment_coverage_{flavour}", wavelets.segment_coverage, cov,
+            germline, cv, cmads, mad_factor=cfg.mad_factor,
+            threshold_lower=cfg.threshold_lower_maf)
+    # the germline flavour again, one contig after another in this thread
+    # (segment_coverage runs a thread per contig)
+    serial = timed("segment_coverage_germline_serial", lambda: {
+        name: wavelets.haar_wavelets(c, cfg.threshold_lower_maf, 80.0, True,
+                                     cfg.mad_factor, cv, cmads)
+        for name, c in cov.items()})
+    if serial != bps["germline"]:
+        fail("the serial germline segmentation differs from segment_coverage")
+    # chr1 alone, haar_wavelets' steps one by one (germline)
+    x = cov["chr1"]
+    steps = {}
+
+    def step(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        steps[name] = time.perf_counter() - t0
+        return out
+
+    tree, smooth = step("decompose", wavelets.decompose, x)
+    variability = (stats.median(x) * cv if cv is not None else stats.mad(x))
+    threshold = min(max(cfg.mad_factor * variability,
+                        cfg.threshold_lower_maf), 80.0)
+    step("hard_threshold", wavelets.hard_threshold, tree, threshold, True)
+    rec = step("reconstruct", wavelets.reconstruct, tree, smooth)
+    prelim = wavelets.breakpoints_from_reconstruction(rec)
+    healed = step("heal_bad_splits", wavelets.heal_bad_splits, prelim, x,
+                  cmads)
+    refined = step("refine_segments", wavelets.refine_segments, healed, x)
+    if refined != bps["germline"]["chr1"]:
+        fail("chr1's step-by-step segmentation differs from segment_coverage")
+    # distance from each planted end to the nearest breakpoint
+    ends = {}
+    for flavour, by_contig in bps.items():
+        dist, missed = [], []
+        for name, evs in events.items():
+            b = np.asarray(by_contig[name])
+            for kind, s0, e in evs:
+                for at in (s0, e):
+                    d = int(np.abs(b - at).min(initial=len(x)))
+                    dist.append(d)
+                    if d > WGS_MISS_BINS:
+                        missed.append((name, kind, s0, e, d))
+        if missed:
+            fail(f"{flavour}: planted events without a breakpoint within "
+                 f"{WGS_MISS_BINS} bins of an end: {missed[:8]}")
+        dist = np.asarray(dist)
+        ends[flavour] = {"ends": len(dist),
+                         "within_2": int((dist <= 2).sum()),
+                         "within_2_share": float((dist <= 2).mean()),
+                         "max_bins": int(dist.max()),
+                         "by_distance": np.bincount(dist).tolist()}
+    return {"phase": "wgs-partition", "contigs": len(cov),
+            "bins": sum(len(c) for c in cov.values()),
+            "chr1_bins": len(x),
+            "events": sum(len(v) for v in events.values()),
+            "coverage_variability": cv, "evenness": evenness,
+            "event_ends": ends,
+            "breakpoints": {f: sum(len(v) for v in b.values())
+                            for f, b in bps.items()},
+            "host_s": secs, "chr1_host_s": steps,
+            "chr1_tree_levels": len(tree),
+            "chr1_tree_nodes": sum(len(lv) for lv in tree)}
+
+
 def _timing(res: dict) -> dict:
     return {k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")}
@@ -965,23 +1273,38 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    build = phase_build()
-    emit(build)
-    b1 = phase_b1(args.seed, dev)
-    emit(b1)
-    b2, b3 = phase_b2_b3(args.seed, dev)
-    emit(b2)
-    emit(b3)
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def run(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        for res in (out if isinstance(out, tuple) else (out,)):
+            if isinstance(res, dict) and "phase" in res:
+                res["phase_s"] = phase_s[name]
+                emit(res)
+        return out
+
+    run("build", phase_build)
+    b1 = run("B1", phase_b1, args.seed, dev)
+    b2, b3 = run("B2/B3", phase_b2_b3, args.seed, dev)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        e2e = phase_e2e(args.seed, Path(workdir))
-    emit(e2e)
-    b4 = phase_b4(args.seed, dev)
-    emit(b4)
+        e2e = run("e2e", phase_e2e, args.seed, Path(workdir))
+        germ = run("e2e-germline", phase_e2e_germline, Path(workdir))
+    b4 = run("B4", phase_b4, args.seed, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_enr_") as workdir:
-        enr = phase_e2e_enrichment(args.seed, Path(workdir))
-        emit(enr)
-        emit(phase_cbs(Path(workdir), dev))
+        enr, panel = run("e2e-enrichment", phase_e2e_enrichment, args.seed,
+                         Path(workdir))
+        run("CBS", phase_cbs, Path(workdir), dev)
+        swgs = run("e2e-somatic-wgs", phase_e2e_somatic_wgs, panel,
+                   Path(workdir))
+    run("gc-bin", phase_gc_bin, args.seed, dev)
+    torch.cuda.empty_cache()
+    run("wgs-partition", phase_wgs_partition, args.seed)
+    emit({"phase_seconds": phase_s,
+          "total_s": time.perf_counter() - t_start})
 
     launches = e2e["launches"]
     top = b4["shapes"][0]
@@ -989,7 +1312,9 @@ def main() -> int:
         {"name": "prefix_scan", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/prefix_scan.cu",
          "replaces": "canvas_tpu/ops/prefix_pallas.py:80",
-         "launches": launches["prefix_scan"], **_timing(b1)},
+         "launches": (launches["prefix_scan"]
+                      + germ["launches"]["prefix_scan"]
+                      + swgs["launches"]["prefix_scan"]), **_timing(b1)},
         {"name": "chunk_matrix", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/viterbi.cu",
          "replaces": "canvas_tpu/ops/viterbi_pallas.py:100",

@@ -117,7 +117,18 @@ def test_bin_sample_matches_canvas_tpu(mode, force_fused):
 
 
 def test_bin_sample_gc_weighted_not_ported():
-    with pytest.raises(NotImplementedError):
-        binning.bin_sample(_sample_tracks(1), 97, mode="GCContentWeighted",
-                           device="cpu")
+    """GCContentWeighted binning is ported now: the sample's bins, GC and
+    counts equal canvas_tpu's (its non-fused pass on the CPU)."""
+    tracks = _sample_tracks(1)
+    rng = np.random.default_rng(1)
+    for t in tracks.values():
+        t["gc_weights"] = rng.uniform(0.5, 2.0, len(t["possible"])).astype(
+            np.float32)
+    got = binning.bin_sample(tracks, 97, mode="GCContentWeighted",
+                             device="cpu")
+    want = jax_binning.bin_sample(tracks, 97, mode="GCContentWeighted")
+    assert set(got) == set(want)
+    for name in want:
+        for g, w in zip(got[name], want[name]):
+            np.testing.assert_array_equal(g, w)
 

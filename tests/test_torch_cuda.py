@@ -300,3 +300,67 @@ def test_frontier_engine_on_card_equals_cpu(dev):
     want = cbs_device.run_cbs_device(cov, n_perm=1000, device="cpu")
     for k in cov:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("lengths,scale", [
+    ((1, 999, 5_003, 200_017), 1.0),
+    ((70_001, 3_333), 0.01),          # tiny weights: most values capped
+    ((123_457,), 50.0),               # large weights: small fractions
+])
+def test_gc_weighted_bin_sample_on_card_equals_cpu(dev, lengths, scale):
+    """GCContentWeighted binning on ragged contigs: starts, ends, GC and the
+    rounded float64 row sums equal on the card and on the CPU."""
+    from canvas_tpu_torch.ops import binning
+
+    rng = np.random.default_rng(len(lengths))
+    ratio = (rng.uniform(0.3, 3.0, 101) * scale).astype(np.float32)
+    tracks = {f"c{i}": dict(possible=rng.random(n) < 0.8,
+                            observed=rng.poisson(2.0, n).astype(np.uint8),
+                            is_gc=rng.random(n) < 0.45,
+                            offset=int(rng.integers(0, min(n, 500))),
+                            gc_weights=ratio[rng.integers(0, 101, n)])
+              for i, n in enumerate(lengths)}
+    got = binning.bin_sample(tracks, 97, mode="GCContentWeighted", device=dev)
+    want = binning.bin_sample(tracks, 97, mode="GCContentWeighted",
+                              device="cpu")
+    assert set(got) == set(want)
+    for name in want:
+        for a, b in zip(got[name], want[name]):
+            np.testing.assert_array_equal(a, b)
+    whole_bins = sum(int(t["possible"][t["offset"]:].sum()) // 97
+                     for t in tracks.values())
+    assert sum(len(v[0]) for v in want.values()) == whole_bins > 500
+
+
+@pytest.mark.parametrize("clusters", [False, True])
+def test_evaluate_grid_on_card_equals_numpy(dev, clusters):
+    """The float64 grid on the card: the numpy oracle's CN assignments and
+    chosen model, floats within 1e-12 relative."""
+    from canvas_tpu_torch.models import segment_model, somatic, somatic_grid
+
+    rng = np.random.default_rng(8)
+    n = 160
+    infos = []
+    for i in range(n):
+        seg = segment_model.Segment("chr1", i * 100_000, (i + 1) * 100_000,
+                                    np.full(10, 1.0, np.float32))
+        cov = float(rng.choice([20.0, 30.0, 40.0, 50.0]) + rng.normal(0, 1))
+        maf = float(rng.uniform(0.1, 0.5)) if i % 4 else -1.0
+        infos.append(somatic.SegmentInfo(seg, cov, maf,
+                                         float(rng.uniform(1, 5))))
+    kw = {}
+    if clusters:
+        kw = dict(cluster_ids=rng.integers(1, 9, n), n_clusters=8,
+                  mean_coverage=30.0)
+    cov = np.repeat(np.arange(10.0, 60.0), 81)
+    pur = np.tile(np.arange(20, 101) / 100.0, 50)
+    args = (cov, pur, infos, somatic.initialize_ploidies(30.0), 0.02,
+            3_000_000)
+    got = somatic_grid.evaluate_grid(*args, device=dev, **kw)
+    want = somatic_grid.evaluate_grid_numpy(*args, **kw)
+    np.testing.assert_array_equal(got["cns"], want["cns"])
+    assert int(np.argmin(got["deviation"])) == int(np.argmin(want["deviation"]))
+    for k in want:
+        if k != "cns":
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-12, atol=0,
+                                       err_msg=k)

@@ -143,13 +143,25 @@ def test_cli_tumor_normal_matches_library_run(reference_dir, inputs, runs,
     assert _body(out / "tumor_CNV.vcf.gz") == _body(ot / "tumor_CNV.vcf.gz")
 
 
-def test_cli_enrichment_needs_manifest(reference_dir, inputs, tmp_path):
+def test_cli_enrichment_needs_manifest(reference_dir, inputs, tmp_path,
+                                      capsys):
+    """Without --manifest an enrichment mode warns and runs whole-genome
+    binning (Somatic-WGS), as canvas_tpu's CLI does."""
+    from canvas_tpu.pipeline import cli as jax_cli
     from canvas_tpu_torch.pipeline import cli
 
-    rc = cli.main(["Somatic-Enrichment", "--device", "cpu", "-b",
-                   str(inputs["tumor"]), "-n", "tumor", "-r",
-                   str(reference_dir), "-o", str(tmp_path / "o")])
-    assert rc == 2
+    args = ["Somatic-Enrichment", "-b", str(inputs["tumor"]), "-n", "tumor",
+            "--sample-b-allele-vcf", str(inputs["vcf"]),
+            "-r", str(reference_dir)]
+    assert jax_cli.main([*args, "-o", str(tmp_path / "jax")]) == 0
+    capsys.readouterr()
+    assert cli.main([*args, "--device", "cpu",
+                     "-o", str(tmp_path / "torch")]) == 0
+    assert "without --manifest" in capsys.readouterr().err
+    assert _body(tmp_path / "torch" / "tumor_CNV.vcf.gz") == \
+        _body(tmp_path / "jax" / "tumor_CNV.vcf.gz")
+    assert not (tmp_path / "torch" / "tumor_profile.json").read_text() \
+        .count("CanvasPartitionCbsEngine")
 
 
 def _fragment_bam(path: Path) -> None:

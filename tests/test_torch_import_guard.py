@@ -35,6 +35,7 @@ def test_package_and_cli_import_without_jax():
         "import canvas_tpu_torch.ops.fragments\n"
         "import canvas_tpu_torch.ops.clustering\n"
         "import canvas_tpu_torch.ops.meanshift\n"
+        "import canvas_tpu_torch.ops.metrics, canvas_tpu_torch.ops.wavelets\n"
         "import canvas_tpu_torch.io.manifest\n"
         "import canvas_tpu_torch.models.diploid\n"
         "import canvas_tpu_torch.models.somatic\n"
