@@ -213,12 +213,15 @@ def bin_contig_weighted(
     (k*bin_size, (k+1)*bin_size], so the live possible positions, gathered
     in order, fall into bins of exactly bin_size each: the first
     n_bins * bin_size of their capped values, viewed [n_bins, bin_size], are
-    the bins' members.  Each row is summed in float64 and banker's-rounded
-    (C# Math.Round): a fixed order on each device, no atomics, and the two
-    devices' sums agree far below the 0.5 that rounding needs.
+    the bins' members.  Each row is summed in float32 in position order, one
+    column added to all bins at a time, and banker's-rounded (C#
+    Math.Round): the same IEEE adds in the same order on every device, so
+    the counts are equal on CUDA and the CPU and equal to canvas_tpu's
+    float32 segment sum.  torch.sum and torch.cumsum would not do: their
+    order and accumulator differ by device.
 
     Returns (start, end, gc_count, count) for the whole bins: int64 starts
-    and exclusive ends, int32 GC counts, float64 rounded counts."""
+    and exclusive ends, int32 GC counts, float32 rounded counts."""
     dev = possible.device
     L = possible.shape[0]
     p = possible.clone()
@@ -228,7 +231,7 @@ def bin_contig_weighted(
     n_bins = total // bin_size
     if n_bins == 0:
         z = torch.zeros(0, dtype=torch.int64, device=dev)
-        return z, z, z.to(torch.int32), z.to(torch.float64)
+        return z, z, z.to(torch.int32), z.to(torch.float32)
     targets = torch.arange(1, n_bins + 1, dtype=torch.int32,
                            device=dev) * bin_size
     ends = torch.searchsorted(pcum, targets, right=False)
@@ -237,9 +240,12 @@ def bin_contig_weighted(
     gccum0 = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
                         torch.cumsum(is_gc, 0, dtype=torch.int32)])
     gc_count = gccum0[ends + 1] - gccum0[starts]
-    members = capped[p][:n_bins * bin_size].view(n_bins, bin_size)
-    counts = torch.round(members.to(torch.float64).sum(dim=1))
-    return starts, ends + 1, gc_count, counts
+    # [bin_size, n_bins]: each step adds one contiguous row to every bin
+    cols = capped[p][:n_bins * bin_size].view(n_bins, bin_size).T.contiguous()
+    acc = cols[0].clone()
+    for j in range(1, bin_size):
+        acc += cols[j]
+    return starts, ends + 1, gc_count, torch.round(acc)
 
 
 def _bin_weighted(t: dict, bin_size: int, dev: torch.device):

@@ -1,4 +1,5 @@
-"""5-state negative-binomial HMM segmentation (CanvasPartition PerSampleHMM).
+"""5-state negative-binomial HMM segmentation (CanvasPartition PerSampleHMM
+and the joint multi-sample HMM).
 
 Reference semantics (CanvasPartition/HMM.cs, HiddenMarkovModelsRunner.cs,
 Distributions.cs):
@@ -10,6 +11,10 @@ Distributions.cs):
     mode uses genome-wide median and IQR^2 pseudo-variance);
   * data clamped at max(haploidMean)*nStates before table build (:154-162);
   * table indices are Convert.ToInt32 = round-half-even of the coverage;
+  * the multivariate "genotype permutation" emission takes the max over
+    assignments of each sample to state CN or diploid (Distributions.cs:
+    257-297), with states {0,1} and {3,4} sharing a per-factor max when
+    useAllStates=false (the joint HMM);
   * the transition cost reduces to transition[prev][cur], so decode is a
     standard time-varying-emission Viterbi.
 
@@ -23,6 +28,8 @@ wrappers).
 """
 
 from __future__ import annotations
+
+from itertools import permutations as _permutations
 
 import numpy as np
 import torch
@@ -65,6 +72,37 @@ def negative_binomial_table(mean, variance, max_value: int) -> np.ndarray:
     return np.where(np.isfinite(dens), dens, 0.0)
 
 
+def multivariate_poisson_likelihood(means, x) -> float:
+    """MultivariatePoissonDistribution.EstimateLikelihood
+    (CanvasPartition/Distributions.cs:79-114): product of independent
+    Poisson pmfs over the samples axis, with the reference's NaN/Inf ->
+    0.0 guard (so extreme counts underflow to a hard zero instead of
+    propagating non-finite values into the mixture).  The reference keeps
+    this as the alternative HMM emission next to the production
+    NegativeBinomialMixture (HMM.cs:30)."""
+    from scipy import stats as _sps
+
+    means = np.asarray(means, dtype=np.float64)
+    counts = np.rint(np.asarray(x, dtype=np.float64)).astype(np.int64)
+    with np.errstate(over="ignore", invalid="ignore"):
+        lik = float(np.prod(_sps.poisson.pmf(counts, means)))
+    return lik if np.isfinite(lik) else 0.0
+
+
+def genotype_combinations(n_dim: int, state: int) -> list[tuple[int, ...]]:
+    """DistributionUtilities.GetGenotypeCombinations (Distributions.cs:187-204):
+    distinct permutations of (state × (n-k), 2 × k) for k in 0..n-1."""
+    combos: list[tuple[int, ...]] = []
+    seen = set()
+    for k in range(n_dim):
+        base = (state,) * (n_dim - k) + (2,) * k
+        for p in sorted(set(_permutations(base))):
+            if p not in seen:
+                seen.add(p)
+                combos.append(p)
+    return combos
+
+
 def build_emission_tables(
     coverage: np.ndarray,      # [T, D] per-bin coverage for D samples
     n_states: int = N_STATES,
@@ -97,6 +135,80 @@ def build_emission_tables(
     tables = negative_binomial_table(
         means, np.broadcast_to(var, means.shape), max_value)
     return tables, haploid, cov
+
+
+def _log_tables(tables: np.ndarray) -> np.ndarray:
+    """log of the NB densities in float64 (tiny densities stay
+    representable), NEG_INF where a density is 0."""
+    return np.where(np.asarray(tables) > 0,
+                    np.log(np.maximum(np.asarray(tables, np.float64),
+                                      1e-300)), NEG_INF)
+
+
+def emission_log_probs(
+    coverage: torch.Tensor,  # [B, T, D] f32 (clamped)
+    tables,                  # [S, D, V] densities, host float64
+    mask: torch.Tensor,      # [B, T] bool
+    use_all_states: bool = True,
+) -> torch.Tensor:
+    """log max-over-genotype emission [B, T, S] on coverage's device.
+
+    Factorizes over samples: log em(j) = max_g sum_d log f(g_d, d, x_d) with
+    g ranging over genotype_combinations(D, j).  Each factor is a gather of
+    the float32 log table at round-half-even(x_d); the factors of a genotype
+    add in sample order ((f0 + f1) + f2), then the max over genotypes.  That
+    is canvas_tpu's one-hot contraction bit for bit (each one-hot row selects
+    one entry, and NEG_INF is finite), on every device: a gather, adds in a
+    fixed order and maxima are exact IEEE operations."""
+    S, D, V = tables.shape
+    dev = coverage.device
+    logt = torch.as_tensor(_log_tables(tables).astype(np.float32),
+                           device=dev)
+    if not use_all_states:
+        # joint-HMM grouped per-factor max (Distributions.cs:278-285)
+        g01 = torch.maximum(logt[0], logt[1])
+        g34 = torch.maximum(logt[3], logt[4])
+        logt = torch.stack([g01, g01, logt[2], g34, g34])
+    idx = torch.clamp(torch.round(coverage).to(torch.int64), 0, V - 1)
+    # factor[s, b, t, d] = logt[s, d, idx[b, t, d]]
+    d_idx = torch.arange(D, device=dev).expand_as(idx)
+    factor = logt[:, d_idx, idx]                              # [S,B,T,D]
+    ems = []
+    for j in range(S):
+        geno = genotype_combinations(D, j)                    # [G][D]
+        acc = torch.stack([factor[g[0], ..., 0] for g in geno], dim=-1)
+        for d in range(1, D):
+            acc = acc + torch.stack([factor[g[d], ..., d] for g in geno],
+                                    dim=-1)
+        ems.append(acc.amax(dim=-1))                          # [B, T]
+    em = torch.stack(ems, dim=-1)                             # [B, T, S]
+    return torch.where(mask[..., None], em,
+                       torch.zeros((), dtype=em.dtype, device=dev))
+
+
+def _emission_log_probs_np(cov: np.ndarray, tables: np.ndarray,
+                           use_all_states: bool) -> np.ndarray:
+    """Host float64 oracle of emission_log_probs for one contig:
+    [T, D] -> [T, S] (genotype-permutation max, Distributions.cs:257-297)."""
+    S, D, V = tables.shape
+    logt = _log_tables(tables)
+    if not use_all_states:
+        g01 = np.maximum(logt[0], logt[1])
+        g34 = np.maximum(logt[3], logt[4])
+        logt = logt.copy()
+        logt[0] = logt[1] = g01
+        logt[3] = logt[4] = g34
+    idx = np.clip(np.rint(cov).astype(np.int64), 0, V - 1)      # [T, D]
+    T = idx.shape[0]
+    factor = np.empty((T, S, D))                                # [T, S, D]
+    for d in range(D):
+        factor[:, :, d] = logt[:, d, idx[:, d]].T
+    ems = []
+    for j in range(S):
+        combos = np.array(genotype_combinations(D, j))           # [G, D]
+        f = factor[:, combos, np.arange(D)[None]]                # [T, G, D]
+        ems.append(f.sum(axis=-1).max(axis=-1))
+    return np.stack(ems, axis=-1)                                # [T, S]
 
 
 def log_transition(n_states: int = N_STATES, self_p: float = SELF_TRANSITION):
@@ -399,10 +511,7 @@ def batched_emissions(
         cov[b, :lengths[n]] = c
         mask[b, :lengths[n]] = True
 
-    logt_np = np.where(tables > 0,
-                       np.log(np.maximum(np.asarray(tables, np.float64),
-                                         1e-300)), NEG_INF)
-    logt = np.asarray(logt_np[:, 0, :], np.float32)        # [S, V]
+    logt = np.asarray(_log_tables(tables)[:, 0, :], np.float32)  # [S, V]
 
     cov_t = torch.as_tensor(cov, device=dev)
     mask_t = torch.as_tensor(mask, device=dev)
@@ -438,4 +547,117 @@ def segment_coverage_batched(
                                    chunk=chunk).cpu().numpy()
     for b, n in enumerate(live):
         out[n] = breakpoints_from_path(paths[b, :lengths[n]])
+    return out
+
+
+def joint_emissions(
+    coverage_by_contig: dict[str, np.ndarray],   # contig -> [T_c, D] or [T_c]
+    n_states: int = N_STATES,
+    min_size: int = 10,
+    device: str | torch.device = "cuda",
+):
+    """The joint multi-sample HMM decode's inputs for all contigs.
+
+    Joint mode (HiddenMarkovModelsRunner.cs 'HMM') builds NB tables per
+    contig (the contig's median and variance of each sample) and the
+    grouped genotype-permutation emission, computed per contig on `device`;
+    the contigs then sit as padded lanes of one [B, T, S] emission tensor,
+    B and T padded to powers of two as in canvas_tpu (padding lanes have
+    all-False masks).  1-D coverage is one sample.
+
+    Returns (live contig names, their lengths, log_em f32 [B, T, S] and
+    mask bool [B, T] on `device`, log_trans [S, S], log_init [S]); live is
+    empty when no contig has more than min_size bins.  Asking for a
+    missing card raises."""
+    dev = resolve_device(device)
+    lengths = {n: np.asarray(c).shape[0]
+               for n, c in coverage_by_contig.items()}
+    live = [n for n in coverage_by_contig if lengths[n] > min_size]
+    log_trans = log_transition(n_states)
+    log_init = np.log(np.full(n_states, 1.0 / n_states, np.float32))
+    if not live:
+        return live, lengths, None, None, log_trans, log_init
+    T = _next_pow2(max(lengths[n] for n in live))
+    B = _next_pow2(len(live))
+    log_em = torch.zeros((B, T, n_states), dtype=torch.float32, device=dev)
+    mask = torch.zeros((B, T), dtype=torch.bool, device=dev)
+    for b, n in enumerate(live):
+        cov = np.asarray(coverage_by_contig[n], np.float64)
+        if cov.ndim == 1:
+            cov = cov[:, None]
+        tables, _, clamped = build_emission_tables(cov, n_states)
+        x = torch.as_tensor(clamped.astype(np.float32), device=dev)[None]
+        ones = torch.ones((1, lengths[n]), dtype=torch.bool, device=dev)
+        log_em[b, :lengths[n]] = emission_log_probs(
+            x, tables, ones, use_all_states=False)[0]
+        mask[b, :lengths[n]] = True
+    return live, lengths, log_em, mask, log_trans, log_init
+
+
+def segment_coverage_joint_batched(
+    coverage_by_contig: dict[str, np.ndarray],   # contig -> [T_c, D] or [T_c]
+    n_states: int = N_STATES,
+    min_size: int = 10,
+    chunk: int = 256,
+    device: str | torch.device = "cuda",
+) -> dict[str, list[int]]:
+    """Joint multi-sample HMM over ALL contigs in one batched decode on
+    `device` (see joint_emissions): on a CUDA device the decode runs
+    kernels B2 and B3, on the CPU their plain versions.  Returns contig ->
+    breakpoint indices.  Asking for a missing card raises."""
+    live, lengths, log_em, mask, log_trans, log_init = joint_emissions(
+        coverage_by_contig, n_states, min_size, device)
+    out: dict[str, list[int]] = {n: [0] for n in coverage_by_contig
+                                 if n not in live}
+    if not live:
+        return out
+    paths = viterbi_decode_chunked(log_em, mask, log_trans, log_init,
+                                   chunk=chunk).cpu().numpy()
+    for b, n in enumerate(live):
+        out[n] = breakpoints_from_path(paths[b, :lengths[n]])
+    return out
+
+
+def segment_coverage(
+    coverage_by_contig: dict[str, np.ndarray],  # contig -> [T_c, D]
+    per_sample: bool = True,
+    n_states: int = N_STATES,
+    min_size: int = 10,
+    chunk: int = 256,
+    device: str | torch.device = "cuda",
+) -> dict[str, list[int]]:
+    """Run the HMM over every contig, one decode a contig on `device`;
+    returns contig -> breakpoint indices.
+
+    per_sample=True mirrors PerSampleHMM (genome-wide median/IQR^2 of each
+    sample, every genotype state); False mirrors the joint multi-sample HMM
+    (per-contig stats, grouped emission max).  Asking for a missing card
+    raises."""
+    dev = resolve_device(device)
+    if per_sample:
+        allcov = np.concatenate(list(coverage_by_contig.values()), axis=0)
+        quarts = [stats.quartiles(allcov[:, d].astype(np.float32))
+                  for d in range(allcov.shape[1])]
+        medians = np.array([q[1] for q in quarts])
+        pseudo_vars = np.array([q[2] - q[0] for q in quarts]) ** 2
+    else:
+        medians = pseudo_vars = None
+
+    log_trans = log_transition(n_states)
+    log_init = np.log(np.full(n_states, 1.0 / n_states, np.float32))
+    out: dict[str, list[int]] = {}
+    for name, cov in coverage_by_contig.items():
+        T = cov.shape[0]
+        if T <= min_size:
+            out[name] = [0]
+            continue
+        tables, _, clamped = build_emission_tables(
+            cov, n_states, medians, pseudo_vars)
+        x = torch.as_tensor(clamped.astype(np.float32), device=dev)[None]
+        mask = torch.ones((1, T), dtype=torch.bool, device=dev)
+        log_em = emission_log_probs(x, tables, mask,
+                                    use_all_states=per_sample)
+        path = viterbi_decode_chunked(log_em, mask, log_trans, log_init,
+                                      chunk=chunk).cpu().numpy()[0]
+        out[name] = breakpoints_from_path(path)
     return out

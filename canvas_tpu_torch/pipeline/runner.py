@@ -15,11 +15,13 @@ Modes (Canvas/Program.cs:13-23):
   SmallPedigree-WGS        per-sample HMM, joint pedigree caller
 
 The run's device (WorkflowContext.device) is explicit: binning runs kernel
-B1 there (GCContentWeighted its float64 row sums), the PerSampleHMM decode
-kernels B2 and B3, the pedigree joint likelihood and the somatic model grid
-their float64 contractions, and CBS its frontier engine with the arc-scan
-kernel B4 (on a CUDA device; on the CPU the host CBS path runs).  The
-wavelet partition and the coverage metrics are host numpy on every device.
+B1 there (GCContentWeighted its float32 row sums in position order), the
+PerSampleHMM and joint (HMM) decodes kernels B2 and B3, the joint HMM its
+genotype-permutation emissions, the pedigree joint likelihood and the
+somatic model grid their float64 contractions, and CBS its frontier engine
+with the arc-scan kernel B4 (on a CUDA device; on the CPU the host CBS path
+runs).  The wavelet partition, the coverage metrics and the common-CNV set
+choice are host numpy on every device.
 """
 
 from __future__ import annotations
@@ -477,11 +479,7 @@ def run_partition(
 
     Returns sample -> contig -> list[Segment] (with confidence intervals)."""
     cfg = ctx.config
-    if method == "HMM":
-        raise NotImplementedError(
-            f"partition method {method!r} is not ported to canvas_tpu_torch "
-            f"yet")
-    if method not in ("PerSampleHMM", "Wavelets", "CBS"):
+    if method not in ("PerSampleHMM", "HMM", "Wavelets", "CBS"):
         raise ValueError(f"unknown partition method {method}")
     per_sample_spans: dict[str, dict[str, list[segops.Span]]] = {}
     cov_cache = {name: coverage_by_contig(b) for name, b in samples_bins.items()}
@@ -493,6 +491,12 @@ def run_partition(
         if method == "PerSampleHMM":
             # all contigs in one batched decode on the run's device
             bps = hmm.segment_coverage_batched(cov, device=ctx.device)
+        elif method == "HMM":
+            # joint multi-sample decode: every contig's [T, D] coverage of
+            # all samples as lanes of one decode on the run's device
+            bps = hmm.segment_coverage_joint_batched(
+                {c: np.stack([cov_cache[n][c] for n in samples_bins], axis=1)
+                 for c in cov}, device=ctx.device)
         elif method == "Wavelets":
             # host numpy on every device, as in canvas_tpu
             cv = metrics.coverage_variability(cov, cfg.evenness_score_window)
@@ -515,8 +519,14 @@ def run_partition(
             spans[c] = segops.derive_segments(
                 bps.get(c, [0]) or [0], len(starts), starts, ends)
         per_sample_spans[name] = spans
+        if method == "HMM":
+            break  # joint segmentation: one pass covers all samples
 
-    if len(samples_bins) > 1:
+    if method == "HMM":
+        for name in samples_bins:
+            per_sample_spans[name] = per_sample_spans[next(iter(
+                per_sample_spans))]
+    elif len(samples_bins) > 1:
         # SplitOverlappingSegments across samples (PerSampleHMM / CBS paths)
         contigs_all = set()
         for spans in per_sample_spans.values():
@@ -927,14 +937,68 @@ def somatic_wgs(ctx: WorkflowContext, tumor: Sample,
     return out
 
 
+def _apply_common_cnvs(
+    ctx: WorkflowContext,
+    samples: list[Sample],
+    parts: dict[str, dict[str, list]],
+    common_cnvs_bed: str,
+) -> dict[str, dict[str, list]]:
+    """Common-CNV SetA/SetB alternative segmentation
+    (CanvasPedigreeCaller.CreateSegmentSetsFromCommonCnvs :211-331)."""
+    from canvas_tpu_torch.models import common_cnv as cc
+    from canvas_tpu_torch.models import pedigree as ped
+    from canvas_tpu_torch.tools.evaluate_cnv import load_exclude_bed
+
+    intervals_by_contig = load_exclude_bed(common_cnvs_bed)
+    names = [s.name for s in samples]
+    # build regions per sample/contig
+    regions_by_contig: dict[str, dict[str, list[cc.OverlappingRegion]]] = {}
+    for contig, intervals in intervals_by_contig.items():
+        per_sample = {}
+        ok = True
+        for name in names:
+            segs = parts[name].get(contig)
+            if not segs:
+                ok = False
+                break
+            starts = np.concatenate([s.bin_starts for s in segs])
+            ends = np.concatenate([s.bin_ends for s in segs])
+            counts = np.concatenate([s.bin_counts for s in segs])
+            common_segs = cc.common_segments_from_bed(
+                intervals, contig, starts, ends, counts)
+            per_sample[name] = cc.merge_common_cnv_segments(segs, common_segs)
+        if not ok:
+            continue
+        n_regions = {len(v) for v in per_sample.values()}
+        if len(n_regions) != 1:
+            continue  # asymmetric merges; keep original segmentation
+        regions_by_contig[contig] = per_sample
+    if not regions_by_contig:
+        return parts
+    # per-sample stats/models for the set choice
+    stats_by_sample = {
+        n: ped.SampleStats.from_segments(_flatten(parts[n], ctx.contigs))
+        for n in names}
+    models = {
+        n: ped.CopyNumberModel(ped.MAX_COPY_NUMBER,
+                               stats_by_sample[n].max_coverage,
+                               stats_by_sample[n].mean_coverage,
+                               stats_by_sample[n].mean_maf_coverage)
+        for n in names}
+    out = {n: dict(parts[n]) for n in names}
+    for contig, per_sample in regions_by_contig.items():
+        cc.choose_best_sets(per_sample, stats_by_sample, models,
+                            ped.MAX_COPY_NUMBER)
+        for n in names:
+            out[n][contig] = cc.resolve_regions(per_sample[n])
+    return out
+
+
 def small_pedigree_wgs(ctx: WorkflowContext, samples: list[Sample],
                        common_cnvs_bed: str | None = None) -> Path:
     """SmallPedigree-WGS: per-sample bin/clean -> multisample intersection ->
-    PerSampleHMM -> joint pedigree caller -> multi-sample VCF."""
-    if common_cnvs_bed:
-        raise NotImplementedError(
-            "--common-cnvs-bed needs models/common_cnv.py, which is not "
-            "ported to canvas_tpu_torch yet")
+    PerSampleHMM (or the joint HMM) [-> common-CNV segment sets] -> joint
+    pedigree caller -> multi-sample VCF."""
     cleaned: dict[str, BinSet] = {}
     ploidies: dict[str, PloidyInfo | None] = {}
     prof = profiling.reset(ctx.device)
@@ -979,6 +1043,8 @@ def small_pedigree_wgs(ctx: WorkflowContext, samples: list[Sample],
         parts = run_partition(ctx, cleaned,
                               ctx.config.partition_method or "PerSampleHMM",
                               is_germline=True)
+        if common_cnvs_bed:
+            parts = _apply_common_cnvs(ctx, samples, parts, common_cnvs_bed)
     segs_by_sample: dict[str, list] = {}
     with prof.stage("CanvasSNV"):
         for s in samples:

@@ -83,7 +83,30 @@ Phases, one JSON line each; any failure exits non-zero:
              event has a breakpoint within WGS_MISS_BINS of each end, and
              the share of ends with one within 2 bins is printed (the
              unbalanced Haar split lands a few bins off on about 5 % of
-             ends, in both packages alike).
+             ends, in both packages alike);
+ 12. joint-decode
+             the joint multi-sample HMM at whole-genome size: phase
+             wgs-partition's coverage as the proband, two parents of fresh
+             NB coverage that each carry a seeded half of its events (every
+             N-gap), [T, 3] a contig, through
+             hmm.segment_coverage_joint_batched on the card (32 lanes x
+             524,288 bins x 5 states of emissions, kernels B2 and B3): the
+             paths equal to the plain decode on the card, the emissions
+             equal to the same torch emission computed on the CPU, the
+             seconds of the tables (host), the emissions (tables included)
+             and the decode, and the share of the proband's event ends
+             with a breakpoint within WGS_MISS_BINS;
+ 13. e2e-joint
+             (run after e2e-germline) SmallPedigree-WGS through the CLI
+             entry point on phase e2e's trio, twice, each with --device
+             cuda and again with --device cpu: (a) the joint multi-sample
+             HMM (--custom-parameters "CanvasPartition,-m HMM"), whose one
+             decode of the trio is one B2 and one B3 launch, and (b)
+             PerSampleHMM with --common-cnvs-bed, one interval over the
+             shared chr1 gain from 500 bp into it (called as a forced
+             common-CNV set, flagged COMMONCNV): identical VCFs, the
+             shared gain and the de novo loss called, the stage times and
+             launches of both runs.
 
 Each phase's line carries its seconds (`phase_s`).  It then prints the
 phases' seconds and the total, the card's name and power limit, one JSON
@@ -611,6 +634,7 @@ def run_both(args: list[str], out_prefix: Path, profile: str) -> dict:
     kernel launches and model-grid calls, both runs' wall and stage
     seconds."""
     from canvas_tpu_torch.models import somatic_grid
+    from canvas_tpu_torch.ops import viterbi_cuda
     from canvas_tpu_torch.pipeline import cli
 
     runs = {}
@@ -619,18 +643,22 @@ def run_both(args: list[str], out_prefix: Path, profile: str) -> dict:
         if dev == "cuda":
             reset_launches()
             grid0 = dict(somatic_grid.CALLS)
+            chains0 = dict(viterbi_cuda.CHAINS)
         t0 = time.perf_counter()
         rc = cli.main([*args, "-o", str(out), "--device", dev])
         if dev == "cuda":
             torch.cuda.synchronize()
             launches = read_launches()
             grid = {k: v - grid0[k] for k, v in somatic_grid.CALLS.items()}
+            chains = {k: v - chains0[k]
+                      for k, v in viterbi_cuda.CHAINS.items()}
         wall = time.perf_counter() - t0
         if rc != 0:
             fail(f"{args[0]} on {dev} exited {rc}")
         runs[dev] = {"wall_s": wall, "out": out,
                      "stages": profile_stages(out / profile)}
-    return {"launches": launches, "grid_calls": grid, **runs}
+    return {"launches": launches, "grid_calls": grid, "b2_chains": chains,
+            **runs}
 
 
 def same_vcf(a: Path, b: Path) -> None:
@@ -1056,6 +1084,60 @@ def phase_e2e_germline(workdir: Path) -> dict:
                for dev in ("cuda", "cpu")}}
 
 
+def phase_e2e_joint(workdir: Path) -> dict:
+    """SmallPedigree-WGS on phase e2e's trio with the joint HMM (-m HMM)
+    and, separately, with PerSampleHMM and a common-CNV bed over the
+    shared gain."""
+    n_contigs, n_samples = len(TRIO_CONTIGS), len(PLANS)
+    # the common CNV starts 500 bp into the gain: the bin across the gain's
+    # start is a segment of its own, and MergeCommonCnvSegments pairs a
+    # common interval starting there with that bin and drops it
+    bed = workdir / "common_cnvs.bed"
+    bed.write_text(f"{GAIN[0]}\t{GAIN[1] + 500}\t{GAIN[2]}\n")
+    args = ["SmallPedigree-WGS",
+            "--bams", *[str(workdir / f"{n}.bam") for n in PLANS],
+            "--names", *PLANS, "--types", *[TYPES[n] for n in PLANS],
+            "-r", str(workdir / "ref")]
+    # decodes a run needs: one for the trio (joint) or one a sample
+    variants = {"hmm": (["--custom-parameters", "CanvasPartition,-m HMM"],
+                        1),
+                "common_cnvs": (["--common-cnvs-bed", str(bed)], n_samples)}
+    out = {"phase": "e2e-joint", "genome_bp": sum(TRIO_CONTIGS.values()),
+           "contigs": n_contigs, "samples": n_samples}
+    for name, (extra, decodes) in variants.items():
+        runs = run_both([*args, *extra], workdir / f"joint_{name}",
+                        "pedigree_profile.json")
+        want = {"prefix_scan": n_contigs * n_samples,
+                "chunk_matrix": decodes, "forward_backtrack": decodes}
+        got = {k: runs["launches"][k] for k in want}
+        if got != want:
+            fail(f"{name}: kernel launches {got}, the path needs {want}")
+        if runs["b2_chains"] != {"uniform": decodes, "general": 0}:
+            fail(f"{name}: B2 did not take the uniform chain: "
+                 f"{runs['b2_chains']}")
+        for vcf in ["CNV.vcf.gz", *[f"{n}_CNV.vcf.gz" for n in PLANS]]:
+            same_vcf(runs["cuda"]["out"] / vcf, runs["cpu"]["out"] / vcf)
+        vcf = runs["cuda"]["out"] / "CNV.vcf.gz"
+        calls = check_calls(vcf)
+        common = [r[:2] + [r[7]] for r in vcf_records(vcf)[1]
+                  if "COMMONCNV" in r[7].split(";")]
+        if name == "common_cnvs" and not any(
+                r[0] == GAIN[0] and int(r[1]) < GAIN[2] for r in common):
+            fail(f"no COMMONCNV record over the common-CNV interval: "
+                 f"{common}")
+        out[name] = {"vcf_cuda_equals_cpu": True,
+                     "launches": runs["launches"],
+                     "b2_chains": runs["b2_chains"], "calls": calls,
+                     "common_cnv_records": common,
+                     **{dev: {"wall_s": runs[dev]["wall_s"],
+                              "stages": runs[dev]["stages"]}
+                        for dev in ("cuda", "cpu")}}
+    out["launches"] = {k: out["hmm"]["launches"][k]
+                       + out["common_cnvs"]["launches"][k]
+                       for k in out["hmm"]["launches"]}
+    return out
+
+
 def phase_e2e_somatic_wgs(panel: dict, workdir: Path) -> dict:
     """Somatic-WGS (no manifest) on the enrichment phase's tumor, normal and
     het-site VCF, whose reads cover the whole 30 Mbp."""
@@ -1108,7 +1190,8 @@ def gc_tracks(seed: int, length: int) -> dict:
 
 def phase_gc_bin(seed: int, dev: torch.device) -> dict:
     """GCContentWeighted binning at chr1 length on the card and on the
-    CPU (float64 row sums, rounded): equal bins, both times."""
+    CPU (float32 row sums in position order, rounded): equal bins, both
+    times."""
     from canvas_tpu_torch.ops import binning
 
     tracks = {"chr1": gc_tracks(seed, CHR1_LEN)}
@@ -1256,6 +1339,112 @@ def phase_wgs_partition(seed: int, lengths: list[int] = HG38) -> dict:
             "chr1_tree_nodes": sum(len(lv) for lv in tree)}
 
 
+def joint_coverage(seed: int, lengths: list[int]) -> tuple[dict, dict]:
+    """[T, 3] coverage a contig (father, mother, proband): the proband is
+    wgs_coverage's, each parent fresh NB(WGS_MEAN) coverage carrying a
+    seeded half of the proband's events (every N-gap).  Returns (coverage,
+    the proband's events)."""
+    proband, events = wgs_coverage(seed, lengths)
+    scale = {kind: sc for kind, sc, _lo, _hi in WGS_EVENTS}
+    rng = np.random.default_rng(seed + 60)
+    p = WGS_NB_SIZE / (WGS_NB_SIZE + WGS_MEAN)
+    cov = {}
+    for name, c in proband.items():
+        parents = []
+        for _ in range(2):
+            x = rng.negative_binomial(WGS_NB_SIZE, p, len(c)).astype(
+                np.float64)
+            for kind, s0, e in events[name]:
+                if kind != "n_gap" and rng.random() < 0.5:
+                    continue
+                if scale[kind]:
+                    q = WGS_NB_SIZE / (WGS_NB_SIZE + WGS_MEAN * scale[kind])
+                    x[s0:e] = rng.negative_binomial(WGS_NB_SIZE, q, e - s0)
+                else:
+                    x[s0:e] = 0.0
+            parents.append(x)
+        cov[name] = np.stack([*parents, c], axis=1)
+    return cov, events
+
+
+def phase_joint_decode(seed: int, dev: torch.device,
+                       lengths: list[int] = HG38) -> dict:
+    """The joint multi-sample HMM of a trio at whole-genome size on the
+    card, held against the plain decode (card) and the CPU emissions."""
+    from canvas_tpu_torch.ops import hmm
+    from canvas_tpu_torch.ops import viterbi_cuda as vc
+
+    t0 = time.perf_counter()
+    cov, events = joint_coverage(seed, lengths)
+    secs = {"generate": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    for c in cov.values():
+        hmm.build_emission_tables(c)
+    secs["tables"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    live, live_len, em, mask, lt, li = hmm.joint_emissions(cov, device=dev)
+    torch.cuda.synchronize()
+    secs["emissions"] = time.perf_counter() - t0
+    B, T, S = em.shape
+    if (B, T, S) != (32, 524_288, 5):
+        fail(f"joint emission shape {(B, T, S)} is not the production shape")
+    reset_launches()
+    t0 = time.perf_counter()
+    path_k = hmm.viterbi_decode_chunked(em, mask, lt, li, chunk=CHUNK)
+    torch.cuda.synchronize()
+    secs["decode"] = time.perf_counter() - t0
+    launches = read_launches()
+    if (launches["chunk_matrix"], launches["forward_backtrack"]) != (1, 1):
+        fail(f"the joint decode launched {launches}, not one B2 and one B3")
+    path_p = hmm.viterbi_decode_chunked(em, mask, lt, li, chunk=CHUNK,
+                                        plain=True)
+    if not torch.equal(path_k, path_p):
+        n = int((path_k != path_p).sum())
+        fail(f"joint paths differ from the plain decode at {n} bins")
+    del path_p
+    t0 = time.perf_counter()
+    em_cpu = hmm.joint_emissions(cov, device="cpu")[2]
+    secs["emissions_cpu"] = time.perf_counter() - t0
+    if not torch.equal(em.cpu().view(torch.int32), em_cpu.view(torch.int32)):
+        n = int((em.cpu() != em_cpu).any(dim=-1).sum())
+        fail(f"joint emissions on the card differ from the CPU at {n} bins")
+    tied = bool(torch.equal(em[..., 0], em[..., 1])
+                and torch.equal(em[..., 3], em[..., 4]))
+    del em_cpu, em
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bps = hmm.segment_coverage_joint_batched(cov, chunk=CHUNK, device=dev)
+    torch.cuda.synchronize()
+    secs["segment_coverage_joint_batched"] = time.perf_counter() - t0
+    paths = path_k.cpu().numpy()
+    for b, name in enumerate(live):
+        if bps[name] != hmm.breakpoints_from_path(paths[b, :live_len[name]]):
+            fail(f"{name}: segment_coverage_joint_batched's breakpoints "
+                 f"differ from its decode's")
+    dist = []
+    for name, evs in events.items():
+        b = np.asarray(bps[name])
+        for _kind, s0, e in evs:
+            dist.extend(int(np.abs(b - at).min()) for at in (s0, e))
+    dist = np.asarray(dist)
+    n_bins = sum(len(c) for c in cov.values())
+    return {"phase": "joint-decode", "contigs": len(cov), "samples": 3,
+            "bins": n_bins, "shape": [B, T, S], "chunk": CHUNK,
+            "coverage_bytes": 8 * 3 * n_bins,
+            "emission_bytes": 4 * B * T * S,
+            "paths_equal_plain": True, "emissions_equal_cpu": True,
+            "states_0_1_and_3_4_tied": tied, "launches": launches,
+            "b2_chain": "uniform" if vc.uniform_transitions(lt) is not None
+            else "general",
+            "non_diploid_bins": int(((path_k != 2) & mask).sum()),
+            "breakpoints": sum(len(v) for v in bps.values()),
+            "event_ends": len(dist),
+            "within_miss_bins_share": float((dist <= WGS_MISS_BINS).mean()),
+            "within_2_share": float((dist <= 2).mean()),
+            "host_s": secs}
+
+
 def _timing(res: dict) -> dict:
     return {k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")}
@@ -1293,6 +1482,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         e2e = run("e2e", phase_e2e, args.seed, Path(workdir))
         germ = run("e2e-germline", phase_e2e_germline, Path(workdir))
+        joint = run("e2e-joint", phase_e2e_joint, Path(workdir))
     b4 = run("B4", phase_b4, args.seed, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_enr_") as workdir:
         enr, panel = run("e2e-enrichment", phase_e2e_enrichment, args.seed,
@@ -1303,6 +1493,8 @@ def main() -> int:
     run("gc-bin", phase_gc_bin, args.seed, dev)
     torch.cuda.empty_cache()
     run("wgs-partition", phase_wgs_partition, args.seed)
+    torch.cuda.empty_cache()
+    run("joint-decode", phase_joint_decode, args.seed, dev)
     emit({"phase_seconds": phase_s,
           "total_s": time.perf_counter() - t_start})
 
@@ -1314,15 +1506,19 @@ def main() -> int:
          "replaces": "canvas_tpu/ops/prefix_pallas.py:80",
          "launches": (launches["prefix_scan"]
                       + germ["launches"]["prefix_scan"]
+                      + joint["launches"]["prefix_scan"]
                       + swgs["launches"]["prefix_scan"]), **_timing(b1)},
         {"name": "chunk_matrix", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/viterbi.cu",
          "replaces": "canvas_tpu/ops/viterbi_pallas.py:100",
-         "launches": launches["chunk_matrix"], **_timing(b2)},
+         "launches": (launches["chunk_matrix"]
+                      + joint["launches"]["chunk_matrix"]), **_timing(b2)},
         {"name": "forward_backtrack", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/viterbi.cu",
          "replaces": "canvas_tpu/ops/viterbi_pallas.py:139",
-         "launches": launches["forward_backtrack"], **_timing(b3)},
+         "launches": (launches["forward_backtrack"]
+                      + joint["launches"]["forward_backtrack"]),
+         **_timing(b3)},
         {"name": "arc_scan", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/arc_scan.cu",
          "replaces": "canvas_tpu/ops/cbs_device.py:200",

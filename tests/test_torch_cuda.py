@@ -185,6 +185,53 @@ def test_segment_coverage_batched_on_card_equals_cpu(dev):
         hmm.segment_coverage_batched(cov, device="cpu")
 
 
+@pytest.mark.parametrize("D", [1, 2, 3])
+@pytest.mark.parametrize("use_all_states", [True, False])
+def test_joint_emission_on_card_equals_cpu(dev, D, use_all_states):
+    """The genotype-permutation emission: gathers, adds in sample order and
+    maxima, bit-equal on the card and on the CPU."""
+    rng = np.random.default_rng(10 + D)
+    cov = rng.poisson(100.0, (3_000, D)).astype(np.float64)
+    cov[500:900, 0] *= 1.5
+    tables, _, clamped = hmm.build_emission_tables(cov)
+    x = torch.as_tensor(clamped.astype(np.float32))[None]
+    mask = torch.ones((1, 3_000), dtype=torch.bool)
+    mask[0, 2_500:] = False
+    got = hmm.emission_log_probs(x.to(dev), tables, mask.to(dev),
+                                 use_all_states=use_all_states)
+    want = hmm.emission_log_probs(x, tables, mask,
+                                  use_all_states=use_all_states)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_joint_decode_on_card_equals_plain(dev):
+    """The joint decode of a trio's contigs: kernels B2 and B3 against their
+    plain versions on the card, breakpoints against the CPU run; states
+    0/1 and 3/4 tie in every bin."""
+    rng = np.random.default_rng(6)
+    cov = {}
+    for i in range(5):
+        c = rng.poisson(100.0, (int(rng.integers(500, 9_000)), 3)).astype(
+            float)
+        c[100:300, 1:] = rng.poisson(150.0, (200, 2))
+        c[400:480, 2] = rng.poisson(50.0, 80)
+        cov[f"chr{i + 1}"] = c
+    live, lengths, em, mask, lt, li = hmm.joint_emissions(cov, device=dev)
+    assert torch.equal(em[..., 0], em[..., 1])
+    assert torch.equal(em[..., 3], em[..., 4])
+    before = dict(viterbi_cuda.LAUNCHES)
+    got = hmm.viterbi_decode_chunked(em, mask, lt, li)
+    torch.cuda.synchronize()
+    assert viterbi_cuda.LAUNCHES["chunk_matrix"] == \
+        before["chunk_matrix"] + 1
+    assert viterbi_cuda.LAUNCHES["forward_backtrack"] == \
+        before["forward_backtrack"] + 1
+    want = hmm.viterbi_decode_chunked(em, mask, lt, li, plain=True)
+    assert torch.equal(got, want)
+    assert hmm.segment_coverage_joint_batched(cov, device=dev) == \
+        hmm.segment_coverage_joint_batched(cov, device="cpu")
+
+
 def test_batched_joint_likelihood_on_card_equals_cpu(dev):
     rng = np.random.default_rng(5)
     for n_children in (1, 2):
@@ -309,7 +356,8 @@ def test_frontier_engine_on_card_equals_cpu(dev):
 ])
 def test_gc_weighted_bin_sample_on_card_equals_cpu(dev, lengths, scale):
     """GCContentWeighted binning on ragged contigs: starts, ends, GC and the
-    rounded float64 row sums equal on the card and on the CPU."""
+    rounded float32 row sums (position order) equal on the card and on the
+    CPU."""
     from canvas_tpu_torch.ops import binning
 
     rng = np.random.default_rng(len(lengths))

@@ -1,5 +1,6 @@
-"""canvas_tpu_torch stands alone: it imports neither jax nor canvas_tpu,
-and a run that asks for a CUDA device where there is none raises."""
+"""canvas_tpu_torch stands alone: it imports neither jax nor canvas_tpu (nor,
+until its plot tool draws, matplotlib), and a run that asks for a CUDA
+device where there is none raises."""
 
 import re
 import subprocess
@@ -40,9 +41,16 @@ def test_package_and_cli_import_without_jax():
         "import canvas_tpu_torch.models.diploid\n"
         "import canvas_tpu_torch.models.somatic\n"
         "import canvas_tpu_torch.models.somatic_grid\n"
+        "import canvas_tpu_torch.models.common_cnv\n"
+        "import canvas_tpu_torch.tools.evaluate_cnv\n"
+        "import canvas_tpu_torch.tools.copy_number_oracle\n"
+        "import canvas_tpu_torch.tools.sweep_parameters\n"
+        "import canvas_tpu_torch.tools.optimize_somatic_model\n"
+        "import canvas_tpu_torch.tools.plot_somatic_model\n"
+        "import canvas_tpu_torch.wrapper\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m == 'canvas_tpu' or m.startswith('canvas_tpu.')\n"
-        "            or m.split('.')[0] == 'jax')]\n"
+        "            or m.split('.')[0] in ('jax', 'matplotlib'))]\n"
         "print('LOADED', bad)\n")
     assert res.returncode == 0, res.stderr
     assert "LOADED []" in res.stdout
