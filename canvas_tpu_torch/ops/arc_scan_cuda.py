@@ -159,10 +159,11 @@ def arc_scan(cs, n, lag_hi, seed, psd2, al0: int):
                           device=dev)
     best = torch.empty(B, dtype=torch.float32, device=dev)
     bl0 = torch.empty(B, dtype=torch.int32, device=dev)
-    status = lib.arc_scan(
+    status = cuda_lib.launch(
+        dev, lib.arc_scan,
         cs.data_ptr(), n.data_ptr(), lag_hi.data_ptr(), seed.data_ptr(),
         psd2.data_ptr(), scratch.data_ptr(), best.data_ptr(), bl0.data_ptr(),
-        B, npad, al0, cuda_lib.current_stream(dev))
+        B, npad, al0)
     cuda_lib.check(status, "arc_scan")
     LAUNCHES["arc_scan"] += 1
     return best, bl0

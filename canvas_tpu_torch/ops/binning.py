@@ -37,6 +37,7 @@ import torch
 
 from canvas_tpu_torch.config import resolve_device
 from canvas_tpu_torch.ops import prefix_cuda, stats
+from canvas_tpu_torch.parallel.mesh import lane_devices
 
 TRUNCATED_CAP = 10
 
@@ -299,10 +300,21 @@ def _device_ref_tracks(possible: np.ndarray, is_gc: np.ndarray, pad: int,
     total = int(np.count_nonzero(p))
     dp = torch.as_tensor(prefix_cuda.pack_bits(p)).to(device)
     dg = torch.as_tensor(prefix_cuda.pack_bits(g)).to(device)
-    if len(_DEVICE_TRACKS) >= 64:
+    # the cap covers contigs x devices (24 x 8 = 192 on an 8-card host)
+    if len(_DEVICE_TRACKS) >= 256:
         _DEVICE_TRACKS.pop(next(iter(_DEVICE_TRACKS)))
     _DEVICE_TRACKS[key] = (possible, pad, dp, dg, total)
     return dp, dg, total
+
+
+def contig_placement(tracks: dict[str, dict],
+                     devices: list[torch.device]) -> dict[str, torch.device]:
+    """Contigs round-robin over `devices`, longest first (the reference's
+    process-per-chromosome fan-out, CanvasRunner.cs:333-389, and its
+    OrderByDescending launch order, :343), so the long poles start
+    first."""
+    order = sorted(tracks, key=lambda c: -len(tracks[c]["possible"]))
+    return {c: devices[i % len(devices)] for i, c in enumerate(order)}
 
 
 def bin_sample(
@@ -311,6 +323,7 @@ def bin_sample(
     mode: str = "TruncatedDynamicRange",
     force_fused: bool | None = None,
     device: str | torch.device = "cuda",
+    devices=None,
 ):
     """Bin all contigs of one sample.
 
@@ -326,8 +339,17 @@ def bin_sample(
     GCContentWeighted takes bin_contig_weighted on the run's device, CUDA
     or CPU, as canvas_tpu takes its non-fused device pass on every backend.
     The device is resolved first: asking for a missing card raises.
+
+    The fused path places the contigs round-robin (contig_placement) over
+    the lane devices of parallel.mesh.lane_devices(device, devices): every
+    visible card for an unindexed "cuda", the `devices` mesh where one is
+    given (whose first device is then the run's device), one device with
+    sharding disabled.  An indexed "cuda:k" pins every contig to card k.
+    Each contig's B1 launches on its own device; every contig is
+    dispatched before any result is copied back.
     """
-    dev = resolve_device(device)
+    devs = lane_devices(device, devices)
+    dev = resolve_device(device) if devices is None else devs[0]
     use_fused = (dev.type == "cuda") if force_fused is None else force_fused
     if mode == "GCContentWeighted":
         return {name: _bin_weighted(t, bin_size, dev)
@@ -337,20 +359,22 @@ def bin_sample(
     out = {}
     pending: dict[str, torch.Tensor] = {}
     host_batch: list[str] = []
+    placement = contig_placement(tracks, devs) if use_fused else {}
     for name, t in tracks.items():
         if use_fused:
             off = int(t["offset"])
             L = len(t["possible"])
             pad = (-L) % prefix_cuda.TILE
+            cdev = placement[name]
             p_dev, gc_dev, total = _device_ref_tracks(
-                t["possible"], t["is_gc"], pad, dev)
+                t["possible"], t["is_gc"], pad, cdev)
             obs_u8 = np.asarray(t["observed"], dtype=np.uint8)
             if pad:
                 obs_u8 = np.pad(obs_u8, (0, pad))
             max_bins = _next_pow2(max(total // bin_size, 1))
             # every contig is dispatched before any result is copied back
             pending[name] = bin_contig_device_fused(
-                p_dev, torch.as_tensor(obs_u8).to(dev), gc_dev, off, L,
+                p_dev, torch.as_tensor(obs_u8).to(cdev), gc_dev, off, L,
                 bin_size, max_bins, cap=_FUSED_CAPS[mode])
         else:
             # CPU device: the exact numpy path (int-valued cumsums) is

@@ -93,6 +93,17 @@ def current_stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def launch(device: torch.device, entry, *args) -> int:
+    """Call a kernel's C entry point with `device` made the current CUDA
+    device, and the stream of `device` as its last argument.  The entry
+    point launches on the current device, and its memsets and
+    cudaFuncSetAttribute act on it too, so all of them belong to the
+    device of the tensors, whichever device the caller had current.
+    Returns the entry point's status."""
+    with torch.cuda.device(device):
+        return entry(*args, current_stream(device))
+
+
 def require_cuda_tensor(name: str, x: torch.Tensor, dtype: torch.dtype,
                         device: torch.device | None = None) -> None:
     """Raise unless x is a contiguous CUDA tensor of the given dtype (on

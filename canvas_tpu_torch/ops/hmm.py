@@ -36,6 +36,7 @@ import torch
 
 from canvas_tpu_torch.config import resolve_device
 from canvas_tpu_torch.ops import stats, viterbi_cuda
+from canvas_tpu_torch.parallel.mesh import lane_devices, split_lanes
 
 N_STATES = 5
 SELF_TRANSITION = 0.99
@@ -160,10 +161,20 @@ def emission_log_probs(
     is canvas_tpu's one-hot contraction bit for bit (each one-hot row selects
     one entry, and NEG_INF is finite), on every device: a gather, adds in a
     fixed order and maxima are exact IEEE operations."""
-    S, D, V = tables.shape
-    dev = coverage.device
     logt = torch.as_tensor(_log_tables(tables).astype(np.float32),
-                           device=dev)
+                           device=coverage.device)
+    return emissions_from_log_tables(coverage, logt, mask, use_all_states)
+
+
+def emissions_from_log_tables(
+    coverage: torch.Tensor,  # [B, T, D] f32 (clamped)
+    logt: torch.Tensor,      # [S, D, V] f32 log densities, NEG_INF for 0
+    mask: torch.Tensor,      # [B, T] bool
+    use_all_states: bool = True,
+) -> torch.Tensor:
+    """emission_log_probs from log tables already on coverage's device."""
+    S, D, V = logt.shape
+    dev = coverage.device
     if not use_all_states:
         # joint-HMM grouped per-factor max (Distributions.cs:278-285)
         g01 = torch.maximum(logt[0], logt[1])
@@ -463,6 +474,58 @@ def _next_pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
+def _batched_inputs(coverage_by_contig, n_states, min_size, min_lanes=1):
+    """The host half of the PerSampleHMM decode's inputs: (live contig
+    names, their lengths, coverage f32 [B, T] clamped at the table's top,
+    mask bool [B, T], log table f32 [S, V], log_trans [S, S], log_init
+    [S]); coverage, mask and table are None when no contig is live.  B is
+    at least next_pow2(min_lanes), as canvas_tpu pads lanes to the device
+    count."""
+    names = list(coverage_by_contig)
+    lengths = {n: len(np.atleast_1d(coverage_by_contig[n]).squeeze())
+               for n in names}
+    live = [n for n in names if lengths[n] > min_size]
+    log_trans = np.asarray(log_transition(n_states), np.float32)
+    log_init = np.log(np.full(n_states, 1.0 / n_states, np.float32))
+    if not live:
+        return live, lengths, None, None, None, log_trans, log_init
+
+    allcov = np.concatenate(
+        [np.asarray(coverage_by_contig[n], np.float64).reshape(-1)
+         for n in live])
+    q = stats.quartiles(allcov.astype(np.float32))
+    median = q[1]
+    pseudo_var = (q[2] - q[0]) ** 2
+    tables, _, _ = build_emission_tables(
+        allcov[:, None], n_states, np.array([median]), np.array([pseudo_var]))
+    max_threshold = median / 2.0 * n_states
+
+    T = _next_pow2(max(lengths[n] for n in live))
+    B = max(_next_pow2(len(live)), _next_pow2(min_lanes))
+    cov = np.zeros((B, T), dtype=np.float32)
+    mask = np.zeros((B, T), dtype=bool)
+    for b, n in enumerate(live):
+        c = np.minimum(np.asarray(coverage_by_contig[n],
+                                  np.float64).reshape(-1), max_threshold)
+        cov[b, :lengths[n]] = c
+        mask[b, :lengths[n]] = True
+
+    logt = np.asarray(_log_tables(tables)[:, 0, :], np.float32)  # [S, V]
+    return live, lengths, cov, mask, logt, log_trans, log_init
+
+
+def _lookup_emissions(cov: torch.Tensor, mask: torch.Tensor,
+                      logt: torch.Tensor) -> torch.Tensor:
+    """log_em f32 [B, T, S] on cov's device: the log table [S, V] at the
+    round-half-even of each bin's coverage (Convert.ToInt32; torch.round
+    rounds half to even like np.rint), 0 where the mask is False."""
+    V = logt.shape[1]
+    idx = torch.clamp(torch.round(cov).to(torch.int64), 0, V - 1)
+    return torch.where(mask[..., None], logt.T[idx],
+                       torch.zeros((), dtype=torch.float32,
+                                   device=cov.device))
+
+
 def batched_emissions(
     coverage_by_contig: dict[str, np.ndarray],  # contig -> [T_c] (one sample)
     n_states: int = N_STATES,
@@ -482,47 +545,24 @@ def batched_emissions(
     empty when no contig has more than min_size bins.  Asking for a
     missing card raises."""
     dev = resolve_device(device)
-    names = list(coverage_by_contig)
-    lengths = {n: len(np.atleast_1d(coverage_by_contig[n]).squeeze())
-               for n in names}
-    live = [n for n in names if lengths[n] > min_size]
-    log_trans = np.asarray(log_transition(n_states), np.float32)
-    log_init = np.log(np.full(n_states, 1.0 / n_states, np.float32))
+    live, lengths, cov, mask, logt, log_trans, log_init = _batched_inputs(
+        coverage_by_contig, n_states, min_size)
     if not live:
         return live, lengths, None, None, log_trans, log_init
-
-    allcov = np.concatenate(
-        [np.asarray(coverage_by_contig[n], np.float64).reshape(-1)
-         for n in live])
-    q = stats.quartiles(allcov.astype(np.float32))
-    median = q[1]
-    pseudo_var = (q[2] - q[0]) ** 2
-    tables, _, _ = build_emission_tables(
-        allcov[:, None], n_states, np.array([median]), np.array([pseudo_var]))
-    max_threshold = median / 2.0 * n_states
-
-    T = _next_pow2(max(lengths[n] for n in live))
-    B = _next_pow2(len(live))
-    cov = np.zeros((B, T), dtype=np.float32)
-    mask = np.zeros((B, T), dtype=bool)
-    for b, n in enumerate(live):
-        c = np.minimum(np.asarray(coverage_by_contig[n],
-                                  np.float64).reshape(-1), max_threshold)
-        cov[b, :lengths[n]] = c
-        mask[b, :lengths[n]] = True
-
-    logt = np.asarray(_log_tables(tables)[:, 0, :], np.float32)  # [S, V]
-
-    cov_t = torch.as_tensor(cov, device=dev)
     mask_t = torch.as_tensor(mask, device=dev)
-    logt_t = torch.as_tensor(logt, device=dev)
-    V = logt_t.shape[1]
-    # table index = round-half-even of the coverage (Convert.ToInt32);
-    # torch.round rounds half to even like np.rint
-    idx = torch.clamp(torch.round(cov_t).to(torch.int64), 0, V - 1)
-    log_em = torch.where(mask_t[..., None], logt_t.T[idx],
-                         torch.zeros((), dtype=torch.float32, device=dev))
+    log_em = _lookup_emissions(torch.as_tensor(cov, device=dev), mask_t,
+                               torch.as_tensor(logt, device=dev))
     return live, lengths, log_em, mask_t, log_trans, log_init
+
+
+def _decode_lanes(log_em_parts, mask_parts, log_trans, log_init,
+                  chunk: int) -> np.ndarray:
+    """Decode each lane group on its own device, then bring the paths to
+    the host in lane order.  Every group is queued before any path is
+    copied back."""
+    paths = [viterbi_decode_chunked(em, m, log_trans, log_init, chunk=chunk)
+             for em, m in zip(log_em_parts, mask_parts)]
+    return np.concatenate([p.cpu().numpy() for p in paths])
 
 
 def segment_coverage_batched(
@@ -531,22 +571,35 @@ def segment_coverage_batched(
     min_size: int = 10,
     chunk: int = 256,
     device: str | torch.device = "cuda",
+    devices=None,
 ) -> dict[str, list[int]]:
-    """Per-sample HMM over ALL contigs in one batched decode on `device`
-    (see batched_emissions).  On a CUDA device the decode runs kernels B2
-    and B3; on the CPU their plain versions.  Returns contig ->
-    breakpoint indices.  Asking for a missing card raises."""
-    device = resolve_device(device)
-    live, lengths, log_em, mask, log_trans, log_init = batched_emissions(
-        coverage_by_contig, n_states, min_size, device)
-    out: dict[str, list[int]] = {n: [0] for n in coverage_by_contig
-                                 if n not in live}
+    """Per-sample HMM over ALL contigs in one batched decode (see
+    batched_emissions).  On a CUDA device the decode runs kernels B2 and
+    B3; on the CPU their plain versions.  Returns contig -> breakpoint
+    indices.  Asking for a missing card raises.
+
+    With more than one lane device (parallel.mesh.lane_devices: every
+    visible card for an unindexed "cuda", or the `devices` mesh), B is at
+    least next_pow2(n) and, when n divides it, the lanes split into n
+    contiguous groups: each group looks up its emissions and decodes on
+    its own device, as canvas_tpu's lane-sharded decode does.  Lanes are
+    independent, so no device waits for another."""
+    devs = lane_devices(device, devices)
+    n = len(devs)
+    live, lengths, cov, mask, logt, log_trans, log_init = _batched_inputs(
+        coverage_by_contig, n_states, min_size, min_lanes=n)
+    out: dict[str, list[int]] = {c: [0] for c in coverage_by_contig
+                                 if c not in live}
     if not live:
         return out
-    paths = viterbi_decode_chunked(log_em, mask, log_trans, log_init,
-                                   chunk=chunk).cpu().numpy()
-    for b, n in enumerate(live):
-        out[n] = breakpoints_from_path(paths[b, :lengths[n]])
+    groups = devs if cov.shape[0] % n == 0 else devs[:1]
+    cov_p = split_lanes(torch.as_tensor(cov), groups)
+    mask_p = split_lanes(torch.as_tensor(mask), groups)
+    em_p = [_lookup_emissions(c, m, torch.as_tensor(logt, device=c.device))
+            for c, m in zip(cov_p, mask_p)]
+    paths = _decode_lanes(em_p, mask_p, log_trans, log_init, chunk)
+    for b, c in enumerate(live):
+        out[c] = breakpoints_from_path(paths[b, :lengths[c]])
     return out
 
 
@@ -555,6 +608,7 @@ def joint_emissions(
     n_states: int = N_STATES,
     min_size: int = 10,
     device: str | torch.device = "cuda",
+    min_lanes: int = 1,
 ):
     """The joint multi-sample HMM decode's inputs for all contigs.
 
@@ -563,7 +617,8 @@ def joint_emissions(
     grouped genotype-permutation emission, computed per contig on `device`;
     the contigs then sit as padded lanes of one [B, T, S] emission tensor,
     B and T padded to powers of two as in canvas_tpu (padding lanes have
-    all-False masks).  1-D coverage is one sample.
+    all-False masks), B at least next_pow2(min_lanes).  1-D coverage is
+    one sample.
 
     Returns (live contig names, their lengths, log_em f32 [B, T, S] and
     mask bool [B, T] on `device`, log_trans [S, S], log_init [S]); live is
@@ -578,7 +633,7 @@ def joint_emissions(
     if not live:
         return live, lengths, None, None, log_trans, log_init
     T = _next_pow2(max(lengths[n] for n in live))
-    B = _next_pow2(len(live))
+    B = max(_next_pow2(len(live)), _next_pow2(min_lanes))
     log_em = torch.zeros((B, T, n_states), dtype=torch.float32, device=dev)
     mask = torch.zeros((B, T), dtype=torch.bool, device=dev)
     for b, n in enumerate(live):
@@ -600,21 +655,30 @@ def segment_coverage_joint_batched(
     min_size: int = 10,
     chunk: int = 256,
     device: str | torch.device = "cuda",
+    devices=None,
 ) -> dict[str, list[int]]:
-    """Joint multi-sample HMM over ALL contigs in one batched decode on
-    `device` (see joint_emissions): on a CUDA device the decode runs
-    kernels B2 and B3, on the CPU their plain versions.  Returns contig ->
-    breakpoint indices.  Asking for a missing card raises."""
+    """Joint multi-sample HMM over ALL contigs in one batched decode (see
+    joint_emissions): on a CUDA device the decode runs kernels B2 and B3,
+    on the CPU their plain versions.  Returns contig -> breakpoint
+    indices.  Asking for a missing card raises.
+
+    With more than one lane device (as in segment_coverage_batched) the
+    emissions are computed on the first, then placed lane-split, each
+    group decoding on its own device, as canvas_tpu places its joint
+    emissions over the mesh."""
+    devs = lane_devices(device, devices)
+    n = len(devs)
     live, lengths, log_em, mask, log_trans, log_init = joint_emissions(
-        coverage_by_contig, n_states, min_size, device)
-    out: dict[str, list[int]] = {n: [0] for n in coverage_by_contig
-                                 if n not in live}
+        coverage_by_contig, n_states, min_size, devs[0], min_lanes=n)
+    out: dict[str, list[int]] = {c: [0] for c in coverage_by_contig
+                                 if c not in live}
     if not live:
         return out
-    paths = viterbi_decode_chunked(log_em, mask, log_trans, log_init,
-                                   chunk=chunk).cpu().numpy()
-    for b, n in enumerate(live):
-        out[n] = breakpoints_from_path(paths[b, :lengths[n]])
+    groups = devs if log_em.shape[0] % n == 0 else devs[:1]
+    em_p, mask_p = split_lanes(log_em, groups), split_lanes(mask, groups)
+    paths = _decode_lanes(em_p, mask_p, log_trans, log_init, chunk)
+    for b, c in enumerate(live):
+        out[c] = breakpoints_from_path(paths[b, :lengths[c]])
     return out
 
 

@@ -104,11 +104,11 @@ def fused_prefix_sums(p_bits: torch.Tensor, obs: torch.Tensor,
     # entry point with one cudaMemsetAsync
     state = torch.empty(1 + 3 * (n_pos // TILE), dtype=torch.int64,
                         device=dev)
-    status = lib.prefix_scan(
+    status = cuda_lib.launch(
+        dev, lib.prefix_scan,
         p_bits.data_ptr(), obs.data_ptr(), gc_bits.data_ptr(),
         pcum.data_ptr(), ocum.data_ptr(), gccum.data_ptr(), state.data_ptr(),
-        n_pos, int(offset), int(real_len), int(cap),
-        cuda_lib.current_stream(dev))
+        n_pos, int(offset), int(real_len), int(cap))
     cuda_lib.check(status, "prefix_scan")
     LAUNCHES["prefix_scan"] += 1
     return pcum, ocum, gccum

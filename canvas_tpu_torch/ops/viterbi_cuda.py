@@ -179,9 +179,10 @@ def chunk_matrices(em, base, length, log_trans, log_init):
     if lib.viterbi_n_states() != N_STATES:
         raise RuntimeError("viterbi.cu state count differs from N_STATES")
     out = torch.empty((S, S, L), dtype=torch.float32, device=em.device)
-    status = lib.viterbi_chunk_matrices(
+    status = cuda_lib.launch(
+        em.device, lib.viterbi_chunk_matrices,
         em.data_ptr(), base.data_ptr(), length.data_ptr(), out.data_ptr(),
-        chunk, L, lt, li, int(uniform), cuda_lib.current_stream(em.device))
+        chunk, L, lt, li, int(uniform))
     cuda_lib.check(status, "viterbi_chunk_matrices")
     LAUNCHES["chunk_matrix"] += 1
     CHAINS["uniform" if uniform else "general"] += 1
@@ -207,10 +208,10 @@ def forward_backtrack(em, base, length, start, log_trans, log_init):
     dev = em.device
     paths = torch.empty((chunk, S, L), dtype=torch.int8, device=dev)
     prev_end = torch.empty((S, L), dtype=torch.int8, device=dev)
-    status = lib.viterbi_forward_backtrack(
+    status = cuda_lib.launch(
+        dev, lib.viterbi_forward_backtrack,
         em.data_ptr(), base.data_ptr(), length.data_ptr(), start.data_ptr(),
-        paths.data_ptr(), prev_end.data_ptr(),
-        chunk, L, lt, li, cuda_lib.current_stream(dev))
+        paths.data_ptr(), prev_end.data_ptr(), chunk, L, lt, li)
     cuda_lib.check(status, "viterbi_forward_backtrack")
     LAUNCHES["forward_backtrack"] += 1
     return paths, prev_end

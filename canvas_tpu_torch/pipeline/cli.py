@@ -12,6 +12,10 @@
     python -m canvas_tpu_torch Tumor-normal-enrichment -b tumor.bam \
         --normal-bam normal.bam --manifest targets.bed -n tumor \
         -r refdir -o outdir [--device cuda|cpu]
+
+Any mode runs in several processes with --coordinator HOST:PORT
+--num-processes N --process-id I (one command a process, each with its own
+-o): the processes split CanvasBin's BAM scan and share the read starts.
 """
 
 from __future__ import annotations
@@ -59,6 +63,14 @@ def _common(parser: argparse.ArgumentParser) -> None:
                         help="per-stage flag overrides, e.g. "
                              "'CanvasBin,-m Fragment' (repeatable; the "
                              "reference's --custom-parameters)")
+    parser.add_argument("--coordinator", default=None,
+                        metavar="HOST:PORT",
+                        help="torch.distributed (gloo) rendezvous for runs "
+                             "in several processes, with --num-processes "
+                             "and --process-id: CanvasBin splits its BAM "
+                             "scan over the processes")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="device for binning, segmentation (HMM decode, "
                              "CBS frontier engine), the pedigree "
@@ -263,6 +275,26 @@ def _dispatch(args, ctx, pop_vcf):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.coordinator or args.num_processes is not None \
+            or args.process_id is not None:
+        from canvas_tpu_torch.parallel import distributed
+
+        try:
+            rank, world = distributed.initialize(
+                args.coordinator, args.num_processes, args.process_id)
+        except ValueError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 2
+        print(f"[canvas_tpu_torch] multi-host: process {rank}/{world}",
+              file=sys.stderr)
+        try:
+            return _main(args)
+        finally:
+            distributed.shutdown()
+    return _main(args)
+
+
+def _main(args) -> int:
     from canvas_tpu_torch.config import CanvasConfig, load_parameter_file
 
     config = CanvasConfig()

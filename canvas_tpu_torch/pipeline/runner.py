@@ -14,6 +14,12 @@ Modes (Canvas/Program.cs:13-23):
   Tumor-normal-enrichment  as above with a normal ratio
   SmallPedigree-WGS        per-sample HMM, joint pedigree caller
 
+With more than one device (WorkflowContext.devices, or every visible card
+for an unindexed "cuda"), binning places its contigs round-robin on them
+and the HMM decodes split their lanes over them; with more than one
+process (torch.distributed, see pipeline/cli.py), CanvasBin splits its BAM
+scan over the processes and all-gathers the read starts.
+
 The run's device (WorkflowContext.device) is explicit: binning runs kernel
 B1 there (GCContentWeighted its float32 row sums in position order), the
 PerSampleHMM and joint (HMM) decodes kernels B2 and B3, the joint HMM its
@@ -51,6 +57,7 @@ from canvas_tpu_torch.ops import (binning, cbs, hmm, metrics, normalize,
                                   ratio, wavelets)
 from canvas_tpu_torch.ops import stats as seg_stats
 from canvas_tpu_torch.ops import segments as segops
+from canvas_tpu_torch.parallel import distributed
 from canvas_tpu_torch.pipeline import profiling, segments_io
 
 
@@ -190,6 +197,10 @@ class WorkflowContext:
     # the run's device, "cuda" or "cpu"; a CUDA device that is not there
     # raises here instead of running on the CPU
     device: str | torch.device = "cuda"
+    # the devices binning and the HMM decodes split their contigs over (a
+    # parallel.mesh.Mesh or a list, entries may repeat); None: every
+    # visible card for an unindexed "cuda", else `device` alone
+    devices: object = None
 
     @staticmethod
     def resolve_kmer(reference: str) -> Path:
@@ -245,15 +256,17 @@ class WorkflowContext:
 # Stage functions
 # ---------------------------------------------------------------------------
 
-def ingest_observed(ctx: WorkflowContext,
-                    sample: Sample) -> dict[str, np.ndarray]:
+def ingest_observed(ctx: WorkflowContext, sample: Sample,
+                    contigs: list[str] | None = None
+                    ) -> dict[str, np.ndarray]:
     """Per-contig observed read-start counts from the sample BAM.
 
     Uses the native C++ scanner (multithreaded BGZF + single-pass filter)
-    when available; falls back to the pure-Python reader."""
+    when available; falls back to the pure-Python reader.  `contigs`
+    restricts the scan to a subset (the multi-process contig split)."""
     from canvas_tpu_torch import native
 
-    canonical = ctx.canonical
+    canonical = contigs if contigs is not None else ctx.canonical
     refs = native.read_bam_refs(sample.bam_path) if native.available() else None
     if refs is not None:
         # ONE streaming pass for all contigs; non-canonical refs get a
@@ -368,6 +381,20 @@ def run_bin(ctx: WorkflowContext, sample: Sample,
             # are made and GCContentWeighted bins as TruncatedDynamicRange,
             # as canvas_tpu does (ROADMAP Queue C, C1)
             obs = observed
+        elif distributed.world_size() > 1:
+            # several processes: each scans its size-balanced contig
+            # subset, then the per-contig tracks are all-gathered so every
+            # process holds the full genome (the reference's
+            # per-chromosome intermediate-file merge, CanvasBin.cs:965-1035)
+            mine = distributed.my_contigs(
+                {c: ctx.contigs.length(c) for c in ctx.canonical})
+            profiling.current().note(
+                "CanvasBinScan", process=distributed.rank(),
+                processes=distributed.world_size(), contigs=mine)
+            local = ingest_observed(ctx, sample, contigs=mine)
+            obs = distributed.all_gather_host_data(
+                local, shapes={c: (ctx.contigs.length(c), np.uint8)
+                               for c in ctx.canonical})
         else:
             obs = ingest_observed(ctx, sample)
         bs = bin_size or ctx.config.fixed_bin_size or \
@@ -383,7 +410,8 @@ def run_bin(ctx: WorkflowContext, sample: Sample,
         if mode == "GCContentWeighted" and gc_weights is None:
             mode = "TruncatedDynamicRange"
         per_contig = binning.bin_sample(tracks, bs, mode=mode,
-                                        device=ctx.device)
+                                        device=ctx.device,
+                                        devices=ctx.devices)
         cid, st, en, gc, cnt = [], [], [], [], []
         for i, cname in enumerate(ctx.contigs.names):
             if cname not in per_contig:
@@ -490,13 +518,14 @@ def run_partition(
         cov = cov_cache[name]
         if method == "PerSampleHMM":
             # all contigs in one batched decode on the run's device
-            bps = hmm.segment_coverage_batched(cov, device=ctx.device)
+            bps = hmm.segment_coverage_batched(cov, device=ctx.device,
+                                               devices=ctx.devices)
         elif method == "HMM":
             # joint multi-sample decode: every contig's [T, D] coverage of
             # all samples as lanes of one decode on the run's device
             bps = hmm.segment_coverage_joint_batched(
                 {c: np.stack([cov_cache[n][c] for n in samples_bins], axis=1)
-                 for c in cov}, device=ctx.device)
+                 for c in cov}, device=ctx.device, devices=ctx.devices)
         elif method == "Wavelets":
             # host numpy on every device, as in canvas_tpu
             cv = metrics.coverage_variability(cov, cfg.evenness_score_window)

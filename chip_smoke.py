@@ -107,6 +107,43 @@ Phases, one JSON line each; any failure exits non-zero:
              common-CNV set, flagged COMMONCNV): identical VCFs, the
              shared gain and the de novo loss called, the stage times and
              launches of both runs.
+ 14. e2e-multiprocess
+             (run after e2e-germline) Germline-WGS through the CLI entry
+             point in 2 processes of one gloo group (--coordinator
+             127.0.0.1:<free port> --num-processes 2 --process-id i
+             --device cuda), both on cuda:0, each with its own -o: each
+             scans its contig_shards half of the proband's BAM, the read
+             starts are all-gathered, and both VCFs equal phase
+             e2e-germline's cuda VCF; each process's contigs, stage seconds
+             and launches; the processes are joined within MP_JOIN_S;
+ 15. mesh-decode
+             phase wgs-partition's whole-genome coverage through
+             hmm.segment_coverage_batched, and phase joint-decode's through
+             hmm.segment_coverage_joint_batched, each three times: unsplit
+             on cuda:0, lane-split over the virtual mesh [cuda:0] * 4 (8
+             lanes a group, 4 launches of B2 and of B3) and over the
+             visible cards: equal breakpoints, the seconds and launches of
+             each run;
+ 16. bin-mesh
+             binning.bin_sample on chr1-chr4 (0.88 Gbp, tracks from
+             --seed) round-robin over [cuda:0] * 4, unsplit on cuda:0
+             and round-robin over the visible cards: equal bins, the
+             seconds and B1's launches of each run;
+ 17. dryrun  graft_entry.dryrun_multichip(4, devices=[cuda:0] * 4): the
+             synthetic full_pipeline_step on the mesh, then the dryrun
+             trio's SmallPedigree-WGS on the mesh and with
+             CANVAS_TPU_FORCE_SINGLE_DEVICE=1, equal VCFs; then
+             graft_entry.entry()'s step once on the card, equal to the
+             same step on the CPU;
+ 18. gather  parallel.distributed.all_gather_host_data in 2 gloo processes
+             at whole-genome size (the 24 hg38 contig lengths of seeded
+             uint8, 3.1 GB a process, each process owning its
+             contig_shards half): the result equal to the full data in
+             both, the seconds and bytes; the host's RAM first (under 32
+             GB, only the longest contigs that fit, listed in the line).
+Phases 14-18 carry the device count and the mesh they used; with one
+card, the visible-cards runs are unsplit and every other mesh repeats
+cuda:0.
 
 Each phase's line carries its seconds (`phase_s`).  It then prints the
 phases' seconds and the total, the card's name and power limit, one JSON
@@ -189,6 +226,11 @@ WGS_EVENT_SPACING = (2_000, 20_000)
 # an end with no breakpoint this close counts as missed
 WGS_MISS_BINS = 25
 GC_BIN_SIZE = 400
+# the phases with more than one device: the virtual mesh's size, the
+# processes' join limit (seconds) and bin-mesh's contigs
+MESH_N = 4
+MP_JOIN_S = 300
+BIN_MESH_CONTIGS = 4
 
 
 def emit(obj: dict) -> None:
@@ -1445,6 +1487,351 @@ def phase_joint_decode(seed: int, dev: torch.device,
             "host_s": secs}
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_processes(code: str, n: int, args: list[str], workdir: Path,
+                  tag: str) -> list[dict]:
+    """n processes `python -c code *args 127.0.0.1:<port> n rank` from the
+    repo root, joined within MP_JOIN_S seconds (else every one is killed
+    and the phase fails); each must exit 0 and print one JSON line last,
+    which is returned with its seconds."""
+    addr = f"127.0.0.1:{free_port()}"
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(n):
+        out = open(workdir / f"{tag}{rank}.out", "w+")
+        err = open(workdir / f"{tag}{rank}.err", "w+")
+        logs.append((out, err))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, *args, addr, str(n), str(rank)],
+            cwd=REPO, stdout=out, stderr=err, text=True))
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(MP_JOIN_S - (time.perf_counter() - t0),
+                                  1))
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            proc.kill()
+        for proc in procs:
+            proc.wait()
+        fail(f"{tag}: a process did not finish within {MP_JOIN_S} s")
+    res = []
+    for rank, (proc, (out, err)) in enumerate(zip(procs, logs)):
+        out.seek(0)
+        err.seek(0)
+        text, errs = out.read(), err.read()
+        out.close()
+        err.close()
+        if proc.returncode != 0:
+            fail(f"{tag}: process {rank} exited {proc.returncode}: "
+                 f"{errs[-3000:]}")
+        res.append({**json.loads(text.strip().splitlines()[-1]),
+                    "stderr_tail": errs.strip().splitlines()[-2:]})
+    return res
+
+
+GERMLINE_PROCESS = """
+import json, sys
+from canvas_tpu_torch.ops import prefix_cuda, viterbi_cuda, arc_scan_cuda
+from canvas_tpu_torch.pipeline import cli
+
+bam, ref, out, addr, n, rank = sys.argv[1:7]
+rc = cli.main(["Germline-WGS", "-b", bam, "-n", "proband", "-r", ref,
+               "-o", out + rank, "--device", "cuda", "--coordinator", addr,
+               "--num-processes", n, "--process-id", rank])
+launches = {**prefix_cuda.LAUNCHES, **viterbi_cuda.LAUNCHES,
+            **arc_scan_cuda.LAUNCHES}
+print(json.dumps({"rc": rc, "launches": launches}))
+raise SystemExit(rc)
+"""
+
+
+def phase_e2e_multiprocess(workdir: Path) -> dict:
+    """Germline-WGS on the trio's proband in 2 gloo processes on cuda:0,
+    each VCF equal to phase e2e-germline's cuda VCF."""
+    n = 2
+    out = workdir / "mp_germline_"
+    t0 = time.perf_counter()
+    res = run_processes(GERMLINE_PROCESS, n,
+                        [str(workdir / "proband.bam"), str(workdir / "ref"),
+                         str(out)], workdir, "mp")
+    wall = time.perf_counter() - t0
+    want = vcf_body(workdir / "germline_cuda" / "proband_CNV.vcf.gz")
+    procs, owned = [], []
+    for rank, r in enumerate(res):
+        d = Path(f"{out}{rank}")
+        if vcf_body(d / "proband_CNV.vcf.gz") != want:
+            fail(f"process {rank}'s VCF differs from the one-process run")
+        prof = json.loads((d / "proband_profile.json").read_text())
+        scan = [st for st in prof["stages"] if st["name"] == "CanvasBinScan"]
+        if len(scan) != 1 or scan[0]["processes"] != n:
+            fail(f"process {rank} did not split its scan: {scan}")
+        owned.extend(scan[0]["contigs"])
+        procs.append({"process": rank, "contigs": scan[0]["contigs"],
+                      "launches": r["launches"],
+                      "stages": {st["name"]: st["seconds"]
+                                 for st in prof["stages"]
+                                 if st["name"] != "CanvasBinScan"},
+                      "stderr_tail": r["stderr_tail"]})
+    if sorted(owned) != sorted(TRIO_CONTIGS):
+        fail(f"the processes' contigs {owned} are not the genome's")
+    launches = {k: sum(p["launches"][k] for p in procs)
+                for k in procs[0]["launches"]}
+    if launches["prefix_scan"] != n * len(TRIO_CONTIGS):
+        fail(f"B1 launched {launches['prefix_scan']} times, not once a "
+             f"contig in each process")
+    return {"phase": "e2e-multiprocess", "processes": n,
+            "device_count": torch.cuda.device_count(),
+            "mesh": ["cuda:0"] * n, "backend": "gloo",
+            "vcf_equals_one_process": True, "wall_s": wall,
+            "launches": launches, "by_process": procs}
+
+
+def _mesh_runs(fn, data, runs: dict) -> tuple[dict, dict]:
+    """fn(data, chunk=CHUNK, **kw) for each named kw of `runs`, counts set
+    to 0 before each: (breakpoints, seconds and B2/B3 launches)."""
+    bps, info = {}, {}
+    for name, kw in runs.items():
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        bps[name] = fn(data, chunk=CHUNK, **kw)
+        torch.cuda.synchronize()
+        got = read_launches()
+        info[name] = {"s": time.perf_counter() - t0,
+                      "launches": {k: got[k] for k in ("chunk_matrix",
+                                                       "forward_backtrack")}}
+    return bps, info
+
+
+def phase_mesh_decode(seed: int, dev: torch.device,
+                      lengths: list[int] = HG38) -> dict:
+    """The whole-genome PerSampleHMM and joint decodes unsplit, over the
+    virtual mesh [cuda:0] * MESH_N and over the visible cards."""
+    from canvas_tpu_torch.ops import hmm
+    from canvas_tpu_torch.parallel import mesh
+
+    n_dev = torch.cuda.device_count()
+    virtual = [dev] * MESH_N
+    runs = {"unsplit": {"device": dev}, "virtual": {"devices": virtual},
+            "visible": {"device": "cuda"}}
+    meshes = {"unsplit": [str(dev)], "virtual": [str(d) for d in virtual],
+              "visible": [str(d) for d in mesh.lane_devices("cuda")]}
+    t0 = time.perf_counter()
+    cov, _ = wgs_coverage(seed, lengths)
+    joint, _ = joint_coverage(seed, lengths)
+    gen_s = time.perf_counter() - t0
+    out = {"phase": "mesh-decode", "device_count": n_dev, "meshes": meshes,
+           "contigs": len(cov), "bins": sum(len(c) for c in cov.values()),
+           "generate_s": gen_s}
+    launches = {"chunk_matrix": 0, "forward_backtrack": 0}
+    for kind, fn, data in (("per_sample", hmm.segment_coverage_batched, cov),
+                           ("joint", hmm.segment_coverage_joint_batched,
+                            joint)):
+        bps, info = _mesh_runs(fn, data, runs)
+        for name in runs:
+            if bps[name] != bps["unsplit"]:
+                diff = [c for c in bps["unsplit"]
+                        if bps[name][c] != bps["unsplit"][c]]
+                fail(f"{kind}: the {name} decode's breakpoints differ on "
+                     f"{diff[:6]}")
+            want = {"unsplit": 1, "virtual": MESH_N,
+                    "visible": len(meshes["visible"])}[name]
+            if set(info[name]["launches"].values()) != {want}:
+                fail(f"{kind}, {name}: launches {info[name]['launches']}, "
+                     f"{want} of B2 and B3 expected")
+            for k in launches:
+                launches[k] += info[name]["launches"][k]
+        lanes = hmm._next_pow2(max(len(data), MESH_N))
+        out[kind] = {**info, "lanes": lanes, "lanes_a_group": lanes // MESH_N,
+                     "breakpoints": sum(len(v) for v in
+                                        bps["unsplit"].values()),
+                     "equal": True}
+    del cov, joint
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def mesh_tracks(seed: int) -> dict:
+    """chr1-chr4 tracks from seed: 80 % possible, 41 % G/C, read starts 0,
+    1 or 2 at about 30 %, offset 10,000."""
+    rng = np.random.default_rng(seed + 70)
+    tracks = {}
+    for i, length in enumerate(HG38[:BIN_MESH_CONTIGS]):
+        b = np.frombuffer(rng.bytes(length), np.uint8)
+        obs = (b < 77).astype(np.uint8) + (b < 10)
+        tracks[f"chr{i + 1}"] = {
+            "possible": np.frombuffer(rng.bytes(length), np.uint8) < 205,
+            "observed": obs,
+            "is_gc": np.frombuffer(rng.bytes(length), np.uint8) < 105,
+            "offset": 10_000}
+    return tracks
+
+
+def phase_bin_mesh(seed: int, dev: torch.device) -> dict:
+    """bin_sample on chr1-chr4 round-robin over [cuda:0] * MESH_N, then
+    unsplit on cuda:0, then over the visible cards: equal bins, seconds
+    and B1 launches."""
+    from canvas_tpu_torch.ops import binning
+
+    t0 = time.perf_counter()
+    tracks = mesh_tracks(seed)
+    gen_s = time.perf_counter() - t0
+    from canvas_tpu_torch.parallel import mesh
+
+    virtual = [dev] * MESH_N
+    res, info = {}, {}
+    for name, kw in (("virtual", {"devices": virtual}),
+                     ("unsplit", {"device": dev}),
+                     ("visible", {"device": "cuda"})):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res[name] = binning.bin_sample(tracks, 100, **kw)
+        torch.cuda.synchronize()
+        info[name] = {"s": time.perf_counter() - t0,
+                      "launches": read_launches()["prefix_scan"]}
+        if info[name]["launches"] != BIN_MESH_CONTIGS:
+            fail(f"bin-mesh {name}: B1 launched {info[name]['launches']} "
+                 f"times for {BIN_MESH_CONTIGS} contigs")
+    for c in tracks:
+        for name in ("virtual", "visible"):
+            for field, a, b in zip(("start", "end", "gc", "count"),
+                                   res[name][c], res["unsplit"][c]):
+                if not np.array_equal(a, b):
+                    fail(f"bin-mesh: {c} {field} differs between the "
+                         f"{name} mesh and one device")
+    placement = binning.contig_placement(tracks, list(range(MESH_N)))
+    bins = sum(len(v[0]) for v in res["unsplit"].values())
+    binning._DEVICE_TRACKS.clear()
+    torch.cuda.empty_cache()
+    return {"phase": "bin-mesh", "device_count": torch.cuda.device_count(),
+            "mesh": [str(d) for d in virtual],
+            "visible": [str(d) for d in mesh.lane_devices("cuda")],
+            "placement": placement,
+            "positions": sum(len(t["possible"]) for t in tracks.values()),
+            "bin_size": 100, "bins": bins, "equal": True,
+            "generate_s": gen_s,
+            "launches": sum(v["launches"] for v in info.values()),
+            "runs": info,
+            "note": "the first run packs and copies the reference tracks"}
+
+
+def phase_dryrun(dev: torch.device) -> dict:
+    """graft_entry.dryrun_multichip over [cuda:0] * MESH_N, then entry()'s
+    step once on the card against the CPU."""
+    import contextlib
+    import io
+
+    from canvas_tpu_torch import graft_entry
+
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        graft_entry.dryrun_multichip(MESH_N, devices=[dev] * MESH_N)
+    torch.cuda.synchronize()
+    dryrun_s = time.perf_counter() - t0
+    launches = read_launches()
+    # the mesh run: B1 a contig and sample, B2/B3 a lane group and sample;
+    # the synthetic step one B2/B3 a lane
+    n_c, n_s = len(graft_entry.TRIO_CONTIGS), len(graft_entry.TRIO_PLANS)
+    need = {"prefix_scan": 2 * n_c * n_s,
+            "chunk_matrix": MESH_N + MESH_N * n_s + n_s,
+            "forward_backtrack": MESH_N + MESH_N * n_s + n_s}
+    got = {k: launches[k] for k in need}
+    if got != need:
+        fail(f"dryrun launched {got}, the mesh path needs {need}")
+    fn, args = graft_entry.entry()
+    reset_launches()
+    t0 = time.perf_counter()
+    states = fn(*args)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    entry_launches = read_launches()
+    want = fn(*(a.cpu() for a in args))
+    if not torch.equal(states.cpu(), want):
+        fail("entry()'s step on the card differs from the CPU")
+    for k in ("chunk_matrix", "forward_backtrack"):
+        launches[k] += entry_launches[k]
+    return {"phase": "dryrun", "device_count": torch.cuda.device_count(),
+            "mesh": [str(dev)] * MESH_N, "messages": buf.getvalue().split("\n")[:-1],
+            "dryrun_s": dryrun_s, "entry_s": entry_s,
+            "entry_shape": list(states.shape),
+            "entry_equals_cpu": True, "launches": launches}
+
+
+GATHER_PROCESS = """
+import json, sys, time
+import numpy as np
+from canvas_tpu_torch.parallel import distributed
+
+seed, lengths, addr, n, rank = sys.argv[1:6]
+lengths = json.loads(lengths)
+distributed.initialize(addr, int(n), int(rank))
+
+def contig(i, name):
+    rng = np.random.default_rng([int(seed), i])
+    return np.frombuffer(rng.bytes(lengths[name]), np.uint8)
+
+mine = distributed.my_contigs(lengths)
+t0 = time.perf_counter()
+local = {c: contig(i, c) for i, c in enumerate(lengths) if c in mine}
+gen_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+out = distributed.all_gather_host_data(
+    local, {c: (L, np.uint8) for c, L in lengths.items()})
+gather_s = time.perf_counter() - t0
+equal = sorted(out) == sorted(lengths) and all(
+    np.array_equal(out[c], local[c] if c in local else contig(i, c))
+    for i, c in enumerate(lengths))
+distributed.shutdown()
+print(json.dumps({"contigs": mine, "local_bytes": sum(
+    len(v) for v in local.values()), "bytes": sum(len(v) for v in
+    out.values()), "generate_s": gen_s, "gather_s": gather_s,
+    "equal": equal}))
+"""
+
+
+def phase_gather(seed: int, workdir: Path) -> dict:
+    """all_gather_host_data at whole-genome size in 2 gloo processes."""
+    import os
+
+    ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    lengths = {f"chr{i + 1}": L for i, L in enumerate(HG38)}
+    cut = []
+    if ram < 32e9:
+        # each process holds its half and the whole: keep the longest
+        # contigs within a sixth of the RAM
+        keep, total = {}, 0
+        for c in sorted(lengths, key=lambda c: -lengths[c]):
+            if total + lengths[c] <= ram / 6:
+                keep[c] = lengths[c]
+                total += lengths[c]
+            else:
+                cut.append(c)
+        lengths = keep
+    n = 2
+    t0 = time.perf_counter()
+    res = run_processes(GATHER_PROCESS, n, [str(seed), json.dumps(lengths)],
+                        workdir, "gather")
+    wall = time.perf_counter() - t0
+    if not all(r["equal"] for r in res):
+        fail("the gathered data differ from the full data")
+    return {"phase": "gather", "device_count": torch.cuda.device_count(),
+            "mesh": [], "processes": n, "backend": "gloo",
+            "host_ram_bytes": ram, "contigs": len(lengths),
+            "contigs_cut": cut, "bytes_a_process": sum(lengths.values()),
+            "equal": True, "wall_s": wall, "by_process": res}
+
+
 def _timing(res: dict) -> dict:
     return {k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")}
@@ -1483,6 +1870,7 @@ def main() -> int:
         e2e = run("e2e", phase_e2e, args.seed, Path(workdir))
         germ = run("e2e-germline", phase_e2e_germline, Path(workdir))
         joint = run("e2e-joint", phase_e2e_joint, Path(workdir))
+        mp = run("e2e-multiprocess", phase_e2e_multiprocess, Path(workdir))
     b4 = run("B4", phase_b4, args.seed, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_enr_") as workdir:
         enr, panel = run("e2e-enrichment", phase_e2e_enrichment, args.seed,
@@ -1495,6 +1883,12 @@ def main() -> int:
     run("wgs-partition", phase_wgs_partition, args.seed)
     torch.cuda.empty_cache()
     run("joint-decode", phase_joint_decode, args.seed, dev)
+    torch.cuda.empty_cache()
+    mdec = run("mesh-decode", phase_mesh_decode, args.seed, dev)
+    bmesh = run("bin-mesh", phase_bin_mesh, args.seed, dev)
+    dry = run("dryrun", phase_dryrun, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as workdir:
+        run("gather", phase_gather, args.seed, Path(workdir))
     emit({"phase_seconds": phase_s,
           "total_s": time.perf_counter() - t_start})
 
@@ -1507,17 +1901,26 @@ def main() -> int:
          "launches": (launches["prefix_scan"]
                       + germ["launches"]["prefix_scan"]
                       + joint["launches"]["prefix_scan"]
-                      + swgs["launches"]["prefix_scan"]), **_timing(b1)},
+                      + swgs["launches"]["prefix_scan"]
+                      + mp["launches"]["prefix_scan"]
+                      + bmesh["launches"]
+                      + dry["launches"]["prefix_scan"]), **_timing(b1)},
         {"name": "chunk_matrix", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/viterbi.cu",
          "replaces": "canvas_tpu/ops/viterbi_pallas.py:100",
          "launches": (launches["chunk_matrix"]
-                      + joint["launches"]["chunk_matrix"]), **_timing(b2)},
+                      + joint["launches"]["chunk_matrix"]
+                      + mp["launches"]["chunk_matrix"]
+                      + mdec["launches"]["chunk_matrix"]
+                      + dry["launches"]["chunk_matrix"]), **_timing(b2)},
         {"name": "forward_backtrack", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/viterbi.cu",
          "replaces": "canvas_tpu/ops/viterbi_pallas.py:139",
          "launches": (launches["forward_backtrack"]
-                      + joint["launches"]["forward_backtrack"]),
+                      + joint["launches"]["forward_backtrack"]
+                      + mp["launches"]["forward_backtrack"]
+                      + mdec["launches"]["forward_backtrack"]
+                      + dry["launches"]["forward_backtrack"]),
          **_timing(b3)},
         {"name": "arc_scan", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/arc_scan.cu",

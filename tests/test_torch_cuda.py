@@ -412,3 +412,176 @@ def test_evaluate_grid_on_card_equals_numpy(dev, clusters):
         if k != "cns":
             np.testing.assert_allclose(got[k], want[k], rtol=1e-12, atol=0,
                                        err_msg=k)
+
+
+# --- more than one device --------------------------------------------------
+
+def test_kernels_launch_on_the_tensors_device(dev):
+    """B1, B2, B3 and B4 on cuda:1 while cuda:0 is current: each launcher
+    makes the tensors' device current around its C call, so stream,
+    memsets and launch belong to cuda:1; results equal the plain
+    versions."""
+    from canvas_tpu_torch.ops import arc_scan_cuda, cbs_device
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    d1 = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(8)
+    Lp = 40 * prefix_cuda.TILE
+    p, o, g = (torch.as_tensor(x).to(d1) for x in (
+        rng.integers(0, 256, Lp // 8, dtype=np.uint8),
+        rng.integers(0, 16, Lp, dtype=np.uint8),
+        rng.integers(0, 256, Lp // 8, dtype=np.uint8)))
+    got = prefix_cuda.fused_prefix_sums(p, o, g, 77, Lp - 5, 10)
+    want = prefix_cuda.fused_prefix_sums_plain(p, o, g, 77, Lp - 5, 10)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    log_em, lt, li, mask = _decode_problem(
+        3, 4, 2000, [2000, 1999, 700, 0], "uniform")
+    em_t = torch.as_tensor(log_em, device=d1)
+    mask_t = torch.as_tensor(mask, device=d1)
+    path = hmm.viterbi_decode_chunked(em_t, mask_t, lt, li, chunk=256)
+    assert path.device == d1
+    assert torch.equal(path, hmm.viterbi_decode_chunked(
+        em_t, mask_t, lt, li, chunk=256, plain=True))
+    cs, n, tss = _arc_rows(5, 4096, 4)
+    args = (torch.as_tensor(cs, device=d1), torch.as_tensor(n, device=d1),
+            torch.as_tensor(tss, device=d1), 4096, 2)
+    before = arc_scan_cuda.LAUNCHES["arc_scan"]
+    got = cbs_device.tmax_batch(*args)
+    assert arc_scan_cuda.LAUNCHES["arc_scan"] == before + 1
+    want = cbs_device.tmax_batch(*(a.cpu() if torch.is_tensor(a) else a
+                                   for a in args))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    torch.cuda.synchronize(d1)
+    assert torch.cuda.current_device() == 0
+
+
+def _coverage(seed, n_contigs):
+    rng = np.random.default_rng(seed)
+    cov = {}
+    for i in range(n_contigs):
+        c = rng.poisson(100.0, int(rng.integers(500, 5000))).astype(float)
+        c[100:300] = rng.poisson(50.0, 200)
+        cov[f"chr{i + 1}"] = c
+    return cov
+
+
+@pytest.mark.parametrize("joint", [False, True])
+def test_lane_split_decode_on_a_virtual_mesh_equals_unsplit(dev, joint):
+    """Six contigs (8 lanes) over [cuda:0] * 4: four B2 and four B3
+    launches, breakpoints equal to the unsplit decode's on the card."""
+    cov = _coverage(5, 6)
+    if joint:
+        rng = np.random.default_rng(6)
+        cov = {c: np.stack([v, rng.poisson(100.0, len(v)), v], axis=1)
+               for c, v in cov.items()}
+        fn = hmm.segment_coverage_joint_batched
+    else:
+        fn = hmm.segment_coverage_batched
+    whole = fn(cov, device=torch.device("cuda", 0))
+    before = dict(viterbi_cuda.LAUNCHES)
+    split = fn(cov, devices=[torch.device("cuda", 0)] * 4)
+    torch.cuda.synchronize()
+    for k in ("chunk_matrix", "forward_backtrack"):
+        assert viterbi_cuda.LAUNCHES[k] == before[k] + 4
+    assert split == whole
+    assert all(len(b) >= 2 for b in split.values())
+
+
+def test_round_robin_bin_sample_on_a_virtual_mesh_equals_unsplit(dev):
+    """Four contigs over [cuda:0] * 4: one B1 launch a contig, bins equal
+    to the unsplit run's and to bin_contig_np."""
+    from canvas_tpu_torch.ops import binning
+
+    rng = np.random.default_rng(9)
+    tracks = {}
+    for i, L in enumerate((70_001, 123_457, 4_096, 300_000)):
+        possible = rng.random(L) < 0.8
+        observed = rng.poisson(0.5, size=L).astype(np.uint8)
+        observed[~possible] = 0
+        tracks[f"chr{i}"] = dict(possible=possible, observed=observed,
+                                 is_gc=rng.random(L) < 0.4, offset=i * 11)
+    whole = binning.bin_sample(tracks, 64, device=torch.device("cuda", 0))
+    before = prefix_cuda.LAUNCHES["prefix_scan"]
+    split = binning.bin_sample(tracks, 64,
+                               devices=[torch.device("cuda", 0)] * 4)
+    assert prefix_cuda.LAUNCHES["prefix_scan"] == before + 4
+    for name, t in tracks.items():
+        host = binning.bin_contig_np(t["possible"], t["observed"],
+                                     t["is_gc"], 64, t["offset"],
+                                     "TruncatedDynamicRange")
+        for a, b, c in zip(split[name], whole[name], host):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(np.asarray(a, np.float64),
+                                          np.asarray(c, np.float64))
+
+
+@pytest.mark.parametrize("use_all_states", [True, False])
+def test_segmentation_step_on_card_equals_cpu(dev, use_all_states):
+    from canvas_tpu_torch import graft_entry
+    from canvas_tpu_torch.pipeline import device_pipeline
+
+    args = graft_entry._demo_segmentation_inputs(device=dev)
+    before = dict(viterbi_cuda.LAUNCHES)
+    got = device_pipeline.segmentation_step(
+        *args, use_all_states=use_all_states)
+    torch.cuda.synchronize()
+    assert viterbi_cuda.LAUNCHES["chunk_matrix"] == \
+        before["chunk_matrix"] + 1
+    want = device_pipeline.segmentation_step(
+        *(a.cpu() for a in args), use_all_states=use_all_states)
+    assert torch.equal(got.cpu(), want)
+
+
+def _cards():
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("joint", [False, True])
+def test_lane_split_decode_on_the_visible_cards_equals_unsplit(dev, joint):
+    """An unindexed "cuda" splits the lanes over every visible card: one
+    B2 and one B3 launch a card, breakpoints equal to cuda:0's alone."""
+    cards = _cards()
+    cov = _coverage(7, 2 * len(cards) - 1)
+    fn = hmm.segment_coverage_joint_batched if joint else \
+        hmm.segment_coverage_batched
+    whole = fn(cov, device=cards[0])
+    before = dict(viterbi_cuda.LAUNCHES)
+    split = fn(cov, device="cuda")
+    # canvas_tpu's rule: B = next_pow2(2n - 1), split when n divides it
+    groups = len(cards) if hmm._next_pow2(len(cov)) % len(cards) == 0 \
+        else 1
+    for k in ("chunk_matrix", "forward_backtrack"):
+        assert viterbi_cuda.LAUNCHES[k] == before[k] + groups
+    assert split == whole
+
+
+def test_round_robin_bin_sample_on_the_visible_cards(dev):
+    from canvas_tpu_torch.ops import binning
+
+    cards = _cards()
+    rng = np.random.default_rng(10)
+    tracks = {f"chr{i}": dict(possible=rng.random(L) < 0.8,
+                              observed=rng.poisson(0.5, L).astype(np.uint8),
+                              is_gc=rng.random(L) < 0.4, offset=i)
+              for i, L in enumerate(range(50_000, 50_000 + 9_999 *
+                                          (len(cards) + 1), 9_999))}
+    assert set(binning.contig_placement(tracks, cards).values()) == \
+        set(cards)
+    got = binning.bin_sample(tracks, 64, device="cuda")
+    want = binning.bin_sample(tracks, 64, device=cards[0])
+    for name in tracks:
+        for a, b in zip(got[name], want[name]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_dryrun_on_the_visible_cards(dev, capsys):
+    from canvas_tpu_torch import graft_entry
+
+    cards = _cards()
+    graft_entry.dryrun_multichip(len(cards))
+    assert "split == single-device" in capsys.readouterr().out

@@ -6,8 +6,10 @@ import numpy as np
 import pytest
 import torch
 
+from canvas_tpu_torch import graft_entry
 from canvas_tpu_torch.models import pedigree, somatic, somatic_grid
 from canvas_tpu_torch.ops import binning, cbs, cbs_device, hmm
+from canvas_tpu_torch.parallel import mesh
 from canvas_tpu_torch.pipeline import cli
 
 COV = {"chr1": np.full(50, 100.0)}
@@ -28,6 +30,11 @@ CALLS = {
     "evaluate_grid": lambda: somatic_grid.evaluate_grid(
         np.array([30.0]), np.array([1.0]), [], [], 0.1, 1_000_000),
     "call_somatic": lambda: somatic.call_somatic([], 1_000_000),
+    "segment_coverage_joint_batched":
+        lambda: hmm.segment_coverage_joint_batched(COV),
+    "make_mesh": lambda: mesh.make_mesh(),
+    "entry": lambda: graft_entry.entry(),
+    "dryrun_multichip": lambda: graft_entry.dryrun_multichip(1),
 }
 
 

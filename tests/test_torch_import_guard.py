@@ -48,6 +48,10 @@ def test_package_and_cli_import_without_jax():
         "import canvas_tpu_torch.tools.optimize_somatic_model\n"
         "import canvas_tpu_torch.tools.plot_somatic_model\n"
         "import canvas_tpu_torch.wrapper\n"
+        "import canvas_tpu_torch.parallel.mesh\n"
+        "import canvas_tpu_torch.parallel.distributed\n"
+        "import canvas_tpu_torch.pipeline.device_pipeline\n"
+        "import canvas_tpu_torch.graft_entry\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m == 'canvas_tpu' or m.startswith('canvas_tpu.')\n"
         "            or m.split('.')[0] in ('jax', 'matplotlib'))]\n"
