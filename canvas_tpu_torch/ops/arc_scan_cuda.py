@@ -89,7 +89,6 @@ def arc_scan_plain(cs, n, lag_hi, seed, psd2, al0: int,
     blk, sub, nblk, nsub = geometry(npad)
     dev = cs.device
     cs2 = torch.cat([cs, torch.zeros_like(cs)], dim=1)
-    win = cs2.unfold(1, npad, 1)             # win[b, s, i] = cs2[b, s + i]
     pos = torch.arange(npad, device=dev)
     t_off = torch.arange(sub, device=dev)
     best = seed.clone()
@@ -99,6 +98,12 @@ def arc_scan_plain(cs, n, lag_hi, seed, psd2, al0: int,
         go = in_range & (gate > best)
         if not bool(go.any()):
             continue
+        # only the rows the block admits are evaluated; the others keep
+        # their best
+        rows = torch.nonzero(go)[:, 0]
+        g = rows.shape[0]
+        win = cs2[rows].unfold(1, npad, 1)   # win[r, s, i] = cs2[r, s + i]
+        cs_g, n_g, lag_hi_g = cs[rows], n[rows], lag_hi[rows]
         if count is not None:
             nn = n.to(torch.int64)
             lo = max(k * blk, al0)
@@ -111,17 +116,17 @@ def arc_scan_plain(cs, n, lag_hi, seed, psd2, al0: int,
         for q in range(nsub):
             L0 = k * blk + q * sub
             lags = L0 + t_off                                      # [sub]
-            d = win[:, L0:L0 + sub, :] - cs[:, None, :]            # [B,sub,npad]
-            live = (lags[None] >= al0) & (lags[None] <= lag_hi[:, None])
-            wv = torch.where(live, _w_of(lags[None].expand(B, sub),
-                                         n[:, None]), -1.0)
-            ok = pos[None, None, :] <= (n[:, None, None] - 1
+            d = win[:, L0:L0 + sub, :] - cs_g[:, None, :]          # [g,sub,npad]
+            live = (lags[None] >= al0) & (lags[None] <= lag_hi_g[:, None])
+            wv = torch.where(live, _w_of(lags[None].expand(g, sub),
+                                         n_g[:, None]), -1.0)
+            ok = pos[None, None, :] <= (n_g[:, None, None] - 1
                                         - lags[None, :, None])
             vals = torch.where(ok, wv[:, :, None] * (d * d), -1.0)
             m = vals.amax(dim=(1, 2))
-            upd = go & (m > best)
-            best = torch.where(upd, m, best)
-            bl0 = torch.where(upd, L0, bl0)
+            upd = m > best[rows]
+            best[rows] = torch.where(upd, m, best[rows])
+            bl0[rows] = torch.where(upd, L0, bl0[rows])
     return best, bl0
 
 

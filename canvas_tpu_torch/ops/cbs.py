@@ -44,10 +44,11 @@ DEFAULT_ETA = 0.05
 DEFAULT_TRIM = 0.025
 DEFAULT_MIN_WIDTH = 2
 
-# Which engine produced the most recent run_cbs result: "frontier" (the
-# per-level device engine) or "host" (numpy parity oracle); for the host
-# engine, how many processes ran its contigs (1 when serial), and for the
-# frontier engine, how many levels it ran.  Recorded so workflow profiles
+# Which engine produced the most recent run_cbs result: "mega" (the
+# whole-recursion device engine), "frontier" (the per-level device engine)
+# or "host" (numpy parity oracle); for the host engine, how many processes
+# ran its contigs (1 when serial), and for a device engine, how many
+# levels it ran.  Recorded so workflow profiles
 # attribute their times to the engine that actually ran.
 _LAST_ENGINE: dict[str, str | int | None] = {
     "engine": None, "host_workers": None, "levels": None}
@@ -758,20 +759,32 @@ def run_cbs(
     per-contig RNG streams.  Returns contig -> segment lengths (in finite-bin
     index space).
 
-    The engine follows the device, explicitly: on a CUDA device, when every
-    contig has at most 2^16 bins, the frontier engine (ops/cbs_device.py)
-    runs there — same algorithm, permutations and statistics on the device
-    with threefry streams (a documented Monte-Carlo-level deviation from
-    the host path).  On the CPU, or for a longer contig (the device arc scan
-    is O(n^2) before pruning; the host branch-and-bound prunes harder), the
-    host path runs.  A device failure raises; nothing falls back, and
-    asking for a missing card raises."""
+    The engine follows the device, explicitly.  On a CUDA device, when
+    every contig has at most 2^16 bins, the whole-recursion engine
+    (ops/cbs_mega.py) runs there, as in the JAX package: same algorithm,
+    permutations and statistics on the device with threefry streams (a
+    documented Monte-Carlo-level deviation from the host path).  Where its
+    segment table cannot hold the input it returns None and the frontier
+    engine (ops/cbs_device.py) runs instead.  On the CPU, or for a longer
+    contig (the device arc scan is O(n^2) before pruning; the host
+    branch-and-bound prunes harder), the host path runs.  A device
+    failure raises; nothing falls back, and asking for a missing card
+    raises."""
     device = resolve_device(device)
     if (device.type == "cuda" and coverage_by_contig
             and max(len(np.asarray(v)) for v in coverage_by_contig.values())
             <= 65536):
-        from canvas_tpu_torch.ops import cbs_device
+        from canvas_tpu_torch.ops import cbs_device, cbs_mega
 
+        counts: dict = {}
+        out = cbs_mega.run_cbs_mega(
+            coverage_by_contig, alpha=alpha, n_perm=n_perm,
+            undo_method=undo_method, seed=seed, device=device,
+            counts=counts)
+        if out is not None:
+            _LAST_ENGINE.update(engine="mega", host_workers=None,
+                                levels=counts.get("levels", 0))
+            return out
         levels: list[dict] = []
         out = cbs_device.run_cbs_device(
             coverage_by_contig, alpha=alpha, n_perm=n_perm,

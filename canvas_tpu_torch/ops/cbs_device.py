@@ -112,15 +112,14 @@ def _block_d2_bound(cs, psdiff, npad, sblk):
     pair = (M[:, None, :] - m[:, :, None]).reshape(B, -1)
     by_db = torch.full((B, nchunk), -torch.inf, dtype=cs.dtype, device=dev)
     by_db = by_db.scatter_reduce(1, dist, pair, reduce="amax")
-    # each block takes the max over its reachable chunk distances
-    reach = np.zeros((nblk, nchunk), dtype=bool)
-    for k in range(nblk):
-        lo_lag, hi_lag = k * sblk, k * sblk + sblk - 1
-        db_lo = max(0, lo_lag // C - 1)
-        db_hi = min(nchunk - 1, hi_lag // C + 1)
-        reach[k, db_lo:db_hi + 1] = True
-    reach_t = torch.as_tensor(reach, device=dev)
-    bnd = torch.where(reach_t[None], by_db[:, None, :], -torch.inf).amax(dim=2)
+    # each block takes the max over its reachable chunk distances, those
+    # from (first lag // C) - 1 to (last lag // C) + 1 (made on the device:
+    # a copy from the host would wait for the stream)
+    k = torch.arange(nblk, device=dev)[:, None]
+    db_lo = torch.clamp(k * sblk // C - 1, min=0)
+    db_hi = torch.clamp((k * sblk + sblk - 1) // C + 1, max=nchunk - 1)
+    reach = (a[None, :] >= db_lo) & (a[None, :] <= db_hi)
+    bnd = torch.where(reach[None], by_db[:, None, :], -torch.inf).amax(dim=2)
     d = torch.minimum(psdiff[:, None], bnd)
     return (d * d).to(torch.float32)
 
@@ -153,7 +152,7 @@ def tmax_batch(cs, n, tss, npad, al0):
     cs f32 [B, npad].  Vectorised extrema seeds, the B4 arc scan for the
     max, then one refine pass over the winning 32-lag sub-block.  Only
     exact float ties can pick another (ti, tj) than the host's
-    cbs.tmax_o."""
+    cbs.tmax_o.  Nothing is read back from the device."""
     B = cs.shape[0]
     dev = cs.device
     sub = arc_scan_cuda.geometry(npad)[1]
@@ -162,35 +161,33 @@ def tmax_batch(cs, n, tss, npad, al0):
     seed, lag_hi, psd2, ti0, tj0 = arc_scan_inputs(cs, n, npad, al0)
     best, bl0 = arc_scan_cuda.arc_scan(cs, n.to(torch.int32), lag_hi, seed,
                                        psd2, al0)
-    ti, tj = ti0, tj0
+    # Recover (ti, tj) inside each winner's sub-block: the running max over
+    # its lags keeps the SMALLEST lag per position, and the per-row argmax
+    # takes the first max position.  A row that never beat its extrema
+    # seed (bl0 = -1) keeps the seed's split.
     hit = bl0 >= 0
-    # no row beat its extrema seed: the seed locations are already exact
-    if bool(hit.any()):
-        # Recover (ti, tj) inside each winner's sub-block: the running max
-        # over its lags keeps the SMALLEST lag per position, and the
-        # per-row argmax takes the first max position.
-        b0c = torch.clamp(bl0, min=0).to(torch.int64)
-        cs2 = torch.cat([cs, torch.zeros_like(cs)], dim=1)
-        base = cs2.gather(
-            1, b0c[:, None] + torch.arange(npad + sub, device=dev)[None, :])
-        val = torch.full((B, npad), -1.0, dtype=torch.float32, device=dev)
-        lagk = torch.zeros((B, npad), dtype=torch.int64, device=dev)
-        for k in range(sub):
-            lag = b0c + k
-            lag_ok = (lag >= al0) & (lag <= lag_hi)
-            d = base[:, k:k + npad] - cs
-            ok = lag_ok[:, None] & (pos[None, :] + lag[:, None]
-                                    <= n[:, None] - 1)
-            lf = torch.clamp(lag, min=1).to(torch.float32)
-            w = (nf / (lf * (nf - lf)))[:, None]
-            v = torch.where(ok, w * d * d, -1.0)
-            upd = v > val
-            val = torch.where(upd, v, val)
-            lagk = torch.where(upd, k, lagk)
-        flat_i = torch.argmax(val, dim=1)
-        sel_lag = b0c + lagk.gather(1, flat_i[:, None])[:, 0]
-        ti = torch.where(hit, flat_i + 1, ti0).to(torch.int32)
-        tj = torch.where(hit, flat_i + sel_lag + 1, tj0).to(torch.int32)
+    b0c = torch.clamp(bl0, min=0).to(torch.int64)
+    cs2 = torch.cat([cs, torch.zeros_like(cs)], dim=1)
+    base = cs2.gather(
+        1, b0c[:, None] + torch.arange(npad + sub, device=dev)[None, :])
+    val = torch.full((B, npad), -1.0, dtype=torch.float32, device=dev)
+    lagk = torch.zeros((B, npad), dtype=torch.int64, device=dev)
+    for k in range(sub):
+        lag = b0c + k
+        lag_ok = (lag >= al0) & (lag <= lag_hi)
+        d = base[:, k:k + npad] - cs
+        ok = lag_ok[:, None] & (pos[None, :] + lag[:, None]
+                                <= n[:, None] - 1)
+        lf = torch.clamp(lag, min=1).to(torch.float32)
+        w = (nf / (lf * (nf - lf)))[:, None]
+        v = torch.where(ok, w * d * d, -1.0)
+        upd = v > val
+        val = torch.where(upd, v, val)
+        lagk = torch.where(upd, k, lagk)
+    flat_i = torch.argmax(val, dim=1)
+    sel_lag = b0c + lagk.gather(1, flat_i[:, None])[:, 0]
+    ti = torch.where(hit, flat_i + 1, ti0).to(torch.int32)
+    tj = torch.where(hit, flat_i + sel_lag + 1, tj0).to(torch.int32)
     tssv = torch.where(tss <= best + 1e-4, best + 1.0, tss)
     t2 = best / ((tssv - best) / torch.clamp(nf - 2.0, min=1.0))
     return t2, ti, tj
@@ -211,10 +208,14 @@ def _nu_dev(x):
     for s0 in range(0, x.shape[0], _NU_BATCH):
         xs = x[s0:s0 + _NU_BATCH]
         acc = torch.zeros_like(xs)
+        t = torch.empty((xs.shape[0], K), dtype=dt, device=dev)
         for c in range(n_chunks):
             dk = (c * K + torch.arange(1, K + 1, device=dev)).to(dt)
-            t = _ndtr(-xs[:, None] * torch.sqrt(dk)[None, :] / 2.0) \
-                * (2.0 / dk)
+            # t = _ndtr(-x sqrt(dk) / 2) * (2 / dk), op for op, in place
+            torch.mul(-xs[:, None], torch.sqrt(dk)[None, :], out=t)
+            t.div_(2.0).neg_().div_(np.sqrt(2.0))
+            torch.special.erfc(t, out=t)
+            t.mul_(0.5).mul_(2.0 / dk)
             acc = acc + t.sum(dim=1)
         series[s0:s0 + _NU_BATCH] = acc
     # tail: sum_{t>D} 2*ndtr(-x*sqrt(t)/2)/t ~= int_{D+1/2}^inf (midpoint EM)
@@ -226,11 +227,11 @@ def _nu_dev(x):
     u = v0c[:, None] + h[:, None] * torch.arange(
         _NU_TAIL_PANELS + 1, device=dev).to(dt)[None, :]
     f = _ndtr(-u) / torch.clamp(u, min=1e-12)
-    simp = np.ones(_NU_TAIL_PANELS + 1)
-    simp[1:-1:2] = 4.0
-    simp[2:-1:2] = 2.0
-    tail = 4.0 * (h / 3.0) * (f * torch.as_tensor(simp, dtype=dt,
-                                                  device=dev)[None, :]).sum(1)
+    # Simpson weights 1, 4, 2, 4, ..., 2, 4, 1
+    j = torch.arange(_NU_TAIL_PANELS + 1, device=dev)
+    simp = torch.where((j == 0) | (j == _NU_TAIL_PANELS), 1.0,
+                       torch.where(j % 2 == 1, 4.0, 2.0)).to(dt)
+    tail = 4.0 * (h / 3.0) * (f * simp[None, :]).sum(1)
     lnu = np.log(2.0) - 2.0 * torch.log(torch.clamp(x, min=1e-12)) \
         - series - tail
     return torch.where(x <= 0.01, torch.exp(-0.583 * x), torch.exp(lnu))
@@ -288,9 +289,10 @@ def _level(contigs, cidx, lo, n, keys, alpha, npad, P, al0, kmax, n_min,
     for is_full in ((False, True) if full else (False,)):
         rows = torch.nonzero(needs & (~hybrid if is_full else hybrid))[:, 0]
         if len(rows):
+            # full-arc rows are not hybrid: at most n_min bins
             pstats[rows] = _perm_stats(x[rows], n[rows], tss[rows],
                                        keys[rows], npad, P, al0, kmax,
-                                       is_full).double()
+                                       is_full, n_min).double()
     head = torch.stack([t2.double(), ti.double(), tj.double(), p1,
                         tss.double(), needs.double()], dim=1)
     return torch.cat([head, pstats], dim=1)
@@ -358,22 +360,24 @@ def _tmax_full_core(cs, nn, tss, npad, al0, max_lag):
         d = (cs2[:, L:L + npad] - cs).abs()
         ok = idx[None, :] + L <= nn[:, None] - 1
         dmax = torch.where(ok, d, 0.0).amax(dim=1)
-        Lf = torch.tensor(float(L), dtype=cs.dtype, device=dev)
-        w = nf / (Lf * (nf - Lf))
+        w = nf / (L * (nf - L))
         live = L <= lag_hi
         best = torch.where(live, torch.maximum(best, w * dmax * dmax), best)
     tssv = torch.where(tss <= best + 1e-4, best + 1.0, tss)
     return best / ((tssv - best) / (nf - 2.0))
 
 
-def _perm_stats(x, nn, tss, keys, npad, P, al0, kmax, full):
+def _perm_stats(x, nn, tss, keys, npad, P, al0, kmax, full, max_len):
     """[S, P] f32 permutation max-t stats of the rows of x [S, npad], their
     permutations drawn on the device; segments go in batches of at most
-    _PERM_ELEMS permuted values."""
+    _PERM_ELEMS permuted values.  For the full statistic, max_len (a host
+    int) bounds every row's length, and the lags and positions scanned stop
+    there: a permutation's first nn slots hold the row's values, and no arc
+    reaches past them."""
     S = x.shape[0]
     out = torch.empty((S, P), dtype=torch.float32, device=x.device)
     per = max(1, _PERM_ELEMS // (P * npad))
-    nn_host = nn.cpu().numpy() if full else None
+    top = min(max_len, npad)
     for s0 in range(0, S, per):
         s1 = min(S, s0 + per)
         px = _device_perms(keys[s0:s1], x[s0:s1], nn[s0:s1], npad, P)
@@ -381,8 +385,8 @@ def _perm_stats(x, nn, tss, keys, npad, P, al0, kmax, full):
         nn_r = nn[s0:s1].repeat_interleave(P)
         tss_r = tss[s0:s1].repeat_interleave(P)
         if full:
-            max_lag = int(max(min(v - al0, v - 1) for v in nn_host[s0:s1]))
-            st = _tmax_full_core(pcs, nn_r, tss_r, npad, al0, max_lag)
+            st = _tmax_full_core(pcs[:, :top].contiguous(), nn_r, tss_r, top,
+                                 al0, min(top - al0, top - 1))
         else:
             st = _htmax_core(pcs, nn_r, tss_r, npad, al0, kmax)
         out[s0:s1] = st.reshape(s1 - s0, P)
@@ -732,7 +736,7 @@ def _walk_pending(pending, rows, sbdry, n_perm, alpha,
                 torch.as_tensor(nn, device=device),
                 torch.as_tensor(tss, device=device),
                 _keys_tensor(keys, device), npad, P_CHUNK, min_width, kmax,
-                full).cpu().numpy().astype(np.float64)
+                full, int(nn.max())).cpu().numpy().astype(np.float64)
             for i, rec in enumerate(group):
                 walk = rec[0]
                 take = min(P_CHUNK, n_perm - walk.np_i)

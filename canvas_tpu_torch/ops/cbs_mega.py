@@ -1,0 +1,601 @@
+"""The whole-recursion CBS engine: the full DNAcopy segmentation (arc scan,
+OU tail probability, sequential-stopping permutation walks and
+split-location edge tests) with the recursion's state in device tensors,
+the final leaf segment table read back once.
+
+Reference semantics: ``CanvasPartition/{ChangePoint,CBSTStatistic,
+GetBoundary,TailProbability}.cs``, the same algorithm as the host parity
+oracle (``ops/cbs.py``) and the frontier engine (``ops/cbs_device.py``).
+It is the counterpart of the JAX package's default CBS engine on an
+accelerator and draws the same permutations: on the same input it returns
+the same segments.
+
+Design:
+  * A fixed-capacity segment table ``[S]`` of (contig, lo, hi, pending)
+    slots carries the recursion frontier from level to level.  A split
+    turns the parent slot into its first piece and appends the others at a
+    cursor; an append beyond the table goes to a slot that is thrown away
+    and sets the overflow flag, and the caller then runs the frontier
+    engine.
+  * Each level analyses the first W pending slots (a stable compaction):
+    window gather and centring, the arc scan through kernel B4 at the
+    smallest power-of-two tier width (1,024 to Tmax) that holds each
+    segment, rows outside a tier zeroed, and the OU tail probability.
+  * The sequential-stopping boundary walk (ChangePoint.cs:206-246) runs
+    vectorised over a permutation chunk: with ``csum`` the running count of
+    permuted statistics at or above the observed one, the first index where
+    ``nrej > nrejc`` (reject) or ``np_i >= sbdry[k-1]`` (accept) decides;
+    reject wins an exact tie because the reference checks it first.  Up to
+    8 walking rows (a stable compaction) draw a chunk an iteration, each at
+    its own tier width.
+  * Split-location edge tests (ChangePoint.cs:359-398, TPermP) draw their
+    m1-subsets as the m1 smallest of iid 32-bit keys, found by a 32-step
+    binary search over the key space, and stop as soon as the rejection
+    count cannot come back under alpha * n_perm.
+  * Keys are threefry ``fold_in`` chains on (contig, lo, n), then the
+    chunk counter (walks) or 7777 / 7778 and the chunk counter (edges), as
+    in the JAX package (ops/threefry.py, equal bit for bit).
+  * Python drives the loops, so every loop test is a value read back from
+    the device: the level's (any pending, overflow, any row in each tier),
+    each walk iteration's (any walking, and the 8 compacted rows' walking
+    flag, tier and hybrid flag), the level's any-edge-test flag, each edge
+    iteration's (any active, and the 8 compacted lanes' flag, tier, subset
+    size and window length), and the final table.  Each is one small
+    integer tensor copied in one read, counted in SYNCS.  Nothing else in
+    the engine reads from the device, and nothing copies to it after the
+    set-up.
+  * Sums and cumulative sums accumulate in float64 and round once to f32,
+    and the tail probability runs in float64, so a CUDA run and a CPU run
+    see the same statistics.
+
+Documented deviations from the host path, as for the frontier engine
+(Monte-Carlo-level): threefry permutations instead of the numpy stream,
+f32 statistics with the reference's 1e-5 slack factor, exact arc-scan
+ties resolved at block granularity.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from canvas_tpu_torch.config import resolve_device
+from canvas_tpu_torch.ops import cbs as _cbs
+from canvas_tpu_torch.ops import threefry
+from canvas_tpu_torch.ops.cbs_device import (
+    _PERM_ELEMS, _cumsum, _gather_center, _perm_stats, _tail_p_batch_dev,
+    tmax_batch)
+
+P_CHUNK = 512          # permutations per walk chunk
+_MAX_LEVELS = 128      # iteration bound (depth x frontier/W chunks)
+_W = 8                 # rows evaluated per walk or edge-test iteration
+_MAX_BINS = 65536      # the longest contig the table's tiers hold
+_MAX_CONTIGS = 192
+_MIN_SLOTS = 64        # the table holds max(64, 4 x contigs) slots
+
+# reads of control values and results from the device, one per copy
+SYNCS = {"cbs_mega": 0}
+
+
+def _read(*parts: torch.Tensor) -> list[int]:
+    """The parts (scalars or vectors) as one int64 tensor, copied to the
+    host in one read."""
+    SYNCS["cbs_mega"] += 1
+    return torch.cat([p.reshape(-1).to(torch.int64) for p in parts]).tolist()
+
+
+def _fsum(v: torch.Tensor) -> torch.Tensor:
+    """f32 sum over the last axis, accumulated in float64."""
+    return v.double().sum(dim=-1).float()
+
+
+def _stable_order(flags: torch.Tensor) -> torch.Tensor:
+    """Indices with the True entries first, each part in index order."""
+    return torch.argsort((~flags).to(torch.int32), stable=True)
+
+
+# ---------------------------------------------------------------------------
+# Vectorised sequential-stopping walk (ChangePoint.cs:206-246)
+# ---------------------------------------------------------------------------
+
+def _walk_update(ostat, nrejc, np0, nrej0, k0, walking, pstats, sbdry,
+                 n_perm):
+    """One permutation chunk through every walking row's boundary walk.
+    Returns (accept_now, walking', np', nrej', k')."""
+    S, P = pstats.shape
+    dev = pstats.device
+    csum = torch.cumsum((ostat[:, None] <= pstats).to(torch.int64), dim=1)
+    nrej_j = nrej0[:, None] + csum
+    k_j = k0[:, None] + csum
+    np_j = np0[:, None] + torch.arange(1, P + 1, device=dev)[None, :]
+    rej = nrej_j > nrejc[:, None]
+    sb = sbdry[torch.clamp(k_j - 1, 0, sbdry.shape[0] - 1)]
+    acc = (np_j >= sb) | (np_j >= n_perm)
+    first_rej = torch.where(rej.any(dim=1),
+                            torch.argmax(rej.to(torch.int32), dim=1), P)
+    first_acc = torch.where(acc.any(dim=1),
+                            torch.argmax(acc.to(torch.int32), dim=1), P)
+    decided = walking & ((first_rej < P) | (first_acc < P))
+    # reject is checked before the boundary accept inside one iteration,
+    # so an exact tie (same j) rejects: accept only strictly earlier
+    accept_now = decided & (first_acc < first_rej)
+    np1 = torch.where(walking, np0 + P, np0)
+    nrej1 = torch.where(walking, nrej0 + csum[:, -1], nrej0)
+    k1 = torch.where(walking, k0 + csum[:, -1], k0)
+    exhausted = walking & ~decided & (np1 >= n_perm)
+    accept_now = accept_now | exhausted
+    walking1 = walking & ~decided & ~exhausted
+    return accept_now, walking1, np1, nrej1, k1
+
+
+def _seg_keys(key0, seg_c, seg_lo, n):
+    """[R, 2] threefry keys from (contig, lo, n) fold_in chains of key0."""
+    k = threefry.fold_in(key0, seg_c)
+    k = threefry.fold_in(k, seg_lo)
+    return threefry.fold_in(k, n)
+
+
+# ---------------------------------------------------------------------------
+# Tier widths
+# ---------------------------------------------------------------------------
+
+def _tiers(Tmax: int) -> list[int]:
+    """Ascending width ladder (powers of two down to 1024): the [P, w]
+    permutation sort and the arc scan both scale with the width, so every
+    segment runs at the smallest tier that holds it."""
+    out = {Tmax}
+    w = Tmax // 2
+    while w >= 1024:
+        out.add(w)
+        w //= 2
+    return sorted(out)
+
+
+def _tier_index(nn: torch.Tensor, n_tiers: int) -> torch.Tensor:
+    """Index of the smallest tier (1024 * 2^t) with nn <= its width."""
+    widths = 1024 * 2 ** torch.arange(n_tiers, device=nn.device)
+    return (nn[:, None] > widths[None, :]).sum(dim=1)
+
+
+def _groups(keys: list[int]) -> list[tuple[int, int, int]]:
+    """(group key, start, stop) of the runs of equal keys after a stable
+    sort: the host's copy of the device's argsort(keys, stable=True)."""
+    ks = sorted(keys)
+    out = []
+    a = 0
+    for b in range(1, len(ks) + 1):
+        if b == len(ks) or ks[b] != ks[a]:
+            out.append((ks[a], a, b))
+            a = b
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Split-location edge tests (ChangePoint.cs:359-398 / CBSTStatistic.TPermP)
+# ---------------------------------------------------------------------------
+
+def _subset_sums(xr, nn, mm, mm_host, keys, npad, cols):
+    """[R, P_CHUNK] sums over uniform random mm-subsets of the first nn
+    values of each row of xr [R, >= cols], drawn from its key as the
+    [P_CHUNK, npad] block of uint32 keys that the JAX package draws.
+
+    The mm smallest of iid 32-bit keys form a uniform mm-subset, so the
+    values whose keys lie under the mm-th order statistic are summed.  Key
+    ties resolve by index through one cumsum, which keeps the subset
+    uniform.  Padding draws 0xFFFFFFFF, the largest key, so no padding is
+    ever picked (mm <= nn real keys come first) and the keys past the
+    longest row, `cols` <= npad, are not drawn.  The order statistic is
+    torch.kthvalue with each row's mm from the host (`mm_host`), equal to
+    the JAX package's 32-step binary search over the key space."""
+    R = xr.shape[0]
+    dev = xr.device
+    out = torch.empty((R, P_CHUNK), dtype=torch.float32, device=dev)
+    per = max(1, _PERM_ELEMS // (P_CHUNK * cols))
+    real = torch.arange(cols, device=dev)[None, None, :]
+    for s0 in range(0, R, per):
+        s1 = min(R, s0 + per)
+        u = threefry.random_bits(keys[s0:s1], (P_CHUNK, npad), cols)
+        u = torch.where(real < nn[s0:s1, None, None], u, 0xFFFFFFFF)
+        tau = torch.stack([torch.kthvalue(u[i], mm_host[s0 + i]).values
+                           for i in range(s1 - s0)])
+        less = u < tau[..., None]
+        k_t = mm[s0:s1, None] - less.sum(dim=2)
+        tie = u == tau[..., None]
+        cum = torch.cumsum(tie.to(torch.int64), dim=2)
+        pick = less | (tie & (cum <= k_t[..., None]))
+        out[s0:s1] = _fsum(torch.where(pick, xr[s0:s1, None, :cols], 0.0))
+    return out
+
+
+def _edge_tests(x, n, i1, i2, test_both, keys, alpha, n_perm, Tmax):
+    """(keep1, keep2, edge chunks) for rows whose split needs its edges
+    validated.
+
+    Lane layout [2W]: edge 1 of rows 0..W-1, then edge 2.  Edge 1 tests
+    the split at i1 inside x[0:i2] (n1 = i1); edge 2 tests the split at
+    i2 inside x[i1:n] (n1 = i2 - i1).  TPermP statistics are
+    shift-invariant, so the parent's centred windows serve: edge 1 is x
+    masked to i2, edge 2 is x shifted left by i1."""
+    W = x.shape[0]
+    dev = x.device
+    n_tiers = len(_tiers(Tmax))
+    wn = torch.cat([i2, n - i1])
+    n1 = torch.cat([i1, i2 - i1])
+    mask = torch.cat([test_both, test_both])
+    ekeys = torch.cat([threefry.fold_in(keys, 7777),
+                       threefry.fold_in(keys, 7778)])
+
+    pos = torch.arange(Tmax, device=dev)[None, :]
+    x2 = torch.nn.functional.pad(x, (0, Tmax))
+    xe2 = x2.gather(1, torch.clamp(i1, 0, Tmax)[:, None] + pos)
+    xw = torch.where(pos < wn[:, None], torch.cat([x, xe2]), 0.0)
+
+    n2 = wn - n1
+    wnf = wn.to(torch.float32)
+    xsum1 = _fsum(torch.where(pos < n1[:, None], xw, 0.0))
+    xsum = _fsum(xw)
+    xbar = xsum / torch.clamp(wnf, min=1.0)
+    tss = _fsum(xw * xw) - wnf * xbar * xbar
+    m1 = torch.minimum(n1, n2)
+    m1f = torch.clamp(m1, min=1).to(torch.float32)
+    mean_small = torch.where(n1 <= n2, xsum1 / torch.clamp(n1, min=1),
+                             (xsum - xsum1) / torch.clamp(n2, min=1))
+    ostat = 0.99999 * (mean_small - xbar).abs()
+    tstat = ostat * ostat * m1f * wnf / torch.clamp(wnf - m1f, min=1.0)
+    tstat = tstat / (torch.clamp(tss - tstat, min=1e-30)
+                     / torch.clamp(wnf - 2.0, min=1.0))
+    degen = (n1 <= 1) | (n2 <= 1)
+    quick0 = (tstat > 25.0) & (m1 >= 10)
+    limit = alpha * n_perm
+
+    active = mask & ~degen & ~quick0
+    count = torch.zeros(2 * W, dtype=torch.int64, device=dev)
+    done = torch.zeros_like(count)
+    cnt = torch.zeros_like(count)
+    lane = torch.arange(P_CHUNK, device=dev)[None, :]
+    chunks = 0
+    while True:
+        # compact to _W lanes an iteration, grouped by tier; waiting lanes
+        # keep their own chunk counters
+        sel = _stable_order(active)[:_W]
+        on = active[sel]
+        tier = _tier_index(wn[sel], n_tiers)
+        gkey = torch.where(on, tier, n_tiers)
+        ctrl = _read(active.any(), gkey, m1[sel], wn[sel])
+        if not ctrl[0]:
+            break
+        gkey_h = ctrl[1:1 + _W]
+        # the host's copy of the stable argsort below
+        order = sorted(range(_W), key=gkey_h.__getitem__)
+        m1_h = [ctrl[1 + _W + i] for i in order]
+        wn_h = [ctrl[1 + 2 * _W + i] for i in order]
+        rows = sel[torch.argsort(gkey, stable=True)]
+        sums = torch.zeros((_W, P_CHUNK), dtype=torch.float32, device=dev)
+        n_on = 0
+        for t, a, b in _groups(gkey_h):
+            if t == n_tiers:
+                continue
+            r = rows[a:b]
+            ck = threefry.fold_in(ekeys[r], cnt[r])
+            sums[a:b] = _subset_sums(xw[r], wn[r], m1[r], m1_h[a:b], ck,
+                                     1024 << t, max(wn_h[a:b]))
+            n_on = b
+        r = rows[:n_on]
+        take = torch.clamp(n_perm - done[r], max=P_CHUNK)
+        pstat = (sums[:n_on] / m1f[r][:, None] - xbar[r][:, None]).abs()
+        inc = ((ostat[r][:, None] <= pstat) & (lane < take[:, None])).sum(1)
+        count = count.index_add(0, r, inc)
+        done = done.index_add(0, r, take)
+        cnt = cnt.index_add(0, r, torch.ones_like(take))
+        active = active & (count.to(torch.float32) <= limit) \
+            & (done < n_perm)
+        chunks += n_on
+
+    p = count.to(torch.float32) / n_perm
+    keep = torch.where(degen, False, torch.where(quick0, True, p <= alpha))
+    return keep[:W], keep[W:], chunks
+
+
+# ---------------------------------------------------------------------------
+# The recursion
+# ---------------------------------------------------------------------------
+
+def _exclusive_cumsum(v):
+    return torch.cumsum(v, dim=0) - v
+
+
+def _drop_set(table, idx, val):
+    """table with table[idx] = val where idx < len(table); writes at
+    idx >= len(table) are dropped (they go to an extra slot cut off)."""
+    S = table.shape[0]
+    ext = torch.cat([table, table[:1]])
+    ext[torch.where(idx < S, idx, S)] = val
+    return ext[:S]
+
+
+def _mega_recurse(contigs, n_c, sbdry, key0, alpha, *, S, Tmax, al0, kmax,
+                  n_min, n_grid, n_perm, counts):
+    """The full CBS recursion on contigs' device.  Returns (seg_c, seg_lo,
+    seg_hi, nseg, overflow) on the host; `counts` gains the levels, walk
+    and edge chunks, walks accepted and rejected."""
+    dev = contigs.device
+    C = contigs.shape[0]
+    tiers = _tiers(Tmax)
+    n_tiers = len(tiers)
+    slot = torch.arange(S, device=dev)
+    seg_c0 = torch.where(slot < C, slot, -1)
+    seg_lo0 = torch.zeros(S, dtype=torch.int64, device=dev)
+    seg_hi0 = torch.nn.functional.pad(n_c, (0, S - C))
+    pending0 = (slot < C) & (seg_hi0 > 0)
+    nseg = torch.full((), C, dtype=torch.int64, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    walk_acc = torch.zeros((), dtype=torch.int64, device=dev)
+    walk_rej = torch.zeros_like(walk_acc)
+    big = torch.finfo(torch.float32).max
+    pos = torch.arange(Tmax, device=dev)[None, :]
+
+    W = min(S, max(32, S // 2))   # frontier rows analysed an iteration
+    level = 0
+    while level < _MAX_LEVELS:
+        # compact: only the first W pending rows analyse this iteration;
+        # pending rows beyond W stay pending for the next one
+        fsel = _stable_order(pending0)[:W]
+        seg_c, seg_lo, seg_hi = seg_c0[fsel], seg_lo0[fsel], seg_hi0[fsel]
+        pending = pending0[fsel]
+        n = seg_hi - seg_lo
+        x, tss = _gather_center(contigs, torch.clamp(seg_c, min=0), seg_lo,
+                                n, Tmax)
+        # constant-window check (host: cur.max() != cur.min())
+        valid = pos < n[:, None]
+        wmax = torch.where(valid, x, -big).amax(dim=1)
+        wmin = torch.where(valid, x, big).amin(dim=1)
+        analyzable = pending & (n >= 2 * al0) & (wmax > wmin)
+        n_eff = torch.where(analyzable, n, 2)
+        in_tiers = [analyzable & (n_eff <= w) & (n_eff > (tiers[t - 1]
+                                                         if t else 0))
+                    for t, w in enumerate(tiers)]
+        ctrl = _read(pending0.any(), overflow,
+                     torch.stack([it.any() for it in in_tiers]))
+        if not ctrl[0] or ctrl[1]:
+            break
+        x = torch.where(analyzable[:, None], x, 0.0)
+        tss = torch.where(analyzable, tss, 0.0)
+        cs = _cumsum(x)
+
+        # tiered arc scan: each segment at the smallest width that holds
+        # it; rows outside a tier are zeroed, so B4 skips all their blocks
+        t2 = torch.zeros(W, dtype=torch.float32, device=dev)
+        ti = torch.ones(W, dtype=torch.int64, device=dev)
+        tj = torch.full((W,), 2, dtype=torch.int64, device=dev)
+        for t, w in enumerate(tiers):
+            if not ctrl[2 + t]:
+                continue
+            in_tier = in_tiers[t]
+            r0, r1, r2 = tmax_batch(
+                torch.where(in_tier[:, None], cs[:, :w], 0.0),
+                torch.where(in_tier, n_eff, 2),
+                torch.where(in_tier, tss, 0.0), w, al0)
+            t2 = torch.where(in_tier, r0, t2)
+            ti = torch.where(in_tier, r1.to(torch.int64), ti)
+            tj = torch.where(in_tier, r2.to(torch.int64), tj)
+        ostat1 = torch.sqrt(torch.clamp(t2, min=0.0))
+        ostat = 0.99999 * t2
+        p1 = _tail_p_batch_dev(ostat1.double(), n_eff, kmax,
+                               n_grid).float()
+
+        larc = torch.minimum(tj - ti, n - tj + ti)
+        considered = analyzable & (ostat1 > 0.1)
+        trivial = considered & (ostat1 >= 7.0) & (larc >= 10)
+        hybrid = n > n_min
+        tail_ok = torch.where(hybrid, p1 <= alpha, True)
+        needs = considered & ~trivial & tail_ok
+        # host: int((alpha - p1) * n_perm) for hybrid, int(alpha * n_perm)
+        # otherwise (f32, truncated toward zero; only walking rows use it)
+        nrejc = torch.where(
+            hybrid, ((alpha - p1) * n_perm).to(torch.int32),
+            (alpha * float(n_perm)).to(torch.int32)).to(torch.int64)
+        keys = _seg_keys(key0, torch.clamp(seg_c, min=0), seg_lo, n)
+
+        # --- sequential-stopping permutation walks, chunk by chunk ---
+        walked = _walk(x, n_eff, tss, keys, needs, hybrid, ostat, nrejc,
+                       sbdry, n_perm, tiers, al0, kmax, n_min, counts)
+        walk_acc = walk_acc + (walked & needs).sum()
+        walk_rej = walk_rej + (needs & ~walked).sum()
+        accepted = trivial | walked
+
+        # --- split-location edge tests ---
+        at_end = tj >= n          # i2 == n: keep split 1 untested
+        at_start = ti <= 0        # i1 == 0: keep split 2 untested
+        test_both = accepted & ~at_end & ~at_start
+        if _read(test_both.any())[0]:
+            keep1t, keep2t, echunks = _edge_tests(
+                x, n, ti, tj, test_both, keys, alpha, n_perm, Tmax)
+            counts["edge_chunks"] += echunks
+        else:
+            keep1t = keep2t = torch.zeros_like(test_both)
+        keep1 = torch.where(test_both, keep1t, at_end & ~at_start)
+        keep2 = torch.where(test_both, keep2t, at_start & ~at_end)
+        split1 = accepted & keep1
+        split2 = accepted & keep2 & (tj < n)
+
+        # --- segment-table update ---
+        nsplits = split1.to(torch.int64) + split2.to(torch.int64)
+        has_child = nsplits > 0
+        first_cut = torch.where(split1, ti, tj)
+        second_cut = torch.where(split1 & split2, tj, n)
+        extra = torch.where(has_child, 1 + (nsplits == 2).to(torch.int64), 0)
+        base = nseg + _exclusive_cumsum(extra)
+        idx_a = torch.where(extra >= 1, base, S)
+        idx_b = torch.where(extra == 2, base + 1, S)
+        # parents first, then the appended children (slots >= nseg)
+        seg_hi0 = seg_hi0.clone()
+        seg_hi0[fsel] = torch.where(has_child, seg_lo + first_cut, seg_hi)
+        pending0 = pending0.clone()
+        pending0[fsel] = pending & analyzable & has_child
+        for idx, lo_cut, hi_cut in ((idx_a, first_cut, second_cut),
+                                    (idx_b, second_cut, n)):
+            seg_c0 = _drop_set(seg_c0, idx, seg_c)
+            seg_lo0 = _drop_set(seg_lo0, idx, seg_lo + lo_cut)
+            seg_hi0 = _drop_set(seg_hi0, idx, seg_lo + hi_cut)
+            pending0 = _drop_set(pending0, idx, torch.ones_like(pending))
+        nseg = nseg + extra.sum()
+        overflow = overflow | (nseg > S)
+        level += 1
+
+    counts["levels"] += level
+    out = _read(seg_c0, seg_lo0, seg_hi0, nseg, overflow, walk_acc, walk_rej)
+    counts["walks_accepted"] += out[3 * S + 2]
+    counts["walks_rejected"] += out[3 * S + 3]
+    return (np.asarray(out[:S]), np.asarray(out[S:2 * S]),
+            np.asarray(out[2 * S:3 * S]), out[3 * S],
+            bool(out[3 * S + 1]) or level >= _MAX_LEVELS)
+
+
+def _walk(x, n_eff, tss, keys, needs, hybrid, ostat, nrejc, sbdry, n_perm,
+          tiers, al0, kmax, n_min, counts):
+    """The level's boundary walks: [W] bool, accepted.  Up to _W walking
+    rows (a stable compaction) draw their next chunk an iteration, grouped
+    by (hybrid, tier) so that each group is one batch at its width; the
+    rest keep their state, and each row's chunk counter keeps its stream
+    in order."""
+    W = x.shape[0]
+    dev = x.device
+    n_tiers = len(tiers)
+    walking = needs
+    accepted = torch.zeros_like(needs)
+    np0 = torch.zeros(W, dtype=torch.int64, device=dev)
+    nrej0 = torch.zeros_like(np0)
+    kw = nrejc * (nrejc + 1) // 2 + 1
+    chunks = torch.zeros_like(np0)
+    while True:
+        sel = _stable_order(walking)[:_W]
+        on = walking[sel]
+        gkey = torch.where(on, hybrid[sel].to(torch.int64) * n_tiers
+                           + _tier_index(n_eff[sel], n_tiers), 2 * n_tiers)
+        ctrl = _read(walking.any(), gkey)
+        if not ctrl[0]:
+            return accepted
+        rows = sel[torch.argsort(gkey, stable=True)]
+        pst = torch.zeros((_W, P_CHUNK), dtype=torch.float32, device=dev)
+        for g, a, b in _groups(ctrl[1:]):
+            if g == 2 * n_tiers:
+                continue
+            hyb, t = divmod(g, n_tiers)
+            w = tiers[t]
+            r = rows[a:b]
+            # full-arc rows hold at most n_min bins
+            pst[a:b] = _perm_stats(
+                x[r, :w], n_eff[r], tss[r],
+                threefry.fold_in(keys[r], chunks[r]), w, P_CHUNK, al0, kmax,
+                not hyb, n_min)
+            counts["walk_chunks"] += b - a
+        now = torch.zeros_like(walking)
+        now[sel] = on
+        pstats = torch.zeros((W, P_CHUNK), dtype=torch.float32,
+                             device=dev).index_copy(0, rows, pst)
+        acc_now, walking1, np0, nrej0, kw = _walk_update(
+            ostat, nrejc, np0, nrej0, kw, now, pstats, sbdry, n_perm)
+        walking = torch.where(now, walking1, walking)
+        chunks = torch.where(now, chunks + 1, chunks)
+        accepted = accepted | acc_now
+
+
+# ---------------------------------------------------------------------------
+# Host wrapper
+# ---------------------------------------------------------------------------
+
+def _pow2(v: int, floor: int = 8) -> int:
+    return max(floor, 1 << (int(v) - 1).bit_length())
+
+
+def run_cbs_mega(
+    coverage_by_contig: dict[str, np.ndarray],
+    alpha: float = _cbs.DEFAULT_ALPHA,
+    n_perm: int = _cbs.DEFAULT_NPERM,
+    undo_method: str = "none",
+    seed: int = 0,
+    p_method: str = "hybrid",
+    min_width: int = _cbs.DEFAULT_MIN_WIDTH,
+    kmax: int = _cbs.DEFAULT_KMAX,
+    n_min: int = _cbs.DEFAULT_NMIN,
+    undo_prune: float = 0.05,
+    undo_sd: float = 3.0,
+    device: str | torch.device = "cuda",
+    counts: dict | None = None,
+) -> dict[str, np.ndarray] | None:
+    """CBSRunner.Run with the whole recursion on `device` (module
+    docstring).  Same contract as ops.cbs.run_cbs: contig -> segment
+    lengths.  Returns None when the input does not fit the table (more
+    than 65,536 bins in a contig, more than 192 contigs, more segments
+    than the table holds, or the level bound reached); the caller then
+    runs the frontier engine.  With `counts` given, it gains the run's
+    levels, walk chunks, edge-test chunks and walks accepted and rejected.
+    Asking for a missing card raises."""
+    device = resolve_device(device)
+    names = list(coverage_by_contig)
+    rows = [np.asarray(coverage_by_contig[k], np.float64) for k in names]
+    if sum(len(r) for r in rows) == 0:
+        return {}
+    nonempty = [c for c, r in enumerate(rows) if len(r)]
+    max_len = max(len(rows[c]) for c in nonempty)
+    C = len(nonempty)
+    if max_len > _MAX_BINS or C > _MAX_CONTIGS:
+        return None
+
+    Tmax = _pow2(max_len, floor=1024)
+    S = _pow2(max(_MIN_SLOTS, 4 * C))
+    sbdry = _cbs.compute_boundary(n_perm, alpha, _cbs.DEFAULT_ETA)
+    if undo_method == "sdundo":
+        finite = {k: np.asarray(v, np.float64)[np.isfinite(v)]
+                  for k, v in coverage_by_contig.items()}
+        tsd = float(np.sqrt(_cbs.trimmed_variance(finite))) \
+            if any(len(v) for v in finite.values()) else 0.0
+    else:
+        tsd = 0.0
+
+    mat = np.zeros((C, Tmax), np.float32)
+    n_c = np.zeros(C, np.int64)
+    for i, c in enumerate(nonempty):
+        mat[i, : len(rows[c])] = rows[c]
+        n_c[i] = len(rows[c])
+    key0 = np.asarray([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                      np.int64)     # jax.random.PRNGKey(seed)
+    run_counts = {"levels": 0, "walk_chunks": 0, "edge_chunks": 0,
+                  "walks_accepted": 0, "walks_rejected": 0}
+    seg_c, seg_lo, seg_hi, nseg, overflow = _mega_recurse(
+        torch.as_tensor(mat, device=device),
+        torch.as_tensor(n_c, device=device),
+        torch.as_tensor(np.asarray(sbdry, np.int64), device=device),
+        torch.as_tensor(key0, device=device),
+        torch.full((), alpha, dtype=torch.float32, device=device),
+        S=S, Tmax=Tmax, al0=min_width, kmax=kmax,
+        n_min=n_min if p_method == "hybrid" else (1 << 30),
+        n_grid=100, n_perm=n_perm, counts=run_counts)
+    if counts is not None:
+        for k, v in run_counts.items():
+            counts[k] = counts.get(k, 0) + v
+    if overflow:
+        return None
+
+    # assemble leaves -> per-contig lengths; validate the partition
+    result: dict[str, np.ndarray] = {}
+    for i, c in enumerate(nonempty):
+        sel = seg_c[:nseg] == i
+        los = np.sort(seg_lo[:nseg][sel])
+        his = np.sort(seg_hi[:nseg][sel])
+        n = len(rows[c])
+        if (len(los) == 0 or los[0] != 0 or his[-1] != n
+                or np.any(los[1:] != his[:-1])):
+            raise RuntimeError(f"cbs_mega: the segment table of contig "
+                               f"{names[c]} does not tile [0, {n})")
+        lengths = (his - los).astype(np.int64)
+        if len(lengths) > 1 and undo_method == "prune":
+            lengths = _cbs._prune(rows[c], lengths, undo_prune)
+        elif len(lengths) > 1 and undo_method == "sdundo":
+            lengths = _cbs._sd_undo(rows[c], lengths, tsd, undo_sd)
+        result[names[c]] = np.asarray(lengths, np.int64)
+    # the frontier engine's empty-contig convention: lengths [0] for n == 0
+    for name in names:
+        if name not in result:
+            result[name] = np.asarray([0], np.int64)
+    return result

@@ -43,14 +43,26 @@ Phases, one JSON line each; any failure exits non-zero:
              needs first (timed, then cached), then Tumor-normal-enrichment
              through the CLI entry point on a synthetic panel (3 contigs,
              30 Mbp, 400 bp targets every 500 bp, CN 1/3/0/4 events of
-             0.8-1.6 Mb on a diploid normal) with --device cuda (frontier
-             CBS engine, kernel B4) and again with --device cpu (host CBS
-             engine): identical VCFs, every planted event called with its
-             copy number, the stage times of both runs;
+             0.8-1.6 Mb on a diploid normal) with --device cuda
+             (whole-recursion CBS engine, kernel B4) and again with
+             --device cpu (host CBS engine): identical VCFs, every planted
+             event called with its copy number, the stage times of both
+             runs;
   7. CBS     the frontier engine on the tumor's ratio coverage of that
              panel, on CUDA tensors (B4) and on CPU tensors (plain B4):
              equal segments and the per-level profile; then one more CUDA
-             run under torch.profiler: device busy time and kernel launches;
+             run under torch.profiler (device busy time and kernel
+             launches) and one under CUDA's sync debug mode (its
+             synchronising calls);
+  7b. cbs-mega
+             the whole-recursion engine on the same coverage: run_cbs on
+             cuda takes it (engine "mega"), its seconds, B4 launches,
+             reads from the card (cbs_mega.SYNCS) and synchronising calls;
+             the same engine on CPU tensors with equal segments; one more
+             CUDA run under torch.profiler; the frontier's figures from
+             phase CBS beside them; then B4 against its plain version at
+             every tier width the engine uses (1,024 to 65,536, 32 rows of
+             which three lie in the tier, the rest zeroed);
   8. e2e-germline
              Germline-WGS through the CLI entry point on the trio's proband
              BAM with --device cuda and again with --device cpu: identical
@@ -807,30 +819,55 @@ def b4_inputs(seed: int, B: int, npad: int, length: int | None,
             torch.as_tensor(tss, device=dev))
 
 
+def b4_case(cs, n, npad: int, al0: int = 2) -> dict:
+    """B4 on the card against its plain version on the card for the rows
+    cs f32 [B, npad] of lengths n: best bit for bit and bl0 equal (else
+    the smoke fails), the blocks and pair terms of the plain walk, both
+    times and the bound.  Returns the numbers and the kernel's inputs."""
+    from canvas_tpu_torch.ops import arc_scan_cuda as ac
+    from canvas_tpu_torch.ops import cbs_device as cd
+
+    B = cs.shape[0]
+    seed_v, lag_hi, psd2, _ti0, _tj0 = cd.arc_scan_inputs(cs, n, npad, al0)
+    args = (cs, n.to(torch.int32), lag_hi, seed_v, psd2, al0)
+    best_k, bl0_k = ac.arc_scan(*args)
+    torch.cuda.synchronize()
+    walk: dict = {"blocks": 0, "terms": 0}
+    best_p, bl0_p = ac.arc_scan_plain(*args, count=walk)
+    torch.cuda.synchronize()
+    bits_equal = torch.equal(best_k.view(torch.int32),
+                             best_p.view(torch.int32))
+    err = float((best_k - best_p).abs().max())
+    if not bits_equal or not torch.equal(bl0_k, bl0_p):
+        fail(f"B4 differs from its plain version at {B} x {npad}: "
+             f"max |best diff| {err}, bl0 {bl0_k.tolist()} vs "
+             f"{bl0_p.tolist()}")
+    # the walk's pair terms, each a subtraction and a maximum of |d|
+    # (w is factored out of the maximum over positions, once a lag);
+    # cs, psd2 and the four [B] vectors read once
+    b4_bound, b4_by = bound(4 * (cs.numel() + psd2.numel() + 4 * B),
+                            2 * walk["terms"])
+    ms = cuda_ms(lambda: ac.arc_scan(*args), reps=20, queued=True)
+    plain_ms = cuda_ms(lambda: ac.arc_scan_plain(*args), reps=2)
+    return {"segments": B, "npad": npad, "blocks": psd2.numel(),
+            "blocks_visited": walk["blocks"],
+            "hits": int((bl0_k >= 0).sum()), "equal": True,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None,
+            "pairs_dense": int(B * npad * (npad - 1) // 2),
+            "pair_terms": walk["terms"], "bound_ms": b4_bound,
+            "bound_by": b4_by, "bound_share": b4_bound / ms}
+
+
 def phase_b4(seed: int, dev: torch.device) -> dict:
     """B4 at the frontier shapes, against its plain version on the card."""
-    from canvas_tpu_torch.ops import arc_scan_cuda as ac
     from canvas_tpu_torch.ops import cbs_device as cd
 
     al0 = 2
     shapes = []
     for B, npad, length in B4_SHAPES:
         cs, n, tss = b4_inputs(seed + npad, B, npad, length, dev)
-        seed_v, lag_hi, psd2, _ti0, _tj0 = cd.arc_scan_inputs(cs, n, npad,
-                                                               al0)
-        args = (cs, n, lag_hi, seed_v, psd2, al0)
-        best_k, bl0_k = ac.arc_scan(*args)
-        torch.cuda.synchronize()
-        walk: dict = {"blocks": 0, "terms": 0}
-        best_p, bl0_p = ac.arc_scan_plain(*args, count=walk)
-        torch.cuda.synchronize()
-        bits_equal = torch.equal(best_k.view(torch.int32),
-                                 best_p.view(torch.int32))
-        err = float((best_k - best_p).abs().max())
-        if not bits_equal or not torch.equal(bl0_k, bl0_p):
-            fail(f"B4 differs from its plain version at {B} x {npad}: "
-                 f"max |best diff| {err}, bl0 {bl0_k.tolist()} vs "
-                 f"{bl0_p.tolist()}")
+        res = b4_case(cs, n, npad, al0)
         # t2/ti/tj through tmax_batch: kernel on the card, plain on the CPU
         t_k = cd.tmax_batch(cs, n, tss, npad, al0)
         t_p = cd.tmax_batch(cs.cpu(), n.cpu(), tss.cpu(), npad, al0)
@@ -838,24 +875,9 @@ def phase_b4(seed: int, dev: torch.device) -> dict:
             if not torch.equal(a.cpu(), b):
                 fail(f"tmax_batch {name} differs between B4 and its plain "
                      f"version at {B} x {npad}")
-        # the walk's pair terms, each a subtraction and a maximum of |d|
-        # (w is factored out of the maximum over positions, once a lag);
-        # cs, psd2 and the four [B] vectors read once
-        b4_bound, b4_by = bound(4 * (cs.numel() + psd2.numel() + 4 * B),
-                                2 * walk["terms"])
-        ms = cuda_ms(lambda: ac.arc_scan(*args), reps=20, queued=True)
-        plain_ms = cuda_ms(lambda: ac.arc_scan_plain(*args), reps=2)
-        tmax_ms = cuda_ms(lambda: cd.tmax_batch(cs, n, tss, npad, al0),
-                          reps=10)
-        shapes.append({
-            "segments": B, "npad": npad, "blocks": psd2.numel(),
-            "blocks_visited": walk["blocks"], "hits": int((bl0_k >= 0).sum()),
-            "equal": True, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
-            "tmax_batch_ms": tmax_ms,
-            "pairs_dense": int(B * npad * (npad - 1) // 2),
-            "pair_terms": walk["terms"], "bound_ms": b4_bound,
-            "bound_by": b4_by, "bound_share": b4_bound / ms})
+        res["tmax_batch_ms"] = cuda_ms(
+            lambda: cd.tmax_batch(cs, n, tss, npad, al0), reps=10)
+        shapes.append(res)
     torch.cuda.empty_cache()
     return {"phase": "B4", "shapes": shapes}
 
@@ -989,16 +1011,16 @@ def phase_e2e_enrichment(seed: int, workdir: Path) -> tuple[dict, dict]:
                      "stages": {st["name"]: st["seconds"]
                                 for st in prof["stages"] if "seconds" in st},
                      "cbs": note[0] if note else None}
-    if (runs["cuda"]["cbs"] or {}).get("cbs_engine") != "frontier":
-        fail(f"the CUDA run did not take the frontier CBS engine: "
+    if (runs["cuda"]["cbs"] or {}).get("cbs_engine") != "mega":
+        fail(f"the CUDA run did not take the whole-recursion CBS engine: "
              f"{runs['cuda']['cbs']}")
     if (runs["cpu"]["cbs"] or {}).get("cbs_engine") != "host":
         fail(f"the CPU run did not take the host CBS engine: "
              f"{runs['cpu']['cbs']}")
     n_levels = runs["cuda"]["cbs"]["frontier_levels"]
-    if launches["arc_scan"] < max(n_levels, 1):
+    if launches["arc_scan"] < 1:
         fail(f"B4 launched {launches['arc_scan']} times over {n_levels} "
-             f"frontier levels")
+             f"levels of the whole-recursion engine")
     body_cuda = vcf_body(workdir / "enr_cuda" / "tumor_CNV.vcf.gz")
     body_cpu = vcf_body(workdir / "enr_cpu" / "tumor_CNV.vcf.gz")
     if body_cuda != body_cpu:
@@ -1013,23 +1035,46 @@ def phase_e2e_enrichment(seed: int, workdir: Path) -> tuple[dict, dict]:
             "rate": ENR_RATE, "generate_s": gen_s,
             "cbs_boundary_s": boundary_s, "vcf_cuda_equals_cpu": True,
             "launches": launches,
-            "frontier_levels": n_levels, "events": calls,
+            "mega_levels": n_levels, "events": calls,
             "cuda": runs["cuda"], "cpu": runs["cpu"]}, panel
 
 
-def phase_cbs(workdir: Path, dev: torch.device) -> dict:
-    """The frontier engine on the panel's tumor ratio coverage (the CUDA
-    run's CanvasClean output), on CUDA tensors and on CPU tensors."""
+def panel_coverage(workdir: Path) -> dict:
+    """The panel's tumor ratio coverage: the CUDA run's CanvasClean
+    output, by contig."""
     from canvas_tpu_torch.genome.contigs import ContigTable
     from canvas_tpu_torch.io.bins import BinSet
-    from canvas_tpu_torch.ops import arc_scan_cuda, cbs_device
     from canvas_tpu_torch.pipeline.runner import coverage_by_contig
 
     contigs = ContigTable(tuple(ENR_CONTIGS), tuple(ENR_CONTIGS.values()))
     bins = BinSet.read_text(
         workdir / "enr_cuda" / "Checkpoints" / "CanvasClean_tumor.cleaned.gz",
         contigs)
-    cov = coverage_by_contig(bins)
+    return coverage_by_contig(bins)
+
+
+def count_syncs(fn):
+    """(fn(), the synchronising CUDA calls it made, as CUDA's sync debug
+    mode reports them)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def phase_cbs(workdir: Path, dev: torch.device) -> dict:
+    """The frontier engine on the panel's tumor ratio coverage, on CUDA
+    tensors and on CPU tensors."""
+    from canvas_tpu_torch.ops import arc_scan_cuda, cbs_device
+
+    cov = panel_coverage(workdir)
     out = {}
     for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
         levels: list[dict] = []
@@ -1047,39 +1092,42 @@ def phase_cbs(workdir: Path, dev: torch.device) -> dict:
                  f"{out['cpu']['lengths'][c].tolist()}")
     if out["cuda"]["arc_scan_launches"] < len(out["cuda"]["levels"]):
         fail("B4 launched fewer times than the engine ran levels")
-    traced = trace_frontier(cov, dev)
+    traced = trace_cbs(lambda: cbs_device.run_cbs_device(cov, device=dev))
     if traced["lengths"] != {c: v.tolist()
                              for c, v in out["cuda"]["lengths"].items()}:
         fail("the profiled frontier run gave other segments")
+    _lens, syncs = count_syncs(
+        lambda: cbs_device.run_cbs_device(cov, device=dev))
     return {"phase": "CBS", "bins": {c: len(v) for c, v in cov.items()},
             "segments": {c: len(v) for c, v in out["cuda"]["lengths"].items()},
             "lengths_equal": True,
             "n_levels": len(out["cuda"]["levels"]),
             "cuda_s": out["cuda"]["seconds"], "cpu_s": out["cpu"]["seconds"],
             "arc_scan_launches": out["cuda"]["arc_scan_launches"],
+            "cuda_syncs": syncs,
             "levels_cuda": out["cuda"]["levels"],
             "levels_cpu": out["cpu"]["levels"],
             "profiled_cuda": traced["profile"]}
 
 
-def trace_frontier(cov: dict, dev: torch.device) -> dict:
-    """One more frontier run on CUDA tensors under torch.profiler: its wall
-    seconds, the device time of its kernels and copies (the events on the
-    card, summed: its busy time on one stream), B4's part of it, and its
-    kernel launches."""
+def trace_cbs(run) -> dict:
+    """One more CBS run, run(), on CUDA tensors under torch.profiler (the
+    card's activity only; host operators are not recorded, which keeps the
+    trace's processing short): its wall seconds, the device time of its
+    kernels and copies (the events on the card, summed: its busy time on
+    one stream), B4's part of it, its kernel launches (the CUDA runtime's
+    launch calls) and the kernels the card ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from canvas_tpu_torch.ops import cbs_device
-
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        lens = cbs_device.run_cbs_device(cov, device=dev)
+        lens = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     stats = prof.key_averages()
+    trace_s = time.perf_counter() - t0
     device_us = b4_us = 0.0
     top = []
     for ev in stats:
@@ -1093,16 +1141,83 @@ def trace_frontier(cov: dict, dev: torch.device) -> dict:
     launches = sum(ev.count for ev in stats
                    if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                  "cudaLaunchKernelExC"))
+    kernels = sum(n for _us, k, n in top
+                  if not k.startswith(("Memcpy", "Memset")))
     top.sort(reverse=True)
     return {"lengths": {c: v.tolist() for c, v in lens.items()},
             "profile": {
-                "wall_s": wall, "device_busy_s": device_us / 1e6,
+                "wall_s": wall, "with_processing_s": trace_s,
+                "device_busy_s": device_us / 1e6,
                 "busy_share": device_us / 1e6 / wall,
                 "b4_device_s": b4_us / 1e6,
                 "b4_share_of_busy": b4_us / device_us if device_us else None,
-                "kernel_launches": launches,
+                "kernel_launches": launches, "device_kernels": kernels,
                 "top_device": [{"name": k[:80], "ms": us / 1e3, "count": n}
                                for us, k, n in top[:8]]}}
+
+
+def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
+    """The whole-recursion engine on the panel's tumor ratio coverage:
+    through run_cbs on cuda (the engine it picks, its seconds, B4
+    launches, reads from the card and synchronising calls), on CPU
+    tensors (equal lengths), once under torch.profiler; beside phase
+    CBS's frontier figures for the same coverage; then B4 at every tier
+    width the engine uses, 32 rows with three in the tier."""
+    from canvas_tpu_torch.ops import arc_scan_cuda, cbs, cbs_mega
+
+    cov = panel_coverage(workdir)
+    arc_scan_cuda.LAUNCHES["arc_scan"] = 0
+    s0 = cbs_mega.SYNCS["cbs_mega"]
+    t0 = time.perf_counter()
+    (lens, cuda_s), hidden = count_syncs(
+        lambda: (cbs.run_cbs(cov, device=dev), time.perf_counter() - t0))
+    launches = arc_scan_cuda.LAUNCHES["arc_scan"]
+    syncs = cbs_mega.SYNCS["cbs_mega"] - s0
+    engine, levels = cbs.last_engine(), cbs._LAST_ENGINE["levels"]
+    if engine != "mega":
+        fail(f"run_cbs on cuda took the {engine} engine on the panel")
+    if launches < 1:
+        fail("B4 did not launch in the whole-recursion engine's run")
+    counts: dict = {}
+    t0 = time.perf_counter()
+    lens_cpu = cbs_mega.run_cbs_mega(cov, device="cpu", counts=counts)
+    cpu_s = time.perf_counter() - t0
+    for c in cov:
+        if not np.array_equal(lens[c], lens_cpu[c]):
+            fail(f"whole-recursion segments on {c} differ between CUDA and "
+                 f"CPU tensors: {lens[c].tolist()} vs {lens_cpu[c].tolist()}")
+    traced = trace_cbs(lambda: cbs_mega.run_cbs_mega(cov, device=dev))
+    if traced["lengths"] != {c: v.tolist() for c, v in lens.items()}:
+        fail("the profiled whole-recursion run gave other segments")
+    if counts["levels"] != levels:
+        fail(f"{levels} levels on the card, {counts['levels']} on the CPU")
+    tiers = []
+    rng = np.random.default_rng(7)
+    for k in range(10, 17):
+        npad = 1 << k
+        cs = np.zeros((32, npad), np.float32)
+        n = np.full(32, 2, np.int64)
+        for r in (0, 7, 31):
+            L = int(rng.integers(npad // 2 + 1, npad + 1))
+            x = rng.normal(0, 1, L)
+            x[L // 3:L // 2] += 0.5
+            x -= x.mean()
+            cs[r, :L] = np.cumsum(x)
+            n[r] = L
+        tiers.append(b4_case(torch.as_tensor(cs, device=dev),
+                             torch.as_tensor(n, device=dev), npad))
+    torch.cuda.empty_cache()
+    return {"phase": "cbs-mega", "engine": engine,
+            "bins": {c: len(v) for c, v in cov.items()},
+            "segments": {c: len(v) for c, v in lens.items()},
+            "lengths_equal": True, "levels": levels, "counts": counts,
+            "cuda_s": cuda_s, "cpu_s": cpu_s, "arc_scan_launches": launches,
+            "syncs": syncs, "cuda_syncs": hidden,
+            "profiled_cuda": traced["profile"],
+            "frontier": {k: frontier[k] for k in (
+                "n_levels", "cuda_s", "cpu_s", "arc_scan_launches",
+                "cuda_syncs", "profiled_cuda")},
+            "b4_tiers": tiers}
 
 
 def phase_e2e_germline(workdir: Path) -> dict:
@@ -1875,7 +1990,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_enr_") as workdir:
         enr, panel = run("e2e-enrichment", phase_e2e_enrichment, args.seed,
                          Path(workdir))
-        run("CBS", phase_cbs, Path(workdir), dev)
+        frontier = run("CBS", phase_cbs, Path(workdir), dev)
+        run("cbs-mega", phase_cbs_mega, Path(workdir), dev, frontier)
         swgs = run("e2e-somatic-wgs", phase_e2e_somatic_wgs, panel,
                    Path(workdir))
     run("gc-bin", phase_gc_bin, args.seed, dev)

@@ -332,21 +332,133 @@ def test_arc_scan_kernel_ties_across_blocks(dev):
     assert bl0_p[:3].tolist() == [0, 0, 0]
 
 
-def test_frontier_engine_on_card_equals_cpu(dev):
-    from canvas_tpu_torch.ops import cbs, cbs_device
-
-    rng = np.random.default_rng(5)
+def _cbs_panel(seed=5, n=3000):
+    rng = np.random.default_rng(seed)
     cov = {}
     for c in range(3):
-        r = rng.normal(0, 1, 3000)
+        r = rng.normal(0, 1, n)
         r[500:900] += 2.0
         r[2000:2100] -= 3.0
+        r[2400:2460] += 0.7
         cov[f"chr{c}"] = r
-    got = cbs.run_cbs(cov, n_perm=1000, device=dev)
-    assert cbs.last_engine() == "frontier"
+    return cov
+
+
+def test_frontier_engine_on_card_equals_cpu(dev):
+    from canvas_tpu_torch.ops import cbs_device
+
+    cov = _cbs_panel()
+    got = cbs_device.run_cbs_device(cov, n_perm=1000, device=dev)
     want = cbs_device.run_cbs_device(cov, n_perm=1000, device="cpu")
     for k in cov:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("npad", [1 << k for k in range(10, 17)])
+def test_arc_scan_kernel_at_every_mega_tier(dev, npad):
+    """B4 as the whole-recursion engine calls it: 32 rows at a tier width,
+    three of them in the tier (lengths in (npad/2, npad], one with a
+    planted step), the rest zeroed (n = 2, cs = 0).  The kernel against
+    its plain version on the card, bit for bit, and tmax_batch on the card
+    against tmax_batch on the CPU."""
+    from canvas_tpu_torch.ops import arc_scan_cuda, cbs_device
+
+    rng = np.random.default_rng(npad)
+    W = 32
+    cs = np.zeros((W, npad), np.float32)
+    n = np.full(W, 2, np.int64)
+    tss = np.zeros(W, np.float32)
+    for r in (0, 7, 31):
+        L = int(rng.integers(npad // 2 + 1, npad + 1))
+        x = rng.normal(0, 1, L)
+        if r == 7:
+            x[L // 3:L // 2] += 0.8
+        x -= x.mean()
+        cs[r, :L] = np.cumsum(x)
+        n[r] = L
+        tss[r] = np.sum(x * x)
+    csd, nd, tssd = (torch.as_tensor(a, device=dev) for a in (cs, n, tss))
+    seed, lag_hi, psd2, _ti0, _tj0 = cbs_device.arc_scan_inputs(
+        csd, nd, npad, 2)
+    args = (csd, nd.to(torch.int32), lag_hi, seed, psd2, 2)
+    before = arc_scan_cuda.LAUNCHES["arc_scan"]
+    best_k, bl0_k = arc_scan_cuda.arc_scan(*args)
+    assert arc_scan_cuda.LAUNCHES["arc_scan"] == before + 1
+    best_p, bl0_p = arc_scan_cuda.arc_scan_plain(*args)
+    assert torch.equal(best_k.view(torch.int32), best_p.view(torch.int32))
+    assert torch.equal(bl0_k, bl0_p)
+    assert (best_k.cpu()[torch.as_tensor(n == 2)] == 0).all()
+    a = cbs_device.tmax_batch(csd, nd, tssd, npad, 2)
+    b = cbs_device.tmax_batch(*(t.cpu() for t in (csd, nd, tssd)), npad, 2)
+    for x, y in zip(a, b):
+        assert torch.equal(x.cpu(), y)
+
+
+def test_mega_engine_on_card_equals_cpu(dev):
+    """The whole-recursion engine on CUDA tensors (B4) and on CPU tensors
+    (B4's plain version): equal segments, walks and edge tests on both,
+    and every read from the card counted in SYNCS: under CUDA's sync
+    debug mode the run's synchronising calls are its SYNCS reads and
+    its four set-up copies."""
+    import warnings
+
+    from canvas_tpu_torch.ops import arc_scan_cuda, cbs_mega
+
+    cov = _cbs_panel()
+    counts = {"cuda": {}, "cpu": {}}
+    before = arc_scan_cuda.LAUNCHES["arc_scan"]
+    s0 = cbs_mega.SYNCS["cbs_mega"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = cbs_mega.run_cbs_mega(cov, n_perm=1000, device=dev,
+                                        counts=counts["cuda"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = cbs_mega.SYNCS["cbs_mega"] - s0
+    launches = arc_scan_cuda.LAUNCHES["arc_scan"] - before
+    want = cbs_mega.run_cbs_mega(cov, n_perm=1000, device="cpu",
+                                 counts=counts["cpu"])
+    for k in cov:
+        np.testing.assert_array_equal(got[k], want[k])
+        assert len(got[k]) >= 3
+    assert counts["cuda"] == counts["cpu"]
+    assert counts["cuda"]["walk_chunks"] >= 1
+    assert launches >= counts["cuda"]["levels"] - 1 >= 1
+    hidden = [str(w.message) for w in caught
+              if "synchronizing" in str(w.message)]
+    assert len(hidden) == syncs + 4, (syncs, hidden[:3])
+
+
+def test_run_cbs_engines_on_card(dev, monkeypatch):
+    """run_cbs on cuda: the whole-recursion engine for the planted panel,
+    the frontier engine where its table overflows, the host engine above
+    65,536 bins."""
+    from canvas_tpu_torch.ops import cbs, cbs_device, cbs_mega
+
+    cov = _cbs_panel()
+    got = cbs.run_cbs(cov, n_perm=1000, device=dev)
+    assert cbs.last_engine() == "mega"
+    want = cbs_mega.run_cbs_mega(cov, n_perm=1000, device="cpu")
+    for k in cov:
+        np.testing.assert_array_equal(got[k], want[k])
+
+    r = np.random.default_rng(13).normal(0, 0.3, 480)
+    r[np.arange(480) // 40 % 2 == 1] += 6.0
+    monkeypatch.setattr(cbs_mega, "_MIN_SLOTS", 4)
+    got = cbs.run_cbs({"chr1": r}, n_perm=500, device=dev)
+    assert cbs.last_engine() == "frontier"
+    want = cbs_device.run_cbs_device({"chr1": r}, n_perm=500, device=dev)
+    np.testing.assert_array_equal(got["chr1"], want["chr1"])
+    assert len(got["chr1"]) == 12
+
+    big = {"chr1": np.random.default_rng(1).normal(0, 1, 65537)}
+    big["chr1"][30000:31000] += 1.5
+    got = cbs.run_cbs(big, n_perm=500, device=dev)
+    assert cbs.last_engine() == "host"
+    assert len(got["chr1"]) >= 3
 
 
 @pytest.mark.parametrize("lengths,scale", [
