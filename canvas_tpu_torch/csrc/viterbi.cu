@@ -3,6 +3,22 @@
 // Replace the two kernels of canvas_tpu/ops/viterbi_pallas.py:
 //   chunk_matrix_kernel     <- _chunk_matrix_kernel      (phase 1)
 //   forward_backtrack_kernel <- _forward_backtrack_kernel (phases 3 + 4a)
+// and the XLA work of the same device program (_viterbi_pallas_jit) between
+// and after them, so that a decode is a fixed sequence of launches with no
+// read back to the host:
+//   chunk_scan_kernel  (K5) <- the associative (max,+) scan over the chunks,
+//                              its max over rows and the start scores
+//                              (phase 2, viterbi_pallas.py:282-290)
+//   chunk_chase_kernel (K6) <- the reverse lax.scan over the chunk-end
+//                              states (phase 4b, viterbi_pallas.py:314-324)
+//
+// K5 runs the chunks of a sequence in order, as the plain version's loop
+// does, not as a tree: a tree reassociates the adds, which can flip a path
+// against the CPU decode.  So it is held by its chain of n_chunks dependent
+// (max,+) steps, not by its bytes (at the production shape 7.9 MB in and
+// out, 2.3 us at 3.35 TB/s): one warp per sequence, 32 at that shape.  K6
+// is a chain of dependent loads, n_chunks a sequence; it chases them in
+// shared memory, where a load takes tens of cycles, not hundreds.
 //
 // A lane is one chunk of one sequence; lanes are independent.  Emissions are
 // lane-last, em[k][j][lane] (k < chunk, j < S), so neighbouring threads read
@@ -11,10 +27,11 @@
 // when base + k < length, and base + k == 0 resets the scores to
 // log_init + e.  A masked step passes the carry through.
 //
-// Exactness: both kernels only add and take maxima in f32, in the order of
+// Exactness: B2, B3 and K5 only add and take maxima in f32, in the order of
 // their plain torch versions, with strictly-greater first-max ties for the
-// backpointers.  Neither multiplies, so no multiply-add is contracted, and
-// the results equal the plain versions bit for bit.
+// backpointers and the best end state; K6 moves small integers.  None
+// multiplies, so no multiply-add is contracted, and the results equal the
+// plain versions bit for bit.
 //
 // Bound on the H100.  A kernel reads em only for live steps (20 bytes a
 // lane-step); B3 also writes one int8 path entry per step and state.  At
@@ -310,6 +327,165 @@ __global__ void __launch_bounds__(kFbLanes, kFbBlocksPerSm)
   }
 }
 
+// K5, phase 2: the (max,+) prefix over the chunks of each sequence.  One
+// block of one warp per sequence b.  Lane i < S carries row i of the
+// running product in registers (lanes S..31 carry -inf, and what they
+// compute is dropped); the chunks run in order, as the plain version's
+// loop does:
+//   running[i][j] <- max_k fl(running[i][k] + m[k][j]),
+//   scores_end[j]  = max_i running[i][j].
+// Each entry is one f32 add a term and maxima are exact (their order does
+// not matter), so the result is bit-equal to the loop.  The b's chunk
+// matrices come through shared memory in tiles of kScanTile chunks, the
+// next tile in flight (cp.async) while one is used, each chunk's 25 values
+// contiguous so that a lane reads them with 7 16-byte loads.
+//
+// Redesigned after its first run on the card.  The first version reduced
+// scores_end with warp shuffles at every step and read the 25 values one
+// by one: 0.475 ms at the production shape (32 x 2,048 chunks) on an
+// NVIDIA H100 80GB HBM3, 700.00 W, some 400 cycles a step for a chain
+// whose adds and maxima need about 20; this design took 0.230 ms there.
+// With one warp on an SM, every instruction of a step waits on the one
+// before it, so the step's instruction count is its time.  Now the chain is a
+// step's 7 loads, 25 adds, 20 maxima (a tree, depth 3) and 5 stores of
+// the row into shared memory; scores_end and the start scores are
+// reduced from those rows once a tile, by all 32 lanes, off the chain.
+constexpr int kScanTile = 64;
+constexpr int kScanRow = 28;      // a chunk's S * S values, padded to 16 B
+
+__global__ void __launch_bounds__(32) chunk_scan_kernel(
+    const float* __restrict__ mats, float* __restrict__ ss,
+    int32_t* __restrict__ last_end, int n_chunks, int64_t n_lanes) {
+  __shared__ __align__(16) float tile[2][kScanTile][kScanRow];
+  __shared__ float rows[kScanTile][S * S];   // running[i][j] after chunk
+  const int ln = threadIdx.x;
+  const int64_t lane0 = int64_t(blockIdx.x) * n_chunks;  // lane of chunk 0
+  const int n_tiles = (n_chunks + kScanTile - 1) / kScanTile;
+  auto fetch = [&](int t) {
+    if (t < n_tiles) {
+      const int c0 = t * kScanTile;
+      const int width = min(kScanTile, n_chunks - c0);
+      for (int x = ln; x < S * S * kScanTile; x += 32) {
+        const int q = x / kScanTile, cc = x % kScanTile;
+        if (cc < width)
+          copy_async4(&tile[t & 1][cc][q],
+                      mats + int64_t(q) * n_lanes + lane0 + c0 + cc);
+      }
+    }
+    commit_copies();
+  };
+  const float kMinusInf = __int_as_float(0xff800000);
+  float run[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+    run[j] = ln < S ? (j == ln ? 0.0f : kNegInf) : kMinusInf;
+  if (ln < S) ss[int64_t(ln) * n_lanes + lane0] = 0.0f;   // chunk 0 starts at 0
+  fetch(0);
+  int width = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    fetch(t + 1);
+    wait_copies<1>();             // this thread's copies of tile t landed
+    __syncthreads();              // and every thread's
+    const int c0 = t * kScanTile;
+    width = min(kScanTile, n_chunks - c0);
+#pragma unroll 4
+    for (int cc = 0; cc < width; ++cc) {
+      const float4* v = reinterpret_cast<const float4*>(tile[t & 1][cc]);
+      float m[kScanRow];
+#pragma unroll
+      for (int x = 0; x < kScanRow / 4; ++x) {
+        const float4 q = v[x];
+        m[4 * x] = q.x;
+        m[4 * x + 1] = q.y;
+        m[4 * x + 2] = q.z;
+        m[4 * x + 3] = q.w;
+      }
+      float nxt[S];
+#pragma unroll
+      for (int j = 0; j < S; ++j)
+        nxt[j] = fmaxf(fmaxf(fmaxf(run[0] + m[j], run[1] + m[S + j]),
+                             fmaxf(run[2] + m[2 * S + j],
+                                   run[3] + m[3 * S + j])),
+                       run[4] + m[4 * S + j]);
+#pragma unroll
+      for (int j = 0; j < S; ++j) run[j] = nxt[j];
+      if (ln < S) {
+#pragma unroll
+        for (int j = 0; j < S; ++j) rows[cc][ln * S + j] = nxt[j];
+      }
+    }
+    __syncthreads();              // rows complete; tile t & 1 free again
+    // chunk c's end scores start chunk c + 1
+    for (int x = ln; x < S * kScanTile; x += 32) {
+      const int j = x / kScanTile, cc = x % kScanTile;
+      if (cc < width && c0 + cc + 1 < n_chunks) {
+        float e = rows[cc][j];
+#pragma unroll
+        for (int i = 1; i < S; ++i) e = fmaxf(e, rows[cc][i * S + j]);
+        ss[int64_t(j) * n_lanes + lane0 + c0 + cc + 1] = e;
+      }
+    }
+    __syncthreads();              // rows read before the next tile writes
+  }
+  wait_copies<0>();
+  if (ln == 0) {                  // first maximum, as torch.argmax
+    int best = 0;
+    float top = kMinusInf;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      float e = rows[width - 1][j];
+#pragma unroll
+      for (int i = 1; i < S; ++i) e = fmaxf(e, rows[width - 1][i * S + j]);
+      if (j == 0 || e > top) {
+        top = e;
+        best = j;
+      }
+    }
+    last_end[blockIdx.x] = best;
+  }
+}
+
+// K6, phase 4b: the chunk-end states, chased right to left from the last
+// chunk's best end state: chunk c ends in cur, and chunk c - 1 in
+// prev_end[cur] of chunk c.  One block per sequence: its prev_end column
+// (S bytes a chunk) goes into shared memory in tiles of kChaseTile chunks,
+// one thread chases the tile there, and the block writes the tile's
+// states as the int64 lane selectors of the final gather, coalesced.
+constexpr int kChaseTile = 4096;
+constexpr int kChaseThreads = 256;
+
+__global__ void __launch_bounds__(kChaseThreads) chunk_chase_kernel(
+    const int8_t* __restrict__ prev_end, const int32_t* __restrict__ last_end,
+    int64_t* __restrict__ sel, int n_chunks, int64_t n_lanes) {
+  __shared__ int8_t pe[S][kChaseTile];
+  __shared__ int8_t out[kChaseTile];
+  __shared__ int s_cur;
+  const int tid = threadIdx.x;
+  const int64_t lane0 = int64_t(blockIdx.x) * n_chunks;
+  if (tid == 0) s_cur = last_end[blockIdx.x];
+  for (int hi = n_chunks; hi > 0; hi -= kChaseTile) {
+    const int c0 = max(hi - kChaseTile, 0);
+    const int width = hi - c0;
+    for (int x = tid; x < S * width; x += kChaseThreads) {
+      const int s = x / width, cc = x % width;
+      pe[s][cc] = prev_end[int64_t(s) * n_lanes + lane0 + c0 + cc];
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int cur = s_cur;
+      for (int cc = width - 1; cc >= 0; --cc) {
+        out[cc] = int8_t(cur);
+        cur = pe[cur][cc];
+      }
+      s_cur = cur;
+    }
+    __syncthreads();
+    for (int cc = tid; cc < width; cc += kChaseThreads)
+      sel[lane0 + c0 + cc] = out[cc];
+    __syncthreads();              // pe and out read before the next tile
+  }
+}
+
 Model make_model(const float* log_trans, const float* log_init) {
   Model m;
   for (int i = 0; i < S; ++i) {
@@ -375,5 +551,35 @@ extern "C" int viterbi_forward_backtrack(const void* em, const void* base,
       static_cast<const int32_t*>(length), static_cast<const float*>(start),
       static_cast<int8_t*>(paths), static_cast<int8_t*>(prev_end), chunk,
       n_lanes, make_model(log_trans, log_init));
+  return int(cudaGetLastError());
+}
+
+// mats f32 [S, S, n_lanes] (B2's output), n_lanes = n_seq * n_chunks with
+// lane = b * n_chunks + c; ss f32 [S, n_lanes] (B3's start scores);
+// last_end int32 [n_seq].
+extern "C" int viterbi_chunk_scan(const void* mats, void* ss, void* last_end,
+                                  int n_seq, int n_chunks, void* stream) {
+  if (n_seq == 0) return 0;
+  if (n_chunks < 1) return int(cudaErrorInvalidValue);
+  chunk_scan_kernel<<<unsigned(n_seq), 32, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(mats), static_cast<float*>(ss),
+      static_cast<int32_t*>(last_end), n_chunks,
+      int64_t(n_seq) * n_chunks);
+  return int(cudaGetLastError());
+}
+
+// prev_end int8 [S, n_lanes] (B3's output); last_end int32 [n_seq]; sel
+// int64 [n_lanes], each chunk's end state.
+extern "C" int viterbi_chunk_chase(const void* prev_end, const void* last_end,
+                                   void* sel, int n_seq, int n_chunks,
+                                   void* stream) {
+  if (n_seq == 0) return 0;
+  if (n_chunks < 1) return int(cudaErrorInvalidValue);
+  chunk_chase_kernel<<<unsigned(n_seq), kChaseThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(prev_end),
+      static_cast<const int32_t*>(last_end), static_cast<int64_t*>(sel),
+      n_chunks, int64_t(n_seq) * n_chunks);
   return int(cudaGetLastError());
 }

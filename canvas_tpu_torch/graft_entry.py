@@ -61,8 +61,8 @@ def _demo_segmentation_inputs(B=8, T=512, D=1, S=5, seed=0,
 
 def entry(device="cuda"):
     """(fn, example_args): the segmentation forward step on `device` —
-    emission lookup and the chunked Viterbi (kernels B2 and B3 on a CUDA
-    device)."""
+    emission lookup and the chunked Viterbi (kernels B2, K5, B3 and K6 on
+    a CUDA device)."""
     from canvas_tpu_torch.pipeline.device_pipeline import segmentation_step
 
     args = _demo_segmentation_inputs(device=device)

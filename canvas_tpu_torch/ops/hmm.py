@@ -20,11 +20,11 @@ Distributions.cs):
 
 Decode: the chunked Viterbi.  T splits into T/chunk chunks, one lane per
 chunk of each sequence; kernel B2 folds each chunk into a (max,+) transfer
-matrix, a sequential scan over chunks gives the chunk-start scores, kernel
-B3 recomputes each chunk's DP with backpointers and backtracks all S
-assumed chunk-end states, and the chunk boundary maps, composed by pointer
-doubling, pick the realized path (ops/viterbi_cuda.py holds the kernels'
-wrappers).
+matrix, kernel K5 scans the chunks in order for the chunk-start scores,
+kernel B3 recomputes each chunk's DP with backpointers and backtracks all
+S assumed chunk-end states, and kernel K6 chases the chunk-end states that
+pick the realized path (ops/viterbi_cuda.py holds the kernels' wrappers).
+On a CUDA device that is six launches and no read back to the host.
 """
 
 from __future__ import annotations
@@ -235,10 +235,17 @@ def log_transition(n_states: int = N_STATES, self_p: float = SELF_TRANSITION):
 # Viterbi decode — chunked, the production path
 # ---------------------------------------------------------------------------
 
-def _maxplus_step(running: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """(max,+) product [B,S,S] x [B,S,S]: out[b,i,j] = max_k r[b,i,k] +
-    m[b,k,j]."""
-    return (running[:, :, :, None] + m[:, None, :, :]).amax(dim=2)
+def prefix_lengths(mask) -> np.ndarray:
+    """Each row's length, int32 [B], from a host mask (numpy or a CPU
+    tensor) [B, T] whose rows are True prefixes (padded tails); raises
+    ValueError for any other mask."""
+    m = np.asarray(mask.numpy() if torch.is_tensor(mask) else mask,
+                   dtype=bool)
+    lengths = m.sum(axis=1).astype(np.int32)
+    if not np.array_equal(np.arange(m.shape[1])[None, :] < lengths[:, None],
+                          m):
+        raise ValueError("viterbi_decode_chunked needs prefix masks")
+    return lengths
 
 
 def viterbi_decode_chunked(
@@ -248,30 +255,43 @@ def viterbi_decode_chunked(
     log_init,               # [S] host array
     chunk: int = 256,
     plain: bool = False,
+    lengths=None,           # [B] host ints: the rows' prefix lengths
 ) -> torch.Tensor:
     """Chunked parallel Viterbi: most-likely state path [B, T] (int32),
     decision-identical to hmm.viterbi_decode_np_chunked.
 
       1. per-chunk (max,+) transfer matrices (kernel B2);
-      2. a sequential (max,+) scan over the T/chunk chunk matrices gives
-         the chunk-end and chunk-start score vectors;
+      2. the sequential (max,+) prefix over each sequence's chunks gives
+         the chunk-start scores and the best last end state (kernel K5);
       3+4a. per-chunk forward DP with backpointers and the backtrack of all
          S assumed chunk-end states (kernel B3);
-      4b. chunk-end states resolve by composing the chunk boundary maps
-         (pointer doubling, log2 of the chunk count rounds), and the
-         realized paths are gathered.
+      4b. the chunk-end states, chased right to left (kernel K6), select
+         each chunk's realized path (a gather in int8).
 
     All in-chunk state is lane-last ([S, L] and [S, S, L] with
     L = B * n_chunks).  Masks must be prefix masks (padded tails): each
     lane's step masks are rebuilt from its chunk start and the row length.
-    plain=True runs the kernels' plain torch versions on the tensors'
-    device, to hold the kernels against them."""
+    A mask on the CPU is checked here.  On a CUDA device the decode is a
+    fixed sequence of launches that reads nothing back to the host, so
+    the caller checks its host mask with prefix_lengths and passes the
+    lengths in (ValueError without them); the kernels then take the row
+    lengths from the mask on the card.  plain=True runs the kernels' plain
+    torch versions on the tensors' device, to hold the kernels against
+    them."""
     B, T, S = log_em.shape
     dev = log_em.device
-    lengths = mask.sum(dim=1).to(torch.int32)                      # [B]
-    prefix = torch.arange(T, device=dev)[None, :] < lengths[:, None]
-    if not torch.equal(prefix, mask.to(torch.bool)):
-        raise ValueError("viterbi_decode_chunked needs prefix masks")
+    if mask.device.type == "cpu":
+        host = prefix_lengths(mask)
+        if lengths is not None and not np.array_equal(
+                np.asarray(lengths), host):
+            raise ValueError("lengths differ from the mask's prefixes")
+        row_len = torch.from_numpy(host).to(dev, non_blocking=True)
+    else:
+        if lengths is None or np.asarray(lengths).shape != (B,):
+            raise ValueError(
+                "a decode on a CUDA device needs the rows' lengths from "
+                "the host mask (prefix_lengths): it reads nothing back")
+        row_len = mask.sum(dim=1, dtype=torch.int32)
     pad = (-T) % chunk
     if pad:
         log_em = torch.nn.functional.pad(log_em, (0, 0, 0, pad))
@@ -284,56 +304,24 @@ def viterbi_decode_chunked(
         .permute(2, 3, 0, 1).reshape(chunk, S, L).contiguous()
     # per-lane chunk-start time and sequence length (lane = b * nC + c)
     base = (torch.arange(nC, device=dev, dtype=torch.int32) * chunk).repeat(B)
-    lane_len = lengths.repeat_interleave(nC)
+    lane_len = row_len[:, None].expand(B, nC).reshape(L)
 
+    vc = viterbi_cuda
     if plain:
-        phase1 = viterbi_cuda.chunk_matrices_plain
-        phase3 = viterbi_cuda.forward_backtrack_plain
+        phases = (vc.chunk_matrices_plain, vc.chunk_scan_plain,
+                  vc.forward_backtrack_plain, vc.chunk_chase_plain)
     else:
-        phase1 = viterbi_cuda.chunk_matrices
-        phase3 = viterbi_cuda.forward_backtrack
+        phases = (vc.chunk_matrices, vc.chunk_scan, vc.forward_backtrack,
+                  vc.chunk_chase)
+    matrices, scan, forward_backtrack, chase = phases
 
-    # phase 1: chunk transfer matrices
-    chunk_mats = phase1(em, base, lane_len, log_trans, log_init)   # [S,S,L]
-
-    # phase 2: sequential (max,+) prefix over chunks
-    cm = chunk_mats.reshape(S, S, B, nC).permute(2, 3, 0, 1)       # [B,nC,S,S]
-    eye = torch.where(torch.eye(S, dtype=torch.bool, device=dev),
-                      0.0, NEG_INF).to(torch.float32)
-    running = eye[None].expand(B, S, S)
-    scores_end = torch.empty((B, nC, S), dtype=torch.float32, device=dev)
-    for c in range(nC):
-        running = _maxplus_step(running, cm[:, c])
-        scores_end[:, c] = running.amax(dim=1)
-    start_scores = torch.cat(
-        [torch.zeros((B, 1, S), dtype=torch.float32, device=dev),
-         scores_end[:, :-1]], dim=1)
-    ss = start_scores.permute(2, 0, 1).reshape(S, L).contiguous()
-
-    # phases 3 + 4a: forward with backpointers, backtrack all end states
-    paths_all, prev_end = phase3(em, base, lane_len, ss, log_trans,
-                                 log_init)
-
-    # phase 4b: resolve chunk-end states right to left.  Chunk c's end
-    # state is f_{c+1}(f_{c+2}(... f_{nC-1}(last_end))), with f_c(s) =
-    # prev_end of chunk c from end state s.  comp[c] starts as f_{c+1}
-    # (the identity for the last chunk) and after the round with stride d
-    # holds f_{c+1} o ... o f_{c+2d}: ceil(log2 nC) rounds of gathers,
-    # exact integer work equal to the sequential chase.
-    last_end = torch.argmax(scores_end[:, -1], dim=-1)               # [B]
-    pe = prev_end.to(torch.int64).reshape(S, B, nC).permute(2, 1, 0)  # [nC,B,S]
-    ident = torch.arange(S, device=dev).expand(1, B, S)
-    comp = torch.cat([pe[1:], ident])
-    d = 1
-    while d < nC:
-        later = torch.cat([comp[d:], ident.expand(d, B, S)])
-        comp = torch.gather(comp, 2, later)
-        d *= 2
-    ces = torch.gather(comp, 2, last_end[None, :, None].expand(nC, B, 1))
-    sel = ces[:, :, 0].T.reshape(1, 1, L)
-
-    states = torch.gather(paths_all.to(torch.int64), 1,
-                          sel.expand(chunk, 1, L))[:, 0]           # [chunk,L]
+    chunk_mats = matrices(em, base, lane_len, log_trans, log_init)  # [S,S,L]
+    ss, last_end = scan(chunk_mats, B)                      # [S, L], [B]
+    paths_all, prev_end = forward_backtrack(em, base, lane_len, ss,
+                                            log_trans, log_init)
+    sel = chase(prev_end, last_end)                         # [L] int64
+    states = torch.gather(paths_all, 1,
+                          sel.view(1, 1, L).expand(chunk, 1, L))[:, 0]
     states = states.reshape(chunk, B, nC).permute(1, 2, 0)
     return states.reshape(B, Tp)[:, :T].to(torch.int32)
 
@@ -555,13 +543,24 @@ def batched_emissions(
     return live, lengths, log_em, mask_t, log_trans, log_init
 
 
-def _decode_lanes(log_em_parts, mask_parts, log_trans, log_init,
+def _lane_lengths(live, lengths, n_lanes) -> np.ndarray:
+    """Host int32 [n_lanes]: each live contig's length in lane order, 0 for
+    the padding lanes; the prefix lengths of the masks built from them."""
+    out = np.zeros(n_lanes, np.int32)
+    out[:len(live)] = [lengths[n] for n in live]
+    return out
+
+
+def _decode_lanes(log_em_parts, mask_parts, lane_len, log_trans, log_init,
                   chunk: int) -> np.ndarray:
     """Decode each lane group on its own device, then bring the paths to
-    the host in lane order.  Every group is queued before any path is
-    copied back."""
-    paths = [viterbi_decode_chunked(em, m, log_trans, log_init, chunk=chunk)
-             for em, m in zip(log_em_parts, mask_parts)]
+    the host in lane order.  A decode reads nothing back, so every group
+    is queued before the first path is copied: groups on different cards
+    run at once."""
+    parts = np.split(lane_len, len(log_em_parts))
+    paths = [viterbi_decode_chunked(em, m, log_trans, log_init, chunk=chunk,
+                                    lengths=n)
+             for em, m, n in zip(log_em_parts, mask_parts, parts)]
     return np.concatenate([p.cpu().numpy() for p in paths])
 
 
@@ -574,8 +573,8 @@ def segment_coverage_batched(
     devices=None,
 ) -> dict[str, list[int]]:
     """Per-sample HMM over ALL contigs in one batched decode (see
-    batched_emissions).  On a CUDA device the decode runs kernels B2 and
-    B3; on the CPU their plain versions.  Returns contig -> breakpoint
+    batched_emissions).  On a CUDA device the decode runs kernels B2, K5,
+    B3 and K6; on the CPU their plain versions.  Returns contig -> breakpoint
     indices.  Asking for a missing card raises.
 
     With more than one lane device (parallel.mesh.lane_devices: every
@@ -597,7 +596,8 @@ def segment_coverage_batched(
     mask_p = split_lanes(torch.as_tensor(mask), groups)
     em_p = [_lookup_emissions(c, m, torch.as_tensor(logt, device=c.device))
             for c, m in zip(cov_p, mask_p)]
-    paths = _decode_lanes(em_p, mask_p, log_trans, log_init, chunk)
+    paths = _decode_lanes(em_p, mask_p, prefix_lengths(mask), log_trans,
+                          log_init, chunk)
     for b, c in enumerate(live):
         out[c] = breakpoints_from_path(paths[b, :lengths[c]])
     return out
@@ -658,8 +658,8 @@ def segment_coverage_joint_batched(
     devices=None,
 ) -> dict[str, list[int]]:
     """Joint multi-sample HMM over ALL contigs in one batched decode (see
-    joint_emissions): on a CUDA device the decode runs kernels B2 and B3,
-    on the CPU their plain versions.  Returns contig -> breakpoint
+    joint_emissions): on a CUDA device the decode runs kernels B2, K5, B3
+    and K6, on the CPU their plain versions.  Returns contig -> breakpoint
     indices.  Asking for a missing card raises.
 
     With more than one lane device (as in segment_coverage_batched) the
@@ -676,7 +676,9 @@ def segment_coverage_joint_batched(
         return out
     groups = devs if log_em.shape[0] % n == 0 else devs[:1]
     em_p, mask_p = split_lanes(log_em, groups), split_lanes(mask, groups)
-    paths = _decode_lanes(em_p, mask_p, log_trans, log_init, chunk)
+    paths = _decode_lanes(em_p, mask_p,
+                          _lane_lengths(live, lengths, log_em.shape[0]),
+                          log_trans, log_init, chunk)
     for b, c in enumerate(live):
         out[c] = breakpoints_from_path(paths[b, :lengths[c]])
     return out
@@ -722,6 +724,7 @@ def segment_coverage(
         log_em = emission_log_probs(x, tables, mask,
                                     use_all_states=per_sample)
         path = viterbi_decode_chunked(log_em, mask, log_trans, log_init,
-                                      chunk=chunk).cpu().numpy()[0]
+                                      chunk=chunk, lengths=[T]
+                                      ).cpu().numpy()[0]
         out[name] = breakpoints_from_path(path)
     return out

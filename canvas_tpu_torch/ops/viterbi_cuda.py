@@ -20,10 +20,24 @@ log_init + e.
                      [chunk, S, L] and prev_end [S, L].  The kernel keeps
                      the backpointers in shared memory, so chunk is at
                      most viterbi_max_chunk() on CUDA tensors
+  chunk_scan         (K5): phase 2, the (max,+) prefix over each sequence's
+                     chunk matrices, chunks in order: the chunk-start
+                     scores f32 [S, L] that B3 takes (chunk 0 starts at 0,
+                     chunk c at the end scores of chunk c - 1) and each
+                     sequence's best last end state, int32 [B]
+  chunk_chase        (K6): phase 4b, each chunk's end state, chased right
+                     to left through B3's prev_end from the last chunk's
+                     best end state: the int64 [L] selectors of the
+                     decode's final gather
+
+K5 and K6 port XLA work of canvas_tpu's decode (viterbi_pallas.py:282-290
+and :314-324), not Pallas kernels; with them a decode on the card reads
+nothing back to the host.
 
 On CUDA tensors the wrappers launch csrc/viterbi.cu; on CPU tensors they
-run the plain versions.  Both only add and take maxima in f32, in the
-same order, so their outputs are equal bit for bit.  B2's bound at the
+run the plain versions.  B2, B3 and K5 only add and take maxima in f32,
+in the same order, and K6 moves small integers, so the outputs are equal
+bit for bit.  B2's bound at the
 production decode shape is its bytes, 130.6 MB of live emissions and
 outputs (0.0390 ms at 3.35 TB/s), for the uniform chain's 100 adds and
 maxima a live lane-step take 0.0184 ms of f32 issue slots; the general
@@ -43,7 +57,8 @@ NEG_INF = -1e30
 N_STATES = 5      # the kernels are compiled for S = 5
 
 # launches of each kernel, counted by the wrappers
-LAUNCHES = {"chunk_matrix": 0, "forward_backtrack": 0}
+LAUNCHES = {"chunk_matrix": 0, "forward_backtrack": 0, "chunk_scan": 0,
+            "chunk_chase": 0}
 # B2's launches by the chain they ran
 CHAINS = {"uniform": 0, "general": 0}
 
@@ -54,6 +69,10 @@ _SIGNATURES = {
        ctypes.c_void_p],
     "viterbi_forward_backtrack": [ctypes.c_void_p] * 6
     + [ctypes.c_int, ctypes.c_longlong, _F32P, _F32P, ctypes.c_void_p],
+    "viterbi_chunk_scan": [ctypes.c_void_p] * 3
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "viterbi_chunk_chase": [ctypes.c_void_p] * 3
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "viterbi_n_states": [],
     "viterbi_max_chunk": [],
 }
@@ -215,3 +234,110 @@ def forward_backtrack(em, base, length, start, log_trans, log_init):
     cuda_lib.check(status, "viterbi_forward_backtrack")
     LAUNCHES["forward_backtrack"] += 1
     return paths, prev_end
+
+
+def _maxplus_step(running: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """(max,+) product [B,S,S] x [B,S,S]: out[b,i,j] = max_k r[b,i,k] +
+    m[b,k,j]."""
+    return (running[:, :, :, None] + m[:, None, :, :]).amax(dim=2)
+
+
+def chunk_scan_plain(mats, n_seq):
+    """Plain torch version of K5: the sequential (max,+) prefix over each
+    sequence's chunk matrices, one chunk at a time."""
+    S, _, L = mats.shape
+    nC = L // n_seq
+    dev = mats.device
+    cm = mats.reshape(S, S, n_seq, nC).permute(2, 3, 0, 1)     # [B,nC,S,S]
+    eye = torch.where(torch.eye(S, dtype=torch.bool, device=dev),
+                      0.0, NEG_INF).to(torch.float32)
+    running = eye[None].expand(n_seq, S, S)
+    scores_end = torch.empty((n_seq, nC, S), dtype=torch.float32, device=dev)
+    for c in range(nC):
+        running = _maxplus_step(running, cm[:, c])
+        scores_end[:, c] = running.amax(dim=1)
+    start = torch.cat(
+        [torch.zeros((n_seq, 1, S), dtype=torch.float32, device=dev),
+         scores_end[:, :-1]], dim=1)
+    ss = start.permute(2, 0, 1).reshape(S, L).contiguous()
+    last_end = torch.argmax(scores_end[:, -1], dim=-1).to(torch.int32)
+    return ss, last_end
+
+
+def chunk_chase_plain(prev_end, last_end):
+    """Plain torch version of K6, by pointer doubling: chunk c's end state
+    is f_{c+1}(f_{c+2}(... f_{nC-1}(last_end))), with f_c(s) = prev_end of
+    chunk c from end state s.  comp[c] starts as f_{c+1} (the identity for
+    the last chunk) and after the round with stride d holds f_{c+1} o ...
+    o f_{c+2d}: ceil(log2 nC) rounds of gathers, exact integer work equal
+    to the kernel's sequential chase."""
+    S, L = prev_end.shape
+    B = last_end.shape[0]
+    nC = L // B
+    dev = prev_end.device
+    pe = prev_end.to(torch.int64).reshape(S, B, nC).permute(2, 1, 0)  # [nC,B,S]
+    ident = torch.arange(S, device=dev).expand(1, B, S)
+    comp = torch.cat([pe[1:], ident])
+    d = 1
+    while d < nC:
+        later = torch.cat([comp[d:], ident.expand(d, B, S)])
+        comp = torch.gather(comp, 2, later)
+        d *= 2
+    ends = torch.gather(comp, 2, last_end.to(torch.int64)[None, :, None]
+                        .expand(nC, B, 1))[:, :, 0]                # [nC, B]
+    return ends.T.reshape(L).contiguous()
+
+
+def _check_lanes(name, x, dtype, shape, device):
+    if x.shape != shape:
+        raise ValueError(f"{name} must be {list(shape)}, got "
+                         f"{list(x.shape)}")
+    if device.type == "cuda":
+        cuda_lib.require_cuda_tensor(name, x, dtype, device)
+    elif x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def chunk_scan(mats, n_seq):
+    """K5: (chunk-start scores f32 [S, L], best last end state int32
+    [n_seq]) from B2's chunk matrices f32 [S, S, L], L = n_seq * chunks
+    with lane = b * chunks + c."""
+    S = N_STATES
+    L = mats.shape[-1]
+    if n_seq < 1 or L % n_seq or L == 0:
+        raise ValueError(f"{L} lanes do not make {n_seq} sequences")
+    _check_lanes("mats", mats, torch.float32, (S, S, L), mats.device)
+    if mats.device.type == "cpu":
+        return chunk_scan_plain(mats, n_seq)
+    lib = cuda_lib.load("viterbi", _SIGNATURES)
+    ss = torch.empty((S, L), dtype=torch.float32, device=mats.device)
+    last_end = torch.empty(n_seq, dtype=torch.int32, device=mats.device)
+    status = cuda_lib.launch(mats.device, lib.viterbi_chunk_scan,
+                             mats.data_ptr(), ss.data_ptr(),
+                             last_end.data_ptr(), n_seq, L // n_seq)
+    cuda_lib.check(status, "viterbi_chunk_scan")
+    LAUNCHES["chunk_scan"] += 1
+    return ss, last_end
+
+
+def chunk_chase(prev_end, last_end):
+    """K6: each chunk's end state, int64 [L] (lane = b * chunks + c), from
+    B3's prev_end int8 [S, L] and K5's last_end int32 [B]."""
+    S = N_STATES
+    L = prev_end.shape[-1]
+    n_seq = last_end.shape[0] if last_end.dim() == 1 else 0
+    if n_seq < 1 or L % n_seq or L == 0:
+        raise ValueError(f"{L} lanes do not make {n_seq} sequences")
+    _check_lanes("prev_end", prev_end, torch.int8, (S, L), prev_end.device)
+    _check_lanes("last_end", last_end, torch.int32, (n_seq,),
+                 prev_end.device)
+    if prev_end.device.type == "cpu":
+        return chunk_chase_plain(prev_end, last_end)
+    lib = cuda_lib.load("viterbi", _SIGNATURES)
+    sel = torch.empty(L, dtype=torch.int64, device=prev_end.device)
+    status = cuda_lib.launch(prev_end.device, lib.viterbi_chunk_chase,
+                             prev_end.data_ptr(), last_end.data_ptr(),
+                             sel.data_ptr(), n_seq, L // n_seq)
+    cuda_lib.check(status, "viterbi_chunk_chase")
+    LAUNCHES["chunk_chase"] += 1
+    return sel

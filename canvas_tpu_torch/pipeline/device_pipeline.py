@@ -26,12 +26,14 @@ from canvas_tpu_torch.parallel.mesh import (gather_lanes, lane_devices,
 def _on_lanes(fn, mesh, lane_args: tuple, *shared):
     """fn(*lane_args, *shared) on the whole batch, or, given a mesh, on
     each group of lanes on its own device, gathered back to the device of
-    lane_args[0] in lane order.  fn returns a tensor or a tuple of
-    tensors with the lanes leading."""
+    lane_args[0] in lane order.  A lane argument that is a numpy array
+    splits the same way and stays on the host.  fn returns a tensor or a
+    tuple of tensors with the lanes leading."""
     if mesh is None:
         return fn(*lane_args, *shared)
     devs = lane_devices(devices=mesh)
-    parts = [split_lanes(a, devs) for a in lane_args]
+    parts = [np.split(a, len(devs)) if isinstance(a, np.ndarray)
+             else split_lanes(a, devs) for a in lane_args]
     outs = [fn(*[p[k] for p in parts], *shared) for k in range(len(devs))]
     home = lane_args[0].device
     if isinstance(outs[0], tuple):
@@ -50,12 +52,12 @@ def _host_model(x) -> np.ndarray:
     return np.asarray(torch.as_tensor(x).cpu().numpy(), np.float32)
 
 
-def _segment(coverage, mask, log_tables, log_trans, log_init,
+def _segment(coverage, mask, lengths, log_tables, log_trans, log_init,
              use_all_states, chunk):
     em = hmm.emissions_from_log_tables(
         coverage, log_tables.to(coverage.device), mask, use_all_states)
     return hmm.viterbi_decode_chunked(em, mask, log_trans, log_init,
-                                      chunk=chunk)
+                                      chunk=chunk, lengths=lengths)
 
 
 def segmentation_step(
@@ -72,12 +74,16 @@ def segmentation_step(
     """Emission lookup + chunked Viterbi, the segmentation forward: int32
     [B, T] state paths.  The emission is the genotype-permutation max of
     the table lookups (hmm.emissions_from_log_tables); the decode is
-    hmm.viterbi_decode_chunked, kernels B2 and B3 on a CUDA device."""
+    hmm.viterbi_decode_chunked, kernels B2, K5, B3 and K6 on a CUDA
+    device."""
     if n_dim != log_tables.shape[1]:
         raise ValueError(f"n_dim {n_dim} differs from the tables' "
                          f"{log_tables.shape[1]} samples")
+    # the mask's one read, before any launch of the step: the decodes read
+    # nothing back, so every lane group is queued before a path is read
+    lengths = hmm.prefix_lengths(mask.cpu())
     return _on_lanes(
-        _segment, mesh, (coverage, mask), log_tables,
+        _segment, mesh, (coverage, mask, lengths), log_tables,
         _host_model(log_trans), _host_model(log_init), use_all_states, chunk)
 
 

@@ -23,7 +23,12 @@ Phases, one JSON line each; any failure exits non-zero:
              device-memory allocations, and the whole decode's time.  B2
              runs the decode's uniform model (the chain it took is
              printed) and, checked and timed beside it, a non-uniform
-             model from --seed (the general chain);
+             model from --seed (the general chain).  Then K5 (phase 2,
+             on B2's chunk matrices) and K6 (phase 4b, on B3's prev_end
+             from K5's start scores), each against its plain version, bit
+             for bit, with both times (lines "K5" and "K6"), and the whole
+             decode's synchronising calls under CUDA's sync debug mode:
+             the run fails unless there are none;
   4. e2e     SmallPedigree-WGS through the CLI entry point on a synthetic
              trio (4 contigs, 20 Mbp, 12.5x) with --device cuda and again
              with --device cpu: identical VCFs, the planted shared gain and
@@ -102,7 +107,8 @@ Phases, one JSON line each; any failure exits non-zero:
              NB coverage that each carry a seeded half of its events (every
              N-gap), [T, 3] a contig, through
              hmm.segment_coverage_joint_batched on the card (32 lanes x
-             524,288 bins x 5 states of emissions, kernels B2 and B3): the
+             524,288 bins x 5 states of emissions, kernels B2, K5, B3 and
+             K6): the
              paths equal to the plain decode on the card, the emissions
              equal to the same torch emission computed on the CPU, the
              seconds of the tables (host), the emissions (tables included)
@@ -113,7 +119,8 @@ Phases, one JSON line each; any failure exits non-zero:
              entry point on phase e2e's trio, twice, each with --device
              cuda and again with --device cpu: (a) the joint multi-sample
              HMM (--custom-parameters "CanvasPartition,-m HMM"), whose one
-             decode of the trio is one B2 and one B3 launch, and (b)
+             decode of the trio is one launch of each of B2, K5, B3 and
+             K6, and (b)
              PerSampleHMM with --common-cnvs-bed, one interval over the
              shared chr1 gain from 500 bp into it (called as a forced
              common-CNV set, flagged COMMONCNV): identical VCFs, the
@@ -133,7 +140,7 @@ Phases, one JSON line each; any failure exits non-zero:
              hmm.segment_coverage_batched, and phase joint-decode's through
              hmm.segment_coverage_joint_batched, each three times: unsplit
              on cuda:0, lane-split over the virtual mesh [cuda:0] * 4 (8
-             lanes a group, 4 launches of B2 and of B3) and over the
+             lanes a group, 4 launches of each decode kernel) and over the
              visible cards: equal breakpoints, the seconds and launches of
              each run;
  16. bin-mesh
@@ -207,6 +214,9 @@ PLANS = {
 TYPES = {"father": "Father", "mother": "Mother", "proband": "Proband"}
 
 KERNEL_SOURCES = ("prefix_scan", "viterbi", "arc_scan")
+# the decode's kernels, by their launch counts' names: B2, K5, B3, K6
+DECODE_KERNELS = ("chunk_matrix", "chunk_scan", "forward_backtrack",
+                  "chunk_chase")
 
 # NVIDIA H100 SXM peaks (data sheet, 700 W): device memory, and f32 outside
 # the tensor cores.  The f32 peak counts an FMA as two operations; the
@@ -483,14 +493,15 @@ def decode_inputs(seed: int, dev: torch.device):
         cov[f"chr{i + 1}"] = c
     live, lengths, log_em, mask, lt, li = hmm.batched_emissions(
         cov, device=dev)
-    return log_em, mask, lt, li
+    return log_em, mask, hmm._lane_lengths(live, lengths, log_em.shape[0]), \
+        lt, li
 
 
-def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, dict]:
+def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, ...]:
     from canvas_tpu_torch.ops import hmm
     from canvas_tpu_torch.ops import viterbi_cuda as vc
 
-    log_em, mask, lt, li = decode_inputs(seed, dev)
+    log_em, mask, rows, lt, li = decode_inputs(seed, dev)
     B, T, S = log_em.shape
     if (B, T, S) != (32, 524_288, 5):
         fail(f"decode shape {(B, T, S)} is not the production shape")
@@ -539,11 +550,34 @@ def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, dict]:
                      (e_k.to(torch.int32) - e_p.to(torch.int32)).abs().max()))
     if b3_err:
         fail(f"B3 differs from its plain version (max |diff| {b3_err})")
-    # the whole decode, kernels against plain versions
-    path_k = hmm.viterbi_decode_chunked(log_em, mask, lt, li, chunk=CHUNK)
+    # K5 and K6 against their plain versions, on B2's chunk matrices and
+    # on B3's prev_end from K5's start scores
+    mats = vc.chunk_matrices(em, base, lane_len, lt, li)
+    ss5, last5 = vc.chunk_scan(mats, B)
     torch.cuda.synchronize()
+    ss5_p, last5_p = vc.chunk_scan_plain(mats, B)
+    k5_err = float((ss5 - ss5_p).abs().max())
+    if not (torch.equal(ss5.view(torch.int32), ss5_p.view(torch.int32))
+            and torch.equal(last5, last5_p)):
+        fail(f"K5 differs from its plain version (max |diff| {k5_err}, "
+             f"last end states equal: {torch.equal(last5, last5_p)})")
+    del ss5_p
+    _, pe6 = vc.forward_backtrack(em, base, lane_len, ss5, lt, li)
+    sel6 = vc.chunk_chase(pe6, last5)
+    torch.cuda.synchronize()
+    sel6_p = vc.chunk_chase_plain(pe6, last5)
+    k6_err = int((sel6 - sel6_p).abs().max())
+    if k6_err:
+        fail(f"K6 differs from its plain version (max |diff| {k6_err})")
+    # the whole decode, kernels against plain versions, and its
+    # synchronising calls (none: a fixed sequence of launches)
+    path_k, dec_syncs = count_syncs(
+        lambda: hmm.viterbi_decode_chunked(log_em, mask, lt, li, chunk=CHUNK,
+                                           lengths=rows))
+    if dec_syncs:
+        fail(f"the decode made {dec_syncs} synchronising calls, not 0")
     path_p = hmm.viterbi_decode_chunked(log_em, mask, lt, li, chunk=CHUNK,
-                                        plain=True)
+                                        plain=True, lengths=rows)
     if not torch.equal(path_k, path_p):
         n = int((path_k != path_p).sum())
         fail(f"decoded paths differ from the plain decode at {n} bins")
@@ -561,12 +595,19 @@ def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, dict]:
         queued=True)
     b3_plain = cuda_ms(
         lambda: vc.forward_backtrack_plain(em, base, lane_len, ss, lt, li), 2)
+    k5_ms = cuda_ms(lambda: vc.chunk_scan(mats, B), 20, queued=True)
+    k5_plain = cuda_ms(lambda: vc.chunk_scan_plain(mats, B), 2)
+    k6_ms = cuda_ms(lambda: vc.chunk_chase(pe6, last5), 20, queued=True)
+    k6_plain = cuda_ms(lambda: vc.chunk_chase_plain(pe6, last5), 5)
     dec_ms = cuda_ms(
-        lambda: hmm.viterbi_decode_chunked(log_em, mask, lt, li, chunk=CHUNK),
-        3)
+        lambda: hmm.viterbi_decode_chunked(log_em, mask, lt, li, chunk=CHUNK,
+                                           lengths=rows), 5)
+    dec_queued_ms = cuda_ms(
+        lambda: hmm.viterbi_decode_chunked(log_em, mask, lt, li, chunk=CHUNK,
+                                           lengths=rows), 5, queued=True)
     dec_plain = cuda_ms(
         lambda: hmm.viterbi_decode_chunked(log_em, mask, lt, li, chunk=CHUNK,
-                                           plain=True), 1)
+                                           plain=True, lengths=rows), 1)
     # both kernels read em only at live steps (base + k < length): 20
     # bytes each; base and length are read once per lane
     live = int(torch.clamp(lane_len.to(torch.int64) - base, 0, CHUNK).sum())
@@ -583,6 +624,15 @@ def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, dict]:
     # start scores, writes int8 paths [chunk, S, L] and prev_end [S, L]
     b3_bytes = 20 * live + lanes_in + 4 * S * L + CHUNK * S * L + S * L
     b3_bound, b3_by = bound(b3_bytes, 50 * live)
+    # K5 reads the f32 [S, S, L] matrices, writes the f32 [S, L] start
+    # scores and B int32 end states; per lane (chunk) 25 entries of 5 adds
+    # and 4 maxima and 5 end scores of 4 maxima, 245 operations
+    k5_bytes = 4 * S * S * L + 4 * S * L + 4 * B
+    k5_bound, k5_by = bound(k5_bytes, 245 * L)
+    # K6 reads the int8 [S, L] prev_end and B int32 end states and writes
+    # L int64 selectors; one dependent select a chunk
+    k6_bytes = S * L + 4 * B + 8 * L
+    k6_bound, k6_by = bound(k6_bytes, L)
     shape = [B, T, S]
     b2 = {"phase": "B2", "shape": shape, "chunk": CHUNK, "lanes": L,
           "live_steps": live, "equal": True, "max_abs_err": b2_err,
@@ -601,9 +651,20 @@ def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, dict]:
           "library_ms": None,
           "bytes": b3_bytes, "bound_ms": b3_bound, "bound_by": b3_by,
           "bound_share": b3_bound / b3_ms, "alloc_bytes": b3_alloc,
-          "decode_ms": dec_ms, "decode_plain_ms": dec_plain,
+          "decode_ms": dec_ms, "decode_queued_ms": dec_queued_ms,
+          "decode_plain_ms": dec_plain, "decode_syncs": dec_syncs,
           "non_diploid_bins": called}
-    return b2, b3
+    k5 = {"phase": "K5", "shape": shape, "sequences": B, "chunks": nC,
+          "lanes": L, "equal": True, "max_abs_err": k5_err,
+          "ms": k5_ms, "plain_ms": k5_plain, "library_ms": None,
+          "bytes": k5_bytes, "bound_ms": k5_bound, "bound_by": k5_by,
+          "bound_share": k5_bound / k5_ms}
+    k6 = {"phase": "K6", "shape": shape, "sequences": B, "chunks": nC,
+          "lanes": L, "equal": True, "max_abs_err": k6_err,
+          "ms": k6_ms, "plain_ms": k6_plain, "library_ms": None,
+          "bytes": k6_bytes, "bound_ms": k6_bound, "bound_by": k6_by,
+          "bound_share": k6_bound / k6_ms}
+    return b2, b3, k5, k6
 
 
 def make_trio(base: Path, seed: int) -> dict[str, Path]:
@@ -775,7 +836,7 @@ def phase_e2e(seed: int, workdir: Path) -> dict:
                                 for s in prof["stages"]}}
     n_contigs, n_samples = len(TRIO_CONTIGS), len(PLANS)
     need = {"prefix_scan": n_contigs * n_samples,
-            "chunk_matrix": n_samples, "forward_backtrack": n_samples}
+            **{k: n_samples for k in DECODE_KERNELS}}
     short = {k: (launches[k], v) for k, v in need.items() if launches[k] < v}
     if short:
         fail(f"kernels launched fewer times than the path needs: {short}")
@@ -1265,7 +1326,7 @@ def phase_e2e_joint(workdir: Path) -> dict:
         runs = run_both([*args, *extra], workdir / f"joint_{name}",
                         "pedigree_profile.json")
         want = {"prefix_scan": n_contigs * n_samples,
-                "chunk_matrix": decodes, "forward_backtrack": decodes}
+                **{k: decodes for k in DECODE_KERNELS}}
         got = {k: runs["launches"][k] for k in want}
         if got != want:
             fail(f"{name}: kernel launches {got}, the path needs {want}")
@@ -1546,16 +1607,19 @@ def phase_joint_decode(seed: int, dev: torch.device,
     B, T, S = em.shape
     if (B, T, S) != (32, 524_288, 5):
         fail(f"joint emission shape {(B, T, S)} is not the production shape")
+    rows = hmm._lane_lengths(live, live_len, B)
     reset_launches()
     t0 = time.perf_counter()
-    path_k = hmm.viterbi_decode_chunked(em, mask, lt, li, chunk=CHUNK)
+    path_k = hmm.viterbi_decode_chunked(em, mask, lt, li, chunk=CHUNK,
+                                        lengths=rows)
     torch.cuda.synchronize()
     secs["decode"] = time.perf_counter() - t0
     launches = read_launches()
-    if (launches["chunk_matrix"], launches["forward_backtrack"]) != (1, 1):
-        fail(f"the joint decode launched {launches}, not one B2 and one B3")
+    if any(launches[k] != 1 for k in DECODE_KERNELS):
+        fail(f"the joint decode launched {launches}, not one B2, K5, B3 "
+             f"and K6")
     path_p = hmm.viterbi_decode_chunked(em, mask, lt, li, chunk=CHUNK,
-                                        plain=True)
+                                        plain=True, lengths=rows)
     if not torch.equal(path_k, path_p):
         n = int((path_k != path_p).sum())
         fail(f"joint paths differ from the plain decode at {n} bins")
@@ -1710,7 +1774,7 @@ def phase_e2e_multiprocess(workdir: Path) -> dict:
 
 def _mesh_runs(fn, data, runs: dict) -> tuple[dict, dict]:
     """fn(data, chunk=CHUNK, **kw) for each named kw of `runs`, counts set
-    to 0 before each: (breakpoints, seconds and B2/B3 launches)."""
+    to 0 before each: (breakpoints, seconds and the decode's launches)."""
     bps, info = {}, {}
     for name, kw in runs.items():
         torch.cuda.synchronize()
@@ -1720,8 +1784,7 @@ def _mesh_runs(fn, data, runs: dict) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         got = read_launches()
         info[name] = {"s": time.perf_counter() - t0,
-                      "launches": {k: got[k] for k in ("chunk_matrix",
-                                                       "forward_backtrack")}}
+                      "launches": {k: got[k] for k in DECODE_KERNELS}}
     return bps, info
 
 
@@ -1745,7 +1808,7 @@ def phase_mesh_decode(seed: int, dev: torch.device,
     out = {"phase": "mesh-decode", "device_count": n_dev, "meshes": meshes,
            "contigs": len(cov), "bins": sum(len(c) for c in cov.values()),
            "generate_s": gen_s}
-    launches = {"chunk_matrix": 0, "forward_backtrack": 0}
+    launches = dict.fromkeys(DECODE_KERNELS, 0)
     for kind, fn, data in (("per_sample", hmm.segment_coverage_batched, cov),
                            ("joint", hmm.segment_coverage_joint_batched,
                             joint)):
@@ -1760,7 +1823,7 @@ def phase_mesh_decode(seed: int, dev: torch.device,
                     "visible": len(meshes["visible"])}[name]
             if set(info[name]["launches"].values()) != {want}:
                 fail(f"{kind}, {name}: launches {info[name]['launches']}, "
-                     f"{want} of B2 and B3 expected")
+                     f"{want} of B2, K5, B3 and K6 expected")
             for k in launches:
                 launches[k] += info[name]["launches"][k]
         lanes = hmm._next_pow2(max(len(data), MESH_N))
@@ -1855,12 +1918,11 @@ def phase_dryrun(dev: torch.device) -> dict:
     torch.cuda.synchronize()
     dryrun_s = time.perf_counter() - t0
     launches = read_launches()
-    # the mesh run: B1 a contig and sample, B2/B3 a lane group and sample;
-    # the synthetic step one B2/B3 a lane
+    # the mesh run: B1 a contig and sample, each decode kernel a lane group
+    # and sample; the synthetic step each decode kernel once a lane
     n_c, n_s = len(graft_entry.TRIO_CONTIGS), len(graft_entry.TRIO_PLANS)
     need = {"prefix_scan": 2 * n_c * n_s,
-            "chunk_matrix": MESH_N + MESH_N * n_s + n_s,
-            "forward_backtrack": MESH_N + MESH_N * n_s + n_s}
+            **{k: MESH_N + MESH_N * n_s + n_s for k in DECODE_KERNELS}}
     got = {k: launches[k] for k in need}
     if got != need:
         fail(f"dryrun launched {got}, the mesh path needs {need}")
@@ -1874,7 +1936,7 @@ def phase_dryrun(dev: torch.device) -> dict:
     want = fn(*(a.cpu() for a in args))
     if not torch.equal(states.cpu(), want):
         fail("entry()'s step on the card differs from the CPU")
-    for k in ("chunk_matrix", "forward_backtrack"):
+    for k in DECODE_KERNELS:
         launches[k] += entry_launches[k]
     return {"phase": "dryrun", "device_count": torch.cuda.device_count(),
             "mesh": [str(dev)] * MESH_N, "messages": buf.getvalue().split("\n")[:-1],
@@ -1979,7 +2041,7 @@ def main() -> int:
 
     run("build", phase_build)
     b1 = run("B1", phase_b1, args.seed, dev)
-    b2, b3 = run("B2/B3", phase_b2_b3, args.seed, dev)
+    b2, b3, k5, k6 = run("B2/B3", phase_b2_b3, args.seed, dev)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         e2e = run("e2e", phase_e2e, args.seed, Path(workdir))
@@ -2021,23 +2083,17 @@ def main() -> int:
                       + mp["launches"]["prefix_scan"]
                       + bmesh["launches"]
                       + dry["launches"]["prefix_scan"]), **_timing(b1)},
-        {"name": "chunk_matrix", "route": "cuda",
-         "source": "canvas_tpu_torch/csrc/viterbi.cu",
-         "replaces": "canvas_tpu/ops/viterbi_pallas.py:100",
-         "launches": (launches["chunk_matrix"]
-                      + joint["launches"]["chunk_matrix"]
-                      + mp["launches"]["chunk_matrix"]
-                      + mdec["launches"]["chunk_matrix"]
-                      + dry["launches"]["chunk_matrix"]), **_timing(b2)},
-        {"name": "forward_backtrack", "route": "cuda",
-         "source": "canvas_tpu_torch/csrc/viterbi.cu",
-         "replaces": "canvas_tpu/ops/viterbi_pallas.py:139",
-         "launches": (launches["forward_backtrack"]
-                      + joint["launches"]["forward_backtrack"]
-                      + mp["launches"]["forward_backtrack"]
-                      + mdec["launches"]["forward_backtrack"]
-                      + dry["launches"]["forward_backtrack"]),
-         **_timing(b3)},
+        *[{"name": name, "route": "cuda",
+           "source": "canvas_tpu_torch/csrc/viterbi.cu",
+           "replaces": f"canvas_tpu/ops/viterbi_pallas.py:{line}",
+           "launches": (launches[name] + joint["launches"][name]
+                        + mp["launches"][name] + mdec["launches"][name]
+                        + dry["launches"][name]),
+           **_timing(res)}
+          for name, line, res in (("chunk_matrix", 100, b2),
+                                  ("forward_backtrack", 139, b3),
+                                  ("chunk_scan", 285, k5),
+                                  ("chunk_chase", 323, k6))],
         {"name": "arc_scan", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/arc_scan.cu",
          "replaces": "canvas_tpu/ops/cbs_device.py:200",

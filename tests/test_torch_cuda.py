@@ -88,17 +88,18 @@ def test_viterbi_kernels_match_plain(dev, chunk, model):
         chunk, 6, 3000, [3000, 2999, 1500, 257, 1, 0], model)
     em_t = torch.as_tensor(log_em, device=dev)
     mask_t = torch.as_tensor(mask, device=dev)
+    lengths = hmm.prefix_lengths(mask)
     before = dict(viterbi_cuda.LAUNCHES)
     chains = dict(viterbi_cuda.CHAINS)
-    got = hmm.viterbi_decode_chunked(em_t, mask_t, lt, li, chunk=chunk)
+    got = hmm.viterbi_decode_chunked(em_t, mask_t, lt, li, chunk=chunk,
+                                     lengths=lengths)
     torch.cuda.synchronize()
-    assert viterbi_cuda.LAUNCHES["chunk_matrix"] == before["chunk_matrix"] + 1
     chain = "uniform" if model == "uniform" else "general"
     assert viterbi_cuda.CHAINS[chain] == chains[chain] + 1
-    assert viterbi_cuda.LAUNCHES["forward_backtrack"] == \
-        before["forward_backtrack"] + 1
+    for k in viterbi_cuda.LAUNCHES:
+        assert viterbi_cuda.LAUNCHES[k] == before[k] + 1
     want = hmm.viterbi_decode_chunked(em_t, mask_t, lt, li, chunk=chunk,
-                                      plain=True)
+                                      plain=True, lengths=lengths)
     assert torch.equal(got, want)
     np.testing.assert_array_equal(
         got.cpu().numpy(),
@@ -174,6 +175,127 @@ def test_chunk_matrix_kernel_matches_plain(dev, chunk, uniform):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _scan_inputs(dev, n_seq, n_chunks, seed, identity_rows=()):
+    """K5's chunk matrices f32 [S, S, L] of integer values (exact ties),
+    a fifth -1e30, and the identity (B2's output for an all-masked lane)
+    for the sequences in identity_rows; K6's prev_end int8 [S, L] and last
+    end states int32 [n_seq]."""
+    rng = np.random.default_rng(seed)
+    S, L = viterbi_cuda.N_STATES, n_seq * n_chunks
+    mats = np.round(rng.normal(size=(S, S, L)) * 4).astype(np.float32)
+    mats[rng.random(mats.shape) < 0.2] = viterbi_cuda.NEG_INF
+    eye = np.where(np.eye(S, dtype=bool), np.float32(0),
+                   np.float32(viterbi_cuda.NEG_INF))
+    for b in identity_rows:
+        mats[:, :, b * n_chunks:(b + 1) * n_chunks] = eye[:, :, None]
+    pe = rng.integers(0, S, (S, L), dtype=np.int8)
+    last = rng.integers(0, S, n_seq, dtype=np.int32)
+    return (torch.as_tensor(mats, device=dev), torch.as_tensor(pe, device=dev),
+            torch.as_tensor(last, device=dev))
+
+
+# (sequences, chunks): the production decode's 32 x 2,048; one chunk; a
+# chunk count off the tiles and powers of two; more chunks than K6's
+# shared-memory tile holds
+SCAN_SHAPES = [(32, 2048), (4, 1), (3, 37), (2, 5000)]
+
+
+@pytest.mark.parametrize("n_seq,n_chunks", SCAN_SHAPES)
+def test_chunk_scan_and_chase_kernels_match_plain(dev, n_seq, n_chunks):
+    """K5 and K6 alone, bit for bit (int32 views): integer chunk matrices
+    with ties and -1e30 entries, an all-masked sequence (identity
+    matrices), and K6 on K5's last end states and on random ones."""
+    mats, pe, last = _scan_inputs(dev, n_seq, n_chunks, n_seq + n_chunks,
+                                  identity_rows=(n_seq - 1,))
+    before = dict(viterbi_cuda.LAUNCHES)
+    ss, last_end = viterbi_cuda.chunk_scan(mats, n_seq)
+    sel = viterbi_cuda.chunk_chase(pe, last_end)
+    sel_random = viterbi_cuda.chunk_chase(pe, last)
+    torch.cuda.synchronize()
+    assert viterbi_cuda.LAUNCHES["chunk_scan"] == before["chunk_scan"] + 1
+    assert viterbi_cuda.LAUNCHES["chunk_chase"] == before["chunk_chase"] + 2
+    want_ss, want_last = viterbi_cuda.chunk_scan_plain(mats, n_seq)
+    assert torch.equal(ss.view(torch.int32), want_ss.view(torch.int32))
+    assert last_end.dtype == torch.int32
+    assert torch.equal(last_end, want_last)
+    for got, le in ((sel, last_end), (sel_random, last)):
+        assert got.dtype == torch.int64
+        assert torch.equal(got, viterbi_cuda.chunk_chase_plain(pe, le))
+
+
+def test_decode_makes_no_synchronising_call(dev):
+    """The decode on the card is a fixed sequence of launches: under
+    CUDA's sync debug mode set to "error" it makes no synchronising call
+    up to the caller's read of the path."""
+    log_em, lt, li, mask = _decode_problem(
+        12, 6, 3000, [3000, 2999, 1500, 257, 1, 0], "uniform")
+    em_t = torch.as_tensor(log_em, device=dev)
+    mask_t = torch.as_tensor(mask, device=dev)
+    lengths = hmm.prefix_lengths(mask)
+    want = hmm.viterbi_decode_chunked(em_t, mask_t, lt, li, lengths=lengths)
+    torch.cuda.synchronize()                 # the kernels are built
+    before = dict(viterbi_cuda.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = hmm.viterbi_decode_chunked(em_t, mask_t, lt, li,
+                                         lengths=lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for k in viterbi_cuda.LAUNCHES:
+        assert viterbi_cuda.LAUNCHES[k] == before[k] + 1
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="lengths"):
+        hmm.viterbi_decode_chunked(em_t, mask_t, lt, li)
+
+
+def test_lane_split_decode_reads_once_a_group(dev, monkeypatch):
+    """Six contigs over [cuda:0] * 4: the lane groups' decodes make one
+    synchronising call each, the copy of the group's path to the host,
+    so every group is queued before the first read."""
+    import warnings
+
+    decode_lanes = hmm._decode_lanes
+    syncs = []
+
+    def counted(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = decode_lanes(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs.append(sum("synchronizing" in str(w.message) for w in caught))
+        return out
+
+    monkeypatch.setattr(hmm, "_decode_lanes", counted)
+    cov = _coverage(5, 6)
+    split = hmm.segment_coverage_batched(
+        cov, devices=[torch.device("cuda", 0)] * 4)
+    assert syncs == [4]
+    assert split == hmm.segment_coverage_batched(cov, device="cpu")
+
+
+def test_chunk_kernels_launch_on_the_tensors_device(dev):
+    """K5 and K6 on cuda:1 while cuda:0 is current: results on cuda:1,
+    equal to the plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    d1 = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    mats, pe, last = _scan_inputs(d1, 6, 300, 2)
+    ss, last_end = viterbi_cuda.chunk_scan(mats, 6)
+    sel = viterbi_cuda.chunk_chase(pe, last_end)
+    assert ss.device == last_end.device == sel.device == d1
+    want_ss, want_last = viterbi_cuda.chunk_scan_plain(mats, 6)
+    assert torch.equal(ss.view(torch.int32), want_ss.view(torch.int32))
+    assert torch.equal(last_end, want_last)
+    assert torch.equal(sel, viterbi_cuda.chunk_chase_plain(pe, last_end))
+    torch.cuda.synchronize(d1)
+    assert torch.cuda.current_device() == 0
+
+
 def test_segment_coverage_batched_on_card_equals_cpu(dev):
     rng = np.random.default_rng(4)
     cov = {}
@@ -219,14 +341,14 @@ def test_joint_decode_on_card_equals_plain(dev):
     live, lengths, em, mask, lt, li = hmm.joint_emissions(cov, device=dev)
     assert torch.equal(em[..., 0], em[..., 1])
     assert torch.equal(em[..., 3], em[..., 4])
+    n = hmm._lane_lengths(live, lengths, em.shape[0])
     before = dict(viterbi_cuda.LAUNCHES)
-    got = hmm.viterbi_decode_chunked(em, mask, lt, li)
+    got = hmm.viterbi_decode_chunked(em, mask, lt, li, lengths=n)
     torch.cuda.synchronize()
-    assert viterbi_cuda.LAUNCHES["chunk_matrix"] == \
-        before["chunk_matrix"] + 1
-    assert viterbi_cuda.LAUNCHES["forward_backtrack"] == \
-        before["forward_backtrack"] + 1
-    want = hmm.viterbi_decode_chunked(em, mask, lt, li, plain=True)
+    for k in viterbi_cuda.LAUNCHES:
+        assert viterbi_cuda.LAUNCHES[k] == before[k] + 1
+    want = hmm.viterbi_decode_chunked(em, mask, lt, li, plain=True,
+                                      lengths=n)
     assert torch.equal(got, want)
     assert hmm.segment_coverage_joint_batched(cov, device=dev) == \
         hmm.segment_coverage_joint_batched(cov, device="cpu")
@@ -552,10 +674,12 @@ def test_kernels_launch_on_the_tensors_device(dev):
         3, 4, 2000, [2000, 1999, 700, 0], "uniform")
     em_t = torch.as_tensor(log_em, device=d1)
     mask_t = torch.as_tensor(mask, device=d1)
-    path = hmm.viterbi_decode_chunked(em_t, mask_t, lt, li, chunk=256)
+    n = hmm.prefix_lengths(mask)
+    path = hmm.viterbi_decode_chunked(em_t, mask_t, lt, li, chunk=256,
+                                      lengths=n)
     assert path.device == d1
     assert torch.equal(path, hmm.viterbi_decode_chunked(
-        em_t, mask_t, lt, li, chunk=256, plain=True))
+        em_t, mask_t, lt, li, chunk=256, plain=True, lengths=n))
     cs, n, tss = _arc_rows(5, 4096, 4)
     args = (torch.as_tensor(cs, device=d1), torch.as_tensor(n, device=d1),
             torch.as_tensor(tss, device=d1), 4096, 2)
@@ -595,7 +719,7 @@ def test_lane_split_decode_on_a_virtual_mesh_equals_unsplit(dev, joint):
     before = dict(viterbi_cuda.LAUNCHES)
     split = fn(cov, devices=[torch.device("cuda", 0)] * 4)
     torch.cuda.synchronize()
-    for k in ("chunk_matrix", "forward_backtrack"):
+    for k in viterbi_cuda.LAUNCHES:
         assert viterbi_cuda.LAUNCHES[k] == before[k] + 4
     assert split == whole
     assert all(len(b) >= 2 for b in split.values())
@@ -667,7 +791,7 @@ def test_lane_split_decode_on_the_visible_cards_equals_unsplit(dev, joint):
     # canvas_tpu's rule: B = next_pow2(2n - 1), split when n divides it
     groups = len(cards) if hmm._next_pow2(len(cov)) % len(cards) == 0 \
         else 1
-    for k in ("chunk_matrix", "forward_backtrack"):
+    for k in viterbi_cuda.LAUNCHES:
         assert viterbi_cuda.LAUNCHES[k] == before[k] + groups
     assert split == whole
 
