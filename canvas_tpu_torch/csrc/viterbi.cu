@@ -12,13 +12,13 @@
 //   chunk_chase_kernel (K6) <- the reverse lax.scan over the chunk-end
 //                              states (phase 4b, viterbi_pallas.py:314-324)
 //
-// K5 runs the chunks of a sequence in order, as the plain version's loop
-// does, not as a tree: a tree reassociates the adds, which can flip a path
-// against the CPU decode.  So it is held by its chain of n_chunks dependent
-// (max,+) steps, not by its bytes (at the production shape 7.9 MB in and
-// out, 2.3 us at 3.35 TB/s): one warp per sequence, 32 at that shape.  K6
-// is a chain of dependent loads, n_chunks a sequence; it chases them in
-// shared memory, where a load takes tens of cycles, not hundreds.
+// K5 brackets the adds of a sequence's prefix exactly as canvas_tpu's
+// jax.lax.associative_scan does, a tree of 2 floor(log2 n_chunks) levels,
+// so its start scores equal canvas_tpu's bit for bit (a loop over the
+// chunks would reassociate them and can flip a path).  Its bound is its
+// bytes: at the production shape 7.9 MB in and out, 2.3 us at 3.35 TB/s.
+// K6 composes the chunks' end-state maps by pointer doubling in shared
+// memory, ceil(log2 n_chunks) rounds in place of n_chunks dependent loads.
 //
 // A lane is one chunk of one sequence; lanes are independent.  Emissions are
 // lane-last, em[k][j][lane] (k < chunk, j < S), so neighbouring threads read
@@ -327,138 +327,273 @@ __global__ void __launch_bounds__(kFbLanes, kFbBlocksPerSm)
   }
 }
 
-// K5, phase 2: the (max,+) prefix over the chunks of each sequence.  One
-// block of one warp per sequence b.  Lane i < S carries row i of the
-// running product in registers (lanes S..31 carry -inf, and what they
-// compute is dropped); the chunks run in order, as the plain version's
-// loop does:
-//   running[i][j] <- max_k fl(running[i][k] + m[k][j]),
-//   scores_end[j]  = max_i running[i][j].
-// Each entry is one f32 add a term and maxima are exact (their order does
-// not matter), so the result is bit-equal to the loop.  The b's chunk
-// matrices come through shared memory in tiles of kScanTile chunks, the
-// next tile in flight (cp.async) while one is used, each chunk's 25 values
-// contiguous so that a lane reads them with 7 16-byte loads.
+// K5, phase 2: the (max,+) prefix over the chunks of each sequence,
+// bracketed as canvas_tpu's decode brackets it: jax.lax.associative_scan
+// of _maxplus_combine (jax/_src/lax/control_flow/loops.py, _scan).  For a
+// level e of n >= 2 matrices the scan combines pairs, r[i] = e[2i] (x)
+// e[2i+1], scans r, and then out[2i+1] = scan(r)[i], out[0] = e[0] and
+// out[2i] = scan(r)[i-1] (x) e[2i].  Level l > 0 thus holds n_chunks >> l
+// matrices.  One block per sequence runs the recursion level by level,
+// with a barrier between levels: up from the chunks (level 0, read from
+// mats) storing each level's r, then down, overwriting each level with its
+// scan, and last the chunks' end scores, max_i out[c][i][j], from the
+// scan of level 1 and the chunk matrices.  2 floor(log2 n_chunks) levels,
+// 22 at the production 2,048 chunks, in place of 2,048 dependent steps.
 //
-// Redesigned after its first run on the card.  The first version reduced
-// scores_end with warp shuffles at every step and read the 25 values one
-// by one: 0.475 ms at the production shape (32 x 2,048 chunks) on an
-// NVIDIA H100 80GB HBM3, 700.00 W, some 400 cycles a step for a chain
-// whose adds and maxima need about 20; this design took 0.230 ms there.
-// With one warp on an SM, every instruction of a step waits on the one
-// before it, so the step's instruction count is its time.  Now the chain is a
-// step's 7 loads, 25 adds, 20 maxima (a tree, depth 3) and 5 stores of
-// the row into shared memory; scores_end and the start scores are
-// reduced from those rows once a tile, by all 32 lanes, off the chain.
-constexpr int kScanTile = 64;
-constexpr int kScanRow = 28;      // a chunk's S * S values, padded to 16 B
+// Thread (j, t) computes column j of a product, five entries of five f32
+// adds and four maxima, the maxima taken in index order as the plain
+// version takes them, so the result equals it bit for bit (the order
+// decides only the sign of a zero where -0.0 and +0.0 tie).  A column
+// per thread makes the way down safe in place: the only thread that reads
+// column j of e[2i] is the one that overwrites it.  (A thread per whole
+// product reads each operand once instead of five times, but it ran
+// slower on the card at the production shape: its 25 entries in a row
+// lengthen every level's chain, and 64 registers for 1,024 threads
+// spilled.)
+//
+// The levels above the chunks need at most n_chunks - 1 matrices of 100
+// bytes (204.7 KB at 2,048 chunks).  The smallest levels go into shared
+// memory while they fit in kScanHeld bytes, a matrix's 25 entries
+// together (stride 25 words: a warp's 32 matrices hit 32 banks); the rest
+// go into a scratch slab of the sequence's in device memory, planar as
+// mats is (entry q of matrix c at q * n + c), so that a warp's accesses
+// are contiguous.  Each level's loop is compiled for the places of its
+// two levels, so shared-memory offsets stay constants.
+constexpr int kScanCols = 192;                  // column items a round
+constexpr int kScanThreads = S * kScanCols;     // thread (j, t)
+constexpr int kScanHeld = 224 * 1024;           // shared bytes for levels
+constexpr int kScanMaxLevels = 32;              // n_chunks < 2^31
+constexpr int kMat = S * S;
 
-__global__ void __launch_bounds__(32) chunk_scan_kernel(
-    const float* __restrict__ mats, float* __restrict__ ss,
-    int32_t* __restrict__ last_end, int n_chunks, int64_t n_lanes) {
-  __shared__ __align__(16) float tile[2][kScanTile][kScanRow];
-  __shared__ float rows[kScanTile][S * S];   // running[i][j] after chunk
-  const int ln = threadIdx.x;
-  const int64_t lane0 = int64_t(blockIdx.x) * n_chunks;  // lane of chunk 0
-  const int n_tiles = (n_chunks + kScanTile - 1) / kScanTile;
-  auto fetch = [&](int t) {
-    if (t < n_tiles) {
-      const int c0 = t * kScanTile;
-      const int width = min(kScanTile, n_chunks - c0);
-      for (int x = ln; x < S * S * kScanTile; x += 32) {
-        const int q = x / kScanTile, cc = x % kScanTile;
-        if (cc < width)
-          copy_async4(&tile[t & 1][cc][q],
-                      mats + int64_t(q) * n_lanes + lane0 + c0 + cc);
-      }
-    }
-    commit_copies();
-  };
-  const float kMinusInf = __int_as_float(0xff800000);
-  float run[S];
-#pragma unroll
-  for (int j = 0; j < S; ++j)
-    run[j] = ln < S ? (j == ln ? 0.0f : kNegInf) : kMinusInf;
-  if (ln < S) ss[int64_t(ln) * n_lanes + lane0] = 0.0f;   // chunk 0 starts at 0
-  fetch(0);
-  int width = 0;
-  for (int t = 0; t < n_tiles; ++t) {
-    fetch(t + 1);
-    wait_copies<1>();             // this thread's copies of tile t landed
-    __syncthreads();              // and every thread's
-    const int c0 = t * kScanTile;
-    width = min(kScanTile, n_chunks - c0);
-#pragma unroll 4
-    for (int cc = 0; cc < width; ++cc) {
-      const float4* v = reinterpret_cast<const float4*>(tile[t & 1][cc]);
-      float m[kScanRow];
-#pragma unroll
-      for (int x = 0; x < kScanRow / 4; ++x) {
-        const float4 q = v[x];
-        m[4 * x] = q.x;
-        m[4 * x + 1] = q.y;
-        m[4 * x + 2] = q.z;
-        m[4 * x + 3] = q.w;
-      }
-      float nxt[S];
-#pragma unroll
-      for (int j = 0; j < S; ++j)
-        nxt[j] = fmaxf(fmaxf(fmaxf(run[0] + m[j], run[1] + m[S + j]),
-                             fmaxf(run[2] + m[2 * S + j],
-                                   run[3] + m[3 * S + j])),
-                       run[4] + m[4 * S + j]);
-#pragma unroll
-      for (int j = 0; j < S; ++j) run[j] = nxt[j];
-      if (ln < S) {
-#pragma unroll
-        for (int j = 0; j < S; ++j) rows[cc][ln * S + j] = nxt[j];
-      }
-    }
-    __syncthreads();              // rows complete; tile t & 1 free again
-    // chunk c's end scores start chunk c + 1
-    for (int x = ln; x < S * kScanTile; x += 32) {
-      const int j = x / kScanTile, cc = x % kScanTile;
-      if (cc < width && c0 + cc + 1 < n_chunks) {
-        float e = rows[cc][j];
-#pragma unroll
-        for (int i = 1; i < S; ++i) e = fmaxf(e, rows[cc][i * S + j]);
-        ss[int64_t(j) * n_lanes + lane0 + c0 + cc + 1] = e;
-      }
-    }
-    __syncthreads();              // rows read before the next tile writes
+__host__ __device__ inline int floor_log2(int n) {
+  int d = 0;
+  while ((n >> (d + 1)) > 0) ++d;
+  return d;
+}
+
+// first level held in shared memory: levels held_from.. fit in kScanHeld
+inline int scan_held_from(int n_chunks) {
+  int l = floor_log2(n_chunks) + 1;
+  int64_t bytes = 0;
+  while (l > 1) {
+    const int64_t more = int64_t(n_chunks >> (l - 1)) * kMat * 4;
+    if (bytes + more > kScanHeld) break;
+    bytes += more;
+    --l;
   }
-  wait_copies<0>();
-  if (ln == 0) {                  // first maximum, as torch.argmax
-    int best = 0;
-    float top = kMinusInf;
+  return l;
+}
+
+// matrices of the levels below held_from, a sequence's scratch slab
+inline int64_t scan_scratch_mats(int n_chunks) {
+  int64_t n = 0;
+  for (int l = 1; l < scan_held_from(n_chunks); ++l) n += n_chunks >> l;
+  return n;
+}
+
+// a level's matrices, entry q of matrix c: in shared memory a matrix's
+// entries together; in device memory (mats and the scratch) planar
+template <bool kHeld>
+struct Level;
+template <>
+struct Level<true> {
+  float* base;
+  __device__ float& operator()(int c, int q) const {
+    return base[c * kMat + q];
+  }
+};
+template <>
+struct Level<false> {
+  float* base;
+  int64_t n;                      // the matrices of a plane
+  __device__ float& operator()(int c, int q) const { return base[c + q * n]; }
+};
+
+// column j of a[ca] (x) b[cb]: out[r] = max_k fl(a[r][k] + b[k][j]), k in
+// order
+template <class A, class B>
+__device__ __forceinline__ void maxplus_column(const A& a, int ca, const B& b,
+                                               int cb, int j, float out[S]) {
+  float bj[S];
 #pragma unroll
-    for (int j = 0; j < S; ++j) {
-      float e = rows[width - 1][j];
+  for (int k = 0; k < S; ++k) bj[k] = b(cb, k * S + j);
 #pragma unroll
-      for (int i = 1; i < S; ++i) e = fmaxf(e, rows[width - 1][i * S + j]);
-      if (j == 0 || e > top) {
-        top = e;
-        best = j;
+  for (int r = 0; r < S; ++r) {
+    float m = a(ca, r * S) + bj[0];
+#pragma unroll
+    for (int k = 1; k < S; ++k) m = fmaxf(m, a(ca, r * S + k) + bj[k]);
+    out[r] = m;
+  }
+}
+
+// max_r col[r], rows in order
+__device__ __forceinline__ float column_max(const float col[S]) {
+  float m = col[0];
+#pragma unroll
+  for (int r = 1; r < S; ++r) m = fmaxf(m, col[r]);
+  return m;
+}
+
+// up one level: r[i] = e[2i] (x) e[2i+1], column j by thread (j, t)
+template <class E, class R>
+__device__ __forceinline__ void scan_up(const E e, const R r, int n_up, int j,
+                                        int t) {
+  float col[S];
+  for (int i = t; i < n_up; i += kScanCols) {
+    maxplus_column(e, 2 * i, e, 2 * i + 1, j, col);
+#pragma unroll
+    for (int q = 0; q < S; ++q) r(i, q * S + j) = col[q];
+  }
+}
+
+// down one level, in place: e[2i+1] = o[i], e[2i] = o[i-1] (x) e[2i]
+template <class E, class O>
+__device__ __forceinline__ void scan_down(const E e, const O o, int n, int j,
+                                          int t) {
+  float col[S];
+  for (int i = t; 2 * i < n; i += kScanCols) {
+    if (2 * i + 1 < n) {
+#pragma unroll
+      for (int q = 0; q < S; ++q) e(2 * i + 1, q * S + j) = o(i, q * S + j);
+    }
+    if (i > 0) {
+      maxplus_column(o, i - 1, e, 2 * i, j, col);
+#pragma unroll
+      for (int q = 0; q < S; ++q) e(2 * i, q * S + j) = col[q];
+    }
+  }
+}
+
+// the chunks' end scores from the chunk matrices e and the scan o of
+// level 1: chunk c's start the next chunk, the last chunk's go to last
+template <class O>
+__device__ __forceinline__ void scan_ends(const Level<false> e, const O o,
+                                          int n_chunks, float* ss,
+                                          int64_t n_lanes, float* last,
+                                          int j, int t) {
+  float col[S];
+  for (int i = t; 2 * i < n_chunks; i += kScanCols) {
+    for (int c = 2 * i; c < min(2 * i + 2, n_chunks); ++c) {
+      if (c == 0) {
+#pragma unroll
+        for (int q = 0; q < S; ++q) col[q] = e(0, q * S + j);
+      } else if (c == 2 * i) {
+        maxplus_column(o, i - 1, e, c, j, col);
+      } else {
+#pragma unroll
+        for (int q = 0; q < S; ++q) col[q] = o(i, q * S + j);
+      }
+      const float v = column_max(col);
+      if (c + 1 < n_chunks) ss[j * n_lanes + c + 1] = v;
+      else last[j] = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kScanThreads, 1) chunk_scan_kernel(
+    const float* __restrict__ mats, float* __restrict__ ss,
+    int32_t* __restrict__ last_end, float* __restrict__ scratch,
+    int n_chunks, int64_t n_lanes, int held_from, int64_t slab_mats) {
+  extern __shared__ __align__(16) float held[];
+  __shared__ float* base[kScanMaxLevels + 1];   // level l's matrices
+  __shared__ float last_scores[S];
+  const int tid = threadIdx.x;
+  const int j = tid / kScanCols, t = tid % kScanCols;
+  const int64_t lane0 = int64_t(blockIdx.x) * n_chunks;  // lane of chunk 0
+  const int depth = floor_log2(n_chunks);
+  if (tid == 0) {
+    base[0] = const_cast<float*>(mats) + lane0;
+    float* slab = scratch + blockIdx.x * slab_mats * kMat;
+    int64_t g = 0, h = 0;
+    for (int l = 1; l <= depth; ++l) {
+      const int64_t size = int64_t(n_chunks >> l) * kMat;
+      if (l < held_from) {
+        base[l] = slab + g;
+        g += size;
+      } else {
+        base[l] = held + h;
+        h += size;
       }
     }
+  }
+  __syncthreads();
+  // level 0 is mats (planes n_lanes apart); levels from held_from are
+  // held in shared memory
+#define PLANAR(l) \
+  Level<false> { base[l], (l) == 0 ? n_lanes : int64_t(n_chunks >> (l)) }
+#define HELD(l) Level<true> { base[l] }
+
+  // up: level l + 1 holds the pair products of level l
+  for (int l = 0; l < depth; ++l) {
+    const int n_up = n_chunks >> (l + 1);
+    if (l >= held_from)
+      scan_up(HELD(l), HELD(l + 1), n_up, j, t);
+    else if (l + 1 >= held_from)
+      scan_up(PLANAR(l), HELD(l + 1), n_up, j, t);
+    else
+      scan_up(PLANAR(l), PLANAR(l + 1), n_up, j, t);
+    __syncthreads();
+  }
+  // down: level l becomes its scan, from the scan of level l + 1
+  for (int l = depth - 1; l >= 1; --l) {
+    const int n = n_chunks >> l;
+    if (l >= held_from)
+      scan_down(HELD(l), HELD(l + 1), n, j, t);
+    else if (l + 1 >= held_from)
+      scan_down(PLANAR(l), HELD(l + 1), n, j, t);
+    else
+      scan_down(PLANAR(l), PLANAR(l + 1), n, j, t);
+    __syncthreads();
+  }
+  // the chunks: chunk c's end scores start chunk c + 1
+  if (depth == 0 || held_from == 1)
+    scan_ends(PLANAR(0), HELD(depth > 0 ? 1 : 0), n_chunks, ss + lane0,
+              n_lanes, last_scores, j, t);
+  else
+    scan_ends(PLANAR(0), PLANAR(1), n_chunks, ss + lane0, n_lanes,
+              last_scores, j, t);
+#undef PLANAR
+#undef HELD
+  if (t == 0) ss[j * n_lanes + lane0] = 0.0f;    // chunk 0 starts at 0
+  __syncthreads();
+  if (tid == 0) {                 // first maximum, as torch.argmax
+    int best = 0;
+#pragma unroll
+    for (int s = 1; s < S; ++s)
+      if (last_scores[s] > last_scores[best]) best = s;
     last_end[blockIdx.x] = best;
   }
 }
 
-// K6, phase 4b: the chunk-end states, chased right to left from the last
-// chunk's best end state: chunk c ends in cur, and chunk c - 1 in
-// prev_end[cur] of chunk c.  One block per sequence: its prev_end column
-// (S bytes a chunk) goes into shared memory in tiles of kChaseTile chunks,
-// one thread chases the tile there, and the block writes the tile's
-// states as the int64 lane selectors of the final gather, coalesced.
+// K6, phase 4b: the chunk-end states.  Chunk c - 1 ends in prev_end[s] of
+// chunk c when chunk c ends in s: a map f_c on the S states, and the end
+// state of chunk c is f_{c+1} o f_{c+2} o ... o f_{n-1} (last_end).  One
+// block per sequence composes these suffixes by pointer doubling in
+// shared memory, the plain version's algorithm: comp[c] starts as f_{c+1}
+// and after the round of stride d is f_{c+1} o ... o f_{c+2d}, so
+// ceil(log2 width) rounds, one barrier each, in place of a chase of
+// n_chunks dependent loads.  A map packs into a word, state s's image in
+// bits 4s..4s+2.  Tiles of kChaseTile chunks run right to left, each
+// carrying in the end state of the first chunk of the tile to its right;
+// the block writes the tile's states as the int64 lane selectors of the
+// final gather, coalesced.
 constexpr int kChaseTile = 4096;
-constexpr int kChaseThreads = 256;
+constexpr int kChaseThreads = 1024;
+constexpr uint32_t kIdentity = 0x43210u;
+
+// g o h: state s goes to g(h(s))
+__device__ __forceinline__ uint32_t compose(uint32_t g, uint32_t h) {
+  uint32_t out = 0;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    out |= ((g >> (4 * ((h >> (4 * s)) & 7u))) & 7u) << (4 * s);
+  return out;
+}
 
 __global__ void __launch_bounds__(kChaseThreads) chunk_chase_kernel(
     const int8_t* __restrict__ prev_end, const int32_t* __restrict__ last_end,
     int64_t* __restrict__ sel, int n_chunks, int64_t n_lanes) {
-  __shared__ int8_t pe[S][kChaseTile];
-  __shared__ int8_t out[kChaseTile];
+  __shared__ uint32_t comp[2][kChaseTile];
   __shared__ int s_cur;
   const int tid = threadIdx.x;
   const int64_t lane0 = int64_t(blockIdx.x) * n_chunks;
@@ -466,23 +601,30 @@ __global__ void __launch_bounds__(kChaseThreads) chunk_chase_kernel(
   for (int hi = n_chunks; hi > 0; hi -= kChaseTile) {
     const int c0 = max(hi - kChaseTile, 0);
     const int width = hi - c0;
-    for (int x = tid; x < S * width; x += kChaseThreads) {
-      const int s = x / width, cc = x % width;
-      pe[s][cc] = prev_end[int64_t(s) * n_lanes + lane0 + c0 + cc];
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int cur = s_cur;
-      for (int cc = width - 1; cc >= 0; --cc) {
-        out[cc] = int8_t(cur);
-        cur = pe[cur][cc];
+    for (int cc = tid; cc < width; cc += kChaseThreads) {
+      const int64_t next = lane0 + c0 + cc + 1;    // chunk c + 1's lane
+      uint32_t f = kIdentity;                      // past the last chunk
+      if (c0 + cc + 1 < n_chunks) {
+        f = 0;
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          f |= uint32_t(prev_end[s * n_lanes + next]) << (4 * s);
       }
-      s_cur = cur;
+      comp[0][cc] = f;
     }
-    __syncthreads();
+    __syncthreads();              // and s_cur, from thread 0
+    int src = 0;
+    for (int d = 1; d < width; d *= 2, src ^= 1) {
+      for (int cc = tid; cc < width; cc += kChaseThreads)
+        comp[src ^ 1][cc] = cc + d < width
+            ? compose(comp[src][cc], comp[src][cc + d]) : comp[src][cc];
+      __syncthreads();
+    }
+    const int cur = s_cur;
     for (int cc = tid; cc < width; cc += kChaseThreads)
-      sel[lane0 + c0 + cc] = out[cc];
-    __syncthreads();              // pe and out read before the next tile
+      sel[lane0 + c0 + cc] = (comp[src][cc] >> (4 * cur)) & 7u;
+    __syncthreads();              // s_cur and comp read by every thread
+    if (tid == 0) s_cur = (comp[src][0] >> (4 * cur)) & 7u;
   }
 }
 
@@ -554,18 +696,35 @@ extern "C" int viterbi_forward_backtrack(const void* em, const void* base,
   return int(cudaGetLastError());
 }
 
+// matrices of a sequence's scratch slab for K5 at n_chunks: the caller
+// allocates n_seq slabs of S * S floats a matrix
+extern "C" int viterbi_scan_scratch_mats(int n_chunks) {
+  return n_chunks < 1 ? 0 : int(scan_scratch_mats(n_chunks));
+}
+
 // mats f32 [S, S, n_lanes] (B2's output), n_lanes = n_seq * n_chunks with
 // lane = b * n_chunks + c; ss f32 [S, n_lanes] (B3's start scores);
-// last_end int32 [n_seq].
+// last_end int32 [n_seq]; scratch f32 [n_seq, viterbi_scan_scratch_mats,
+// S, S].
 extern "C" int viterbi_chunk_scan(const void* mats, void* ss, void* last_end,
-                                  int n_seq, int n_chunks, void* stream) {
+                                  void* scratch, int n_seq, int n_chunks,
+                                  void* stream) {
   if (n_seq == 0) return 0;
   if (n_chunks < 1) return int(cudaErrorInvalidValue);
-  chunk_scan_kernel<<<unsigned(n_seq), 32, 0,
+  const int held_from = scan_held_from(n_chunks);
+  int64_t held_mats = 0;
+  for (int l = held_from; l <= floor_log2(n_chunks); ++l)
+    held_mats += n_chunks >> l;
+  const int smem = int(held_mats * kMat * 4);
+  cudaError_t err = cudaFuncSetAttribute(
+      chunk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  chunk_scan_kernel<<<unsigned(n_seq), kScanThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(mats), static_cast<float*>(ss),
-      static_cast<int32_t*>(last_end), n_chunks,
-      int64_t(n_seq) * n_chunks);
+      static_cast<int32_t*>(last_end), static_cast<float*>(scratch),
+      n_chunks, int64_t(n_seq) * n_chunks, held_from,
+      scan_scratch_mats(n_chunks));
   return int(cudaGetLastError());
 }
 

@@ -258,15 +258,19 @@ def viterbi_decode_chunked(
     lengths=None,           # [B] host ints: the rows' prefix lengths
 ) -> torch.Tensor:
     """Chunked parallel Viterbi: most-likely state path [B, T] (int32),
-    decision-identical to hmm.viterbi_decode_np_chunked.
+    decision-identical to canvas_tpu's viterbi_decode_chunked (and to its
+    numpy transcription here, viterbi_decode_np_chunked).
 
       1. per-chunk (max,+) transfer matrices (kernel B2);
-      2. the sequential (max,+) prefix over each sequence's chunks gives
-         the chunk-start scores and the best last end state (kernel K5);
+      2. the (max,+) prefix over each sequence's chunks, bracketed as
+         canvas_tpu's associative scan (jax.lax.associative_scan) brackets
+         it, gives the chunk-start scores and the best last end state
+         (kernel K5);
       3+4a. per-chunk forward DP with backpointers and the backtrack of all
          S assumed chunk-end states (kernel B3);
-      4b. the chunk-end states, chased right to left (kernel K6), select
-         each chunk's realized path (a gather in int8).
+      4b. the chunk-end states, composed right to left by pointer
+         doubling (kernel K6), select each chunk's realized path (a
+         gather in int8).
 
     All in-chunk state is lane-last ([S, L] and [S, S, L] with
     L = B * n_chunks).  Masks must be prefix masks (padded tails): each
@@ -326,11 +330,32 @@ def viterbi_decode_chunked(
     return states.reshape(B, Tp)[:, :T].to(torch.int32)
 
 
+def _associative_scan_np(e: np.ndarray) -> np.ndarray:
+    """Inclusive (max,+) prefix over axis 1 of e [B, n, S, S] in
+    jax.lax.associative_scan's recursion: pairs r[i] = e[2i] (x) e[2i+1],
+    o = scan(r), then out[2i+1] = o[i], out[0] = e[0] and
+    out[2i] = o[i-1] (x) e[2i]; (x) adds once a term in float32."""
+    def prod(a, b):
+        return (a[..., :, :, None] + b[..., None, :, :]).max(axis=-2)
+
+    n = e.shape[1]
+    if n < 2:
+        return e
+    o = _associative_scan_np(prod(e[:, 0:n - 1:2], e[:, 1::2]))
+    out = np.empty_like(e)
+    out[:, 0] = e[:, 0]
+    out[:, 1::2] = o
+    out[:, 2::2] = prod(o[:, :(n - 1) // 2], e[:, 2::2])
+    return out
+
+
 def viterbi_decode_np_chunked(log_em: np.ndarray, log_trans: np.ndarray,
                               log_init: np.ndarray, mask: np.ndarray,
                               chunk: int = 256) -> np.ndarray:
-    """Pure-numpy transcription of viterbi_decode_chunked (same math, same
-    tie-breaking) — the host oracle the torch decode is tested against.
+    """Pure-numpy transcription of canvas_tpu's jitted
+    viterbi_decode_chunked (same math, same bracketing of the phase-2
+    adds, same tie-breaking) — the host oracle the torch decode is tested
+    against where canvas_tpu cannot run.
     Every phase loops only `chunk` times with all B*T/chunk chunk-lanes
     vectorized."""
     log_em = np.asarray(log_em, np.float32)
@@ -363,15 +388,11 @@ def viterbi_decode_np_chunked(log_em: np.ndarray, log_trans: np.ndarray,
         t0v = np.broadcast_to((li[:, None] + e)[None], (S, S, L))
         M = np.where(m[None, None], np.where(t0[None, None], t0v, reg), M)
 
-    # phase 2: prefix (max,+) products over chunks (sequential; nC small
-    # relative to T) -> chunk-end and chunk-start score vectors
+    # phase 2: prefix (max,+) products over chunks, bracketed as
+    # jax.lax.associative_scan brackets them -> chunk-end and chunk-start
+    # score vectors
     cm = np.transpose(M.reshape(S, S, B, nC), (2, 3, 0, 1))   # [B,nC,S,S]
-    scores_end = np.empty((B, nC, S), np.float32)
-    running = np.broadcast_to(eye[None], (B, S, S)).astype(np.float32).copy()
-    for c in range(nC):
-        running = (running[:, :, :, None]
-                   + cm[:, c][:, None, :, :]).max(axis=2)
-        scores_end[:, c] = running.max(axis=1)
+    scores_end = _associative_scan_np(cm).max(axis=-2)        # [B, nC, S]
     start_scores = np.concatenate(
         [np.zeros((B, 1, S), np.float32), scores_end[:, :-1]], axis=1)
     ss = np.transpose(start_scores, (2, 0, 1)).reshape(S, L)

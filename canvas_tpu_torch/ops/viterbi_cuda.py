@@ -21,13 +21,16 @@ log_init + e.
                      the backpointers in shared memory, so chunk is at
                      most viterbi_max_chunk() on CUDA tensors
   chunk_scan         (K5): phase 2, the (max,+) prefix over each sequence's
-                     chunk matrices, chunks in order: the chunk-start
-                     scores f32 [S, L] that B3 takes (chunk 0 starts at 0,
-                     chunk c at the end scores of chunk c - 1) and each
-                     sequence's best last end state, int32 [B]
-  chunk_chase        (K6): phase 4b, each chunk's end state, chased right
-                     to left through B3's prev_end from the last chunk's
-                     best end state: the int64 [L] selectors of the
+                     chunk matrices, bracketed as canvas_tpu's
+                     jax.lax.associative_scan brackets it (a tree): the
+                     chunk-start scores f32 [S, L] that B3 takes (chunk 0
+                     starts at 0, chunk c at the end scores of chunk
+                     c - 1) and each sequence's best last end state,
+                     int32 [B]
+  chunk_chase        (K6): phase 4b, each chunk's end state: the suffix
+                     composition of the later chunks' prev_end maps (B3's)
+                     applied to the last chunk's best end state, by
+                     pointer doubling; the int64 [L] selectors of the
                      decode's final gather
 
 K5 and K6 port XLA work of canvas_tpu's decode (viterbi_pallas.py:282-290
@@ -36,8 +39,9 @@ nothing back to the host.
 
 On CUDA tensors the wrappers launch csrc/viterbi.cu; on CPU tensors they
 run the plain versions.  B2, B3 and K5 only add and take maxima in f32,
-in the same order, and K6 moves small integers, so the outputs are equal
-bit for bit.  B2's bound at the
+with every add bracketed as in the plain version (for K5, as in
+canvas_tpu's associative scan), and K6 moves small integers, so the
+outputs are equal bit for bit.  B2's bound at the
 production decode shape is its bytes, 130.6 MB of live emissions and
 outputs (0.0390 ms at 3.35 TB/s), for the uniform chain's 100 adds and
 maxima a live lane-step take 0.0184 ms of f32 issue slots; the general
@@ -69,8 +73,9 @@ _SIGNATURES = {
        ctypes.c_void_p],
     "viterbi_forward_backtrack": [ctypes.c_void_p] * 6
     + [ctypes.c_int, ctypes.c_longlong, _F32P, _F32P, ctypes.c_void_p],
-    "viterbi_chunk_scan": [ctypes.c_void_p] * 3
+    "viterbi_chunk_scan": [ctypes.c_void_p] * 4
     + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "viterbi_scan_scratch_mats": [ctypes.c_int],
     "viterbi_chunk_chase": [ctypes.c_void_p] * 3
     + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "viterbi_n_states": [],
@@ -236,26 +241,59 @@ def forward_backtrack(em, base, length, start, log_trans, log_init):
     return paths, prev_end
 
 
-def _maxplus_step(running: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """(max,+) product [B,S,S] x [B,S,S]: out[b,i,j] = max_k r[b,i,k] +
-    m[b,k,j]."""
-    return (running[:, :, :, None] + m[:, None, :, :]).amax(dim=2)
+def _max_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Maximum over dim -2, taken with torch.maximum in index order, as
+    K5 takes it, so that where -0.0 and +0.0 tie the sign comes out as in
+    the kernel (a reduction's order is not specified)."""
+    out = x[..., 0, :]
+    for k in range(1, x.shape[-2]):
+        out = torch.maximum(out, x[..., k, :])
+    return out
+
+
+def _maxplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(max,+) product of [..., S, S] matrices, a the earlier chunk:
+    out[..., i, j] = max_k a[..., i, k] + b[..., k, j], one f32 add a term
+    (canvas_tpu/ops/hmm.py:_maxplus_combine)."""
+    return _max_in_order(a[..., :, :, None] + b[..., None, :, :])
+
+
+def _associative_scan(e: torch.Tensor) -> torch.Tensor:
+    """Inclusive (max,+) prefix over dim 1 of e [B, n, S, S], bracketed
+    as jax.lax.associative_scan brackets it (jax/_src/lax/control_flow/
+    loops.py, _scan): r[i] = e[2i] (x) e[2i+1], o = scan(r), then
+    out[2i+1] = o[i], out[0] = e[0] and out[2i] = o[i-1] (x) e[2i]."""
+    n = e.shape[1]
+    if n < 2:
+        return e
+    o = _associative_scan(_maxplus(e[:, 0:n - 1:2], e[:, 1::2]))
+    out = torch.empty_like(e)
+    out[:, 0] = e[:, 0]
+    out[:, 1::2] = o
+    out[:, 2::2] = _maxplus(o[:, :(n - 1) // 2], e[:, 2::2])
+    return out
+
+
+def scan_combines(n_chunks: int) -> int:
+    """(max,+) products in the associative scan over n_chunks matrices:
+    n // 2 on the way up and (n - 1) // 2 on the way down at each level."""
+    n, count = n_chunks, 0
+    while n >= 2:
+        count += n // 2 + (n - 1) // 2
+        n //= 2
+    return count
 
 
 def chunk_scan_plain(mats, n_seq):
-    """Plain torch version of K5: the sequential (max,+) prefix over each
-    sequence's chunk matrices, one chunk at a time."""
+    """Plain torch version of K5: the (max,+) prefix over each sequence's
+    chunk matrices as canvas_tpu's decode computes it, one
+    jax.lax.associative_scan of _maxplus_combine, so that every add is
+    bracketed as there and the start scores are equal bit for bit."""
     S, _, L = mats.shape
     nC = L // n_seq
     dev = mats.device
     cm = mats.reshape(S, S, n_seq, nC).permute(2, 3, 0, 1)     # [B,nC,S,S]
-    eye = torch.where(torch.eye(S, dtype=torch.bool, device=dev),
-                      0.0, NEG_INF).to(torch.float32)
-    running = eye[None].expand(n_seq, S, S)
-    scores_end = torch.empty((n_seq, nC, S), dtype=torch.float32, device=dev)
-    for c in range(nC):
-        running = _maxplus_step(running, cm[:, c])
-        scores_end[:, c] = running.amax(dim=1)
+    scores_end = _max_in_order(_associative_scan(cm))          # [B, nC, S]
     start = torch.cat(
         [torch.zeros((n_seq, 1, S), dtype=torch.float32, device=dev),
          scores_end[:, :-1]], dim=1)
@@ -310,11 +348,17 @@ def chunk_scan(mats, n_seq):
     if mats.device.type == "cpu":
         return chunk_scan_plain(mats, n_seq)
     lib = cuda_lib.load("viterbi", _SIGNATURES)
+    n_chunks = L // n_seq
     ss = torch.empty((S, L), dtype=torch.float32, device=mats.device)
     last_end = torch.empty(n_seq, dtype=torch.int32, device=mats.device)
+    # the levels of the tree that do not fit in the kernel's shared memory
+    scratch = torch.empty(
+        (n_seq, lib.viterbi_scan_scratch_mats(n_chunks), S, S),
+        dtype=torch.float32, device=mats.device)
     status = cuda_lib.launch(mats.device, lib.viterbi_chunk_scan,
                              mats.data_ptr(), ss.data_ptr(),
-                             last_end.data_ptr(), n_seq, L // n_seq)
+                             last_end.data_ptr(), scratch.data_ptr(), n_seq,
+                             n_chunks)
     cuda_lib.check(status, "viterbi_chunk_scan")
     LAUNCHES["chunk_scan"] += 1
     return ss, last_end

@@ -26,7 +26,8 @@ Phases, one JSON line each; any failure exits non-zero:
              model from --seed (the general chain).  Then K5 (phase 2,
              on B2's chunk matrices) and K6 (phase 4b, on B3's prev_end
              from K5's start scores), each against its plain version, bit
-             for bit, with both times (lines "K5" and "K6"), and the whole
+             for bit, with both times (lines "K5" and "K6", each also
+             timed at 32 sequences of 256 to 8,192 chunks), and the whole
              decode's synchronising calls under CUDA's sync debug mode:
              the run fails unless there are none;
   4. e2e     SmallPedigree-WGS through the CLI entry point on a synthetic
@@ -200,6 +201,8 @@ HG38 = [248_956_422, 242_193_529, 198_295_559, 190_214_555, 181_538_259,
         46_709_983, 50_818_468, 156_040_895, 57_227_415]
 DECODE_BIN = 500
 CHUNK = 256
+# chunk counts a sequence at which phase B2/B3 times K5 and K6
+SCAN_CHUNKS = (256, 512, 1024, 2048, 4096, 8192)
 
 TRIO_CONTIGS = {f"chr{i}": 5_000_000 for i in range(1, 5)}
 TRIO_RATE = 0.25            # read starts per position: 12.5x of 50 bp reads
@@ -599,6 +602,21 @@ def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, ...]:
     k5_plain = cuda_ms(lambda: vc.chunk_scan_plain(mats, B), 2)
     k6_ms = cuda_ms(lambda: vc.chunk_chase(pe6, last5), 20, queued=True)
     k6_plain = cuda_ms(lambda: vc.chunk_chase_plain(pe6, last5), 5)
+    # K5 and K6 at B sequences of 256 to 8,192 chunks (random inputs):
+    # the part of the time that grows with the chunks is the levels' work,
+    # the rest (about log2 n levels, each a barrier) their latency
+    scaling = {}
+    gen = torch.Generator(dev).manual_seed(seed + 5)
+    for n in SCAN_CHUNKS:
+        m = torch.randn((S, S, B * n), generator=gen, device=dev) * 30.0
+        p6 = torch.randint(0, S, (S, B * n), generator=gen, device=dev,
+                           dtype=torch.int8)
+        l6 = torch.randint(0, S, (B,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        scaling[n] = (cuda_ms(lambda: vc.chunk_scan(m, B), 20, queued=True),
+                      cuda_ms(lambda: vc.chunk_chase(p6, l6), 20,
+                              queued=True))
+    del m, p6, l6
     dec_ms = cuda_ms(
         lambda: hmm.viterbi_decode_chunked(log_em, mask, lt, li, chunk=CHUNK,
                                            lengths=rows), 5)
@@ -625,10 +643,12 @@ def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, ...]:
     b3_bytes = 20 * live + lanes_in + 4 * S * L + CHUNK * S * L + S * L
     b3_bound, b3_by = bound(b3_bytes, 50 * live)
     # K5 reads the f32 [S, S, L] matrices, writes the f32 [S, L] start
-    # scores and B int32 end states; per lane (chunk) 25 entries of 5 adds
-    # and 4 maxima and 5 end scores of 4 maxima, 245 operations
+    # scores and B int32 end states; the tree's (max,+) products
+    # (scan_combines, about two a chunk) of 25 entries of 5 adds and 4
+    # maxima, 225 operations, and each chunk's 5 end scores of 4 maxima
     k5_bytes = 4 * S * S * L + 4 * S * L + 4 * B
-    k5_bound, k5_by = bound(k5_bytes, 245 * L)
+    k5_ops = B * (225 * vc.scan_combines(nC) + 20 * nC)
+    k5_bound, k5_by = bound(k5_bytes, k5_ops)
     # K6 reads the int8 [S, L] prev_end and B int32 end states and writes
     # L int64 selectors; one dependent select a chunk
     k6_bytes = S * L + 4 * B + 8 * L
@@ -656,14 +676,17 @@ def phase_b2_b3(seed: int, dev: torch.device) -> tuple[dict, ...]:
           "non_diploid_bins": called}
     k5 = {"phase": "K5", "shape": shape, "sequences": B, "chunks": nC,
           "lanes": L, "equal": True, "max_abs_err": k5_err,
+          "combines": vc.scan_combines(nC), "operations": k5_ops,
           "ms": k5_ms, "plain_ms": k5_plain, "library_ms": None,
           "bytes": k5_bytes, "bound_ms": k5_bound, "bound_by": k5_by,
-          "bound_share": k5_bound / k5_ms}
+          "bound_share": k5_bound / k5_ms,
+          "ms_by_chunks": {n: ms[0] for n, ms in scaling.items()}}
     k6 = {"phase": "K6", "shape": shape, "sequences": B, "chunks": nC,
           "lanes": L, "equal": True, "max_abs_err": k6_err,
           "ms": k6_ms, "plain_ms": k6_plain, "library_ms": None,
           "bytes": k6_bytes, "bound_ms": k6_bound, "bound_by": k6_by,
-          "bound_share": k6_bound / k6_ms}
+          "bound_share": k6_bound / k6_ms,
+          "ms_by_chunks": {n: ms[1] for n, ms in scaling.items()}}
     return b2, b3, k5, k6
 
 
@@ -2022,6 +2045,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if not (REPO / "canvas_tpu_torch").is_dir():
+        fail(f"no canvas_tpu_torch package beside {Path(__file__).name}: "
+             "run it from a checkout of the repository")
     sys.path.insert(0, str(REPO))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)

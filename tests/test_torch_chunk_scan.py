@@ -1,11 +1,12 @@
 """The decode's phase 2 (kernel K5) and phase 4b (kernel K6) in
-canvas_tpu_torch against canvas_tpu: chunk_scan_plain against a numpy
-transcription of the sequential oracle's phase 2
-(canvas_tpu/ops/hmm.py:viterbi_decode_np_chunked) and against the
-associative scan of canvas_tpu's decode, chunk_chase_plain against a
-transcription of canvas_tpu's reverse chase (viterbi_pallas.py, p4b), and
-whole decodes at 1, 2, 3, 8 and 33 chunks with ragged lengths and -1e30
-emissions."""
+canvas_tpu_torch against canvas_tpu: chunk_scan_plain bit for bit against
+the associative scan of canvas_tpu's decode (jax.lax.associative_scan of
+_maxplus_combine) and to 1e-5 relative against a numpy transcription of
+the sequential oracle's phase 2 (canvas_tpu/ops/hmm.py:
+viterbi_decode_np_chunked), chunk_chase_plain against a transcription of
+canvas_tpu's reverse chase (viterbi_pallas.py, p4b), and whole decodes at
+1, 2, 3, 8 and 33 chunks with ragged lengths and -1e30 emissions, equal
+to canvas_tpu's jitted chunked decode at every bin."""
 
 import jax
 import jax.numpy as jnp
@@ -84,13 +85,20 @@ def _phase2_np(mats, B):
 
 
 def _phase2_jax(mats, B):
-    """canvas_tpu's phase 2 as its decode runs it: one associative scan of
-    _maxplus_combine over the chunks, the max over rows (scores_end)."""
+    """canvas_tpu's phase 2 as its decode runs it (hmm.py:346,
+    viterbi_pallas.py:285): one associative scan of _maxplus_combine over
+    the chunks, the max over rows; (scores_end [B, nC, S], ss [S, L],
+    last_end [B], the first maximum as jnp.argmax takes it)."""
     L = mats.shape[-1]
     cm = jnp.transpose(jnp.asarray(np.asarray(mats)).reshape(S, S, B, L // B),
                        (2, 3, 0, 1))
     prefix = jax.lax.associative_scan(jax_hmm._maxplus_combine, cm, axis=1)
-    return np.asarray(jnp.max(prefix, axis=-2))
+    scores_end = jnp.max(prefix, axis=-2)
+    start = jnp.concatenate([jnp.zeros((B, 1, S)), scores_end[:, :-1]],
+                            axis=1)
+    ss = jnp.transpose(start, (2, 0, 1)).reshape(S, L).astype(jnp.float32)
+    last_end = jnp.argmax(scores_end[:, -1], axis=-1).astype(jnp.int32)
+    return np.asarray(scores_end), np.asarray(ss), np.asarray(last_end)
 
 
 def _chase_jax(prev_end, last_end):
@@ -116,26 +124,48 @@ def _bits(x):
     return np.asarray(x, np.float32).view(np.uint32)
 
 
+def _check_scan(mats, B):
+    """chunk_scan_plain against canvas_tpu's associative scan, bit for
+    bit, and against the sequential oracle to 1e-5 relative; returns its
+    start scores and the oracle's (scores_end, ss)."""
+    ss, last_end = viterbi_cuda.chunk_scan_plain(mats, B)
+    assert ss.dtype == torch.float32 and last_end.dtype == torch.int32
+    _, want_ss, want_last = _phase2_jax(mats, B)
+    np.testing.assert_array_equal(_bits(ss.numpy()), _bits(want_ss))
+    np.testing.assert_array_equal(last_end.numpy(), want_last)
+    scores_end, oracle_ss, _ = _phase2_np(mats.numpy(), B)
+    np.testing.assert_allclose(ss.numpy(), oracle_ss, rtol=1e-5, atol=0)
+    return ss.numpy(), scores_end, oracle_ss
+
+
 @pytest.mark.parametrize("neg_inf_em", [False, True])
 @pytest.mark.parametrize("nC", N_CHUNKS)
 def test_chunk_scan_plain_equals_sequential_oracle(nC, neg_inf_em):
-    """K5's plain version gives the oracle's chunk-start scores and last
-    end states bit for bit (one f32 add a term, exact maxima, chunks in
-    order), and its end scores agree with canvas_tpu's associative scan to
-    1e-5 relative: the tree reassociates the adds, so it may differ in the
-    last bits."""
+    """K5's plain version gives the chunk-start scores and last end
+    states of canvas_tpu's associative scan bit for bit (the same
+    bracketing, one f32 add a term, exact maxima), on B2's chunk
+    matrices of the decode's emissions; the sequential oracle brackets
+    the adds otherwise, so it agrees only to 1e-5 relative."""
     log_em, mask, lt, li = _emissions(nC + 10 * neg_inf_em, nC, neg_inf_em)
     B = log_em.shape[0]
     mats = _chunk_mats(log_em, mask, lt, li)[0]
-    ss, last_end = viterbi_cuda.chunk_scan_plain(mats, B)
-    assert ss.dtype == torch.float32 and last_end.dtype == torch.int32
-    scores_end, want_ss, want_last = _phase2_np(mats.numpy(), B)
-    np.testing.assert_array_equal(_bits(ss.numpy()), _bits(want_ss))
-    np.testing.assert_array_equal(last_end.numpy(), want_last)
-    np.testing.assert_allclose(_phase2_jax(mats, B), scores_end, rtol=1e-5,
-                               atol=0)
+    scores_end = _check_scan(mats, B)[1]
     if neg_inf_em:
         assert (scores_end < -1e29).any()
+
+
+@pytest.mark.parametrize("B,nC", [(32, 2048), (2, 5000), (3, 37)])
+def test_chunk_scan_plain_equals_associative_scan_on_real_matrices(B, nC):
+    """The same on f32 chunk matrices of real values (scaled normals, a
+    tenth -1e30) at the production decode's 32 x 2,048 chunks, at more
+    chunks than K5's shared memory holds and off the powers of two: here
+    the two bracketings differ in the last bits of many start scores, so
+    only the tree's own order gives canvas_tpu's."""
+    rng = np.random.default_rng(B * nC)
+    mats = (rng.normal(size=(S, S, B * nC)) * 30).astype(np.float32)
+    mats[rng.random(mats.shape) < 0.1] = NEG
+    ss, _, oracle_ss = _check_scan(torch.as_tensor(mats), B)
+    assert (_bits(ss) != _bits(oracle_ss)).any()
 
 
 @pytest.mark.parametrize("nC", N_CHUNKS)
@@ -164,27 +194,35 @@ def test_chunk_chase_plain_equals_reverse_chase(nC):
 @pytest.mark.parametrize("nC", N_CHUNKS)
 def test_decode_equals_canvas_tpu(nC, neg_inf_em):
     """The whole decode on CPU tensors (B2, K5, B3 and K6 plain) equals
-    canvas_tpu's numpy oracle of the chunked decode path for path, and,
-    without -1e30 emissions, canvas_tpu's jitted chunked decode.
+    canvas_tpu's jitted chunked decode, the decode canvas_tpu returns,
+    at every bin, and canvas_tpu's numpy oracle of the chunked decode.
+    So does the port's numpy transcription of the decode, the host oracle
+    of the card tests (hmm.viterbi_decode_np_chunked).
 
     With -1e30 emissions, scores near -1e30 absorb every smaller term
     (f32 keeps 7 digits), so ties decide the path and canvas_tpu's own two
     decodes differ: its associative scan against its sequential oracle at
-    2 of 274 live bins at 33 chunks.  The port runs phase 2 in order, as
-    the oracle does, and is held to the oracle there."""
+    2 of 274 live bins at 33 chunks.  The port brackets phase 2 as the
+    associative scan does, so there it may differ from the oracle as
+    canvas_tpu's decode does, at the same bins."""
     log_em, mask, lt, li = _emissions(nC + 30 * neg_inf_em, nC, neg_inf_em)
     got = hmm.viterbi_decode_chunked(torch.as_tensor(log_em),
                                      torch.as_tensor(mask), lt, li,
                                      chunk=CHUNK).numpy()
-    oracle = jax_hmm.viterbi_decode_np_chunked(log_em, lt, li, mask,
-                                               chunk=CHUNK)
-    np.testing.assert_array_equal(got, oracle)
     jitted = np.asarray(jax_hmm.viterbi_decode_chunked(
         jnp.asarray(log_em), lt, li, jnp.asarray(mask), chunk=CHUNK))
+    np.testing.assert_array_equal(got, jitted)
+    np.testing.assert_array_equal(
+        hmm.viterbi_decode_np_chunked(log_em, lt, li, mask, chunk=CHUNK),
+        jitted)
+    oracle = jax_hmm.viterbi_decode_np_chunked(log_em, lt, li, mask,
+                                               chunk=CHUNK)
     if neg_inf_em:
-        assert ((jitted != oracle) & mask).sum() <= 2
+        differ = (got != oracle) & mask
+        assert differ.sum() <= 2
+        np.testing.assert_array_equal(differ, (jitted != oracle) & mask)
     else:
-        np.testing.assert_array_equal(got[mask], jitted[mask])
+        np.testing.assert_array_equal(got, oracle)
 
 
 def test_wrappers_take_the_plain_versions_on_cpu_tensors():

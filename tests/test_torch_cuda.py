@@ -195,9 +195,12 @@ def _scan_inputs(dev, n_seq, n_chunks, seed, identity_rows=()):
 
 
 # (sequences, chunks): the production decode's 32 x 2,048; one chunk; a
-# chunk count off the tiles and powers of two; more chunks than K6's
-# shared-memory tile holds
-SCAN_SHAPES = [(32, 2048), (4, 1), (3, 37), (2, 5000)]
+# chunk count off the powers of two; more chunks than K6's shared-memory
+# tile holds, whose two lowest levels of K5's tree do not fit in shared
+# memory; one past a power of two; four levels in K5's scratch and five
+# K6 tiles
+SCAN_SHAPES = [(32, 2048), (4, 1), (3, 37), (2, 5000), (5, 2049),
+               (3, 20000)]
 
 
 @pytest.mark.parametrize("n_seq,n_chunks", SCAN_SHAPES)
@@ -221,6 +224,25 @@ def test_chunk_scan_and_chase_kernels_match_plain(dev, n_seq, n_chunks):
     for got, le in ((sel, last_end), (sel_random, last)):
         assert got.dtype == torch.int64
         assert torch.equal(got, viterbi_cuda.chunk_chase_plain(pe, le))
+
+
+@pytest.mark.parametrize("n_seq,n_chunks", [(32, 2048), (5, 2049),
+                                             (3, 20000)])
+def test_chunk_scan_kernel_matches_plain_on_real_matrices(dev, n_seq,
+                                                          n_chunks):
+    """K5 on f32 chunk matrices of real values (scaled normals, a tenth
+    -1e30), bit for bit: there every bracketing of the adds gives its own
+    bits, so this holds the tree to the plain version's order, which is
+    canvas_tpu's associative scan."""
+    rng = np.random.default_rng(n_seq * n_chunks)
+    S, L = viterbi_cuda.N_STATES, n_seq * n_chunks
+    mats = (rng.normal(size=(S, S, L)) * 30).astype(np.float32)
+    mats[rng.random(mats.shape) < 0.1] = viterbi_cuda.NEG_INF
+    mats = torch.as_tensor(mats, device=dev)
+    ss, last_end = viterbi_cuda.chunk_scan(mats, n_seq)
+    want_ss, want_last = viterbi_cuda.chunk_scan_plain(mats, n_seq)
+    assert torch.equal(ss.view(torch.int32), want_ss.view(torch.int32))
+    assert torch.equal(last_end, want_last)
 
 
 def test_decode_makes_no_synchronising_call(dev):
@@ -284,14 +306,16 @@ def test_chunk_kernels_launch_on_the_tensors_device(dev):
         pytest.skip("needs two CUDA devices")
     d1 = torch.device("cuda", 1)
     torch.cuda.set_device(0)
-    mats, pe, last = _scan_inputs(d1, 6, 300, 2)
-    ss, last_end = viterbi_cuda.chunk_scan(mats, 6)
-    sel = viterbi_cuda.chunk_chase(pe, last_end)
-    assert ss.device == last_end.device == sel.device == d1
-    want_ss, want_last = viterbi_cuda.chunk_scan_plain(mats, 6)
-    assert torch.equal(ss.view(torch.int32), want_ss.view(torch.int32))
-    assert torch.equal(last_end, want_last)
-    assert torch.equal(sel, viterbi_cuda.chunk_chase_plain(pe, last_end))
+    # 5,000 chunks: K5's two lowest levels go to its scratch, on cuda:1
+    for n_seq, n_chunks in ((6, 300), (2, 5000)):
+        mats, pe, last = _scan_inputs(d1, n_seq, n_chunks, 2)
+        ss, last_end = viterbi_cuda.chunk_scan(mats, n_seq)
+        sel = viterbi_cuda.chunk_chase(pe, last_end)
+        assert ss.device == last_end.device == sel.device == d1
+        want_ss, want_last = viterbi_cuda.chunk_scan_plain(mats, n_seq)
+        assert torch.equal(ss.view(torch.int32), want_ss.view(torch.int32))
+        assert torch.equal(last_end, want_last)
+        assert torch.equal(sel, viterbi_cuda.chunk_chase_plain(pe, last_end))
     torch.cuda.synchronize(d1)
     assert torch.cuda.current_device() == 0
 
