@@ -25,25 +25,27 @@ Design:
     vectorised over a permutation chunk: with ``csum`` the running count of
     permuted statistics at or above the observed one, the first index where
     ``nrej > nrejc`` (reject) or ``np_i >= sbdry[k-1]`` (accept) decides;
-    reject wins an exact tie because the reference checks it first.  Up to
-    8 walking rows (a stable compaction) draw a chunk an iteration, each at
-    its own tier width.
+    reject wins an exact tie because the reference checks it first.  Each
+    row draws its chunks at its own tier width.
   * Split-location edge tests (ChangePoint.cs:359-398, TPermP) draw their
-    m1-subsets as the m1 smallest of iid 32-bit keys, found by a 32-step
-    binary search over the key space, and stop as soon as the rejection
-    count cannot come back under alpha * n_perm.
+    m1-subsets as the m1 smallest of iid 32-bit keys (the m1-th order
+    statistic, ties by index), and stop as soon as the rejection count
+    cannot come back under alpha * n_perm.
   * Keys are threefry ``fold_in`` chains on (contig, lo, n), then the
     chunk counter (walks) or 7777 / 7778 and the chunk counter (edges), as
     in the JAX package (ops/threefry.py, equal bit for bit).
-  * Python drives the loops, so every loop test is a value read back from
-    the device: the level's (any pending, overflow, any row in each tier),
-    each walk iteration's (any walking, and the 8 compacted rows' walking
-    flag, tier and hybrid flag), the level's any-edge-test flag, each edge
-    iteration's (any active, and the 8 compacted lanes' flag, tier, subset
-    size and window length), and the final table.  Each is one small
-    integer tensor copied in one read, counted in SYNCS.  Nothing else in
-    the engine reads from the device, and nothing copies to it after the
-    set-up.
+  * The walks and the edge tests of a level are one launch each, kernels
+    K7 and K8 (ops/cbs_mega_cuda.py), which loop over every row's chunks
+    on the card until the row is decided; on CPU tensors their plain
+    versions loop over the rows one at a time.  A row's chunk c draws
+    from its own key and counter, so the results do not depend on which
+    rows share an iteration.
+  * One read from the device a level: at its start, one small integer
+    tensor with the control values (any pending slot, overflow, any row
+    in each tier) and the segment table with the run's counters, so the
+    read that ends the loop carries the final table.  Each read is
+    counted in SYNCS; nothing else in the engine reads from the device,
+    and nothing copies to it after the set-up.
   * Sums and cumulative sums accumulate in float64 and round once to f32,
     and the tail probability runs in float64, so a CUDA run and a CPU run
     see the same statistics.
@@ -61,14 +63,12 @@ import torch
 
 from canvas_tpu_torch.config import resolve_device
 from canvas_tpu_torch.ops import cbs as _cbs
-from canvas_tpu_torch.ops import threefry
+from canvas_tpu_torch.ops import cbs_mega_cuda, threefry
 from canvas_tpu_torch.ops.cbs_device import (
-    _PERM_ELEMS, _cumsum, _gather_center, _perm_stats, _tail_p_batch_dev,
-    tmax_batch)
+    _cumsum, _gather_center, _tail_p_batch_dev, tmax_batch)
+from canvas_tpu_torch.ops.cbs_mega_cuda import _fsum
 
-P_CHUNK = 512          # permutations per walk chunk
 _MAX_LEVELS = 128      # iteration bound (depth x frontier/W chunks)
-_W = 8                 # rows evaluated per walk or edge-test iteration
 _MAX_BINS = 65536      # the longest contig the table's tiers hold
 _MAX_CONTIGS = 192
 _MIN_SLOTS = 64        # the table holds max(64, 4 x contigs) slots
@@ -84,48 +84,9 @@ def _read(*parts: torch.Tensor) -> list[int]:
     return torch.cat([p.reshape(-1).to(torch.int64) for p in parts]).tolist()
 
 
-def _fsum(v: torch.Tensor) -> torch.Tensor:
-    """f32 sum over the last axis, accumulated in float64."""
-    return v.double().sum(dim=-1).float()
-
-
 def _stable_order(flags: torch.Tensor) -> torch.Tensor:
     """Indices with the True entries first, each part in index order."""
     return torch.argsort((~flags).to(torch.int32), stable=True)
-
-
-# ---------------------------------------------------------------------------
-# Vectorised sequential-stopping walk (ChangePoint.cs:206-246)
-# ---------------------------------------------------------------------------
-
-def _walk_update(ostat, nrejc, np0, nrej0, k0, walking, pstats, sbdry,
-                 n_perm):
-    """One permutation chunk through every walking row's boundary walk.
-    Returns (accept_now, walking', np', nrej', k')."""
-    S, P = pstats.shape
-    dev = pstats.device
-    csum = torch.cumsum((ostat[:, None] <= pstats).to(torch.int64), dim=1)
-    nrej_j = nrej0[:, None] + csum
-    k_j = k0[:, None] + csum
-    np_j = np0[:, None] + torch.arange(1, P + 1, device=dev)[None, :]
-    rej = nrej_j > nrejc[:, None]
-    sb = sbdry[torch.clamp(k_j - 1, 0, sbdry.shape[0] - 1)]
-    acc = (np_j >= sb) | (np_j >= n_perm)
-    first_rej = torch.where(rej.any(dim=1),
-                            torch.argmax(rej.to(torch.int32), dim=1), P)
-    first_acc = torch.where(acc.any(dim=1),
-                            torch.argmax(acc.to(torch.int32), dim=1), P)
-    decided = walking & ((first_rej < P) | (first_acc < P))
-    # reject is checked before the boundary accept inside one iteration,
-    # so an exact tie (same j) rejects: accept only strictly earlier
-    accept_now = decided & (first_acc < first_rej)
-    np1 = torch.where(walking, np0 + P, np0)
-    nrej1 = torch.where(walking, nrej0 + csum[:, -1], nrej0)
-    k1 = torch.where(walking, k0 + csum[:, -1], k0)
-    exhausted = walking & ~decided & (np1 >= n_perm)
-    accept_now = accept_now | exhausted
-    walking1 = walking & ~decided & ~exhausted
-    return accept_now, walking1, np1, nrej1, k1
 
 
 def _seg_keys(key0, seg_c, seg_lo, n):
@@ -134,10 +95,6 @@ def _seg_keys(key0, seg_c, seg_lo, n):
     k = threefry.fold_in(k, seg_lo)
     return threefry.fold_in(k, n)
 
-
-# ---------------------------------------------------------------------------
-# Tier widths
-# ---------------------------------------------------------------------------
 
 def _tiers(Tmax: int) -> list[int]:
     """Ascending width ladder (powers of two down to 1024): the [P, w]
@@ -151,74 +108,22 @@ def _tiers(Tmax: int) -> list[int]:
     return sorted(out)
 
 
-def _tier_index(nn: torch.Tensor, n_tiers: int) -> torch.Tensor:
-    """Index of the smallest tier (1024 * 2^t) with nn <= its width."""
-    widths = 1024 * 2 ** torch.arange(n_tiers, device=nn.device)
-    return (nn[:, None] > widths[None, :]).sum(dim=1)
-
-
-def _groups(keys: list[int]) -> list[tuple[int, int, int]]:
-    """(group key, start, stop) of the runs of equal keys after a stable
-    sort: the host's copy of the device's argsort(keys, stable=True)."""
-    ks = sorted(keys)
-    out = []
-    a = 0
-    for b in range(1, len(ks) + 1):
-        if b == len(ks) or ks[b] != ks[a]:
-            out.append((ks[a], a, b))
-            a = b
-    return out
-
-
 # ---------------------------------------------------------------------------
 # Split-location edge tests (ChangePoint.cs:359-398 / CBSTStatistic.TPermP)
 # ---------------------------------------------------------------------------
 
-def _subset_sums(xr, nn, mm, mm_host, keys, npad, cols):
-    """[R, P_CHUNK] sums over uniform random mm-subsets of the first nn
-    values of each row of xr [R, >= cols], drawn from its key as the
-    [P_CHUNK, npad] block of uint32 keys that the JAX package draws.
-
-    The mm smallest of iid 32-bit keys form a uniform mm-subset, so the
-    values whose keys lie under the mm-th order statistic are summed.  Key
-    ties resolve by index through one cumsum, which keeps the subset
-    uniform.  Padding draws 0xFFFFFFFF, the largest key, so no padding is
-    ever picked (mm <= nn real keys come first) and the keys past the
-    longest row, `cols` <= npad, are not drawn.  The order statistic is
-    torch.kthvalue with each row's mm from the host (`mm_host`), equal to
-    the JAX package's 32-step binary search over the key space."""
-    R = xr.shape[0]
-    dev = xr.device
-    out = torch.empty((R, P_CHUNK), dtype=torch.float32, device=dev)
-    per = max(1, _PERM_ELEMS // (P_CHUNK * cols))
-    real = torch.arange(cols, device=dev)[None, None, :]
-    for s0 in range(0, R, per):
-        s1 = min(R, s0 + per)
-        u = threefry.random_bits(keys[s0:s1], (P_CHUNK, npad), cols)
-        u = torch.where(real < nn[s0:s1, None, None], u, 0xFFFFFFFF)
-        tau = torch.stack([torch.kthvalue(u[i], mm_host[s0 + i]).values
-                           for i in range(s1 - s0)])
-        less = u < tau[..., None]
-        k_t = mm[s0:s1, None] - less.sum(dim=2)
-        tie = u == tau[..., None]
-        cum = torch.cumsum(tie.to(torch.int64), dim=2)
-        pick = less | (tie & (cum <= k_t[..., None]))
-        out[s0:s1] = _fsum(torch.where(pick, xr[s0:s1, None, :cols], 0.0))
-    return out
-
-
 def _edge_tests(x, n, i1, i2, test_both, keys, alpha, n_perm, Tmax):
     """(keep1, keep2, edge chunks) for rows whose split needs its edges
-    validated.
+    validated; the chunks as a device scalar.
 
     Lane layout [2W]: edge 1 of rows 0..W-1, then edge 2.  Edge 1 tests
     the split at i1 inside x[0:i2] (n1 = i1); edge 2 tests the split at
     i2 inside x[i1:n] (n1 = i2 - i1).  TPermP statistics are
     shift-invariant, so the parent's centred windows serve: edge 1 is x
-    masked to i2, edge 2 is x shifted left by i1."""
+    masked to i2, edge 2 is x shifted left by i1.  The lanes' chunk loops
+    are kernel K8 (cbs_mega_cuda.edge_counts)."""
     W = x.shape[0]
     dev = x.device
-    n_tiers = len(_tiers(Tmax))
     wn = torch.cat([i2, n - i1])
     n1 = torch.cat([i1, i2 - i1])
     mask = torch.cat([test_both, test_both])
@@ -249,51 +154,11 @@ def _edge_tests(x, n, i1, i2, test_both, keys, alpha, n_perm, Tmax):
     limit = alpha * n_perm
 
     active = mask & ~degen & ~quick0
-    count = torch.zeros(2 * W, dtype=torch.int64, device=dev)
-    done = torch.zeros_like(count)
-    cnt = torch.zeros_like(count)
-    lane = torch.arange(P_CHUNK, device=dev)[None, :]
-    chunks = 0
-    while True:
-        # compact to _W lanes an iteration, grouped by tier; waiting lanes
-        # keep their own chunk counters
-        sel = _stable_order(active)[:_W]
-        on = active[sel]
-        tier = _tier_index(wn[sel], n_tiers)
-        gkey = torch.where(on, tier, n_tiers)
-        ctrl = _read(active.any(), gkey, m1[sel], wn[sel])
-        if not ctrl[0]:
-            break
-        gkey_h = ctrl[1:1 + _W]
-        # the host's copy of the stable argsort below
-        order = sorted(range(_W), key=gkey_h.__getitem__)
-        m1_h = [ctrl[1 + _W + i] for i in order]
-        wn_h = [ctrl[1 + 2 * _W + i] for i in order]
-        rows = sel[torch.argsort(gkey, stable=True)]
-        sums = torch.zeros((_W, P_CHUNK), dtype=torch.float32, device=dev)
-        n_on = 0
-        for t, a, b in _groups(gkey_h):
-            if t == n_tiers:
-                continue
-            r = rows[a:b]
-            ck = threefry.fold_in(ekeys[r], cnt[r])
-            sums[a:b] = _subset_sums(xw[r], wn[r], m1[r], m1_h[a:b], ck,
-                                     1024 << t, max(wn_h[a:b]))
-            n_on = b
-        r = rows[:n_on]
-        take = torch.clamp(n_perm - done[r], max=P_CHUNK)
-        pstat = (sums[:n_on] / m1f[r][:, None] - xbar[r][:, None]).abs()
-        inc = ((ostat[r][:, None] <= pstat) & (lane < take[:, None])).sum(1)
-        count = count.index_add(0, r, inc)
-        done = done.index_add(0, r, take)
-        cnt = cnt.index_add(0, r, torch.ones_like(take))
-        active = active & (count.to(torch.float32) <= limit) \
-            & (done < n_perm)
-        chunks += n_on
-
+    count, cnt = cbs_mega_cuda.edge_counts(xw, wn, m1, xbar, ostat, active,
+                                           ekeys, limit, n_perm)
     p = count.to(torch.float32) / n_perm
     keep = torch.where(degen, False, torch.where(quick0, True, p <= alpha))
-    return keep[:W], keep[W:], chunks
+    return keep[:W], keep[W:], cnt.sum()
 
 
 # ---------------------------------------------------------------------------
@@ -317,11 +182,11 @@ def _mega_recurse(contigs, n_c, sbdry, key0, alpha, *, S, Tmax, al0, kmax,
                   n_min, n_grid, n_perm, counts):
     """The full CBS recursion on contigs' device.  Returns (seg_c, seg_lo,
     seg_hi, nseg, overflow) on the host; `counts` gains the levels, walk
-    and edge chunks, walks accepted and rejected."""
+    and edge chunks, walks accepted and rejected.  One read a level, at
+    its start: the control values and the table with its counters."""
     dev = contigs.device
     C = contigs.shape[0]
     tiers = _tiers(Tmax)
-    n_tiers = len(tiers)
     slot = torch.arange(S, device=dev)
     seg_c0 = torch.where(slot < C, slot, -1)
     seg_lo0 = torch.zeros(S, dtype=torch.int64, device=dev)
@@ -329,10 +194,16 @@ def _mega_recurse(contigs, n_c, sbdry, key0, alpha, *, S, Tmax, al0, kmax,
     pending0 = (slot < C) & (seg_hi0 > 0)
     nseg = torch.full((), C, dtype=torch.int64, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    walk_acc = torch.zeros((), dtype=torch.int64, device=dev)
-    walk_rej = torch.zeros_like(walk_acc)
+    # walks accepted and rejected, walk and edge chunks
+    tally = torch.zeros(4, dtype=torch.int64, device=dev)
     big = torch.finfo(torch.float32).max
     pos = torch.arange(Tmax, device=dev)[None, :]
+
+    def table(ctrl):
+        """(seg_c, seg_lo, seg_hi, nseg, overflow, tally) of a read."""
+        t = ctrl[-(3 * S + 6):]
+        return (t[:S], t[S:2 * S], t[2 * S:3 * S], t[3 * S],
+                bool(t[3 * S + 1]), t[3 * S + 2:])
 
     W = min(S, max(32, S // 2))   # frontier rows analysed an iteration
     level = 0
@@ -354,9 +225,11 @@ def _mega_recurse(contigs, n_c, sbdry, key0, alpha, *, S, Tmax, al0, kmax,
         in_tiers = [analyzable & (n_eff <= w) & (n_eff > (tiers[t - 1]
                                                          if t else 0))
                     for t, w in enumerate(tiers)]
-        ctrl = _read(pending0.any(), overflow,
-                     torch.stack([it.any() for it in in_tiers]))
-        if not ctrl[0] or ctrl[1]:
+        ctrl = _read(pending0.any(),
+                     torch.stack([it.any() for it in in_tiers]),
+                     seg_c0, seg_lo0, seg_hi0, nseg, overflow, tally)
+        out = table(ctrl)
+        if not ctrl[0] or out[4]:
             break
         x = torch.where(analyzable[:, None], x, 0.0)
         tss = torch.where(analyzable, tss, 0.0)
@@ -368,7 +241,7 @@ def _mega_recurse(contigs, n_c, sbdry, key0, alpha, *, S, Tmax, al0, kmax,
         ti = torch.ones(W, dtype=torch.int64, device=dev)
         tj = torch.full((W,), 2, dtype=torch.int64, device=dev)
         for t, w in enumerate(tiers):
-            if not ctrl[2 + t]:
+            if not ctrl[1 + t]:
                 continue
             in_tier = in_tiers[t]
             r0, r1, r2 = tmax_batch(
@@ -396,27 +269,25 @@ def _mega_recurse(contigs, n_c, sbdry, key0, alpha, *, S, Tmax, al0, kmax,
             (alpha * float(n_perm)).to(torch.int32)).to(torch.int64)
         keys = _seg_keys(key0, torch.clamp(seg_c, min=0), seg_lo, n)
 
-        # --- sequential-stopping permutation walks, chunk by chunk ---
-        walked = _walk(x, n_eff, tss, keys, needs, hybrid, ostat, nrejc,
-                       sbdry, n_perm, tiers, al0, kmax, n_min, counts)
-        walk_acc = walk_acc + (walked & needs).sum()
-        walk_rej = walk_rej + (needs & ~walked).sum()
+        # --- sequential-stopping permutation walks (kernel K7) ---
+        walked, wchunks = cbs_mega_cuda.walk(
+            x, n_eff, tss, keys, needs, hybrid, ostat, nrejc, sbdry, n_perm,
+            al0, kmax, n_min)
         accepted = trivial | walked
 
-        # --- split-location edge tests ---
+        # --- split-location edge tests (kernel K8) ---
         at_end = tj >= n          # i2 == n: keep split 1 untested
         at_start = ti <= 0        # i1 == 0: keep split 2 untested
         test_both = accepted & ~at_end & ~at_start
-        if _read(test_both.any())[0]:
-            keep1t, keep2t, echunks = _edge_tests(
-                x, n, ti, tj, test_both, keys, alpha, n_perm, Tmax)
-            counts["edge_chunks"] += echunks
-        else:
-            keep1t = keep2t = torch.zeros_like(test_both)
+        keep1t, keep2t, echunks = _edge_tests(
+            x, n, ti, tj, test_both, keys, alpha, n_perm, Tmax)
         keep1 = torch.where(test_both, keep1t, at_end & ~at_start)
         keep2 = torch.where(test_both, keep2t, at_start & ~at_end)
         split1 = accepted & keep1
         split2 = accepted & keep2 & (tj < n)
+        tally = tally + torch.stack([(walked & needs).sum(),
+                                     (needs & ~walked).sum(),
+                                     wchunks.sum(), echunks])
 
         # --- segment-table update ---
         nsplits = split1.to(torch.int64) + split2.to(torch.int64)
@@ -441,63 +312,15 @@ def _mega_recurse(contigs, n_c, sbdry, key0, alpha, *, S, Tmax, al0, kmax,
         nseg = nseg + extra.sum()
         overflow = overflow | (nseg > S)
         level += 1
-
+    else:                     # the level bound ended the loop
+        out = table(_read(seg_c0, seg_lo0, seg_hi0, nseg, overflow, tally))
+    seg_c, seg_lo, seg_hi, nseg, over, tally = out
     counts["levels"] += level
-    out = _read(seg_c0, seg_lo0, seg_hi0, nseg, overflow, walk_acc, walk_rej)
-    counts["walks_accepted"] += out[3 * S + 2]
-    counts["walks_rejected"] += out[3 * S + 3]
-    return (np.asarray(out[:S]), np.asarray(out[S:2 * S]),
-            np.asarray(out[2 * S:3 * S]), out[3 * S],
-            bool(out[3 * S + 1]) or level >= _MAX_LEVELS)
-
-
-def _walk(x, n_eff, tss, keys, needs, hybrid, ostat, nrejc, sbdry, n_perm,
-          tiers, al0, kmax, n_min, counts):
-    """The level's boundary walks: [W] bool, accepted.  Up to _W walking
-    rows (a stable compaction) draw their next chunk an iteration, grouped
-    by (hybrid, tier) so that each group is one batch at its width; the
-    rest keep their state, and each row's chunk counter keeps its stream
-    in order."""
-    W = x.shape[0]
-    dev = x.device
-    n_tiers = len(tiers)
-    walking = needs
-    accepted = torch.zeros_like(needs)
-    np0 = torch.zeros(W, dtype=torch.int64, device=dev)
-    nrej0 = torch.zeros_like(np0)
-    kw = nrejc * (nrejc + 1) // 2 + 1
-    chunks = torch.zeros_like(np0)
-    while True:
-        sel = _stable_order(walking)[:_W]
-        on = walking[sel]
-        gkey = torch.where(on, hybrid[sel].to(torch.int64) * n_tiers
-                           + _tier_index(n_eff[sel], n_tiers), 2 * n_tiers)
-        ctrl = _read(walking.any(), gkey)
-        if not ctrl[0]:
-            return accepted
-        rows = sel[torch.argsort(gkey, stable=True)]
-        pst = torch.zeros((_W, P_CHUNK), dtype=torch.float32, device=dev)
-        for g, a, b in _groups(ctrl[1:]):
-            if g == 2 * n_tiers:
-                continue
-            hyb, t = divmod(g, n_tiers)
-            w = tiers[t]
-            r = rows[a:b]
-            # full-arc rows hold at most n_min bins
-            pst[a:b] = _perm_stats(
-                x[r, :w], n_eff[r], tss[r],
-                threefry.fold_in(keys[r], chunks[r]), w, P_CHUNK, al0, kmax,
-                not hyb, n_min)
-            counts["walk_chunks"] += b - a
-        now = torch.zeros_like(walking)
-        now[sel] = on
-        pstats = torch.zeros((W, P_CHUNK), dtype=torch.float32,
-                             device=dev).index_copy(0, rows, pst)
-        acc_now, walking1, np0, nrej0, kw = _walk_update(
-            ostat, nrejc, np0, nrej0, kw, now, pstats, sbdry, n_perm)
-        walking = torch.where(now, walking1, walking)
-        chunks = torch.where(now, chunks + 1, chunks)
-        accepted = accepted | acc_now
+    for k, v in zip(("walks_accepted", "walks_rejected", "walk_chunks",
+                     "edge_chunks"), tally):
+        counts[k] += v
+    return (np.asarray(seg_c), np.asarray(seg_lo), np.asarray(seg_hi), nseg,
+            over or level >= _MAX_LEVELS)
 
 
 # ---------------------------------------------------------------------------

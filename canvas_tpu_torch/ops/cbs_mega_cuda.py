@@ -1,0 +1,381 @@
+"""The whole-recursion CBS engine's walk and edge-test kernels (K7, K8),
+with their plain torch versions.
+
+  walk          (K7): the level's sequential-stopping boundary walks
+                (ChangePoint.cs:206-246).  Every walking row loops over
+                permutation chunks of P_CHUNK until it is decided: chunk c
+                draws from fold_in(key, c) the [P_CHUNK, npad] uniforms of
+                the row's tier width npad (the smallest power of two >=
+                1,024 that holds n), permutes the row's values by a stable
+                sort of them (padding draws 2.0 and sorts last), takes the
+                f32 cumsum (accumulated in float64), the max-t statistic
+                (hybrid: lags al0..kmax with wrap arcs, n > n_min; full:
+                every lag up to min(n_min, npad)) and feeds the P_CHUNK
+                statistics through the boundary walk (_walk_update).
+                Returns (accepted bool [W], chunks int64 [W]).
+  edge_counts   (K8): the split-location edge tests (TPermP,
+                ChangePoint.cs:359-398).  Every active lane loops over
+                chunks: from fold_in(ekey, cnt) the [P_CHUNK, npad] uint32
+                keys of its tier width, the subset of its m1 smallest keys
+                (ties by index) summed in float64, the statistic
+                |sum / m1 - xbar| against ostat on the first
+                n_perm - done permutations, until the count exceeds limit
+                or n_perm permutations are done.  Returns (count int64
+                [L], cnt int64 [L]).
+
+Each row (lane) is decided by its own chunk sequence alone, so the order
+in which rows draw their chunks does not matter: canvas_tpu's compaction
+of 8 rows an iteration, the plain versions' loop over one row at a time
+and the kernels' rows in parallel give the same results.  The plain
+versions read their loop tests from the tensors (on the card, a read
+each); the kernels keep every loop on the card.
+
+On CUDA tensors the wrappers launch csrc/cbs_mega.cu, one launch a call,
+and the launch counts go to LAUNCHES; on CPU tensors they run the plain
+versions.  Both draw the same threefry bits (ops/threefry.py), sort and
+select exactly, and round every f32 operation of the statistics as the
+plain versions do, so flags, counts and statistics agree bit for bit
+wherever their float64 sums round to the same f32 (the kernels add in
+another order; see the source note).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from canvas_tpu_torch.ops import cuda_lib, threefry
+from canvas_tpu_torch.ops.cbs_device import _PERM_ELEMS, _perm_stats
+
+P_CHUNK = 512          # permutations per chunk
+THREADS = 1024         # a thread block of the kernels
+SMEM_WORDS = 32768     # a permutation's positions held in shared memory
+
+# launches of the kernels, counted by the wrappers
+LAUNCHES = {"walk": 0, "edge": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "cbs_walk": [_P] * 15 + [_I] * 8 + [_P],
+    "cbs_edge": [_P] * 14 + [_I] * 4 + [_P],
+    "cbs_threefry": [_P] * 2 + [_I, ctypes.c_longlong, _I] + [_P] * 3
+    + [_P],
+    "cbs_smem_bytes": [_I, _I],
+}
+
+
+def _fsum(v: torch.Tensor) -> torch.Tensor:
+    """f32 sum over the last axis, accumulated in float64."""
+    return v.double().sum(dim=-1).float()
+
+
+def tier_width(n: int) -> int:
+    """The tier width of a row of n bins: the smallest power of two that
+    is at least 1,024 and holds n."""
+    return max(1024, 1 << (int(n) - 1).bit_length())
+
+
+# ---------------------------------------------------------------------------
+# Plain torch versions
+# ---------------------------------------------------------------------------
+
+def _walk_update(ostat, nrejc, np0, nrej0, k0, walking, pstats, sbdry,
+                 n_perm):
+    """One permutation chunk through every walking row's boundary walk.
+    Returns (accept_now, walking', np', nrej', k')."""
+    S, P = pstats.shape
+    dev = pstats.device
+    csum = torch.cumsum((ostat[:, None] <= pstats).to(torch.int64), dim=1)
+    nrej_j = nrej0[:, None] + csum
+    k_j = k0[:, None] + csum
+    np_j = np0[:, None] + torch.arange(1, P + 1, device=dev)[None, :]
+    rej = nrej_j > nrejc[:, None]
+    sb = sbdry[torch.clamp(k_j - 1, 0, sbdry.shape[0] - 1)]
+    acc = (np_j >= sb) | (np_j >= n_perm)
+    first_rej = torch.where(rej.any(dim=1),
+                            torch.argmax(rej.to(torch.int32), dim=1), P)
+    first_acc = torch.where(acc.any(dim=1),
+                            torch.argmax(acc.to(torch.int32), dim=1), P)
+    decided = walking & ((first_rej < P) | (first_acc < P))
+    # reject is checked before the boundary accept inside one iteration,
+    # so an exact tie (same j) rejects: accept only strictly earlier
+    accept_now = decided & (first_acc < first_rej)
+    np1 = torch.where(walking, np0 + P, np0)
+    nrej1 = torch.where(walking, nrej0 + csum[:, -1], nrej0)
+    k1 = torch.where(walking, k0 + csum[:, -1], k0)
+    exhausted = walking & ~decided & (np1 >= n_perm)
+    accept_now = accept_now | exhausted
+    walking1 = walking & ~decided & ~exhausted
+    return accept_now, walking1, np1, nrej1, k1
+
+
+def walk_plain(x, n, tss, keys, walking, hybrid, ostat, nrejc, sbdry,
+               n_perm: int, al0: int, kmax: int, n_min: int, stats=None):
+    """Plain version of K7: each walking row alone, chunk after chunk,
+    through cbs_device._perm_stats and _walk_update until it is decided.
+    With `stats` (f32 [W, P_CHUNK]) given, each walking row's row of it
+    takes the statistics of its chunk 0."""
+    W = x.shape[0]
+    dev = x.device
+    accepted = torch.zeros(W, dtype=torch.bool, device=dev)
+    chunks = torch.zeros(W, dtype=torch.int64, device=dev)
+    for r in range(W):
+        if not bool(walking[r]):
+            continue
+        w = tier_width(int(n[r]))
+        rr = slice(r, r + 1)
+        live = walking[rr]
+        np0 = torch.zeros(1, dtype=torch.int64, device=dev)
+        nrej0 = torch.zeros_like(np0)
+        k0 = nrejc[rr] * (nrejc[rr] + 1) // 2 + 1
+        c = 0
+        while bool(live):
+            ps = _perm_stats(x[rr, :w], n[rr], tss[rr],
+                             threefry.fold_in(keys[rr], c), w, P_CHUNK,
+                             al0, kmax, not bool(hybrid[r]), n_min)
+            if stats is not None and c == 0:
+                stats[r] = ps[0]
+            acc, live, np0, nrej0, k0 = _walk_update(
+                ostat[rr], nrejc[rr], np0, nrej0, k0, live, ps, sbdry,
+                n_perm)
+            accepted[r] = accepted[r] | acc[0]
+            c += 1
+        chunks[r] = c
+    return accepted, chunks
+
+
+def _subset_sums(xr, nn, mm, mm_host, keys, npad, cols):
+    """[R, P_CHUNK] sums over uniform random mm-subsets of the first nn
+    values of each row of xr [R, >= cols], drawn from its key as the
+    [P_CHUNK, npad] block of uint32 keys that the JAX package draws.
+
+    The mm smallest of iid 32-bit keys form a uniform mm-subset, so the
+    values whose keys lie under the mm-th order statistic are summed.  Key
+    ties resolve by index through one cumsum, which keeps the subset
+    uniform.  Padding draws 0xFFFFFFFF, the largest key, so no padding is
+    ever picked (mm <= nn real keys come first) and the keys past the
+    longest row, `cols` <= npad, are not drawn.  The order statistic is
+    torch.kthvalue with each row's mm from the host (`mm_host`), equal to
+    the JAX package's 32-step binary search over the key space."""
+    R = xr.shape[0]
+    dev = xr.device
+    out = torch.empty((R, P_CHUNK), dtype=torch.float32, device=dev)
+    per = max(1, _PERM_ELEMS // (P_CHUNK * cols))
+    real = torch.arange(cols, device=dev)[None, None, :]
+    for s0 in range(0, R, per):
+        s1 = min(R, s0 + per)
+        u = threefry.random_bits(keys[s0:s1], (P_CHUNK, npad), cols)
+        u = torch.where(real < nn[s0:s1, None, None], u, 0xFFFFFFFF)
+        tau = torch.stack([torch.kthvalue(u[i], mm_host[s0 + i]).values
+                           for i in range(s1 - s0)])
+        less = u < tau[..., None]
+        k_t = mm[s0:s1, None] - less.sum(dim=2)
+        tie = u == tau[..., None]
+        cum = torch.cumsum(tie.to(torch.int64), dim=2)
+        pick = less | (tie & (cum <= k_t[..., None]))
+        out[s0:s1] = _fsum(torch.where(pick, xr[s0:s1, None, :cols], 0.0))
+    return out
+
+
+def edge_counts_plain(xw, wn, m1, xbar, ostat, active, ekeys, limit,
+                      n_perm: int, sums=None):
+    """Plain version of K8: each active lane alone, chunk after chunk,
+    through _subset_sums until its count passes `limit` or n_perm
+    permutations are done.  With `sums` (f32 [L, P_CHUNK]) given, each
+    active lane's row of it takes the subset sums of its chunk 0."""
+    L = xw.shape[0]
+    dev = xw.device
+    count = torch.zeros(L, dtype=torch.int64, device=dev)
+    cnt = torch.zeros_like(count)
+    m1f = torch.clamp(m1, min=1).to(torch.float32)
+    lane = torch.arange(P_CHUNK, device=dev)
+    for r in range(L):
+        if not bool(active[r]):
+            continue
+        w, mm = int(wn[r]), int(m1[r])
+        rr = slice(r, r + 1)
+        live, done, c = active[r], 0, 0
+        while bool(live):
+            s = _subset_sums(xw[rr], wn[rr], m1[rr], [mm],
+                             threefry.fold_in(ekeys[rr], c),
+                             tier_width(w), w)[0]
+            if sums is not None and c == 0:
+                sums[r] = s
+            take = min(n_perm - done, P_CHUNK)
+            pstat = (s / m1f[r] - xbar[r]).abs()
+            count[r] += ((ostat[r] <= pstat) & (lane < take)).sum()
+            done += take
+            c += 1
+            live = (count[r].to(torch.float32) <= limit) & (done < n_perm)
+        cnt[r] = c
+    return count, cnt
+
+
+# ---------------------------------------------------------------------------
+# The kernels
+# ---------------------------------------------------------------------------
+
+def _grid(dev: torch.device) -> int:
+    """Thread blocks of a launch: one per SM, all resident at once, as the
+    kernels' grid-wide barriers need (a cooperative launch checks it)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _sort_scratch(dev: torch.device, grid: int, Tmax: int) -> torch.Tensor:
+    """Per thread block, the positions of one permutation where they do
+    not fit in shared memory (tier widths above SMEM_WORDS)."""
+    words = grid * Tmax if Tmax > SMEM_WORDS else 1
+    return torch.empty(words, dtype=torch.int32, device=dev)
+
+
+def _check(tensors) -> None:
+    """Raise unless every (name, tensor, dtype, shape) is a contiguous
+    CUDA tensor of that dtype and shape on the first one's device."""
+    dev = tensors[0][1].device
+    for name, t, dt, shape in tensors:
+        cuda_lib.require_cuda_tensor(name, t, dt, dev)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{list(t.shape)}")
+
+
+def _check_sizes(W: int, Tmax: int) -> None:
+    if W > THREADS:
+        raise ValueError(f"at most {THREADS} rows a launch, got {W}")
+    if Tmax < 1024 or Tmax > 65536 or Tmax & (Tmax - 1):
+        raise ValueError(f"Tmax must be a power of two in [1024, 65536], "
+                         f"got {Tmax}")
+
+
+def walk(x, n, tss, keys, walking, hybrid, ostat, nrejc, sbdry,
+         n_perm: int, al0: int, kmax: int, n_min: int, stats=None):
+    """K7: (accepted bool [W], chunks int64 [W]) of the boundary walks of
+    the rows of x f32 [W, Tmax] (centred values, zero past n) with n int64,
+    tss f32, threefry keys int64 [W, 2], walking and hybrid bool, ostat
+    f32, nrejc int64 [W] and the boundary sbdry int64; Tmax a power of two
+    in [1024, 65536] and n <= Tmax.  With `stats` (f32 [W, P_CHUNK]),
+    each walking row's row of it takes its chunk 0's statistics."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be [W, Tmax], got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return walk_plain(x, n, tss, keys, walking, hybrid, ostat, nrejc,
+                          sbdry, n_perm, al0, kmax, n_min, stats)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    W, Tmax = x.shape
+    vec = (W,)
+    checks = [("x", x, torch.float32, (W, Tmax)),
+              ("n", n, torch.int64, vec), ("tss", tss, torch.float32, vec),
+              ("keys", keys, torch.int64, (W, 2)),
+              ("walking", walking, torch.bool, vec),
+              ("hybrid", hybrid, torch.bool, vec),
+              ("ostat", ostat, torch.float32, vec),
+              ("nrejc", nrejc, torch.int64, vec),
+              ("sbdry", sbdry, torch.int64, (sbdry.shape[0],))]
+    if stats is not None:
+        checks.append(("stats", stats, torch.float32, (W, P_CHUNK)))
+    _check(checks)
+    _check_sizes(W, Tmax)
+    dev = x.device
+    lib = cuda_lib.load("cbs_mega", _SIGNATURES)
+    grid = _grid(dev)
+    # the walks' state (np, nrej, k, walking) and a chunk's statistics
+    state = torch.empty((4, W), dtype=torch.int64, device=dev)
+    pstats = torch.empty((W, P_CHUNK), dtype=torch.float32, device=dev)
+    sort = _sort_scratch(dev, grid, Tmax)
+    accepted = torch.empty(W, dtype=torch.bool, device=dev)
+    chunks = torch.empty(W, dtype=torch.int64, device=dev)
+    status = cuda_lib.launch(
+        dev, lib.cbs_walk,
+        x.data_ptr(), n.data_ptr(), tss.data_ptr(), keys.data_ptr(),
+        walking.data_ptr(), hybrid.data_ptr(), ostat.data_ptr(),
+        nrejc.data_ptr(), sbdry.data_ptr(), state.data_ptr(),
+        pstats.data_ptr(), sort.data_ptr(), accepted.data_ptr(),
+        chunks.data_ptr(), stats.data_ptr() if stats is not None else None,
+        W, Tmax, sbdry.shape[0], n_perm, al0, kmax, min(n_min, 1 << 30),
+        grid)
+    cuda_lib.check(status, "cbs_walk")
+    LAUNCHES["walk"] += 1
+    return accepted, chunks
+
+
+def edge_counts(xw, wn, m1, xbar, ostat, active, ekeys, limit,
+                n_perm: int, sums=None):
+    """K8: (count int64 [L], cnt int64 [L]) of the edge tests of the
+    lanes of xw f32 [L, Tmax] (window values, zero past wn) with wn and
+    m1 int64, xbar and ostat f32, active bool, threefry keys int64
+    [L, 2] and limit an f32 scalar tensor (alpha * n_perm); Tmax a power
+    of two in [1024, 65536] and wn <= Tmax.  With `sums` (f32
+    [L, P_CHUNK]), each active lane's row of it takes its chunk 0's
+    subset sums."""
+    if xw.dim() != 2:
+        raise ValueError(f"xw must be [L, Tmax], got {tuple(xw.shape)}")
+    if xw.device.type == "cpu":
+        return edge_counts_plain(xw, wn, m1, xbar, ostat, active, ekeys,
+                                 limit, n_perm, sums)
+    if xw.device.type != "cuda":
+        raise ValueError(f"unsupported device {xw.device}")
+    L, Tmax = xw.shape
+    vec = (L,)
+    checks = [("xw", xw, torch.float32, (L, Tmax)),
+              ("wn", wn, torch.int64, vec), ("m1", m1, torch.int64, vec),
+              ("xbar", xbar, torch.float32, vec),
+              ("ostat", ostat, torch.float32, vec),
+              ("active", active, torch.bool, vec),
+              ("ekeys", ekeys, torch.int64, (L, 2)),
+              ("limit", limit, torch.float32, ())]
+    if sums is not None:
+        checks.append(("sums", sums, torch.float32, (L, P_CHUNK)))
+    _check(checks)
+    _check_sizes(L, Tmax)
+    dev = xw.device
+    lib = cuda_lib.load("cbs_mega", _SIGNATURES)
+    grid = _grid(dev)
+    # the lanes' state (done, active) and a chunk's subset sums
+    state = torch.empty((2, L), dtype=torch.int64, device=dev)
+    psums = torch.empty((L, P_CHUNK), dtype=torch.float32, device=dev)
+    sort = _sort_scratch(dev, grid, Tmax)
+    count = torch.empty(L, dtype=torch.int64, device=dev)
+    cnt = torch.empty(L, dtype=torch.int64, device=dev)
+    status = cuda_lib.launch(
+        dev, lib.cbs_edge,
+        xw.data_ptr(), wn.data_ptr(), m1.data_ptr(), xbar.data_ptr(),
+        ostat.data_ptr(), active.data_ptr(), ekeys.data_ptr(),
+        limit.data_ptr(), state.data_ptr(), psums.data_ptr(),
+        sort.data_ptr(), count.data_ptr(), cnt.data_ptr(),
+        sums.data_ptr() if sums is not None else None,
+        L, Tmax, n_perm, grid)
+    cuda_lib.check(status, "cbs_edge")
+    LAUNCHES["edge"] += 1
+    return count, cnt
+
+
+def smem_bytes(Tmax: int, edge: bool) -> int:
+    """The dynamic shared memory a launch of K7 (or K8) asks for at
+    Tmax."""
+    return cuda_lib.load("cbs_mega", _SIGNATURES).cbs_smem_bytes(
+        Tmax, int(edge))
+
+
+def device_draws(keys, data, counter0: int, count: int):
+    """The kernels' own threefry on the card, for tests: (fold_in(keys,
+    data) int64 [K, 2], the 32-bit draws of counters counter0 ..
+    counter0 + count - 1 under each key int64 [K, count], and their f32
+    uniforms [K, count]); keys int64 [K, 2] and data int64 [K] on a CUDA
+    device."""
+    K = keys.shape[0]
+    dev = keys.device
+    _check([("keys", keys, torch.int64, (K, 2)),
+            ("data", data, torch.int64, (K,))])
+    lib = cuda_lib.load("cbs_mega", _SIGNATURES)
+    folded = torch.empty((K, 2), dtype=torch.int64, device=dev)
+    bits = torch.empty((K, count), dtype=torch.int64, device=dev)
+    unif = torch.empty((K, count), dtype=torch.float32, device=dev)
+    status = cuda_lib.launch(
+        dev, lib.cbs_threefry, keys.data_ptr(), data.data_ptr(), K,
+        counter0, count, folded.data_ptr(), bits.data_ptr(),
+        unif.data_ptr())
+    cuda_lib.check(status, "cbs_threefry")
+    return folded, bits, unif

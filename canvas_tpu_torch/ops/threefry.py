@@ -107,9 +107,11 @@ def random_bits(keys: torch.Tensor, shape: tuple[int, ...],
     return _bits32(keys, shape, cols).to(torch.int64) & _MASK
 
 
-def uniform(keys: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+def uniform(keys: torch.Tensor, shape: tuple[int, ...],
+            cols: int | None = None) -> torch.Tensor:
     """f32 uniforms in [0, 1), one block of `shape` per key row: equal to
-    `jax.random.uniform(key, shape, jnp.float32)` for each key."""
-    fbits = _bits32(keys, shape).bitwise_right_shift_(9) \
+    `jax.random.uniform(key, shape, jnp.float32)` for each key; with
+    `cols`, only the first cols entries of the last axis."""
+    fbits = _bits32(keys, shape, cols).bitwise_right_shift_(9) \
         .bitwise_and_(0x7FFFFF).bitwise_or_(0x3F800000)
     return fbits.view(torch.float32) - 1.0

@@ -50,8 +50,9 @@ Phases, one JSON line each; any failure exits non-zero:
              through the CLI entry point on a synthetic panel (3 contigs,
              30 Mbp, 400 bp targets every 500 bp, CN 1/3/0/4 events of
              0.8-1.6 Mb on a diploid normal) with --device cuda
-             (whole-recursion CBS engine, kernel B4) and again with
-             --device cpu (host CBS engine): identical VCFs, every planted
+             (whole-recursion CBS engine, kernels B4, K7 and K8) and
+             again with --device cpu (host CBS engine): identical VCFs,
+             K7 and K8 launched at least once a level, every planted
              event called with its copy number, the stage times of both
              runs;
   7. CBS     the frontier engine on the tumor's ratio coverage of that
@@ -62,13 +63,25 @@ Phases, one JSON line each; any failure exits non-zero:
              synchronising calls);
   7b. cbs-mega
              the whole-recursion engine on the same coverage: run_cbs on
-             cuda takes it (engine "mega"), its seconds, B4 launches,
-             reads from the card (cbs_mega.SYNCS) and synchronising calls;
-             the same engine on CPU tensors with equal segments; one more
-             CUDA run under torch.profiler; the frontier's figures from
-             phase CBS beside them; then B4 against its plain version at
-             every tier width the engine uses (1,024 to 65,536, 32 rows of
-             which three lie in the tier, the rest zeroed);
+             cuda takes it (engine "mega"), its seconds, B4, K7 and K8
+             launches (K7 and K8 once a level), reads from the card
+             (cbs_mega.SYNCS, at most one a level and one more) and
+             synchronising calls (those reads and the four set-up copies,
+             none else); the same engine on CPU tensors with equal
+             segments; one more CUDA run under torch.profiler; the
+             frontier's figures from phase CBS and the engine's with
+             host-driven loops (HOST_LOOPS_PANEL) beside them;
+             K7 and K8 against their plain versions on the card on the
+             inputs of the engine's first level with a walk and first
+             with an edge test (flags, chunk counts and edge counts equal,
+             chunk 0's statistics and subset sums bit for bit, both
+             times, the bound); bench.py's CBS workload (24 contigs x
+             16,384 bins) through run_cbs on cuda: the engine "mega", the
+             best of 3 seconds with their reads and launches, segments
+             equal to its warm run and to a run with K7 and K8's plain
+             versions; then B4 against its plain version at every tier
+             width the engine uses (1,024 to 65,536, 32 rows of which
+             three lie in the tier, the rest zeroed);
   8. e2e-germline
              Germline-WGS through the CLI entry point on the trio's proband
              BAM with --device cuda and again with --device cpu: identical
@@ -216,7 +229,7 @@ PLANS = {
 }
 TYPES = {"father": "Father", "mother": "Mother", "proband": "Proband"}
 
-KERNEL_SOURCES = ("prefix_scan", "viterbi", "arc_scan")
+KERNEL_SOURCES = ("prefix_scan", "viterbi", "arc_scan", "cbs_mega")
 # the decode's kernels, by their launch counts' names: B2, K5, B3, K6
 DECODE_KERNELS = ("chunk_matrix", "chunk_scan", "forward_backtrack",
                   "chunk_chase")
@@ -228,6 +241,12 @@ DECODE_KERNELS = ("chunk_matrix", "chunk_scan", "forward_backtrack",
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
 FLOPS_PER_OP = 2
+# K7 and K8's integer operations also count an FMA's issue slot each (the
+# card has half as many int32 lanes, so the bound is a low one): a
+# Threefry-2x32 draw is 73 of them (20 rounds of an add, a rotation and an
+# exclusive or, 12 key additions, the final exclusive or)
+TF_OPS = 73
+P_CHUNK = 512
 
 # B4 at three frontier shapes: (segments, padded length, length of every
 # segment or None for lengths drawn in (0.6 npad, npad])
@@ -413,9 +432,16 @@ def phase_build() -> dict:
         sass = b4_sass()
     except (OSError, subprocess.SubprocessError, AttributeError) as e:
         sass = {"error": repr(e)}       # a report only: it fails nothing
+    from canvas_tpu_torch.ops import cbs_mega_cuda
+
+    # K7 and K8 take all their shared memory dynamically (ptxas reports
+    # none): the bytes a launch asks for at each Tmax
+    smem = {name: {1 << k: cbs_mega_cuda.smem_bytes(1 << k, edge)
+                   for k in range(10, 17)}
+            for name, edge in (("walk", False), ("edge", True))}
     return {"phase": "build", "seconds": secs, "native_seconds": native_s,
             "ptxas": ptxas_report(), "b4_interior_run": sass,
-            "gpu": gpu_line()}
+            "k7_k8_dynamic_smem_bytes": smem, "gpu": gpu_line()}
 
 
 def phase_b1(seed: int, dev: torch.device) -> dict:
@@ -808,10 +834,11 @@ def same_vcf(a: Path, b: Path) -> None:
 
 
 def all_launch_counts() -> list[dict]:
-    from canvas_tpu_torch.ops import arc_scan_cuda, prefix_cuda, viterbi_cuda
+    from canvas_tpu_torch.ops import (arc_scan_cuda, cbs_mega_cuda,
+                                      prefix_cuda, viterbi_cuda)
 
     return [prefix_cuda.LAUNCHES, viterbi_cuda.LAUNCHES,
-            arc_scan_cuda.LAUNCHES]
+            arc_scan_cuda.LAUNCHES, cbs_mega_cuda.LAUNCHES]
 
 
 def reset_launches() -> None:
@@ -1105,6 +1132,9 @@ def phase_e2e_enrichment(seed: int, workdir: Path) -> tuple[dict, dict]:
     if launches["arc_scan"] < 1:
         fail(f"B4 launched {launches['arc_scan']} times over {n_levels} "
              f"levels of the whole-recursion engine")
+    if min(launches["walk"], launches["edge"]) < max(n_levels, 1):
+        fail(f"K7 and K8 launched {launches['walk']} and "
+             f"{launches['edge']} times over {n_levels} levels")
     body_cuda = vcf_body(workdir / "enr_cuda" / "tumor_CNV.vcf.gz")
     body_cpu = vcf_body(workdir / "enr_cpu" / "tumor_CNV.vcf.gz")
     if body_cuda != body_cpu:
@@ -1224,7 +1254,8 @@ def trace_cbs(run) -> dict:
         top.append((us, ev.key, ev.count))
     launches = sum(ev.count for ev in stats
                    if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                 "cudaLaunchKernelExC"))
+                                 "cudaLaunchKernelExC",
+                                 "cudaLaunchCooperativeKernel"))
     kernels = sum(n for _us, k, n in top
                   if not k.startswith(("Memcpy", "Memset")))
     top.sort(reverse=True)
@@ -1240,28 +1271,294 @@ def trace_cbs(run) -> dict:
                                for us, k, n in top[:8]]}}
 
 
+def mega_launch_stages(run) -> dict:
+    """Kernel launches (the CUDA runtime's launch calls) of run(), a
+    whole-recursion engine run on the card, by the engine's stage: each
+    stage's function is wrapped in a profiler range for that run only, and
+    a launch counts for the range it falls in (the rest: gathers, tiers,
+    the reads, the table update)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from canvas_tpu_torch.ops import cbs_mega, cbs_mega_cuda
+
+    stages = {"tmax_batch (B4 and its refine loop)": (cbs_mega,
+                                                       "tmax_batch"),
+              "tail probability": (cbs_mega, "_tail_p_batch_dev"),
+              "segment keys (fold_in x3)": (cbs_mega, "_seg_keys"),
+              "walks (K7)": (cbs_mega_cuda, "walk"),
+              "edge tests (setup, keys, K8)": (cbs_mega, "_edge_tests")}
+    orig = {name: getattr(mod, attr) for name, (mod, attr) in stages.items()}
+
+    def ranged(name):
+        def call(*a, **kw):
+            with record_function(f"stage {name}"):
+                return orig[name](*a, **kw)
+        return call
+
+    for name, (mod, attr) in stages.items():
+        setattr(mod, attr, ranged(name))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        for name, (mod, attr) in stages.items():
+            setattr(mod, attr, orig[name])
+    launch_names = ("cudaLaunchKernel", "cuLaunchKernel",
+                    "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel")
+    ranges, launches = [], []
+    for ev in prof.events():
+        if ev.name.startswith("stage ") and ev.device_type == DeviceType.CPU:
+            ranges.append((ev.time_range.start, ev.time_range.end,
+                           ev.name[6:]))
+        elif ev.name in launch_names:
+            launches.append(ev.time_range.start)
+    out = {name: 0 for name in stages}
+    out["other"] = 0
+    for t in launches:
+        hit = [name for a, b, name in ranges if a <= t <= b]
+        out[hit[0] if hit else "other"] += 1
+    return {"total": len(launches), "by_stage": out}
+
+
+def capture_kernel_inputs(run) -> dict:
+    """The arguments (cloned) of the first K7 call with a walking row and
+    of the first K8 call with an active lane during run(), caught by
+    wrapping the two entry points for that run only."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    got: dict = {}
+    orig = {"walk": mc.walk, "edge_counts": mc.edge_counts}
+    live = {"walk": 4, "edge_counts": 5}     # walking / active argument
+
+    def recorder(name):
+        def call(*args, **kw):
+            if name not in got and bool(args[live[name]].any()):
+                got[name] = [a.clone() if torch.is_tensor(a) else a
+                             for a in args]
+            return orig[name](*args, **kw)
+        return call
+
+    mc.walk, mc.edge_counts = recorder("walk"), recorder("edge_counts")
+    try:
+        run()
+    finally:
+        mc.walk, mc.edge_counts = orig["walk"], orig["edge_counts"]
+    return got
+
+
+def k7_ops(n, hybrid, chunks, npad, al0=2, kmax=25, n_min=200) -> int:
+    """The operations one row's walk needs: per permutation of each chunk,
+    n draws of the cipher (TF_OPS each), one operation an element to
+    order them and one to add it to the cumsum, and two (a subtraction
+    and a |.|-maximum) a term of the statistic: n a lag for the hybrid
+    lags al0..min(kmax, npad - 1, n - 1), n - L a lag L for the full
+    ones."""
+    from canvas_tpu_torch.ops.cbs_mega_cuda import P_CHUNK
+
+    if hybrid:
+        terms = n * max(0, min(kmax, npad - 1, n - 1) - al0 + 1)
+    else:
+        top = min(n_min, npad)
+        hi = min(top - al0, top - 1, n - al0, n - 1)
+        terms = sum(n - L for L in range(al0, hi + 1))
+    return chunks * P_CHUNK * (n * (TF_OPS + 2) + 2 * terms)
+
+
+def k7_case(args) -> dict:
+    """K7 against its plain version on the card on one level's captured
+    inputs: flags and chunk counts equal, chunk 0's statistics bit for
+    bit (else the smoke fails), both times, the bound."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    x, n, _tss, _keys, walking, hybrid = args[:6]
+    W, Tmax = x.shape
+    out = []
+    for fn in (mc.walk, mc.walk_plain):
+        stats = torch.full((W, mc.P_CHUNK), -1.0, device=x.device)
+        acc, chunks = fn(*args, stats=stats)
+        torch.cuda.synchronize()
+        out.append((acc, chunks, stats))
+    (acc_k, ch_k, st_k), (acc_p, ch_p, st_p) = out
+    bits = torch.equal(st_k.view(torch.int32), st_p.view(torch.int32))
+    err = float((st_k - st_p).abs().max())
+    if not (bits and torch.equal(acc_k, acc_p) and torch.equal(ch_k, ch_p)):
+        fail(f"K7 differs from its plain version: stats equal {bits} (max "
+             f"|diff| {err}), accepted {acc_k.tolist()} vs {acc_p.tolist()},"
+             f" chunks {ch_k.tolist()} vs {ch_p.tolist()}")
+    rows = torch.nonzero(walking)[:, 0].tolist()
+    n_h, hyb_h, ch_h = n.tolist(), hybrid.tolist(), ch_p.tolist()
+    ops = sum(k7_ops(n_h[r], hyb_h[r], ch_h[r], mc.tier_width(n_h[r]))
+              for r in rows)
+    # the walking rows' values read once; the flags and counts written
+    k_bound, k_by = bound(4 * Tmax * len(rows) + 64 * W, ops)
+    ms = cuda_ms(lambda: mc.walk(*args), reps=5, queued=True)
+    plain_ms = cuda_ms(lambda: mc.walk_plain(*args), reps=1)
+    return {"rows": W, "Tmax": Tmax, "walking": len(rows),
+            "n": [n_h[r] for r in rows], "hybrid": [hyb_h[r] for r in rows],
+            "chunks": [ch_h[r] for r in rows],
+            "accepted": [bool(acc_p[r]) for r in rows], "equal": True,
+            "stats_bits_equal": True, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "operations": ops,
+            "bound_ms": k_bound, "bound_by": k_by,
+            "bound_share": k_bound / ms}
+
+
+def k8_case(args) -> dict:
+    """K8 against its plain version on the card on one level's captured
+    inputs: counts and chunk counts equal, chunk 0's subset sums bit for
+    bit, both times, the bound."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    xw, wn, m1, _xbar, _ostat, active = args[:6]
+    L, Tmax = xw.shape
+    out = []
+    for fn in (mc.edge_counts, mc.edge_counts_plain):
+        sums = torch.full((L, mc.P_CHUNK), -1.0, device=xw.device)
+        count, cnt = fn(*args, sums=sums)
+        torch.cuda.synchronize()
+        out.append((count, cnt, sums))
+    (c_k, n_k, s_k), (c_p, n_p, s_p) = out
+    bits = torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+    err = float((s_k - s_p).abs().max())
+    if not (bits and torch.equal(c_k, c_p) and torch.equal(n_k, n_p)):
+        fail(f"K8 differs from its plain version: sums equal {bits} (max "
+             f"|diff| {err}), count {c_k.tolist()} vs {c_p.tolist()}, cnt "
+             f"{n_k.tolist()} vs {n_p.tolist()}")
+    lanes = torch.nonzero(active)[:, 0].tolist()
+    wn_h, m1_h, cnt_h = wn.tolist(), m1.tolist(), n_p.tolist()
+    # per permutation of each chunk: wn draws, one operation an element
+    # to select the m1-th key and one to test and add it
+    ops = sum(cnt_h[r] * mc.P_CHUNK * wn_h[r] * (TF_OPS + 2)
+              for r in lanes)
+    k_bound, k_by = bound(4 * Tmax * len(lanes) + 64 * L, ops)
+    ms = cuda_ms(lambda: mc.edge_counts(*args), reps=5, queued=True)
+    plain_ms = cuda_ms(lambda: mc.edge_counts_plain(*args), reps=1)
+    return {"lanes": L, "Tmax": Tmax, "active": len(lanes),
+            "wn": [wn_h[r] for r in lanes], "m1": [m1_h[r] for r in lanes],
+            "cnt": [cnt_h[r] for r in lanes],
+            "count": [int(c_p[r]) for r in lanes], "equal": True,
+            "sums_bits_equal": True, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "operations": ops,
+            "bound_ms": k_bound, "bound_by": k_by,
+            "bound_share": k_bound / ms}
+
+
+def bench_cbs_coverage() -> dict:
+    """bench.py's CBS workload (bench_cbs): 24 contigs of 16,384 bins of
+    N(0, 1) from default_rng(1), +1.5 on [T/4, T/3) and -1.2 on
+    [T/2, T/2 + 600)."""
+    rng = np.random.default_rng(1)
+    B, T = 24, 16 * 1024
+    cov = {}
+    for b in range(B):
+        c = rng.normal(0.0, 1.0, size=T)
+        c[T // 4: T // 3] += 1.5
+        c[T // 2: T // 2 + 600] -= 1.2
+        cov[f"chr{b}"] = c
+    return cov
+
+
+def mega_runs(cov: dict, dev: torch.device) -> dict:
+    """run_cbs on cuda over cov: once warm (it must take the
+    whole-recursion engine), then the best of 3 with each run's reads,
+    kernel launches and segments (equal to the warm run's), one run under
+    torch.profiler, and one with K7 and K8's plain versions on the same
+    CUDA tensors (equal segments)."""
+    from canvas_tpu_torch.ops import cbs, cbs_mega
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    warm = cbs.run_cbs(cov, device=dev)
+    if cbs.last_engine() != "mega":
+        fail(f"run_cbs on cuda took the {cbs.last_engine()} engine")
+    runs = []
+    for _ in range(3):
+        reset_launches()
+        s0 = cbs_mega.SYNCS["cbs_mega"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lens = cbs.run_cbs(cov, device=dev)
+        torch.cuda.synchronize()
+        runs.append({"seconds": time.perf_counter() - t0,
+                     "syncs": cbs_mega.SYNCS["cbs_mega"] - s0,
+                     "launches": {k: v for k, v in read_launches().items()
+                                  if k in ("arc_scan", "walk", "edge")},
+                     "levels": cbs._LAST_ENGINE["levels"]})
+        for c in cov:
+            if not np.array_equal(lens[c], warm[c]):
+                fail(f"run_cbs gave other segments on {c} than its warm run")
+    traced = trace_cbs(lambda: cbs_mega.run_cbs_mega(cov, device=dev))
+    stages = mega_launch_stages(lambda: cbs_mega.run_cbs_mega(cov, device=dev))
+    orig = mc.walk, mc.edge_counts
+    mc.walk, mc.edge_counts = mc.walk_plain, mc.edge_counts_plain
+    try:
+        t0 = time.perf_counter()
+        plain = cbs_mega.run_cbs_mega(cov, device=dev)
+        plain_s = time.perf_counter() - t0
+    finally:
+        mc.walk, mc.edge_counts = orig
+    for c in cov:
+        if not np.array_equal(plain[c], warm[c]):
+            fail(f"segments on {c} differ between K7/K8 and their plain "
+                 f"versions: {warm[c].tolist()} vs {plain[c].tolist()}")
+    best = min(runs, key=lambda r: r["seconds"])
+    return {"contigs": len(cov), "bins": sum(len(v) for v in cov.values()),
+            "segments": sum(len(v) for v in warm.values()),
+            "best_of_3_s": best["seconds"],
+            "seconds": [r["seconds"] for r in runs],
+            "syncs": best["syncs"], "levels": best["levels"],
+            "launches": best["launches"], "plain_kernels_s": plain_s,
+            "equal_to_plain_kernels": True,
+            "profiled_cuda": traced["profile"], "launch_stages": stages}
+
+
+# The whole-recursion engine on the panel when Python drove its walk and
+# edge-test loops, a read from the card a loop test (PERF.md section 5,
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's figures
+HOST_LOOPS_PANEL = {"cuda_s": 0.490, "syncs": 41, "cuda_syncs": 45,
+              "kernel_launches": 28630, "busy_share": 0.137}
+
+
 def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
     """The whole-recursion engine on the panel's tumor ratio coverage:
-    through run_cbs on cuda (the engine it picks, its seconds, B4
-    launches, reads from the card and synchronising calls), on CPU
-    tensors (equal lengths), once under torch.profiler; beside phase
-    CBS's frontier figures for the same coverage; then B4 at every tier
+    through run_cbs on cuda (the engine it picks, its seconds, B4, K7 and
+    K8 launches, reads from the card and synchronising calls: at most
+    one read a level and one more, and no synchronising call besides
+    those reads and the set-up copies), on CPU tensors (equal lengths),
+    once under torch.profiler; beside phase CBS's frontier figures and
+    the engine's with host-driven loops; then K7 and K8 against their
+    plain versions on the inputs of the first level with a walk and the
+    first with an edge test (panel, else bench.py's CBS workload),
+    bench.py's CBS workload through the engine, and B4 at every tier
     width the engine uses, 32 rows with three in the tier."""
     from canvas_tpu_torch.ops import arc_scan_cuda, cbs, cbs_mega
 
     cov = panel_coverage(workdir)
-    arc_scan_cuda.LAUNCHES["arc_scan"] = 0
+    reset_launches()
     s0 = cbs_mega.SYNCS["cbs_mega"]
     t0 = time.perf_counter()
     (lens, cuda_s), hidden = count_syncs(
         lambda: (cbs.run_cbs(cov, device=dev), time.perf_counter() - t0))
-    launches = arc_scan_cuda.LAUNCHES["arc_scan"]
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("arc_scan", "walk", "edge")}
     syncs = cbs_mega.SYNCS["cbs_mega"] - s0
     engine, levels = cbs.last_engine(), cbs._LAST_ENGINE["levels"]
     if engine != "mega":
         fail(f"run_cbs on cuda took the {engine} engine on the panel")
-    if launches < 1:
+    if launches["arc_scan"] < 1:
         fail("B4 did not launch in the whole-recursion engine's run")
+    if launches["walk"] != levels or launches["edge"] != levels:
+        fail(f"K7 and K8 launched {launches} times in {levels} levels")
+    if syncs > levels + 1:
+        fail(f"{syncs} reads from the card in {levels} levels")
+    # the four set-up copies of run_cbs_mega (coverage, lengths, boundary,
+    # key) besides the reads: any other would be a read in a loop
+    if hidden != syncs + 4:
+        fail(f"{hidden} synchronising calls for {syncs} reads and 4 set-up "
+             f"copies")
     counts: dict = {}
     t0 = time.perf_counter()
     lens_cpu = cbs_mega.run_cbs_mega(cov, device="cpu", counts=counts)
@@ -1273,8 +1570,26 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
     traced = trace_cbs(lambda: cbs_mega.run_cbs_mega(cov, device=dev))
     if traced["lengths"] != {c: v.tolist() for c, v in lens.items()}:
         fail("the profiled whole-recursion run gave other segments")
+    stages = mega_launch_stages(
+        lambda: cbs_mega.run_cbs_mega(cov, device=dev))
     if counts["levels"] != levels:
         fail(f"{levels} levels on the card, {counts['levels']} on the CPU")
+    bench_cov = bench_cbs_coverage()
+    captured = capture_kernel_inputs(
+        lambda: cbs_mega.run_cbs_mega(cov, device=dev))
+    source = {k: "panel" for k in captured}
+    if len(captured) < 2:
+        more = capture_kernel_inputs(
+            lambda: cbs_mega.run_cbs_mega(bench_cov, device=dev))
+        for k, v in more.items():
+            if k not in captured:
+                captured[k], source[k] = v, "bench_cbs"
+    if len(captured) < 2:
+        fail(f"no level with a walk or with an edge test to check K7 and K8 "
+             f"on: {sorted(captured)}")
+    k7 = dict(k7_case(captured["walk"]), inputs=source["walk"])
+    k8 = dict(k8_case(captured["edge_counts"]), inputs=source["edge_counts"])
+    bench = mega_runs(bench_cov, dev)
     tiers = []
     rng = np.random.default_rng(7)
     for k in range(10, 17):
@@ -1295,13 +1610,15 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
             "bins": {c: len(v) for c, v in cov.items()},
             "segments": {c: len(v) for c, v in lens.items()},
             "lengths_equal": True, "levels": levels, "counts": counts,
-            "cuda_s": cuda_s, "cpu_s": cpu_s, "arc_scan_launches": launches,
+            "cuda_s": cuda_s, "cpu_s": cpu_s, "launches": launches,
+            "arc_scan_launches": launches["arc_scan"],
             "syncs": syncs, "cuda_syncs": hidden,
-            "profiled_cuda": traced["profile"],
+            "profiled_cuda": traced["profile"], "launch_stages": stages,
+            "host_driven_loops": HOST_LOOPS_PANEL,
             "frontier": {k: frontier[k] for k in (
                 "n_levels", "cuda_s", "cpu_s", "arc_scan_launches",
                 "cuda_syncs", "profiled_cuda")},
-            "b4_tiers": tiers}
+            "K7": k7, "K8": k8, "bench_cbs": bench, "b4_tiers": tiers}
 
 
 def phase_e2e_germline(workdir: Path) -> dict:
@@ -2079,7 +2396,8 @@ def main() -> int:
         enr, panel = run("e2e-enrichment", phase_e2e_enrichment, args.seed,
                          Path(workdir))
         frontier = run("CBS", phase_cbs, Path(workdir), dev)
-        run("cbs-mega", phase_cbs_mega, Path(workdir), dev, frontier)
+        mega = run("cbs-mega", phase_cbs_mega, Path(workdir), dev,
+                   frontier)
         swgs = run("e2e-somatic-wgs", phase_e2e_somatic_wgs, panel,
                    Path(workdir))
     run("gc-bin", phase_gc_bin, args.seed, dev)
@@ -2126,6 +2444,11 @@ def main() -> int:
          "launches": enr["launches"]["arc_scan"],
          **_timing(top), "max_abs_err": max(sh["max_abs_err"]
                                             for sh in b4["shapes"])},
+        *[{"name": name, "route": "cuda",
+           "source": "canvas_tpu_torch/csrc/cbs_mega.cu",
+           "replaces": f"canvas_tpu/ops/cbs_mega.py:{line}",
+           "launches": enr["launches"][name], **_timing(mega[key])}
+          for name, line, key in (("walk", 419, "K7"), ("edge", 217, "K8"))],
     ]
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})

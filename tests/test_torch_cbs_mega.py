@@ -1,6 +1,6 @@
 """The whole-recursion CBS engine on the CPU: the port's ops/cbs_mega.py on
-CPU tensors (kernel B4's plain version) against canvas_tpu's
-ops/cbs_mega.py, called directly.  Segment lengths must be equal contig by
+CPU tensors (the plain versions of kernels B4, K7 and K8) against
+canvas_tpu's ops/cbs_mega.py, called directly.  Segment lengths must be equal contig by
 contig, which needs the port's threefry streams, tier widths, walks and
 edge tests to be canvas_tpu's.  canvas_tpu runs its non-Pallas arc scan
 (_tmax_one) on the CPU; the inputs have no exact float ties, where the two
@@ -14,9 +14,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax import lax
 
 from canvas_tpu.ops import cbs_mega as jmega
+from canvas_tpu_torch.ops import cbs_device
 from canvas_tpu_torch.ops import cbs_mega as tmega
+from canvas_tpu_torch.ops import cbs_mega_cuda as mc
 from canvas_tpu_torch.ops import threefry
 
 torch.set_num_threads(1)
@@ -153,9 +156,9 @@ def test_walk_update_equals_canvas_tpu():
     want = jmega._walk_update(*map(jnp.asarray, (ostat, nrejc, np0, nrej0,
                                                   k0, walking, pstats, sbdry)),
                               n_perm)
-    got = tmega._walk_update(*map(torch.as_tensor, (ostat, nrejc, np0, nrej0,
-                                                     k0, walking, pstats,
-                                                     sbdry)), n_perm)
+    got = mc._walk_update(*map(torch.as_tensor, (ostat, nrejc, np0, nrej0,
+                                                  k0, walking, pstats,
+                                                  sbdry)), n_perm)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     acc, walk1 = got[0].numpy(), got[1].numpy()
@@ -193,7 +196,7 @@ def test_edge_tests_equal_canvas_tpu():
         torch.tensor(0.01, dtype=torch.float32), 2000, T)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
-    assert got[2] == int(want[2]) > 8
+    assert int(got[2]) == int(want[2]) > 8
 
 
 # --- segment lengths against canvas_tpu's run_cbs_mega -------------------
@@ -269,8 +272,275 @@ def test_none_on_table_overflow(monkeypatch, cap):
 
 
 def test_syncs_counted(run_all):
-    """Every read from the device is counted: at least two a level (its
-    control values and its walk loop's last test) and one for the final
-    table."""
+    """Every read from the device is counted: one a level, at its start,
+    and the one that ends the loop and carries the final table."""
     counts = run_all[2]
-    assert counts["syncs"] >= 2 * counts["levels"] + 1
+    assert counts["syncs"] == counts["levels"] + 1
+
+
+# --- K7 and K8's plain versions: rows are independent ----------------------
+
+WALK_PERM, WALK_TMAX = 1024, 2048
+# full-arc rows (n <= 200), hybrid rows at tier 1,024 and at tier 2,048
+WALK_LENGTHS = [150, 1000, 600, 1900, 200, 900, 1024, 1500, 350, 800, 120]
+
+
+@pytest.fixture(scope="module")
+def walk_rows():
+    """K7's inputs for eleven walking rows at Tmax 2,048 (mixed tiers and
+    hybrid flags), ostat at a high quantile of each row's chunk-0
+    statistics so that walks take one or two chunks and end both ways."""
+    rng = np.random.default_rng(8)
+    W = len(WALK_LENGTHS)
+    x = np.zeros((W, WALK_TMAX), np.float32)
+    for r, L in enumerate(WALK_LENGTHS):
+        v = rng.normal(0, 1, L)
+        v[L // 3:L // 2] += 0.4
+        x[r, :L] = v - v.mean()
+    n = np.asarray(WALK_LENGTHS, np.int64)
+    inp = {"x": torch.as_tensor(x), "n": torch.as_tensor(n),
+           "tss": torch.as_tensor((x.astype(np.float64) ** 2).sum(1)
+                                  .astype(np.float32)),
+           "keys": torch.as_tensor(rng.integers(0, 2 ** 32, (W, 2))),
+           "walking": torch.ones(W, dtype=torch.bool),
+           "hybrid": torch.as_tensor(n > 200),
+           "nrejc": torch.as_tensor(rng.integers(4, 12, W))}
+    stats = torch.zeros((W, mc.P_CHUNK))
+    mc.walk_plain(**inp, ostat=torch.zeros(W), sbdry=_boundary(512),
+                  n_perm=512, al0=2, kmax=25, n_min=200, stats=stats)
+    q = [0.985, 0.995, 0.999]
+    inp["ostat"] = torch.as_tensor(
+        [float(np.quantile(stats[r].numpy(), q[r % 3])) for r in range(W)],
+        dtype=torch.float32)
+    inp["sbdry"] = _boundary(WALK_PERM)
+    return inp, stats
+
+
+def _boundary(n_perm):
+    return torch.as_tensor(np.asarray(tmega._cbs.compute_boundary(
+        n_perm, 0.01, tmega._cbs.DEFAULT_ETA), np.int64))
+
+
+def _compacted_walk(inp, n_perm, Tmax, al0=2, kmax=25, n_min=200):
+    """The walks in canvas_tpu's schedule: each iteration the first 8
+    walking rows draw their next chunk, batched by (hybrid, tier)."""
+    W = inp["x"].shape[0]
+    walking = inp["walking"].clone()
+    accepted = torch.zeros(W, dtype=torch.bool)
+    np0 = torch.zeros(W, dtype=torch.int64)
+    nrej0 = torch.zeros_like(np0)
+    kw = inp["nrejc"] * (inp["nrejc"] + 1) // 2 + 1
+    chunks = torch.zeros_like(np0)
+    while bool(walking.any()):
+        sel = torch.nonzero(walking)[:8, 0]
+        pst = torch.zeros((W, mc.P_CHUNK))
+        for hyb in (False, True):
+            for w in tmega._tiers(Tmax):
+                g = [int(r) for r in sel
+                     if bool(inp["hybrid"][r]) == hyb
+                     and mc.tier_width(int(inp["n"][r])) == w]
+                if g:
+                    pst[g] = cbs_device._perm_stats(
+                        inp["x"][g, :w], inp["n"][g], inp["tss"][g],
+                        threefry.fold_in(inp["keys"][g], chunks[g]), w,
+                        mc.P_CHUNK, al0, kmax, not hyb, n_min)
+        now = torch.zeros_like(walking)
+        now[sel] = True
+        acc, walk1, np0, nrej0, kw = mc._walk_update(
+            inp["ostat"], inp["nrejc"], np0, nrej0, kw, now, pst,
+            inp["sbdry"], n_perm)
+        walking = torch.where(now, walk1, walking)
+        chunks = torch.where(now, chunks + 1, chunks)
+        accepted = accepted | acc
+    return accepted, chunks
+
+
+def _jax_walk(inp, n_perm, Tmax, al0=2, kmax=25):
+    """canvas_tpu's walk loop (cbs_mega.py:418-448) on its own, with its
+    _chunk_stats and _walk_update."""
+    x, n, tss, keys, needs, hybrid, ostat, nrejc, sbdry = (
+        jnp.asarray(inp[k].numpy()) for k in (
+            "x", "n", "tss", "keys", "walking", "hybrid", "ostat", "nrejc",
+            "sbdry"))
+    n, nrejc, sbdry = (a.astype(jnp.int32) for a in (n, nrejc, sbdry))
+    keys = keys.astype(jnp.uint32)
+    W = x.shape[0]
+
+    def wbody(state):
+        accepted, walking, np0, nrej0, kw, chunks = state
+        sel = jnp.argsort(~walking)[:jmega._W]
+        on = walking[sel]
+        pst_sel = jmega._chunk_stats(x[sel], n[sel], tss[sel], keys[sel],
+                                     chunks[sel], on, hybrid[sel], Tmax,
+                                     al0, kmax)
+        pstats = jnp.zeros((W, mc.P_CHUNK), jnp.float32
+                           ).at[sel].set(pst_sel, mode="drop")
+        now = jnp.zeros(W, bool).at[sel].set(on, mode="drop")
+        acc, walk1, np1, nrej1, kw1 = jmega._walk_update(
+            ostat, nrejc, np0, nrej0, kw, now, pstats, sbdry, n_perm)
+        return (accepted | acc, jnp.where(now, walk1, walking), np1, nrej1,
+                kw1, jnp.where(now, chunks + 1, chunks))
+
+    init = (jnp.zeros(W, bool), needs, jnp.zeros(W, jnp.int32),
+            jnp.zeros(W, jnp.int32), nrejc * (nrejc + 1) // 2 + 1,
+            jnp.zeros(W, jnp.int32))
+    out = jax.jit(lambda s: lax.while_loop(lambda t: jnp.any(t[1]), wbody,
+                                           s))(init)
+    return np.asarray(out[0]), np.asarray(out[5])
+
+
+@pytest.fixture(scope="module")
+def walks(walk_rows):
+    inp, _stats = walk_rows
+    args = dict(inp, n_perm=WALK_PERM, al0=2, kmax=25, n_min=200)
+    return {"compacted": _compacted_walk(inp, WALK_PERM, WALK_TMAX),
+            "plain": mc.walk_plain(**args),
+            "wrapper": mc.walk(**args)}
+
+
+def test_walk_plain_equals_compacted_schedule(walks):
+    """walk_plain (each row alone, chunk after chunk) gives canvas_tpu's
+    schedule's flags and chunk counts, and so does the wrapper on CPU
+    tensors; the case walks more than 8 rows, two chunks deep, and ends
+    walks both ways."""
+    acc, chunks = walks["compacted"]
+    for k in ("plain", "wrapper"):
+        assert torch.equal(walks[k][0], acc), k
+        assert torch.equal(walks[k][1], chunks), k
+    assert int(chunks.max()) == 2 and int((chunks == 1).sum()) >= 1
+    assert bool(acc.any()) and not bool(acc.all())
+
+
+@pytest.mark.parametrize("rows", [[0, 1, 2, 3], [4, 5, 6, 7],
+                                  [8, 9, 10]])
+def test_walk_rows_alone_equal_batched(walk_rows, walks, rows):
+    """Each walking row alone through walk_plain: the batched schedule's
+    flag and chunk count."""
+    inp, _stats = walk_rows
+    acc, chunks = walks["compacted"]
+    for r in rows:
+        one = {k: (v[r:r + 1] if k != "sbdry" else v)
+               for k, v in inp.items()}
+        got = mc.walk_plain(**one, n_perm=WALK_PERM, al0=2, kmax=25,
+                            n_min=200)
+        assert bool(got[0][0]) == bool(acc[r]), r
+        assert int(got[1][0]) == int(chunks[r]), r
+
+
+def test_walk_plain_equals_canvas_tpu(walk_rows, walks):
+    """walk_plain against canvas_tpu's own walk loop (its _chunk_stats,
+    its compaction of 8 rows) on the same rows and keys."""
+    inp, _stats = walk_rows
+    acc, chunks = _jax_walk(inp, WALK_PERM, WALK_TMAX)
+    np.testing.assert_array_equal(walks["plain"][0].numpy(), acc)
+    np.testing.assert_array_equal(walks["plain"][1].numpy(), chunks)
+
+
+def test_walk_stats_equal_canvas_tpu(walk_rows):
+    """Chunk 0's statistics of every row, as walk_plain reports them,
+    against canvas_tpu's _chunk_stats at each row's tier: the same
+    permutations, so equal up to the cumsum's rounding (canvas_tpu sums
+    in f32, the port in float64 rounded once: a few f32 ulps)."""
+    inp, stats = walk_rows
+    W = inp["x"].shape[0]
+    want = np.asarray(jmega._chunk_stats(
+        jnp.asarray(inp["x"].numpy()), jnp.asarray(inp["n"].numpy(),
+                                                   jnp.int32),
+        jnp.asarray(inp["tss"].numpy()),
+        jnp.asarray(inp["keys"].numpy().astype(np.uint32)),
+        jnp.zeros(W, jnp.int32), jnp.ones(W, bool),
+        jnp.asarray(inp["hybrid"].numpy()), WALK_TMAX, 2, 25))
+    np.testing.assert_allclose(stats.numpy(), want, rtol=1e-5, atol=0)
+    # another permutation would move the statistics by far more
+    assert np.abs(stats.numpy() - want).max() < 1e-3 * np.abs(
+        stats.numpy() - np.roll(want, 1, axis=1)).max()
+
+
+EDGE_PERM = 2048
+EDGE_WN = [1000, 1900, 300, 1024, 1500, 60, 700, 2000, 450, 1100]
+EDGE_M1 = [400, 900, 2, 12, 700, 30, 150, 3, 200, 550]
+
+
+@pytest.fixture(scope="module")
+def edge_lanes():
+    """K8's inputs for ten active lanes at Tmax 2,048 (tiers 1,024 and
+    2,048, subset sizes from 2 to half the window), ostat at a high
+    quantile of each lane's chunk-0 statistics."""
+    rng = np.random.default_rng(6)
+    L, Tmax = len(EDGE_WN), 2048
+    xw = np.zeros((L, Tmax), np.float32)
+    for r, w in enumerate(EDGE_WN):
+        v = rng.normal(0, 1, w)
+        v[:EDGE_M1[r]] += 0.15
+        xw[r, :w] = v
+    xwt = torch.as_tensor(xw)
+    wn = torch.as_tensor(EDGE_WN)
+    inp = {"xw": xwt, "wn": wn, "m1": torch.as_tensor(EDGE_M1),
+           "xbar": xwt.double().sum(1).float() / wn.to(torch.float32),
+           "active": torch.ones(L, dtype=torch.bool),
+           "ekeys": torch.as_tensor(rng.integers(0, 2 ** 32, (L, 2))),
+           "limit": torch.tensor(0.01, dtype=torch.float32) * EDGE_PERM}
+    sums = torch.zeros((L, mc.P_CHUNK))
+    mc.edge_counts_plain(**dict(inp, limit=torch.tensor(1e9)),
+                         ostat=torch.zeros(L), n_perm=512, sums=sums)
+    pstat = (sums / inp["m1"].to(torch.float32)[:, None]
+             - inp["xbar"][:, None]).abs()
+    q = [0.99, 0.995, 0.98]
+    inp["ostat"] = torch.as_tensor(
+        [float(np.quantile(pstat[r].numpy(), q[r % 3])) for r in range(L)],
+        dtype=torch.float32)
+    return inp
+
+
+def _compacted_edges(inp, n_perm):
+    """The edge tests in canvas_tpu's schedule: each iteration the first
+    8 active lanes draw their next chunk, batched by tier with the
+    group's longest window as the drawn width."""
+    L = inp["xw"].shape[0]
+    active = inp["active"].clone()
+    count = torch.zeros(L, dtype=torch.int64)
+    done = torch.zeros_like(count)
+    cnt = torch.zeros_like(count)
+    m1f = torch.clamp(inp["m1"], min=1).to(torch.float32)
+    lane = torch.arange(mc.P_CHUNK)
+    while bool(active.any()):
+        sel = torch.nonzero(active)[:8, 0]
+        sums = torch.zeros((L, mc.P_CHUNK))
+        for w in (1024, 2048):
+            g = [int(r) for r in sel
+                 if mc.tier_width(int(inp["wn"][r])) == w]
+            if g:
+                sums[g] = mc._subset_sums(
+                    inp["xw"][g], inp["wn"][g], inp["m1"][g],
+                    [int(inp["m1"][r]) for r in g],
+                    threefry.fold_in(inp["ekeys"][g], cnt[g]), w,
+                    int(inp["wn"][g].max()))
+        take = torch.clamp(n_perm - done[sel], max=mc.P_CHUNK)
+        pstat = (sums[sel] / m1f[sel][:, None]
+                 - inp["xbar"][sel][:, None]).abs()
+        count[sel] += ((inp["ostat"][sel][:, None] <= pstat)
+                       & (lane < take[:, None])).sum(1)
+        done[sel] += take
+        cnt[sel] += 1
+        active = active & (count.to(torch.float32) <= inp["limit"]) \
+            & (done < n_perm)
+    return count, cnt
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_edge_counts_plain_equal_compacted_schedule(edge_lanes, alone):
+    """edge_counts_plain (all lanes, or each lane alone) gives the counts
+    and chunk counts of canvas_tpu's schedule; the case runs more than 8
+    lanes, stops some early on their count and runs others to n_perm."""
+    count, cnt = _compacted_edges(edge_lanes, EDGE_PERM)
+    if alone:
+        got = [mc.edge_counts_plain(
+            **{k: (v[r:r + 1] if v.dim() else v)
+               for k, v in edge_lanes.items()}, n_perm=EDGE_PERM)
+            for r in range(len(EDGE_WN))]
+        got = (torch.cat([g[0] for g in got]), torch.cat([g[1] for g in got]))
+    else:
+        got = mc.edge_counts(**edge_lanes, n_perm=EDGE_PERM)
+    assert torch.equal(got[0], count) and torch.equal(got[1], cnt)
+    assert int(cnt.max()) == EDGE_PERM // mc.P_CHUNK
+    assert int(cnt.min()) < EDGE_PERM // mc.P_CHUNK

@@ -541,18 +541,20 @@ def test_arc_scan_kernel_at_every_mega_tier(dev, npad):
 
 
 def test_mega_engine_on_card_equals_cpu(dev):
-    """The whole-recursion engine on CUDA tensors (B4) and on CPU tensors
-    (B4's plain version): equal segments, walks and edge tests on both,
-    and every read from the card counted in SYNCS: under CUDA's sync
-    debug mode the run's synchronising calls are its SYNCS reads and
-    its four set-up copies."""
+    """The whole-recursion engine on CUDA tensors (B4, K7, K8) and on CPU
+    tensors (their plain versions): equal segments, walks and edge tests
+    on both, one launch of K7 and of K8 a level, and at most one read
+    from the card a level and one more: under CUDA's sync debug mode the
+    run's synchronising calls are its SYNCS reads and its four set-up
+    copies, so no walk or edge loop reads."""
     import warnings
 
-    from canvas_tpu_torch.ops import arc_scan_cuda, cbs_mega
+    from canvas_tpu_torch.ops import arc_scan_cuda, cbs_mega, cbs_mega_cuda
 
     cov = _cbs_panel()
     counts = {"cuda": {}, "cpu": {}}
     before = arc_scan_cuda.LAUNCHES["arc_scan"]
+    k_before = dict(cbs_mega_cuda.LAUNCHES)
     s0 = cbs_mega.SYNCS["cbs_mega"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
@@ -572,10 +574,213 @@ def test_mega_engine_on_card_equals_cpu(dev):
         assert len(got[k]) >= 3
     assert counts["cuda"] == counts["cpu"]
     assert counts["cuda"]["walk_chunks"] >= 1
-    assert launches >= counts["cuda"]["levels"] - 1 >= 1
+    levels = counts["cuda"]["levels"]
+    assert launches >= levels - 1 >= 1
+    for k in ("walk", "edge"):
+        assert cbs_mega_cuda.LAUNCHES[k] - k_before[k] == levels
+    assert syncs <= levels + 1
     hidden = [str(w.message) for w in caught
               if "synchronizing" in str(w.message)]
     assert len(hidden) == syncs + 4, (syncs, hidden[:3])
+
+
+_BOUNDARY: dict = {}
+
+
+def _sbdry(dev, n_perm, alpha=0.01):
+    """The CBS stopping boundary, int64 on the card."""
+    from canvas_tpu_torch.ops import cbs
+
+    if (n_perm, alpha) not in _BOUNDARY:
+        _BOUNDARY[n_perm, alpha] = np.asarray(
+            cbs.compute_boundary(n_perm, alpha, cbs.DEFAULT_ETA), np.int64)
+    return torch.as_tensor(_BOUNDARY[n_perm, alpha], device=dev)
+
+
+def _walk_inputs(dev, lengths, seed, n_min=200, quantiles=None):
+    """K7's inputs for rows of the given lengths at Tmax, the widest
+    row's tier: centred noise with a weak step, random keys, every row
+    walking, ostat at a quantile of the row's chunk-0 statistics (from
+    the plain version) so that walks take several chunks, nrejc 20."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    rng = np.random.default_rng(seed)
+    W = len(lengths)
+    Tmax = max(mc.tier_width(n) for n in lengths)
+    x = np.zeros((W, Tmax), np.float32)
+    for r, L in enumerate(lengths):
+        v = rng.normal(0, 1, L)
+        v[L // 3:L // 2] += 0.3
+        x[r, :L] = v - v.mean()
+    n = np.asarray(lengths, np.int64)
+    inp = {"x": torch.as_tensor(x, device=dev),
+           "n": torch.as_tensor(n, device=dev),
+           "tss": torch.as_tensor((x.astype(np.float64) ** 2).sum(1)
+                                  .astype(np.float32), device=dev),
+           "keys": torch.as_tensor(rng.integers(0, 2 ** 32, (W, 2)),
+                                   device=dev),
+           "walking": torch.ones(W, dtype=torch.bool, device=dev),
+           "hybrid": torch.as_tensor(n > n_min, device=dev),
+           "ostat": torch.zeros(W, dtype=torch.float32, device=dev),
+           "nrejc": torch.full((W,), 20, dtype=torch.int64, device=dev)}
+    stats = torch.zeros((W, mc.P_CHUNK), dtype=torch.float32, device=dev)
+    mc.walk_plain(**inp, sbdry=_sbdry(dev, 512), n_perm=512, al0=2,
+                  kmax=25, n_min=n_min, stats=stats)
+    q = quantiles or [0.99]
+    inp["ostat"] = torch.as_tensor(
+        [float(np.quantile(stats[r].cpu().numpy(), q[r % len(q)]))
+         for r in range(W)], dtype=torch.float32, device=dev)
+    return inp
+
+
+def _walk_both(dev, inp, n_perm=2048, n_min=200):
+    """K7 and its plain version on the same inputs: (accepted, chunks,
+    chunk-0 statistics) of each."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    W = inp["x"].shape[0]
+    args = dict(inp, sbdry=_sbdry(dev, n_perm), n_perm=n_perm, al0=2,
+                kmax=25, n_min=n_min)
+    out = []
+    for fn in (mc.walk, mc.walk_plain):
+        stats = torch.full((W, mc.P_CHUNK), -1.0, device=dev)
+        acc, chunks = fn(**args, stats=stats)
+        out.append((acc, chunks, stats))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("npad", [1 << k for k in range(10, 17)])
+def test_walk_kernel_matches_plain(dev, npad):
+    """K7 against its plain version at every tier width of the engine:
+    rows of that tier (hybrid), and at 1,024 also full-arc rows (n <=
+    n_min) and rows of the next tier down.  Equal flags and chunk counts,
+    chunk 0's statistics bit for bit."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    lengths = [npad // 2 + 1 + 37 * npad // 1024, npad - 3]
+    if npad == 1024:
+        lengths += [150, 200, 40]
+    elif npad <= 4096:
+        lengths += [npad // 4 + 5]
+    inp = _walk_inputs(dev, lengths, seed=npad,
+                       quantiles=[0.99, 0.995, 0.97])
+    before = mc.LAUNCHES["walk"]
+    (acc_k, ch_k, st_k), (acc_p, ch_p, st_p) = _walk_both(dev, inp)
+    assert mc.LAUNCHES["walk"] == before + 1
+    assert torch.equal(st_k.view(torch.int32), st_p.view(torch.int32))
+    assert torch.equal(acc_k, acc_p)
+    assert torch.equal(ch_k, ch_p)
+    assert int(ch_p.max()) >= 2
+
+
+def test_walk_kernel_full_arcs_at_every_lag(dev):
+    """p_method other than hybrid: every row full-arc, every lag up to
+    n - al0 (n_min = 2^30), at tiers 1,024 and 2,048."""
+    inp = _walk_inputs(dev, [1500, 700, 1024], seed=9, n_min=1 << 30)
+    (acc_k, ch_k, st_k), (acc_p, ch_p, st_p) = _walk_both(
+        dev, inp, n_perm=1024, n_min=1 << 30)
+    assert torch.equal(st_k.view(torch.int32), st_p.view(torch.int32))
+    assert torch.equal(acc_k, acc_p) and torch.equal(ch_k, ch_p)
+
+
+def test_walk_kernel_sort_ties(dev):
+    """Key collisions for the sort: at n = 4,096 most permutations draw
+    some uniform twice (checked here), and the tie resolves by index;
+    the values are all distinct, so another order would change the
+    cumsum."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+    from canvas_tpu_torch.ops import threefry
+
+    inp = _walk_inputs(dev, [4096, 3000], seed=21)
+    u = threefry.uniform(threefry.fold_in(inp["keys"][:1], 0),
+                         (mc.P_CHUNK, 4096))[0]
+    dup = (torch.sort(u, dim=1).values.diff(dim=1) == 0).any(dim=1)
+    assert int(dup.sum()) > 100
+    (acc_k, ch_k, st_k), (acc_p, ch_p, st_p) = _walk_both(dev, inp)
+    assert torch.equal(st_k.view(torch.int32), st_p.view(torch.int32))
+    assert torch.equal(acc_k, acc_p) and torch.equal(ch_k, ch_p)
+
+
+def _edge_inputs(dev, wns, m1s, seed, n_perm=2048, alpha=0.01):
+    """K8's inputs for lanes of window lengths wns and subset sizes m1s at
+    Tmax, the widest lane's tier: noise with a weak step, random keys,
+    ostat at a quantile of the lane's chunk-0 statistics (from the plain
+    version), limit alpha * n_perm in f32."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    rng = np.random.default_rng(seed)
+    L = len(wns)
+    Tmax = max(mc.tier_width(w) for w in wns)
+    xw = np.zeros((L, Tmax), np.float32)
+    for r, w in enumerate(wns):
+        v = rng.normal(0, 1, w)
+        v[:m1s[r]] += 0.2
+        xw[r, :w] = v
+    xwt = torch.as_tensor(xw, device=dev)
+    wn = torch.as_tensor(np.asarray(wns, np.int64), device=dev)
+    inp = {"xw": xwt, "wn": wn,
+           "m1": torch.as_tensor(np.asarray(m1s, np.int64), device=dev),
+           "xbar": xwt.double().sum(1).float() / wn.to(torch.float32),
+           "ostat": torch.zeros(L, dtype=torch.float32, device=dev),
+           "active": torch.ones(L, dtype=torch.bool, device=dev),
+           "ekeys": torch.as_tensor(rng.integers(0, 2 ** 32, (L, 2)),
+                                    device=dev),
+           "limit": torch.tensor(alpha, device=dev) * n_perm}
+    sums = torch.zeros((L, mc.P_CHUNK), dtype=torch.float32, device=dev)
+    mc.edge_counts_plain(**dict(inp, limit=torch.tensor(1e9, device=dev)),
+                         n_perm=512, sums=sums)
+    pstat = (sums / inp["m1"].to(torch.float32)[:, None]
+             - inp["xbar"][:, None]).abs()
+    q = [0.985, 0.995, 0.97]
+    inp["ostat"] = torch.as_tensor(
+        [float(np.quantile(pstat[r].cpu().numpy(), q[r % 3]))
+         for r in range(L)], dtype=torch.float32, device=dev)
+    return inp
+
+
+@pytest.mark.parametrize("npad", [1 << k for k in range(10, 17)])
+def test_edge_kernel_matches_plain(dev, npad):
+    """K8 against its plain version at every tier width: equal counts
+    and chunk counts, chunk 0's subset sums bit for bit."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    wns = [npad - 1, npad // 2 + 3, max(20, npad // 3)]
+    m1s = [2, npad // 4, max(10, npad // 7)]
+    n_perm = 2048
+    inp = _edge_inputs(dev, wns, m1s, seed=npad, n_perm=n_perm)
+    L = len(wns)
+    out = []
+    before = mc.LAUNCHES["edge"]
+    for fn in (mc.edge_counts, mc.edge_counts_plain):
+        sums = torch.full((L, mc.P_CHUNK), -1.0, device=dev)
+        count, cnt = fn(**inp, n_perm=n_perm, sums=sums)
+        out.append((count, cnt, sums))
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["edge"] == before + 1
+    (c_k, n_k, s_k), (c_p, n_p, s_p) = out
+    assert torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+    assert torch.equal(c_k, c_p) and torch.equal(n_k, n_p)
+    assert int(n_p.max()) >= 2
+
+
+def test_device_threefry_equals_torch_above_2_32(dev):
+    """The kernels' fold_in, bits and uniforms equal ops/threefry.py's at
+    counters 2^32 + 1,000 onwards (a high counter word of 1)."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+    from canvas_tpu_torch.ops import threefry
+
+    rng = np.random.default_rng(2)
+    keys = torch.as_tensor(rng.integers(0, 2 ** 32, (5, 2)), device=dev)
+    data = torch.as_tensor(rng.integers(0, 2 ** 32, 5), device=dev)
+    off, count = 1000, 3000
+    folded, bits, unif = mc.device_draws(keys, data, (1 << 32) + off, count)
+    assert torch.equal(folded, threefry.fold_in(keys, data))
+    shape = (2, 1 << 32)
+    want_bits = threefry.random_bits(keys, shape, off + count)[:, 1, off:]
+    want_unif = threefry.uniform(keys, shape, off + count)[:, 1, off:]
+    assert torch.equal(bits, want_bits)
+    assert torch.equal(unif.view(torch.int32), want_unif.view(torch.int32))
 
 
 def test_run_cbs_engines_on_card(dev, monkeypatch):

@@ -31,6 +31,7 @@ def test_package_and_cli_import_without_jax():
         "import canvas_tpu_torch.pipeline.runner\n"
         "import canvas_tpu_torch.ops.cbs, canvas_tpu_torch.ops.cbs_device\n"
         "import canvas_tpu_torch.ops.cbs_mega\n"
+        "import canvas_tpu_torch.ops.cbs_mega_cuda\n"
         "import canvas_tpu_torch.ops.arc_scan_cuda\n"
         "import canvas_tpu_torch.ops.threefry\n"
         "import canvas_tpu_torch.ops.smooth, canvas_tpu_torch.ops.ratio\n"
