@@ -33,7 +33,10 @@ Design:
     cannot come back under alpha * n_perm.
   * Keys are threefry ``fold_in`` chains on (contig, lo, n), then the
     chunk counter (walks) or 7777 / 7778 and the chunk counter (edges), as
-    in the JAX package (ops/threefry.py, equal bit for bit).
+    in the JAX package (ops/threefry.py, equal bit for bit).  Kernels K7
+    and K8 derive them on the card from the level key and the rows'
+    (contig, lo, n); on CPU tensors their plain versions run the chains
+    (cbs_mega_cuda.seg_keys, edge_keys).
   * The walks and the edge tests of a level are one launch each, kernels
     K7 and K8 (ops/cbs_mega_cuda.py), which loop over every row's chunks
     on the card until the row is decided; on CPU tensors their plain
@@ -63,7 +66,7 @@ import torch
 
 from canvas_tpu_torch.config import resolve_device
 from canvas_tpu_torch.ops import cbs as _cbs
-from canvas_tpu_torch.ops import cbs_mega_cuda, threefry
+from canvas_tpu_torch.ops import cbs_mega_cuda
 from canvas_tpu_torch.ops.cbs_device import (
     _cumsum, _gather_center, _tail_p_batch_dev, tmax_batch)
 from canvas_tpu_torch.ops.cbs_mega_cuda import _fsum
@@ -89,13 +92,6 @@ def _stable_order(flags: torch.Tensor) -> torch.Tensor:
     return torch.argsort((~flags).to(torch.int32), stable=True)
 
 
-def _seg_keys(key0, seg_c, seg_lo, n):
-    """[R, 2] threefry keys from (contig, lo, n) fold_in chains of key0."""
-    k = threefry.fold_in(key0, seg_c)
-    k = threefry.fold_in(k, seg_lo)
-    return threefry.fold_in(k, n)
-
-
 def _tiers(Tmax: int) -> list[int]:
     """Ascending width ladder (powers of two down to 1024): the [P, w]
     permutation sort and the arc scan both scale with the width, so every
@@ -112,9 +108,11 @@ def _tiers(Tmax: int) -> list[int]:
 # Split-location edge tests (ChangePoint.cs:359-398 / CBSTStatistic.TPermP)
 # ---------------------------------------------------------------------------
 
-def _edge_tests(x, n, i1, i2, test_both, keys, alpha, n_perm, Tmax):
+def _edge_tests(x, n, i1, i2, test_both, key0, seg_c, seg_lo, alpha,
+                n_perm, Tmax):
     """(keep1, keep2, edge chunks) for rows whose split needs its edges
-    validated; the chunks as a device scalar.
+    validated; the chunks as a device scalar.  Row r's key is
+    fold_in(fold_in(fold_in(key0, seg_c[r]), seg_lo[r]), n[r]).
 
     Lane layout [2W]: edge 1 of rows 0..W-1, then edge 2.  Edge 1 tests
     the split at i1 inside x[0:i2] (n1 = i1); edge 2 tests the split at
@@ -127,8 +125,6 @@ def _edge_tests(x, n, i1, i2, test_both, keys, alpha, n_perm, Tmax):
     wn = torch.cat([i2, n - i1])
     n1 = torch.cat([i1, i2 - i1])
     mask = torch.cat([test_both, test_both])
-    ekeys = torch.cat([threefry.fold_in(keys, 7777),
-                       threefry.fold_in(keys, 7778)])
 
     pos = torch.arange(Tmax, device=dev)[None, :]
     x2 = torch.nn.functional.pad(x, (0, Tmax))
@@ -155,7 +151,8 @@ def _edge_tests(x, n, i1, i2, test_both, keys, alpha, n_perm, Tmax):
 
     active = mask & ~degen & ~quick0
     count, cnt = cbs_mega_cuda.edge_counts(xw, wn, m1, xbar, ostat, active,
-                                           ekeys, limit, n_perm)
+                                           key0, seg_c, seg_lo, n, limit,
+                                           n_perm)
     p = count.to(torch.float32) / n_perm
     keep = torch.where(degen, False, torch.where(quick0, True, p <= alpha))
     return keep[:W], keep[W:], cnt.sum()
@@ -214,8 +211,8 @@ def _mega_recurse(contigs, n_c, sbdry, key0, alpha, *, S, Tmax, al0, kmax,
         seg_c, seg_lo, seg_hi = seg_c0[fsel], seg_lo0[fsel], seg_hi0[fsel]
         pending = pending0[fsel]
         n = seg_hi - seg_lo
-        x, tss = _gather_center(contigs, torch.clamp(seg_c, min=0), seg_lo,
-                                n, Tmax)
+        contig = torch.clamp(seg_c, min=0)
+        x, tss = _gather_center(contigs, contig, seg_lo, n, Tmax)
         # constant-window check (host: cur.max() != cur.min())
         valid = pos < n[:, None]
         wmax = torch.where(valid, x, -big).amax(dim=1)
@@ -267,12 +264,13 @@ def _mega_recurse(contigs, n_c, sbdry, key0, alpha, *, S, Tmax, al0, kmax,
         nrejc = torch.where(
             hybrid, ((alpha - p1) * n_perm).to(torch.int32),
             (alpha * float(n_perm)).to(torch.int32)).to(torch.int64)
-        keys = _seg_keys(key0, torch.clamp(seg_c, min=0), seg_lo, n)
 
-        # --- sequential-stopping permutation walks (kernel K7) ---
+        # --- sequential-stopping permutation walks (kernel K7); a walking
+        # row is analysable, so its n_eff is its n and its key the chain
+        # of (contig, lo, n) ---
         walked, wchunks = cbs_mega_cuda.walk(
-            x, n_eff, tss, keys, needs, hybrid, ostat, nrejc, sbdry, n_perm,
-            al0, kmax, n_min)
+            x, n_eff, tss, key0, contig, seg_lo, needs, hybrid, ostat,
+            nrejc, sbdry, n_perm, al0, kmax, n_min)
         accepted = trivial | walked
 
         # --- split-location edge tests (kernel K8) ---
@@ -280,7 +278,8 @@ def _mega_recurse(contigs, n_c, sbdry, key0, alpha, *, S, Tmax, al0, kmax,
         at_start = ti <= 0        # i1 == 0: keep split 2 untested
         test_both = accepted & ~at_end & ~at_start
         keep1t, keep2t, echunks = _edge_tests(
-            x, n, ti, tj, test_both, keys, alpha, n_perm, Tmax)
+            x, n, ti, tj, test_both, key0, contig, seg_lo, alpha, n_perm,
+            Tmax)
         keep1 = torch.where(test_both, keep1t, at_end & ~at_start)
         keep2 = torch.where(test_both, keep2t, at_start & ~at_end)
         split1 = accepted & keep1

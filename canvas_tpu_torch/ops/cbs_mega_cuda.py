@@ -4,7 +4,8 @@ with their plain torch versions.
   walk          (K7): the level's sequential-stopping boundary walks
                 (ChangePoint.cs:206-246).  Every walking row loops over
                 permutation chunks of P_CHUNK until it is decided: chunk c
-                draws from fold_in(key, c) the [P_CHUNK, npad] uniforms of
+                draws from fold_in(key, c), key the row's seg_keys chain
+                of the level key, the [P_CHUNK, npad] uniforms of
                 the row's tier width npad (the smallest power of two >=
                 1,024 that holds n), permutes the row's values by a stable
                 sort of them (padding draws 2.0 and sorts last), takes the
@@ -15,7 +16,8 @@ with their plain torch versions.
                 Returns (accepted bool [W], chunks int64 [W]).
   edge_counts   (K8): the split-location edge tests (TPermP,
                 ChangePoint.cs:359-398).  Every active lane loops over
-                chunks: from fold_in(ekey, cnt) the [P_CHUNK, npad] uint32
+                chunks: from fold_in(ekey, cnt), ekey its edge_keys chain
+                of the level key, the [P_CHUNK, npad] uint32
                 keys of its tier width, the subset of its m1 smallest keys
                 (ties by index) summed in float64, the statistic
                 |sum / m1 - xbar| against ostat on the first
@@ -32,7 +34,10 @@ each); the kernels keep every loop on the card.
 
 On CUDA tensors the wrappers launch csrc/cbs_mega.cu, one launch a call,
 and the launch counts go to LAUNCHES; on CPU tensors they run the plain
-versions.  Both draw the same threefry bits (ops/threefry.py), sort and
+versions.  The kernels derive every key on the card; the plain versions
+run the same fold_in chains through ops/threefry.py (seg_keys,
+edge_keys), so both take the level key and the rows' (contig, start,
+length).  Both draw the same threefry bits (ops/threefry.py), sort and
 select exactly, and round every f32 operation of the statistics as the
 plain versions do, so flags, counts and statistics agree bit for bit
 wherever their float64 sums round to the same f32 (the kernels add in
@@ -49,8 +54,10 @@ from canvas_tpu_torch.ops import cuda_lib, threefry
 from canvas_tpu_torch.ops.cbs_device import _PERM_ELEMS, _perm_stats
 
 P_CHUNK = 512          # permutations per chunk
-THREADS = 1024         # a thread block of the kernels
-SMEM_WORDS = 32768     # a permutation's positions held in shared memory
+MAX_ROWS = 1024        # rows (lanes) a launch
+SLAB_TIER = 65536      # tiers whose buffers live in device memory
+EDGE_DEPTH = 4         # K8: chunks a lane may take in one iteration
+EDGE_TAG = 7777        # edge e of a row folds in EDGE_TAG + e - 1
 
 # launches of the kernels, counted by the wrappers
 LAUNCHES = {"walk": 0, "edge": 0}
@@ -58,17 +65,37 @@ LAUNCHES = {"walk": 0, "edge": 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cbs_walk": [_P] * 15 + [_I] * 8 + [_P],
-    "cbs_edge": [_P] * 14 + [_I] * 4 + [_P],
+    "cbs_walk": [_P] * 17 + [_I] * 8 + [_P],
+    "cbs_edge": [_P] * 17 + [_I] * 5 + [_P],
     "cbs_threefry": [_P] * 2 + [_I, ctypes.c_longlong, _I] + [_P] * 3
     + [_P],
-    "cbs_smem_bytes": [_I, _I],
+    "cbs_keys": [_P] * 4 + [_I] * 3 + [_P] * 2 + [_P],
+    "cbs_grid": [_I, _P],
+    "cbs_layout": [_I, _I, _P],
 }
 
 
 def _fsum(v: torch.Tensor) -> torch.Tensor:
     """f32 sum over the last axis, accumulated in float64."""
     return v.double().sum(dim=-1).float()
+
+
+def seg_keys(key0, seg_c, seg_lo, n):
+    """[R, 2] threefry keys of R rows from the level key key0 ([2]):
+    fold_in(fold_in(fold_in(key0, c), lo), n) of each row's contig c,
+    start lo and length n (int64 [R]), canvas_tpu's _seg_keys."""
+    k = threefry.fold_in(key0, seg_c)
+    k = threefry.fold_in(k, seg_lo)
+    return threefry.fold_in(k, n)
+
+
+def edge_keys(key0, seg_c, seg_lo, seg_n, L: int):
+    """[L, 2] edge-test keys of L = e R lanes over R rows: lane l tests
+    edge l // R + 1 of row l % R, under fold_in(seg_keys(row), EDGE_TAG +
+    l // R)."""
+    k = seg_keys(key0, seg_c, seg_lo, seg_n)
+    return torch.cat([threefry.fold_in(k, EDGE_TAG + e)
+                      for e in range(L // seg_c.shape[0])])
 
 
 def tier_width(n: int) -> int:
@@ -111,14 +138,17 @@ def _walk_update(ostat, nrejc, np0, nrej0, k0, walking, pstats, sbdry,
     return accept_now, walking1, np1, nrej1, k1
 
 
-def walk_plain(x, n, tss, keys, walking, hybrid, ostat, nrejc, sbdry,
-               n_perm: int, al0: int, kmax: int, n_min: int, stats=None):
+def walk_plain(x, n, tss, key0, seg_c, seg_lo, walking, hybrid, ostat,
+               nrejc, sbdry, n_perm: int, al0: int, kmax: int, n_min: int,
+               stats=None):
     """Plain version of K7: each walking row alone, chunk after chunk,
-    through cbs_device._perm_stats and _walk_update until it is decided.
-    With `stats` (f32 [W, P_CHUNK]) given, each walking row's row of it
-    takes the statistics of its chunk 0."""
+    through cbs_device._perm_stats and _walk_update until it is decided,
+    under the row's seg_keys(key0, seg_c, seg_lo, n).  With `stats` (f32
+    [W, P_CHUNK]) given, each walking row's row of it takes the
+    statistics of its chunk 0."""
     W = x.shape[0]
     dev = x.device
+    keys = seg_keys(key0, seg_c, seg_lo, n)
     accepted = torch.zeros(W, dtype=torch.bool, device=dev)
     chunks = torch.zeros(W, dtype=torch.int64, device=dev)
     for r in range(W):
@@ -179,14 +209,17 @@ def _subset_sums(xr, nn, mm, mm_host, keys, npad, cols):
     return out
 
 
-def edge_counts_plain(xw, wn, m1, xbar, ostat, active, ekeys, limit,
-                      n_perm: int, sums=None):
+def edge_counts_plain(xw, wn, m1, xbar, ostat, active, key0, seg_c, seg_lo,
+                      seg_n, limit, n_perm: int, sums=None):
     """Plain version of K8: each active lane alone, chunk after chunk,
     through _subset_sums until its count passes `limit` or n_perm
-    permutations are done.  With `sums` (f32 [L, P_CHUNK]) given, each
-    active lane's row of it takes the subset sums of its chunk 0."""
+    permutations are done, under the lane's edge_keys(key0, seg_c,
+    seg_lo, seg_n, L).  With `sums` (f32 [L, P_CHUNK]) given, each active
+    lane's row of it takes the subset sums of its chunk 0."""
     L = xw.shape[0]
     dev = xw.device
+    _check_lanes(L, seg_c.shape[0])
+    ekeys = edge_keys(key0, seg_c, seg_lo, seg_n, L)
     count = torch.zeros(L, dtype=torch.int64, device=dev)
     cnt = torch.zeros_like(count)
     m1f = torch.clamp(m1, min=1).to(torch.float32)
@@ -217,17 +250,34 @@ def edge_counts_plain(xw, wn, m1, xbar, ostat, active, ekeys, limit,
 # The kernels
 # ---------------------------------------------------------------------------
 
-def _grid(dev: torch.device) -> int:
-    """Thread blocks of a launch: one per SM, all resident at once, as the
-    kernels' grid-wide barriers need (a cooperative launch checks it)."""
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+_GRIDS: dict = {}
 
 
-def _sort_scratch(dev: torch.device, grid: int, Tmax: int) -> torch.Tensor:
-    """Per thread block, the positions of one permutation where they do
-    not fit in shared memory (tier widths above SMEM_WORDS)."""
-    words = grid * Tmax if Tmax > SMEM_WORDS else 1
+def _grid(lib, dev: torch.device, edge: bool) -> int:
+    """Thread blocks of a launch on dev: its SMs times the blocks the
+    occupancy calculator lets each hold (one), all resident at once, as
+    the kernels' grid-wide barriers need (a cooperative launch checks
+    it)."""
+    key = (dev.index, edge)
+    if key not in _GRIDS:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            cuda_lib.check(lib.cbs_grid(int(edge), ctypes.byref(out)),
+                           "cbs_grid")
+        _GRIDS[key] = out.value
+    return _GRIDS[key]
+
+
+def _slab(dev: torch.device, grid: int, Tmax: int) -> torch.Tensor:
+    """Per thread block, the buffer of one permutation where its tier
+    does not fit in shared memory (SLAB_TIER)."""
+    words = grid * Tmax if Tmax >= SLAB_TIER else 1
     return torch.empty(words, dtype=torch.int32, device=dev)
+
+
+def _check_lanes(L: int, R: int) -> None:
+    if R < 1 or L % R:
+        raise ValueError(f"{L} lanes do not split into edges of {R} rows")
 
 
 def _check(tensors) -> None:
@@ -242,33 +292,38 @@ def _check(tensors) -> None:
 
 
 def _check_sizes(W: int, Tmax: int) -> None:
-    if W > THREADS:
-        raise ValueError(f"at most {THREADS} rows a launch, got {W}")
+    if W > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS} rows a launch, got {W}")
     if Tmax < 1024 or Tmax > 65536 or Tmax & (Tmax - 1):
         raise ValueError(f"Tmax must be a power of two in [1024, 65536], "
                          f"got {Tmax}")
 
 
-def walk(x, n, tss, keys, walking, hybrid, ostat, nrejc, sbdry,
-         n_perm: int, al0: int, kmax: int, n_min: int, stats=None):
+def walk(x, n, tss, key0, seg_c, seg_lo, walking, hybrid, ostat, nrejc,
+         sbdry, n_perm: int, al0: int, kmax: int, n_min: int, stats=None):
     """K7: (accepted bool [W], chunks int64 [W]) of the boundary walks of
     the rows of x f32 [W, Tmax] (centred values, zero past n) with n int64,
-    tss f32, threefry keys int64 [W, 2], walking and hybrid bool, ostat
-    f32, nrejc int64 [W] and the boundary sbdry int64; Tmax a power of two
-    in [1024, 65536] and n <= Tmax.  With `stats` (f32 [W, P_CHUNK]),
-    each walking row's row of it takes its chunk 0's statistics."""
+    tss f32, the level's threefry key key0 int64 [2] and each row's contig
+    seg_c and start seg_lo int64 [W] (its key is seg_keys(key0, seg_c,
+    seg_lo, n)), walking and hybrid bool, ostat f32, nrejc int64 [W] and
+    the boundary sbdry int64; Tmax a power of two in [1024, 65536] and
+    n <= Tmax.  With `stats` (f32 [W, P_CHUNK]), each walking row's row of
+    it takes its chunk 0's statistics."""
     if x.dim() != 2:
         raise ValueError(f"x must be [W, Tmax], got {tuple(x.shape)}")
     if x.device.type == "cpu":
-        return walk_plain(x, n, tss, keys, walking, hybrid, ostat, nrejc,
-                          sbdry, n_perm, al0, kmax, n_min, stats)
+        return walk_plain(x, n, tss, key0, seg_c, seg_lo, walking, hybrid,
+                          ostat, nrejc, sbdry, n_perm, al0, kmax, n_min,
+                          stats)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     W, Tmax = x.shape
     vec = (W,)
     checks = [("x", x, torch.float32, (W, Tmax)),
               ("n", n, torch.int64, vec), ("tss", tss, torch.float32, vec),
-              ("keys", keys, torch.int64, (W, 2)),
+              ("key0", key0, torch.int64, (2,)),
+              ("seg_c", seg_c, torch.int64, vec),
+              ("seg_lo", seg_lo, torch.int64, vec),
               ("walking", walking, torch.bool, vec),
               ("hybrid", hybrid, torch.bool, vec),
               ("ostat", ostat, torch.float32, vec),
@@ -280,20 +335,22 @@ def walk(x, n, tss, keys, walking, hybrid, ostat, nrejc, sbdry,
     _check_sizes(W, Tmax)
     dev = x.device
     lib = cuda_lib.load("cbs_mega", _SIGNATURES)
-    grid = _grid(dev)
-    # the walks' state (np, nrej, k, walking) and a chunk's statistics
-    state = torch.empty((4, W), dtype=torch.int64, device=dev)
-    pstats = torch.empty((W, P_CHUNK), dtype=torch.float32, device=dev)
-    sort = _sort_scratch(dev, grid, Tmax)
+    grid = _grid(lib, dev, False)
+    # the walks' state (nrej, k) by the iteration's parity, and a chunk's
+    # statistics by parity
+    state = torch.empty((2, 2, W), dtype=torch.int64, device=dev)
+    pstats = torch.empty((2, W, P_CHUNK), dtype=torch.float32, device=dev)
+    slab = _slab(dev, grid, Tmax)
     accepted = torch.empty(W, dtype=torch.bool, device=dev)
     chunks = torch.empty(W, dtype=torch.int64, device=dev)
     status = cuda_lib.launch(
         dev, lib.cbs_walk,
-        x.data_ptr(), n.data_ptr(), tss.data_ptr(), keys.data_ptr(),
-        walking.data_ptr(), hybrid.data_ptr(), ostat.data_ptr(),
-        nrejc.data_ptr(), sbdry.data_ptr(), state.data_ptr(),
-        pstats.data_ptr(), sort.data_ptr(), accepted.data_ptr(),
-        chunks.data_ptr(), stats.data_ptr() if stats is not None else None,
+        x.data_ptr(), n.data_ptr(), tss.data_ptr(), key0.data_ptr(),
+        seg_c.data_ptr(), seg_lo.data_ptr(), walking.data_ptr(),
+        hybrid.data_ptr(), ostat.data_ptr(), nrejc.data_ptr(),
+        sbdry.data_ptr(), state.data_ptr(), pstats.data_ptr(),
+        slab.data_ptr(), accepted.data_ptr(), chunks.data_ptr(),
+        stats.data_ptr() if stats is not None else None,
         W, Tmax, sbdry.shape[0], n_perm, al0, kmax, min(n_min, 1 << 30),
         grid)
     cuda_lib.check(status, "cbs_walk")
@@ -301,30 +358,37 @@ def walk(x, n, tss, keys, walking, hybrid, ostat, nrejc, sbdry,
     return accepted, chunks
 
 
-def edge_counts(xw, wn, m1, xbar, ostat, active, ekeys, limit,
-                n_perm: int, sums=None):
+def edge_counts(xw, wn, m1, xbar, ostat, active, key0, seg_c, seg_lo,
+                seg_n, limit, n_perm: int, sums=None):
     """K8: (count int64 [L], cnt int64 [L]) of the edge tests of the
     lanes of xw f32 [L, Tmax] (window values, zero past wn) with wn and
-    m1 int64, xbar and ostat f32, active bool, threefry keys int64
-    [L, 2] and limit an f32 scalar tensor (alpha * n_perm); Tmax a power
-    of two in [1024, 65536] and wn <= Tmax.  With `sums` (f32
-    [L, P_CHUNK]), each active lane's row of it takes its chunk 0's
-    subset sums."""
+    m1 int64, xbar and ostat f32, active bool, the level's threefry key
+    key0 int64 [2], the rows' contig, start and length seg_c, seg_lo and
+    seg_n int64 [R] with L a multiple of R (lane l tests edge l // R + 1
+    of row l % R, under edge_keys) and limit an f32 scalar tensor
+    (alpha * n_perm); Tmax a power of two in [1024, 65536] and wn <= Tmax.
+    With `sums` (f32 [L, P_CHUNK]), each active lane's row of it takes its
+    chunk 0's subset sums."""
     if xw.dim() != 2:
         raise ValueError(f"xw must be [L, Tmax], got {tuple(xw.shape)}")
     if xw.device.type == "cpu":
-        return edge_counts_plain(xw, wn, m1, xbar, ostat, active, ekeys,
-                                 limit, n_perm, sums)
+        return edge_counts_plain(xw, wn, m1, xbar, ostat, active, key0,
+                                 seg_c, seg_lo, seg_n, limit, n_perm, sums)
     if xw.device.type != "cuda":
         raise ValueError(f"unsupported device {xw.device}")
     L, Tmax = xw.shape
-    vec = (L,)
+    R = seg_c.shape[0]
+    _check_lanes(L, R)
+    vec, rows = (L,), (R,)
     checks = [("xw", xw, torch.float32, (L, Tmax)),
               ("wn", wn, torch.int64, vec), ("m1", m1, torch.int64, vec),
               ("xbar", xbar, torch.float32, vec),
               ("ostat", ostat, torch.float32, vec),
               ("active", active, torch.bool, vec),
-              ("ekeys", ekeys, torch.int64, (L, 2)),
+              ("key0", key0, torch.int64, (2,)),
+              ("seg_c", seg_c, torch.int64, rows),
+              ("seg_lo", seg_lo, torch.int64, rows),
+              ("seg_n", seg_n, torch.int64, rows),
               ("limit", limit, torch.float32, ())]
     if sums is not None:
         checks.append(("sums", sums, torch.float32, (L, P_CHUNK)))
@@ -332,31 +396,41 @@ def edge_counts(xw, wn, m1, xbar, ostat, active, ekeys, limit,
     _check_sizes(L, Tmax)
     dev = xw.device
     lib = cuda_lib.load("cbs_mega", _SIGNATURES)
-    grid = _grid(dev)
-    # the lanes' state (done, active) and a chunk's subset sums
+    grid = _grid(lib, dev, True)
+    # the lanes' counts by the iteration's parity, and the subset sums of
+    # the chunks an iteration takes (up to EDGE_DEPTH) by parity
     state = torch.empty((2, L), dtype=torch.int64, device=dev)
-    psums = torch.empty((L, P_CHUNK), dtype=torch.float32, device=dev)
-    sort = _sort_scratch(dev, grid, Tmax)
+    psums = torch.empty((2, EDGE_DEPTH, L, P_CHUNK), dtype=torch.float32,
+                        device=dev)
+    slab = _slab(dev, grid, Tmax)
     count = torch.empty(L, dtype=torch.int64, device=dev)
     cnt = torch.empty(L, dtype=torch.int64, device=dev)
     status = cuda_lib.launch(
         dev, lib.cbs_edge,
         xw.data_ptr(), wn.data_ptr(), m1.data_ptr(), xbar.data_ptr(),
-        ostat.data_ptr(), active.data_ptr(), ekeys.data_ptr(),
+        ostat.data_ptr(), active.data_ptr(), key0.data_ptr(),
+        seg_c.data_ptr(), seg_lo.data_ptr(), seg_n.data_ptr(),
         limit.data_ptr(), state.data_ptr(), psums.data_ptr(),
-        sort.data_ptr(), count.data_ptr(), cnt.data_ptr(),
+        slab.data_ptr(), count.data_ptr(), cnt.data_ptr(),
         sums.data_ptr() if sums is not None else None,
-        L, Tmax, n_perm, grid)
+        L, R, Tmax, n_perm, grid)
     cuda_lib.check(status, "cbs_edge")
     LAUNCHES["edge"] += 1
     return count, cnt
 
 
-def smem_bytes(Tmax: int, edge: bool) -> int:
-    """The dynamic shared memory a launch of K7 (or K8) asks for at
-    Tmax."""
-    return cuda_lib.load("cbs_mega", _SIGNATURES).cbs_smem_bytes(
-        Tmax, int(edge))
+def layout(npad: int, edge: bool) -> dict:
+    """How a launch of K7 (or K8, for a subset above 32) works a row
+    of tier width npad: the groups of warps a block runs at once (K7: in
+    an iteration whose widest walking row has this tier), where a
+    permutation's buffers live ("shared, two buffers", "shared, one
+    buffer" or "device-memory slab") and a group's shared bytes."""
+    out = (ctypes.c_int * 3)()
+    cuda_lib.check(cuda_lib.load("cbs_mega", _SIGNATURES).cbs_layout(
+        npad, int(edge), out), "cbs_layout")
+    modes = ("shared, two buffers", "shared, one buffer",
+             "device-memory slab")
+    return {"groups": out[0], "buffers": modes[out[1]], "bytes": out[2]}
 
 
 def device_draws(keys, data, counter0: int, count: int):
@@ -379,3 +453,26 @@ def device_draws(keys, data, counter0: int, count: int):
         unif.data_ptr())
     cuda_lib.check(status, "cbs_threefry")
     return folded, bits, unif
+
+
+def device_keys(key0, seg_c, seg_lo, seg_n, L: int, chunk: int):
+    """The chunk keys the kernels derive on the card, for tests: (fold_in(
+    seg_keys(...), chunk) int64 [R, 2], K7's, and fold_in(edge_keys(...,
+    L), chunk) int64 [L, 2], K8's); key0 int64 [2] and the rows' seg_c,
+    seg_lo and seg_n int64 [R] on a CUDA device."""
+    R = seg_c.shape[0]
+    dev = key0.device
+    _check_lanes(L, R)
+    _check([("key0", key0, torch.int64, (2,)),
+            ("seg_c", seg_c, torch.int64, (R,)),
+            ("seg_lo", seg_lo, torch.int64, (R,)),
+            ("seg_n", seg_n, torch.int64, (R,))])
+    lib = cuda_lib.load("cbs_mega", _SIGNATURES)
+    walk_keys = torch.empty((R, 2), dtype=torch.int64, device=dev)
+    edge_keys_ = torch.empty((L, 2), dtype=torch.int64, device=dev)
+    status = cuda_lib.launch(
+        dev, lib.cbs_keys, key0.data_ptr(), seg_c.data_ptr(),
+        seg_lo.data_ptr(), seg_n.data_ptr(), R, L, chunk,
+        walk_keys.data_ptr(), edge_keys_.data_ptr())
+    cuda_lib.check(status, "cbs_keys")
+    return walk_keys, edge_keys_

@@ -70,16 +70,19 @@ Phases, one JSON line each; any failure exits non-zero:
              none else); the same engine on CPU tensors with equal
              segments; one more CUDA run under torch.profiler; the
              frontier's figures from phase CBS and the engine's with
-             host-driven loops (HOST_LOOPS_PANEL) beside them;
-             K7 and K8 against their plain versions on the card on the
-             inputs of the engine's first level with a walk and first
-             with an edge test (flags, chunk counts and edge counts equal,
-             chunk 0's statistics and subset sums bit for bit, both
-             times, the bound); bench.py's CBS workload (24 contigs x
-             16,384 bins) through run_cbs on cuda: the engine "mega", the
-             best of 3 seconds with their reads and launches, segments
-             equal to its warm run and to a run with K7 and K8's plain
-             versions; then B4 against its plain version at every tier
+             host-driven loops (HOST_LOOPS_PANEL) beside them; the
+             launches by stage, none in the segment keys (K7 and K8
+             derive their keys on the card); K7 and K8 against their
+             plain versions on the card on the inputs of the engine's
+             first level with a walk and first with an edge test, on the
+             panel and on bench.py's CBS workload (flags, chunk counts
+             and edge counts equal, chunk 0's statistics and subset sums
+             bit for bit, both times, the bound); bench.py's CBS
+             workload (24 contigs x 16,384 bins) through run_cbs on
+             cuda: the engine "mega", the best of 3 seconds with their
+             reads and launches, segments equal to its warm run and to a
+             run with K7 and K8's plain versions; then B4 against its
+             plain version at every tier
              width the engine uses (1,024 to 65,536, 32 rows of which
              three lie in the tier, the rest zeroed);
   8. e2e-germline
@@ -435,13 +438,14 @@ def phase_build() -> dict:
     from canvas_tpu_torch.ops import cbs_mega_cuda
 
     # K7 and K8 take all their shared memory dynamically (ptxas reports
-    # none): the bytes a launch asks for at each Tmax
-    smem = {name: {1 << k: cbs_mega_cuda.smem_bytes(1 << k, edge)
-                   for k in range(10, 17)}
-            for name, edge in (("walk", False), ("edge", True))}
+    # none): how a launch works a row of each tier width (K8: a subset
+    # above 32), in groups of a block and where its buffers live
+    layouts = {name: {1 << k: cbs_mega_cuda.layout(1 << k, edge)
+                      for k in range(10, 17)}
+               for name, edge in (("walk", False), ("edge", True))}
     return {"phase": "build", "seconds": secs, "native_seconds": native_s,
             "ptxas": ptxas_report(), "b4_interior_run": sass,
-            "k7_k8_dynamic_smem_bytes": smem, "gpu": gpu_line()}
+            "k7_k8_layouts": layouts, "gpu": gpu_line()}
 
 
 def phase_b1(seed: int, dev: torch.device) -> dict:
@@ -1271,6 +1275,12 @@ def trace_cbs(run) -> dict:
                                for us, k, n in top[:8]]}}
 
 
+# the fold_in chains of the rows' keys: the plain versions of K7 and K8 run
+# them (through cbs_mega_cuda.seg_keys), the kernels derive the keys on the
+# card, so on cuda the stage launches nothing
+SEG_KEYS_STAGE = "segment keys (fold_in x3, plain versions only)"
+
+
 def mega_launch_stages(run) -> dict:
     """Kernel launches (the CUDA runtime's launch calls) of run(), a
     whole-recursion engine run on the card, by the engine's stage: each
@@ -1285,9 +1295,9 @@ def mega_launch_stages(run) -> dict:
     stages = {"tmax_batch (B4 and its refine loop)": (cbs_mega,
                                                        "tmax_batch"),
               "tail probability": (cbs_mega, "_tail_p_batch_dev"),
-              "segment keys (fold_in x3)": (cbs_mega, "_seg_keys"),
+              SEG_KEYS_STAGE: (cbs_mega_cuda, "seg_keys"),
               "walks (K7)": (cbs_mega_cuda, "walk"),
-              "edge tests (setup, keys, K8)": (cbs_mega, "_edge_tests")}
+              "edge tests (setup, K8)": (cbs_mega, "_edge_tests")}
     orig = {name: getattr(mod, attr) for name, (mod, attr) in stages.items()}
 
     def ranged(name):
@@ -1321,6 +1331,9 @@ def mega_launch_stages(run) -> dict:
     for t in launches:
         hit = [name for a, b, name in ranges if a <= t <= b]
         out[hit[0] if hit else "other"] += 1
+    if out[SEG_KEYS_STAGE]:
+        fail(f"the segment keys made {out[SEG_KEYS_STAGE]} launches on the "
+             f"card")
     return {"total": len(launches), "by_stage": out}
 
 
@@ -1332,7 +1345,7 @@ def capture_kernel_inputs(run) -> dict:
 
     got: dict = {}
     orig = {"walk": mc.walk, "edge_counts": mc.edge_counts}
-    live = {"walk": 4, "edge_counts": 5}     # walking / active argument
+    live = {"walk": 6, "edge_counts": 5}     # walking / active argument
 
     def recorder(name):
         def call(*args, **kw):
@@ -1374,7 +1387,8 @@ def k7_case(args) -> dict:
     bit (else the smoke fails), both times, the bound."""
     from canvas_tpu_torch.ops import cbs_mega_cuda as mc
 
-    x, n, _tss, _keys, walking, hybrid = args[:6]
+    x, n = args[:2]
+    walking, hybrid = args[6:8]
     W, Tmax = x.shape
     out = []
     for fn in (mc.walk, mc.walk_plain):
@@ -1578,17 +1592,30 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
     captured = capture_kernel_inputs(
         lambda: cbs_mega.run_cbs_mega(cov, device=dev))
     source = {k: "panel" for k in captured}
-    if len(captured) < 2:
-        more = capture_kernel_inputs(
-            lambda: cbs_mega.run_cbs_mega(bench_cov, device=dev))
-        for k, v in more.items():
-            if k not in captured:
-                captured[k], source[k] = v, "bench_cbs"
+    bench_in = capture_kernel_inputs(
+        lambda: cbs_mega.run_cbs_mega(bench_cov, device=dev))
+    for k, v in bench_in.items():
+        if k not in captured:
+            captured[k], source[k] = v, "bench_cbs"
     if len(captured) < 2:
         fail(f"no level with a walk or with an edge test to check K7 and K8 "
              f"on: {sorted(captured)}")
     k7 = dict(k7_case(captured["walk"]), inputs=source["walk"])
     k8 = dict(k8_case(captured["edge_counts"]), inputs=source["edge_counts"])
+    # the bench workload's first walking and edge-testing levels, where
+    # the panel gave the cases above
+    bench_cases = {}
+    for key, case, name, what in (
+            ("K7_bench", k7_case, "walk", "a walking row"),
+            ("K8_bench", k8_case, "edge_counts", "an active edge lane")):
+        if name not in bench_in:
+            bench_cases[key] = {"inputs": "bench_cbs", "timed": False,
+                                "why": f"no level of the run has {what}"}
+        elif source[name] != "panel":
+            bench_cases[key] = {"inputs": "bench_cbs", "timed": False,
+                                "why": "its level is the case above"}
+        else:
+            bench_cases[key] = dict(case(bench_in[name]), inputs="bench_cbs")
     bench = mega_runs(bench_cov, dev)
     tiers = []
     rng = np.random.default_rng(7)
@@ -1618,7 +1645,8 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
             "frontier": {k: frontier[k] for k in (
                 "n_levels", "cuda_s", "cpu_s", "arc_scan_launches",
                 "cuda_syncs", "profiled_cuda")},
-            "K7": k7, "K8": k8, "bench_cbs": bench, "b4_tiers": tiers}
+            "K7": k7, "K8": k8, **bench_cases, "bench_cbs": bench,
+            "b4_tiers": tiers}
 
 
 def phase_e2e_germline(workdir: Path) -> dict:

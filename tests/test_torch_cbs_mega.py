@@ -125,8 +125,8 @@ def test_seg_keys_equal_canvas_tpu():
     n = np.array([2000, 511, 9, 536], np.int32)
     want = np.asarray(jmega._seg_keys(jax.random.PRNGKey(11), jnp.asarray(c),
                                       jnp.asarray(lo), jnp.asarray(n)))
-    got = tmega._seg_keys(torch.tensor([0, 11]), torch.as_tensor(c),
-                          torch.as_tensor(lo), torch.as_tensor(n))
+    got = mc.seg_keys(torch.tensor([0, 11]), torch.as_tensor(c),
+                      torch.as_tensor(lo), torch.as_tensor(n))
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
 
@@ -192,7 +192,8 @@ def test_edge_tests_equal_canvas_tpu():
                              jnp.float32(0.01), 2000, T)
     got = tmega._edge_tests(
         torch.as_tensor(x), *(torch.as_tensor(a).long() for a in (n, i1, i2)),
-        torch.as_tensor(test_both), torch.as_tensor(keys.astype(np.int64)),
+        torch.as_tensor(test_both), torch.tensor([0, 3]), torch.arange(W),
+        torch.zeros(W, dtype=torch.int64),
         torch.tensor(0.01, dtype=torch.float32), 2000, T)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
@@ -301,7 +302,9 @@ def walk_rows():
     inp = {"x": torch.as_tensor(x), "n": torch.as_tensor(n),
            "tss": torch.as_tensor((x.astype(np.float64) ** 2).sum(1)
                                   .astype(np.float32)),
-           "keys": torch.as_tensor(rng.integers(0, 2 ** 32, (W, 2))),
+           "key0": torch.as_tensor(rng.integers(0, 2 ** 32, 2)),
+           "seg_c": torch.as_tensor(rng.integers(0, 192, W)),
+           "seg_lo": torch.as_tensor(rng.integers(0, 60000, W)),
            "walking": torch.ones(W, dtype=torch.bool),
            "hybrid": torch.as_tensor(n > 200),
            "nrejc": torch.as_tensor(rng.integers(4, 12, W))}
@@ -316,6 +319,11 @@ def walk_rows():
     return inp, stats
 
 
+def _row_keys(inp):
+    """The rows' keys that K7 and its plain version derive."""
+    return mc.seg_keys(inp["key0"], inp["seg_c"], inp["seg_lo"], inp["n"])
+
+
 def _boundary(n_perm):
     return torch.as_tensor(np.asarray(tmega._cbs.compute_boundary(
         n_perm, 0.01, tmega._cbs.DEFAULT_ETA), np.int64))
@@ -325,6 +333,7 @@ def _compacted_walk(inp, n_perm, Tmax, al0=2, kmax=25, n_min=200):
     """The walks in canvas_tpu's schedule: each iteration the first 8
     walking rows draw their next chunk, batched by (hybrid, tier)."""
     W = inp["x"].shape[0]
+    keys = _row_keys(inp)
     walking = inp["walking"].clone()
     accepted = torch.zeros(W, dtype=torch.bool)
     np0 = torch.zeros(W, dtype=torch.int64)
@@ -342,7 +351,7 @@ def _compacted_walk(inp, n_perm, Tmax, al0=2, kmax=25, n_min=200):
                 if g:
                     pst[g] = cbs_device._perm_stats(
                         inp["x"][g, :w], inp["n"][g], inp["tss"][g],
-                        threefry.fold_in(inp["keys"][g], chunks[g]), w,
+                        threefry.fold_in(keys[g], chunks[g]), w,
                         mc.P_CHUNK, al0, kmax, not hyb, n_min)
         now = torch.zeros_like(walking)
         now[sel] = True
@@ -358,10 +367,11 @@ def _compacted_walk(inp, n_perm, Tmax, al0=2, kmax=25, n_min=200):
 def _jax_walk(inp, n_perm, Tmax, al0=2, kmax=25):
     """canvas_tpu's walk loop (cbs_mega.py:418-448) on its own, with its
     _chunk_stats and _walk_update."""
-    x, n, tss, keys, needs, hybrid, ostat, nrejc, sbdry = (
+    x, n, tss, needs, hybrid, ostat, nrejc, sbdry = (
         jnp.asarray(inp[k].numpy()) for k in (
-            "x", "n", "tss", "keys", "walking", "hybrid", "ostat", "nrejc",
+            "x", "n", "tss", "walking", "hybrid", "ostat", "nrejc",
             "sbdry"))
+    keys = jnp.asarray(_row_keys(inp).numpy())
     n, nrejc, sbdry = (a.astype(jnp.int32) for a in (n, nrejc, sbdry))
     keys = keys.astype(jnp.uint32)
     W = x.shape[0]
@@ -419,7 +429,7 @@ def test_walk_rows_alone_equal_batched(walk_rows, walks, rows):
     inp, _stats = walk_rows
     acc, chunks = walks["compacted"]
     for r in rows:
-        one = {k: (v[r:r + 1] if k != "sbdry" else v)
+        one = {k: (v[r:r + 1] if k not in ("sbdry", "key0") else v)
                for k, v in inp.items()}
         got = mc.walk_plain(**one, n_perm=WALK_PERM, al0=2, kmax=25,
                             n_min=200)
@@ -447,7 +457,7 @@ def test_walk_stats_equal_canvas_tpu(walk_rows):
         jnp.asarray(inp["x"].numpy()), jnp.asarray(inp["n"].numpy(),
                                                    jnp.int32),
         jnp.asarray(inp["tss"].numpy()),
-        jnp.asarray(inp["keys"].numpy().astype(np.uint32)),
+        jnp.asarray(_row_keys(inp).numpy().astype(np.uint32)),
         jnp.zeros(W, jnp.int32), jnp.ones(W, bool),
         jnp.asarray(inp["hybrid"].numpy()), WALK_TMAX, 2, 25))
     np.testing.assert_allclose(stats.numpy(), want, rtol=1e-5, atol=0)
@@ -478,7 +488,10 @@ def edge_lanes():
     inp = {"xw": xwt, "wn": wn, "m1": torch.as_tensor(EDGE_M1),
            "xbar": xwt.double().sum(1).float() / wn.to(torch.float32),
            "active": torch.ones(L, dtype=torch.bool),
-           "ekeys": torch.as_tensor(rng.integers(0, 2 ** 32, (L, 2))),
+           "key0": torch.as_tensor(rng.integers(0, 2 ** 32, 2)),
+           "seg_c": torch.as_tensor(rng.integers(0, 192, L)),
+           "seg_lo": torch.as_tensor(rng.integers(0, 60000, L)),
+           "seg_n": torch.as_tensor(rng.integers(2000, 9000, L)),
            "limit": torch.tensor(0.01, dtype=torch.float32) * EDGE_PERM}
     sums = torch.zeros((L, mc.P_CHUNK))
     mc.edge_counts_plain(**dict(inp, limit=torch.tensor(1e9)),
@@ -497,6 +510,8 @@ def _compacted_edges(inp, n_perm):
     8 active lanes draw their next chunk, batched by tier with the
     group's longest window as the drawn width."""
     L = inp["xw"].shape[0]
+    ekeys = mc.edge_keys(inp["key0"], inp["seg_c"], inp["seg_lo"],
+                         inp["seg_n"], L)
     active = inp["active"].clone()
     count = torch.zeros(L, dtype=torch.int64)
     done = torch.zeros_like(count)
@@ -513,7 +528,7 @@ def _compacted_edges(inp, n_perm):
                 sums[g] = mc._subset_sums(
                     inp["xw"][g], inp["wn"][g], inp["m1"][g],
                     [int(inp["m1"][r]) for r in g],
-                    threefry.fold_in(inp["ekeys"][g], cnt[g]), w,
+                    threefry.fold_in(ekeys[g], cnt[g]), w,
                     int(inp["wn"][g].max()))
         take = torch.clamp(n_perm - done[sel], max=mc.P_CHUNK)
         pstat = (sums[sel] / m1f[sel][:, None]
@@ -535,7 +550,7 @@ def test_edge_counts_plain_equal_compacted_schedule(edge_lanes, alone):
     count, cnt = _compacted_edges(edge_lanes, EDGE_PERM)
     if alone:
         got = [mc.edge_counts_plain(
-            **{k: (v[r:r + 1] if v.dim() else v)
+            **{k: (v[r:r + 1] if v.dim() and k != "key0" else v)
                for k, v in edge_lanes.items()}, n_perm=EDGE_PERM)
             for r in range(len(EDGE_WN))]
         got = (torch.cat([g[0] for g in got]), torch.cat([g[1] for g in got]))
@@ -544,3 +559,73 @@ def test_edge_counts_plain_equal_compacted_schedule(edge_lanes, alone):
     assert torch.equal(got[0], count) and torch.equal(got[1], cnt)
     assert int(cnt.max()) == EDGE_PERM // mc.P_CHUNK
     assert int(cnt.min()) < EDGE_PERM // mc.P_CHUNK
+
+
+# --- keys from the level key, as K7 and K8 derive them ---------------------
+
+def test_walk_plain_derives_canvas_tpu_keys(walk_rows):
+    """walk_plain, given the level key and each row's (contig, start),
+    draws under canvas_tpu's _seg_keys(key0, contig, lo, n): its chunk-0
+    statistics equal _perm_stats under those keys bit for bit (the
+    hybrid rows and the full-arc rows of tier 1,024)."""
+    inp, stats = walk_rows
+    jkeys = np.asarray(jmega._seg_keys(
+        jnp.asarray(inp["key0"].numpy().astype(np.uint32)),
+        *(jnp.asarray(inp[k].numpy().astype(np.int32))
+          for k in ("seg_c", "seg_lo", "n")))).astype(np.int64)
+    for hyb in (False, True):
+        rows = [r for r, L in enumerate(WALK_LENGTHS)
+                if (L > 200) == hyb and mc.tier_width(L) == 1024]
+        want = cbs_device._perm_stats(
+            inp["x"][rows, :1024], inp["n"][rows], inp["tss"][rows],
+            threefry.fold_in(torch.as_tensor(jkeys[rows]), 0), 1024,
+            mc.P_CHUNK, 2, 25, not hyb, 200)
+        assert torch.equal(stats[rows].view(torch.int32),
+                           want.view(torch.int32)), hyb
+
+
+@pytest.mark.parametrize("edges", [1, 2])
+def test_edge_counts_plain_derives_canvas_tpu_keys(edges):
+    """edge_counts_plain over L = edges x R lanes draws lane l under
+    fold_in(canvas_tpu's _seg_keys of row l % R, 7777 + l // R), as
+    canvas_tpu's _edge_tests does: its chunk-0 subset sums equal
+    _subset_sums under those keys bit for bit."""
+    rng = np.random.default_rng(21 + edges)
+    R, T = 3, 1024
+    L = edges * R
+    wn = rng.integers(300, 1000, L)
+    m1 = np.minimum(rng.integers(2, 60, L), wn // 2)
+    xw = np.zeros((L, T), np.float32)
+    for r in range(L):
+        xw[r, :wn[r]] = rng.normal(0, 1, wn[r])
+    key0 = rng.integers(0, 2 ** 32, 2)
+    c, lo, n = (rng.integers(0, hi, R) for hi in (192, 60000, 9000))
+    sums = torch.zeros((L, mc.P_CHUNK))
+    xwt = torch.as_tensor(xw)
+    mc.edge_counts_plain(
+        xwt, torch.as_tensor(wn), torch.as_tensor(m1), torch.zeros(L),
+        torch.full((L,), float("inf")), torch.ones(L, dtype=torch.bool),
+        torch.as_tensor(key0), *map(torch.as_tensor, (c, lo, n)),
+        torch.tensor(1e9), 512, sums=sums)
+    seg = jmega._seg_keys(jnp.asarray(key0.astype(np.uint32)),
+                          *(jnp.asarray(a.astype(np.int32))
+                            for a in (c, lo, n)))
+    jkeys = np.concatenate([np.asarray(jax.vmap(
+        lambda k, e=e: jax.random.fold_in(k, 7777 + e))(seg))
+        for e in range(edges)]).astype(np.int64)
+    for r in range(L):
+        want = mc._subset_sums(
+            xwt[r:r + 1], torch.as_tensor(wn[r:r + 1]),
+            torch.as_tensor(m1[r:r + 1]), [int(m1[r])],
+            threefry.fold_in(torch.as_tensor(jkeys[r:r + 1]), 0),
+            mc.tier_width(int(wn[r])), int(wn[r]))[0]
+        assert torch.equal(sums[r].view(torch.int32),
+                           want.view(torch.int32)), r
+
+
+def test_edge_lanes_must_split_into_rows():
+    """K8's lanes are whole edges of the rows: L a multiple of R."""
+    with pytest.raises(ValueError, match="do not split"):
+        mc.edge_counts(torch.zeros((3, 1024)), *([torch.ones(3)] * 5),
+                       torch.tensor([0, 1]), *([torch.zeros(2)] * 3),
+                       torch.tensor(1.0), 512)

@@ -599,9 +599,10 @@ def _sbdry(dev, n_perm, alpha=0.01):
 
 def _walk_inputs(dev, lengths, seed, n_min=200, quantiles=None):
     """K7's inputs for rows of the given lengths at Tmax, the widest
-    row's tier: centred noise with a weak step, random keys, every row
-    walking, ostat at a quantile of the row's chunk-0 statistics (from
-    the plain version) so that walks take several chunks, nrejc 20."""
+    row's tier: centred noise with a weak step, a random level key and
+    rows' (contig, start), every row walking, ostat at a quantile of the
+    row's chunk-0 statistics (from the plain version) so that walks take
+    several chunks, nrejc 20."""
     from canvas_tpu_torch.ops import cbs_mega_cuda as mc
 
     rng = np.random.default_rng(seed)
@@ -617,8 +618,9 @@ def _walk_inputs(dev, lengths, seed, n_min=200, quantiles=None):
            "n": torch.as_tensor(n, device=dev),
            "tss": torch.as_tensor((x.astype(np.float64) ** 2).sum(1)
                                   .astype(np.float32), device=dev),
-           "keys": torch.as_tensor(rng.integers(0, 2 ** 32, (W, 2)),
-                                   device=dev),
+           "key0": torch.as_tensor(rng.integers(0, 2 ** 32, 2), device=dev),
+           "seg_c": torch.as_tensor(rng.integers(0, 192, W), device=dev),
+           "seg_lo": torch.as_tensor(rng.integers(0, 60000, W), device=dev),
            "walking": torch.ones(W, dtype=torch.bool, device=dev),
            "hybrid": torch.as_tensor(n > n_min, device=dev),
            "ostat": torch.zeros(W, dtype=torch.float32, device=dev),
@@ -654,8 +656,10 @@ def _walk_both(dev, inp, n_perm=2048, n_min=200):
 def test_walk_kernel_matches_plain(dev, npad):
     """K7 against its plain version at every tier width of the engine:
     rows of that tier (hybrid), and at 1,024 also full-arc rows (n <=
-    n_min) and rows of the next tier down.  Equal flags and chunk counts,
-    chunk 0's statistics bit for bit."""
+    n_min) and rows of the next tier down; and in the same launch a row
+    of every narrower tier, so rows worked by 8, 5, 3 and 1 groups a
+    block (two buffers, one, or the slab) share iterations.  Equal flags
+    and chunk counts, chunk 0's statistics bit for bit."""
     from canvas_tpu_torch.ops import cbs_mega_cuda as mc
 
     lengths = [npad // 2 + 1 + 37 * npad // 1024, npad - 3]
@@ -663,6 +667,8 @@ def test_walk_kernel_matches_plain(dev, npad):
         lengths += [150, 200, 40]
     elif npad <= 4096:
         lengths += [npad // 4 + 5]
+    lengths += [w // 2 + 11 for w in (1 << k for k in range(11, 17))
+                if w < npad]
     inp = _walk_inputs(dev, lengths, seed=npad,
                        quantiles=[0.99, 0.995, 0.97])
     before = mc.LAUNCHES["walk"]
@@ -693,7 +699,8 @@ def test_walk_kernel_sort_ties(dev):
     from canvas_tpu_torch.ops import threefry
 
     inp = _walk_inputs(dev, [4096, 3000], seed=21)
-    u = threefry.uniform(threefry.fold_in(inp["keys"][:1], 0),
+    keys = mc.seg_keys(inp["key0"], inp["seg_c"], inp["seg_lo"], inp["n"])
+    u = threefry.uniform(threefry.fold_in(keys[:1], 0),
                          (mc.P_CHUNK, 4096))[0]
     dup = (torch.sort(u, dim=1).values.diff(dim=1) == 0).any(dim=1)
     assert int(dup.sum()) > 100
@@ -702,11 +709,12 @@ def test_walk_kernel_sort_ties(dev):
     assert torch.equal(acc_k, acc_p) and torch.equal(ch_k, ch_p)
 
 
-def _edge_inputs(dev, wns, m1s, seed, n_perm=2048, alpha=0.01):
+def _edge_inputs(dev, wns, m1s, seed, n_perm=2048, alpha=0.01, edges=1):
     """K8's inputs for lanes of window lengths wns and subset sizes m1s at
-    Tmax, the widest lane's tier: noise with a weak step, random keys,
-    ostat at a quantile of the lane's chunk-0 statistics (from the plain
-    version), limit alpha * n_perm in f32."""
+    Tmax, the widest lane's tier: noise with a weak step, a random level
+    key and (contig, start, length) of len(wns) / edges rows, ostat at a
+    quantile of the lane's chunk-0 statistics (from the plain version),
+    limit alpha * n_perm in f32."""
     from canvas_tpu_torch.ops import cbs_mega_cuda as mc
 
     rng = np.random.default_rng(seed)
@@ -724,8 +732,10 @@ def _edge_inputs(dev, wns, m1s, seed, n_perm=2048, alpha=0.01):
            "xbar": xwt.double().sum(1).float() / wn.to(torch.float32),
            "ostat": torch.zeros(L, dtype=torch.float32, device=dev),
            "active": torch.ones(L, dtype=torch.bool, device=dev),
-           "ekeys": torch.as_tensor(rng.integers(0, 2 ** 32, (L, 2)),
-                                    device=dev),
+           "key0": torch.as_tensor(rng.integers(0, 2 ** 32, 2), device=dev),
+           **{k: torch.as_tensor(rng.integers(0, hi, L // edges), device=dev)
+              for k, hi in (("seg_c", 192), ("seg_lo", 60000),
+                            ("seg_n", 65536))},
            "limit": torch.tensor(alpha, device=dev) * n_perm}
     sums = torch.zeros((L, mc.P_CHUNK), dtype=torch.float32, device=dev)
     mc.edge_counts_plain(**dict(inp, limit=torch.tensor(1e9, device=dev)),
@@ -742,13 +752,19 @@ def _edge_inputs(dev, wns, m1s, seed, n_perm=2048, alpha=0.01):
 @pytest.mark.parametrize("npad", [1 << k for k in range(10, 17)])
 def test_edge_kernel_matches_plain(dev, npad):
     """K8 against its plain version at every tier width: equal counts
-    and chunk counts, chunk 0's subset sums bit for bit."""
+    and chunk counts, chunk 0's subset sums bit for bit.  Besides the
+    tier's lanes, subsets on both sides of the warp's limit (m1 = 1, 2,
+    32 and 33) and a lane of a narrower tier, so warp items and group
+    units of several tiers share iterations; two edges of four rows."""
     from canvas_tpu_torch.ops import cbs_mega_cuda as mc
 
     wns = [npad - 1, npad // 2 + 3, max(20, npad // 3)]
     m1s = [2, npad // 4, max(10, npad // 7)]
+    wns += [npad - 5, npad // 2 + 9, 700, max(70, npad // 5),
+            max(1024, npad // 2) - 1]
+    m1s += [1, 32, 33, 2, 33]
     n_perm = 2048
-    inp = _edge_inputs(dev, wns, m1s, seed=npad, n_perm=n_perm)
+    inp = _edge_inputs(dev, wns, m1s, seed=npad, n_perm=n_perm, edges=2)
     L = len(wns)
     out = []
     before = mc.LAUNCHES["edge"]
@@ -762,6 +778,49 @@ def test_edge_kernel_matches_plain(dev, npad):
     assert torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
     assert torch.equal(c_k, c_p) and torch.equal(n_k, n_p)
     assert int(n_p.max()) >= 2
+
+
+@pytest.mark.parametrize("m1", [1, 2, 31, 32, 33, 34, 200])
+def test_edge_kernel_small_subset_limit(dev, m1):
+    """K8 on both sides of the subsets a warp streams (m1 <= 32): lanes
+    of tiers 1,024 to 65,536 with the same m1 in one launch, equal to the
+    plain version, chunk 0's sums bit for bit."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    wns = [1000, 2047, 4000, 8000, 16000, 32000, 65000, 3 * m1 + 10]
+    n_perm = 1024
+    inp = _edge_inputs(dev, wns, [m1] * len(wns), seed=m1, n_perm=n_perm)
+    L = len(wns)
+    out = []
+    for fn in (mc.edge_counts, mc.edge_counts_plain):
+        sums = torch.full((L, mc.P_CHUNK), -1.0, device=dev)
+        count, cnt = fn(**inp, n_perm=n_perm, sums=sums)
+        out.append((count, cnt, sums))
+    torch.cuda.synchronize()
+    (c_k, n_k, s_k), (c_p, n_p, s_p) = out
+    assert torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+    assert torch.equal(c_k, c_p) and torch.equal(n_k, n_p)
+
+
+def test_kernel_keys_equal_fold_in_chains(dev):
+    """The chunk keys K7 and K8 derive on the card equal ops/threefry.py's
+    chains bit for bit: fold_in(seg_keys, chunk) for the walks and
+    fold_in(edge_keys, chunk) for two edges of each row, with data words
+    at and above 2^31 and chunk numbers 0, 1 and 19."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+    from canvas_tpu_torch.ops import threefry
+
+    rng = np.random.default_rng(3)
+    R = 37
+    key0 = torch.as_tensor(rng.integers(0, 2 ** 32, 2), device=dev)
+    c, lo, n = (torch.as_tensor(rng.integers(0, hi, R), device=dev)
+                for hi in (192, 2 ** 32, 65537))
+    for chunk in (0, 1, 19):
+        wk, ek = mc.device_keys(key0, c, lo, n, 2 * R, chunk)
+        assert torch.equal(wk, threefry.fold_in(mc.seg_keys(key0, c, lo, n),
+                                                chunk))
+        assert torch.equal(ek, threefry.fold_in(
+            mc.edge_keys(key0, c, lo, n, 2 * R), chunk))
 
 
 def test_device_threefry_equals_torch_above_2_32(dev):
