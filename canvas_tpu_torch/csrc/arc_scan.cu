@@ -145,10 +145,14 @@ __global__ void __launch_bounds__(kThreads) arc_scan_blocks(
   const int lag_hi = laghi_arr[b];
   int* __restrict__ seg_floors = floors + int64_t(b) * nblk;
   // the running best before block k is at least the seed and at least the
-  // floor that finished thread blocks of earlier lag blocks have raised
+  // floor that finished thread blocks of earlier lag blocks have raised.
+  // Other thread blocks raise the floor meanwhile, so its threads may read
+  // it at different values: the block goes on if any of them admits it, so
+  // that every thread loads its share of the staged values below.
   const float floor_k = fmaxf(seed[b], decode(seg_floors[k]));
-  if (!block_admitted(k, blk, n, lag_hi, al0, psd2[int64_t(b) * nblk + k],
-                      floor_k))
+  if (!__syncthreads_or(block_admitted(k, blk, n, lag_hi, al0,
+                                       psd2[int64_t(b) * nblk + k],
+                                       floor_k)))
     return;
   // lags l0 + t, t_lo <= t < t_hi; a block of under kRun lags is one run
   const int l0 = k * blk + q_lo * sub;

@@ -5,9 +5,12 @@
 // walk lax.while_loop, with _chunk_stats (:142-167) and through it
 // cbs_device.py's _device_perms (:595), _htmax_core (:608) and
 // _tmax_full_core (:636), all XLA.  K8 (cbs_edge) replaces the edge-test
-// lax.while_loop of _edge_tests (:217-285), XLA too.  Per level the port
-// launches each once, and the loops that canvas_tpu runs on its device run
-// here, with nothing read back between:
+// lax.while_loop of _edge_tests (:217-285), XLA too.  K12 (cbs_perm)
+// replaces the frontier engine's permutation chunks, cbs_device.py's
+// _perm_kernel (:660-671) and _level_kernel's chunk 0 (:565-585), with K7's
+// device code.  Per level the port launches K7 and K8 once, and the loops
+// that canvas_tpu runs on its device run here, with nothing read back
+// between:
 //
 //   K7, per walking row r (n bins, tier width npad = the smallest power of
 //   two >= max(n, 1024)): the row's key is fold_in(fold_in(fold_in(key0,
@@ -27,6 +30,14 @@
 //   of each permutation's m1 smallest keys, ties by index, and counts the
 //   statistics |sum / m1 - xbar| >= ostat among the first n_perm - done
 //   permutations, until the count passes limit or n_perm are done.
+//
+//   K12, per masked row r of S (n bins, the launch's bucket width npad,
+//   which may be 8 to 65,536, and the row's given threefry key): the row's
+//   P permutations of one chunk, P = 512 or 768, drawn as K7 draws them at
+//   the counters p * npad + j, and their hybrid or full max-t statistics
+//   (full: lags bounded by max_len, at least every full row's n); the
+//   other rows' statistics are zero.  No walk: the items of the launch go
+//   to the groups, and the launch is an ordinary one.
 //
 // A row's chunk c depends on its own key and counter alone, and every row
 // still walking takes its next chunk in each iteration, so a row that walks
@@ -1052,6 +1063,63 @@ __global__ void __launch_bounds__(kThreads, 1) edge_kernel(EdgeArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// K12: one chunk of permutation statistics for each masked row
+// ---------------------------------------------------------------------------
+
+struct PermArgs {
+  const float* x;          // [S, npad]
+  const i64* n;            // [S]
+  const float* tss;
+  const i64* keys;         // [S, 2]: the rows' chunk keys
+  const bool* mask;
+  const bool* hybrid;
+  uint32_t* gbuf;          // [gridDim.x, npad] where npad >= kSlabTier
+  float* out;              // [S, P]
+  int S, npad, P, al0, kmax, max_len;
+};
+
+__global__ void __launch_bounds__(kThreads, 1) perm_kernel(PermArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Fixed f = carve_fixed(smem_raw);
+  unsigned char* slices = smem_raw + kFixedBytes;
+  const int tid = threadIdx.x;
+  const int nact = list_where(tid < a.S && a.mask[tid], f.list, f.red);
+  const size_t total = size_t(a.S) * size_t(a.P);
+  for (size_t i = size_t(blockIdx.x) * kThreads + tid; i < total;
+       i += size_t(gridDim.x) * kThreads)
+    if (!a.mask[i / a.P]) a.out[i] = 0.0f;
+  if (tid < nact) {
+    const int r = f.list[tid];
+    f.rkey[tid] = make_uint2(uint32_t(a.keys[2 * r]),
+                             uint32_t(a.keys[2 * r + 1]));
+  }
+  __syncthreads();
+  // as many groups as the bucket's width allows, each running its items
+  // with no block barrier
+  const int k = k7_layout(a.npad).k;
+  const int slice = (kGroupBudget / k) & ~15;
+  const int gsize = (kWarps / k) * 32;
+  const int gi = tid / gsize;
+  if (gi >= k) return;
+  const Group g{tid - gi * gsize, gsize, 1 + gi};
+  const int mode = k7_mode(a.npad, slice);
+  const Slice s = carve7(slices + size_t(gi) * slice, a.npad, mode,
+                         a.gbuf + size_t(blockIdx.x) * size_t(a.npad));
+  for (int item = blockIdx.x + gridDim.x * gi; item < nact * a.P;
+       item += gridDim.x * k) {
+    const int ai = item / a.P, p = item % a.P, r = f.list[ai];
+    const int n = int(a.n[r]);
+    permute(g, s, mode, f.rkey[ai], n, a.npad, p);
+    permuted_cumsum(g, s, a.x + size_t(r) * a.npad, n);
+    const float st = max_t(g, s, reinterpret_cast<const float*>(s.B), n,
+                           a.npad, a.tss[r], a.hybrid[r], a.al0, a.kmax,
+                           a.max_len);
+    if (g.t == 0) a.out[size_t(r) * a.P + p] = st;
+    gsync(g);      // the slice is reused by the group's next item
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The draws and the keys on their own, for tests
 // ---------------------------------------------------------------------------
 
@@ -1106,14 +1174,19 @@ int launch_cooperative(const void* kernel, int grid, void** args,
   return static_cast<int>(cudaGetLastError());
 }
 
+const void* kernel_of(int which) {
+  return which == 1 ? reinterpret_cast<const void*>(edge_kernel)
+       : which == 2 ? reinterpret_cast<const void*>(perm_kernel)
+                    : reinterpret_cast<const void*>(walk_kernel);
+}
+
 }  // namespace
 
-// The blocks of a K7 (edge == 0) or K8 launch on the current device: its
-// SMs times the blocks of kThreads threads and kSmemBytes that the
-// occupancy calculator lets each hold, into *grid.
-extern "C" int cbs_grid(int edge, int* grid) {
-  const void* kernel = edge ? reinterpret_cast<const void*>(edge_kernel)
-                            : reinterpret_cast<const void*>(walk_kernel);
+// The blocks of a K7 (which == 0), K8 (1) or K12 (2) launch on the current
+// device: its SMs times the blocks of kThreads threads and kSmemBytes that
+// the occupancy calculator lets each hold, into *grid.
+extern "C" int cbs_grid(int which, int* grid) {
+  const void* kernel = kernel_of(which);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1224,6 +1297,41 @@ extern "C" int cbs_edge(const void* xw, const void* wn, const void* m1,
   void* args[] = {&a};
   return launch_cooperative(reinterpret_cast<const void*>(edge_kernel), grid,
                             args, static_cast<cudaStream_t>(stream));
+}
+
+// K12.  x f32 [S, npad], n int64, tss f32, keys int64 [S, 2], mask and
+// hybrid bool [S]; out f32 [S, P]; slab: [grid, npad] 32-bit words when
+// npad >= 65,536; S <= 1,024.
+extern "C" int cbs_perm(const void* x, const void* n, const void* tss,
+                        const void* keys, const void* mask,
+                        const void* hybrid, void* slab, void* out, int S,
+                        int npad, int P, int al0, int kmax, int max_len,
+                        int grid, void* stream) {
+  if (S <= 0) return 0;
+  if (S > kMaxRows || grid <= 0 || P <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PermArgs a;
+  a.x = static_cast<const float*>(x);
+  a.n = static_cast<const i64*>(n);
+  a.tss = static_cast<const float*>(tss);
+  a.keys = static_cast<const i64*>(keys);
+  a.mask = static_cast<const bool*>(mask);
+  a.hybrid = static_cast<const bool*>(hybrid);
+  a.gbuf = static_cast<uint32_t*>(slab);
+  a.out = static_cast<float*>(out);
+  a.S = S;
+  a.npad = npad;
+  a.P = P;
+  a.al0 = al0;
+  a.kmax = kmax;
+  a.max_len = max_len;
+  const cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(perm_kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  perm_kernel<<<unsigned(grid), kThreads, kSmemBytes,
+                static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int cbs_threefry(const void* keys, const void* data, int K,

@@ -17,12 +17,17 @@ Design:
     once.
   * The arc scan is kernel B4 (ops/arc_scan_cuda.py): a branch-and-bound
     over 512-lag blocks pruned by a per-block bound on d^2, for every
-    bucket size.
+    bucket size.  Its inputs and its refine are kernels K9 and K10, and
+    the tail probability K11 (ops/cbs_stats_cuda.py), so on the card a
+    bucket's statistic is four launches and its tail probability one.
   * Permutation null statistics draw their permutations on the device from
     threefry keys derived per (contig, segment, chunk) on the host
     (ops/threefry.py, equal bit for bit to the JAX package's draws); only
     the [B, P] stat matrix returns to the host, where the reference's
-    sequential-stopping boundary walk replays exactly.
+    sequential-stopping boundary walk replays exactly.  On the card each
+    chunk of a level or of a walk is one launch of kernel K12
+    (cbs_mega_cuda.perm_stats), selected rows by a mask, so a level reads
+    nothing from the device before its output.
   * Sums and cumulative sums accumulate in float64 and round once to f32,
     and the tail probability runs in float64, so a CUDA run and a CPU run
     of this engine see the same statistics.
@@ -50,14 +55,13 @@ import numpy as np
 import torch
 
 from canvas_tpu_torch.config import resolve_device
-from canvas_tpu_torch.ops import arc_scan_cuda, threefry
+from canvas_tpu_torch.ops import (arc_scan_cuda, cbs_mega_cuda,
+                                  cbs_stats_cuda, threefry)
 from canvas_tpu_torch.ops import cbs as _cbs
+from canvas_tpu_torch.ops.cbs_stats_cuda import (  # noqa: F401  (tests use them)
+    arc_scan_inputs, block_d2_bound as _block_d2_bound, nu_plain as _nu_dev)
 
 P_CHUNK = 512          # permutations per continuation chunk (= cbs.PERM_CHUNK)
-_NU_SERIES_TERMS = 8192
-_NU_TAIL_PANELS = 128
-_NU_BATCH = 4096       # x values per [batch, 2048] series block
-_BCHUNK = 256          # position-chunk width for the per-block d^2 bound
 _PERM_ELEMS = 1 << 25  # permuted values per batch of segments (memory bound)
 
 
@@ -85,180 +89,25 @@ def _cumsum(x):
     return torch.cumsum(x.double(), dim=-1).float()
 
 
-def _block_d2_bound(cs, psdiff, npad, sblk):
-    """[B, nblk] upper bound on d^2 = (cs[j] - cs[i])^2 over pairs with
-    lag j - i inside each sblk-lag block.
-
-    Chunk the position axis at _BCHUNK; with M/m the per-chunk max/min of
-    the cumsum, any pair at chunk distance db satisfies
-    |d| <= max(M[a+db] - m[a], M[a] - m[a+db]).  A lag block only reaches
-    chunk distances around lag/_BCHUNK, so its bound is the max over that
-    small db range — far tighter than the global cumsum range for noise
-    (local range ~ sqrt(lag) vs sqrt(n)), which is what lets the arc scan
-    skip the mid-lag blocks the psdiff bound always over-admits.
-    Pad positions enter the chunk extrema unmasked: extra values only
-    widen M - m, so the bound stays valid."""
-    B = cs.shape[0]
-    dev = cs.device
-    nblk = max(npad // sblk, 1)
-    C = min(_BCHUNK, npad)
-    nchunk = npad // C
-    csr = cs.reshape(B, nchunk, C)
-    M = csr.amax(dim=2)
-    m = csr.amin(dim=2)
-    # the max of M[c] - m[a] over chunk pairs at each distance |c - a|
-    a = torch.arange(nchunk, device=dev)
-    dist = (a[None, :] - a[:, None]).abs().reshape(1, -1).expand(B, -1)
-    pair = (M[:, None, :] - m[:, :, None]).reshape(B, -1)
-    by_db = torch.full((B, nchunk), -torch.inf, dtype=cs.dtype, device=dev)
-    by_db = by_db.scatter_reduce(1, dist, pair, reduce="amax")
-    # each block takes the max over its reachable chunk distances, those
-    # from (first lag // C) - 1 to (last lag // C) + 1 (made on the device:
-    # a copy from the host would wait for the stream)
-    k = torch.arange(nblk, device=dev)[:, None]
-    db_lo = torch.clamp(k * sblk // C - 1, min=0)
-    db_hi = torch.clamp((k * sblk + sblk - 1) // C + 1, max=nchunk - 1)
-    reach = (a[None, :] >= db_lo) & (a[None, :] <= db_hi)
-    bnd = torch.where(reach[None], by_db[:, None, :], -torch.inf).amax(dim=2)
-    d = torch.minimum(psdiff[:, None], bnd)
-    return (d * d).to(torch.float32)
-
-
-def arc_scan_inputs(cs, n, npad, al0):
-    """What B4 takes besides cs, per row of the cumsum cs f32 [B, npad]:
-    (seed, lag_hi, psd2), plus the 1-based split (ti0, tj0) of the
-    extrema pair that the seed scores."""
-    blk = arc_scan_cuda.geometry(npad)[0]
-    big = torch.finfo(torch.float32).max
-    valid = torch.arange(npad, device=cs.device)[None, :] < n[:, None]
-    imin = torch.argmin(torch.where(valid, cs, big), dim=1)
-    imax = torch.argmax(torch.where(valid, cs, -big), dim=1)
-    cmin = cs.gather(1, imin[:, None])[:, 0]
-    cmax = cs.gather(1, imax[:, None])[:, 0]
-    psdiff = cmax - cmin
-    nf = n.to(torch.float32)
-    rjs = torch.clamp((imax - imin).abs(), min=1).to(torch.float32)
-    seed = torch.where(psdiff > 0, nf / (rjs * (nf - rjs)) * psdiff * psdiff,
-                       0.0)
-    lag_hi = torch.minimum(n - al0, n - 1).to(torch.int32)
-    psd2 = _block_d2_bound(cs, psdiff, npad, blk)
-    ti0 = (torch.minimum(imin, imax) + 1).to(torch.int32)
-    tj0 = (torch.maximum(imin, imax) + 1).to(torch.int32)
-    return seed, lag_hi, psd2, ti0, tj0
-
-
 def tmax_batch(cs, n, tss, npad, al0):
     """Batched TMaxO: (t^2 f32, ti, tj int32) per row of the cumsum
-    cs f32 [B, npad].  Vectorised extrema seeds, the B4 arc scan for the
-    max, then one refine pass over the winning 32-lag sub-block.  Only
-    exact float ties can pick another (ti, tj) than the host's
-    cbs.tmax_o.  Nothing is read back from the device."""
-    B = cs.shape[0]
-    dev = cs.device
-    sub = arc_scan_cuda.geometry(npad)[1]
-    pos = torch.arange(npad, device=dev)
-    nf = n.to(torch.float32)
-    seed, lag_hi, psd2, ti0, tj0 = arc_scan_inputs(cs, n, npad, al0)
-    best, bl0 = arc_scan_cuda.arc_scan(cs, n.to(torch.int32), lag_hi, seed,
-                                       psd2, al0)
-    # Recover (ti, tj) inside each winner's sub-block: the running max over
-    # its lags keeps the SMALLEST lag per position, and the per-row argmax
-    # takes the first max position.  A row that never beat its extrema
-    # seed (bl0 = -1) keeps the seed's split.
-    hit = bl0 >= 0
-    b0c = torch.clamp(bl0, min=0).to(torch.int64)
-    cs2 = torch.cat([cs, torch.zeros_like(cs)], dim=1)
-    base = cs2.gather(
-        1, b0c[:, None] + torch.arange(npad + sub, device=dev)[None, :])
-    val = torch.full((B, npad), -1.0, dtype=torch.float32, device=dev)
-    lagk = torch.zeros((B, npad), dtype=torch.int64, device=dev)
-    for k in range(sub):
-        lag = b0c + k
-        lag_ok = (lag >= al0) & (lag <= lag_hi)
-        d = base[:, k:k + npad] - cs
-        ok = lag_ok[:, None] & (pos[None, :] + lag[:, None]
-                                <= n[:, None] - 1)
-        lf = torch.clamp(lag, min=1).to(torch.float32)
-        w = (nf / (lf * (nf - lf)))[:, None]
-        v = torch.where(ok, w * d * d, -1.0)
-        upd = v > val
-        val = torch.where(upd, v, val)
-        lagk = torch.where(upd, k, lagk)
-    flat_i = torch.argmax(val, dim=1)
-    sel_lag = b0c + lagk.gather(1, flat_i[:, None])[:, 0]
-    ti = torch.where(hit, flat_i + 1, ti0).to(torch.int32)
-    tj = torch.where(hit, flat_i + sel_lag + 1, tj0).to(torch.int32)
-    tssv = torch.where(tss <= best + 1e-4, best + 1.0, tss)
-    t2 = best / ((tssv - best) / torch.clamp(nf - 2.0, min=1.0))
-    return t2, ti, tj
-
-
-def _ndtr(z):
-    return 0.5 * torch.special.erfc(-z / np.sqrt(2.0))
-
-
-def _nu_dev(x):
-    """TailProbability.Nu over a flat vector: 8192 exact series terms in
-    4 chunks + Euler–Maclaurin integral tail (see module note), in the
-    dtype of x."""
-    K = 2048
-    n_chunks = _NU_SERIES_TERMS // K
-    dev, dt = x.device, x.dtype
-    series = torch.zeros_like(x)
-    for s0 in range(0, x.shape[0], _NU_BATCH):
-        xs = x[s0:s0 + _NU_BATCH]
-        acc = torch.zeros_like(xs)
-        t = torch.empty((xs.shape[0], K), dtype=dt, device=dev)
-        for c in range(n_chunks):
-            dk = (c * K + torch.arange(1, K + 1, device=dev)).to(dt)
-            # t = _ndtr(-x sqrt(dk) / 2) * (2 / dk), op for op, in place
-            torch.mul(-xs[:, None], torch.sqrt(dk)[None, :], out=t)
-            t.div_(2.0).neg_().div_(np.sqrt(2.0))
-            torch.special.erfc(t, out=t)
-            t.mul_(0.5).mul_(2.0 / dk)
-            acc = acc + t.sum(dim=1)
-        series[s0:s0 + _NU_BATCH] = acc
-    # tail: sum_{t>D} 2*ndtr(-x*sqrt(t)/2)/t ~= int_{D+1/2}^inf (midpoint EM)
-    #     = 4 * int_{x*sqrt(D+0.5)/2}^inf ndtr(-u)/u du   (u = x*sqrt(t)/2)
-    v0 = x * np.sqrt(_NU_SERIES_TERMS + 0.5) / 2.0
-    hi = 9.0
-    v0c = torch.clamp(v0, max=hi)
-    h = (hi - v0c) / _NU_TAIL_PANELS
-    u = v0c[:, None] + h[:, None] * torch.arange(
-        _NU_TAIL_PANELS + 1, device=dev).to(dt)[None, :]
-    f = _ndtr(-u) / torch.clamp(u, min=1e-12)
-    # Simpson weights 1, 4, 2, 4, ..., 2, 4, 1
-    j = torch.arange(_NU_TAIL_PANELS + 1, device=dev)
-    simp = torch.where((j == 0) | (j == _NU_TAIL_PANELS), 1.0,
-                       torch.where(j % 2 == 1, 4.0, 2.0)).to(dt)
-    tail = 4.0 * (h / 3.0) * (f * simp[None, :]).sum(1)
-    lnu = np.log(2.0) - 2.0 * torch.log(torch.clamp(x, min=1e-12)) \
-        - series - tail
-    return torch.where(x <= 0.01, torch.exp(-0.583 * x), torch.exp(lnu))
-
-
-def _integral_inv_t1t_sq_dev(tl, a):
-    def f(y):
-        return (8.0 * y / (1.0 - 4.0 * y * y)
-                + 2.0 * torch.log((1 + 2 * y) / (1 - 2 * y)))
-    return f(tl + a - 0.5) - f(tl - 0.5)
+    cs f32 [B, npad] with n int32 or int64 [B]: B4's inputs (K9), the B4
+    arc scan for the max, then its refine over the winning 32-lag
+    sub-block (K10); on the card four launches (B4 is two) and no read,
+    on CPU tensors their plain versions.  Only exact float ties can pick
+    another (ti, tj) than the host's cbs.tmax_o."""
+    seed, lag_hi, psd2, ti0, tj0, n32 = cbs_stats_cuda.arc_inputs(
+        cs, n, npad, al0)
+    best, bl0 = arc_scan_cuda.arc_scan(cs, n32, lag_hi, seed, psd2, al0)
+    return cbs_stats_cuda.refine(cs, n, tss, lag_hi, best, bl0, ti0, tj0,
+                                 npad, al0)
 
 
 def _tail_p_batch_dev(b, n, kmax, n_grid):
     """TailProbability.TailP for a [Bp] batch (hybrid delta = (kmax+1)/n),
-    in the dtype of b."""
-    nf = n.to(b.dtype)
-    delta = torch.clamp((kmax + 1.0) / nf, 0.0, 0.45)
-    dincr = (0.5 - delta) / n_grid                          # [Bp]
-    i = torch.arange(n_grid, device=b.device).to(b.dtype)[None, :]
-    tls = 0.5 + i * dincr[:, None]
-    ts = 0.5 + (i + 0.5) * dincr[:, None]
-    bsqrtm = b / torch.sqrt(nf)
-    xg = bsqrtm[:, None] / torch.sqrt(ts * (1 - ts))        # [Bp, n_grid]
-    nus = _nu_dev(xg.reshape(-1)).reshape(xg.shape)
-    integ = _integral_inv_t1t_sq_dev(tls, dincr[:, None])
-    out = (nus * nus * integ).sum(dim=1)
-    return 2.0 * 9.973557e-2 * b ** 3 * torch.exp(-b * b / 2) * out
+    in the dtype of b: kernel K11 on the card (b float64), its plain
+    version on CPU tensors."""
+    return cbs_stats_cuda.tail_p(b, n, kmax, n_grid)
 
 
 def _level(contigs, cidx, lo, n, keys, alpha, npad, P, al0, kmax, n_min,
@@ -269,8 +118,8 @@ def _level(contigs, cidx, lo, n, keys, alpha, npad, P, al0, kmax, n_min,
     Besides the statistic and its tail probability this evaluates
     permutation chunk 0 for exactly the segments whose decision needs it
     (ostat in the undecided band and, for hybrid segments, tail p <=
-    alpha), selected by a boolean mask per branch, so the usual extra perm
-    round-trip disappears.  ``full`` includes the small-segment all-arc
+    alpha), selected by a row mask (K12 on the card), so the usual extra
+    perm round-trip disappears.  ``full`` includes the small-segment all-arc
     statistic (only possible when the bucket can hold n <= n_min).  The
     flags use the same float64 arithmetic as the host's decode, so a flag
     is set exactly when the host walks that segment."""
@@ -284,15 +133,10 @@ def _level(contigs, cidx, lo, n, keys, alpha, npad, P, al0, kmax, n_min,
     hybrid = n > n_min
     tail_ok = torch.where(hybrid, p1 <= alpha, True)
     needs = (ostat1 > 0.1) & ~trivial & tail_ok
-    pstats = torch.zeros((x.shape[0], P), dtype=torch.float64,
-                         device=x.device)
-    for is_full in ((False, True) if full else (False,)):
-        rows = torch.nonzero(needs & (~hybrid if is_full else hybrid))[:, 0]
-        if len(rows):
-            # full-arc rows are not hybrid: at most n_min bins
-            pstats[rows] = _perm_stats(x[rows], n[rows], tss[rows],
-                                       keys[rows], npad, P, al0, kmax,
-                                       is_full, n_min).double()
+    # full-arc rows are not hybrid: at most n_min bins
+    pstats = cbs_mega_cuda.perm_stats(
+        x, n, tss, keys, needs if full else needs & hybrid, hybrid, P, al0,
+        kmax, n_min).double()
     head = torch.stack([t2.double(), ti.double(), tj.double(), p1,
                         tss.double(), needs.double()], dim=1)
     return torch.cat([head, pstats], dim=1)
@@ -691,8 +535,9 @@ def _walk_pending(pending, rows, sbdry, n_perm, alpha,
                   device):
     """Permutation tests for segments that need them: the level's fused
     chunk-0 stats feed each walk first; walks that don't terminate within
-    a chunk get continuation chunks from _perm_stats (same key sequence,
-    chunk index folded in) until every walk terminates."""
+    a chunk get continuation chunks from cbs_mega_cuda.perm_stats (K12 on
+    the card; same key sequence, chunk index folded in) until every walk
+    terminates."""
     fused = fused or {}
     walks = []
     for seg, i1, i2, ostat, nrejc, hybrid in pending:
@@ -731,12 +576,15 @@ def _walk_pending(pending, rows, sbdry, n_perm, alpha,
                 tss[i] = float(np.sum(x.astype(np.float64) ** 2))
                 cidx[i], los[i], chunks[i] = seg.contig, seg.lo, rec[5]
             keys = _seg_keys_np(seed, cidx, los, nn, chunks)
-            stats = _perm_stats(
+            stats = cbs_mega_cuda.perm_stats(
                 torch.as_tensor(xs, device=device),
                 torch.as_tensor(nn, device=device),
                 torch.as_tensor(tss, device=device),
-                _keys_tensor(keys, device), npad, P_CHUNK, min_width, kmax,
-                full, int(nn.max())).cpu().numpy().astype(np.float64)
+                _keys_tensor(keys, device),
+                torch.as_tensor(np.ones(Bp, bool), device=device),
+                torch.as_tensor(np.full(Bp, not full), device=device),
+                P_CHUNK, min_width, kmax,
+                int(nn.max())).cpu().numpy().astype(np.float64)
             for i, rec in enumerate(group):
                 walk = rec[0]
                 take = min(P_CHUNK, n_perm - walk.np_i)

@@ -24,6 +24,13 @@ with their plain torch versions.
                 n_perm - done permutations, until the count exceeds limit
                 or n_perm permutations are done.  Returns (count int64
                 [L], cnt int64 [L]).
+  perm_stats    (K12): the frontier engine's permutation chunks
+                (cbs_device's _level and _walk_pending): for each row under
+                a mask, one chunk of P permutations (512 or 768) under the
+                row's given threefry key at its bucket's own width npad (8
+                to 65,536), with K7's permutation, cumsum and statistic
+                code; f32 [S, P], zero on the other rows.  Its plain
+                version is cbs_device._perm_stats on the masked rows.
 
 Each row (lane) is decided by its own chunk sequence alone, so the order
 in which rows draw their chunks does not matter: canvas_tpu's compaction
@@ -32,8 +39,9 @@ and the kernels' rows in parallel give the same results.  The plain
 versions read their loop tests from the tensors (on the card, a read
 each); the kernels keep every loop on the card.
 
-On CUDA tensors the wrappers launch csrc/cbs_mega.cu, one launch a call,
-and the launch counts go to LAUNCHES; on CPU tensors they run the plain
+On CUDA tensors the wrappers launch csrc/cbs_mega.cu, one launch a call
+(K12: one a call of up to MAX_ROWS rows), and the launch counts go to
+LAUNCHES; on CPU tensors they run the plain
 versions.  The kernels derive every key on the card; the plain versions
 run the same fold_in chains through ops/threefry.py (seg_keys,
 edge_keys), so both take the level key and the rows' (contig, start,
@@ -50,8 +58,8 @@ import ctypes
 
 import torch
 
-from canvas_tpu_torch.ops import cuda_lib, threefry
-from canvas_tpu_torch.ops.cbs_device import _PERM_ELEMS, _perm_stats
+# cbs_device imports this module for K12: its names are read at call time
+from canvas_tpu_torch.ops import cbs_device, cuda_lib, threefry
 
 P_CHUNK = 512          # permutations per chunk
 MAX_ROWS = 1024        # rows (lanes) a launch
@@ -60,7 +68,7 @@ EDGE_DEPTH = 4         # K8: chunks a lane may take in one iteration
 EDGE_TAG = 7777        # edge e of a row folds in EDGE_TAG + e - 1
 
 # launches of the kernels, counted by the wrappers
-LAUNCHES = {"walk": 0, "edge": 0}
+LAUNCHES = {"walk": 0, "edge": 0, "perm": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,6 +78,7 @@ _SIGNATURES = {
     "cbs_threefry": [_P] * 2 + [_I, ctypes.c_longlong, _I] + [_P] * 3
     + [_P],
     "cbs_keys": [_P] * 4 + [_I] * 3 + [_P] * 2 + [_P],
+    "cbs_perm": [_P] * 8 + [_I] * 7 + [_P],
     "cbs_grid": [_I, _P],
     "cbs_layout": [_I, _I, _P],
 }
@@ -162,9 +171,9 @@ def walk_plain(x, n, tss, key0, seg_c, seg_lo, walking, hybrid, ostat,
         k0 = nrejc[rr] * (nrejc[rr] + 1) // 2 + 1
         c = 0
         while bool(live):
-            ps = _perm_stats(x[rr, :w], n[rr], tss[rr],
-                             threefry.fold_in(keys[rr], c), w, P_CHUNK,
-                             al0, kmax, not bool(hybrid[r]), n_min)
+            ps = cbs_device._perm_stats(
+                x[rr, :w], n[rr], tss[rr], threefry.fold_in(keys[rr], c), w,
+                P_CHUNK, al0, kmax, not bool(hybrid[r]), n_min)
             if stats is not None and c == 0:
                 stats[r] = ps[0]
             acc, live, np0, nrej0, k0 = _walk_update(
@@ -192,7 +201,7 @@ def _subset_sums(xr, nn, mm, mm_host, keys, npad, cols):
     R = xr.shape[0]
     dev = xr.device
     out = torch.empty((R, P_CHUNK), dtype=torch.float32, device=dev)
-    per = max(1, _PERM_ELEMS // (P_CHUNK * cols))
+    per = max(1, cbs_device._PERM_ELEMS // (P_CHUNK * cols))
     real = torch.arange(cols, device=dev)[None, None, :]
     for s0 in range(0, R, per):
         s1 = min(R, s0 + per)
@@ -246,6 +255,22 @@ def edge_counts_plain(xw, wn, m1, xbar, ostat, active, key0, seg_c, seg_lo,
     return count, cnt
 
 
+def perm_stats_plain(x, n, tss, keys, mask, hybrid, P: int, al0: int,
+                     kmax: int, max_len: int):
+    """Plain version of K12: f32 [S, P], for the rows under mask
+    cbs_device._perm_stats of the hybrid rows and of the full-arc rows
+    (lags bounded by max_len) apart, zero elsewhere."""
+    S, npad = x.shape
+    out = torch.zeros((S, P), dtype=torch.float32, device=x.device)
+    for full in (False, True):
+        rows = torch.nonzero(mask & (~hybrid if full else hybrid))[:, 0]
+        if len(rows):
+            out[rows] = cbs_device._perm_stats(
+                x[rows], n[rows], tss[rows], keys[rows], npad, P, al0, kmax,
+                full, max_len)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The kernels
 # ---------------------------------------------------------------------------
@@ -253,16 +278,19 @@ def edge_counts_plain(xw, wn, m1, xbar, ostat, active, key0, seg_c, seg_lo,
 _GRIDS: dict = {}
 
 
-def _grid(lib, dev: torch.device, edge: bool) -> int:
-    """Thread blocks of a launch on dev: its SMs times the blocks the
-    occupancy calculator lets each hold (one), all resident at once, as
-    the kernels' grid-wide barriers need (a cooperative launch checks
-    it)."""
-    key = (dev.index, edge)
+_WALK, _EDGE, _PERM = 0, 1, 2     # cbs_grid's kernels: K7, K8, K12
+
+
+def _grid(lib, dev: torch.device, which: int) -> int:
+    """Thread blocks of a launch of kernel `which` on dev: its SMs times
+    the blocks the occupancy calculator lets each hold (one), all resident
+    at once, as K7's and K8's grid-wide barriers need (a cooperative
+    launch checks it)."""
+    key = (dev.index, which)
     if key not in _GRIDS:
         out = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            cuda_lib.check(lib.cbs_grid(int(edge), ctypes.byref(out)),
+            cuda_lib.check(lib.cbs_grid(which, ctypes.byref(out)),
                            "cbs_grid")
         _GRIDS[key] = out.value
     return _GRIDS[key]
@@ -335,7 +363,7 @@ def walk(x, n, tss, key0, seg_c, seg_lo, walking, hybrid, ostat, nrejc,
     _check_sizes(W, Tmax)
     dev = x.device
     lib = cuda_lib.load("cbs_mega", _SIGNATURES)
-    grid = _grid(lib, dev, False)
+    grid = _grid(lib, dev, _WALK)
     # the walks' state (nrej, k) by the iteration's parity, and a chunk's
     # statistics by parity
     state = torch.empty((2, 2, W), dtype=torch.int64, device=dev)
@@ -396,7 +424,7 @@ def edge_counts(xw, wn, m1, xbar, ostat, active, key0, seg_c, seg_lo,
     _check_sizes(L, Tmax)
     dev = xw.device
     lib = cuda_lib.load("cbs_mega", _SIGNATURES)
-    grid = _grid(lib, dev, True)
+    grid = _grid(lib, dev, _EDGE)
     # the lanes' counts by the iteration's parity, and the subset sums of
     # the chunks an iteration takes (up to EDGE_DEPTH) by parity
     state = torch.empty((2, L), dtype=torch.int64, device=dev)
@@ -417,6 +445,51 @@ def edge_counts(xw, wn, m1, xbar, ostat, active, key0, seg_c, seg_lo,
     cuda_lib.check(status, "cbs_edge")
     LAUNCHES["edge"] += 1
     return count, cnt
+
+
+def perm_stats(x, n, tss, keys, mask, hybrid, P: int, al0: int, kmax: int,
+               max_len: int):
+    """K12: f32 [S, P] permutation max-t statistics of one chunk for the
+    rows of x f32 [S, npad] (centred values, zero past n; npad a power of
+    two up to 65,536) under mask, with n int64, tss f32, the rows' chunk
+    keys int64 [S, 2] and hybrid bool [S] (else the full-arc statistic,
+    lags bounded by max_len, which is at least every full row's n); zero
+    on the other rows.  One launch for each MAX_ROWS rows."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be [S, npad], got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return perm_stats_plain(x, n, tss, keys, mask, hybrid, P, al0, kmax,
+                                max_len)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    S, npad = x.shape
+    vec = (S,)
+    _check([("x", x, torch.float32, (S, npad)),
+            ("n", n, torch.int64, vec), ("tss", tss, torch.float32, vec),
+            ("keys", keys, torch.int64, (S, 2)),
+            ("mask", mask, torch.bool, vec),
+            ("hybrid", hybrid, torch.bool, vec)])
+    if npad < 1 or npad > SLAB_TIER or npad & (npad - 1):
+        raise ValueError(f"npad must be a power of two up to {SLAB_TIER}, "
+                         f"got {npad}")
+    dev = x.device
+    out = torch.empty((S, P), dtype=torch.float32, device=dev)
+    if S == 0:
+        return out
+    lib = cuda_lib.load("cbs_mega", _SIGNATURES)
+    grid = _grid(lib, dev, _PERM)
+    slab = _slab(dev, grid, npad)
+    for s0 in range(0, S, MAX_ROWS):
+        s1 = min(S, s0 + MAX_ROWS)
+        status = cuda_lib.launch(
+            dev, lib.cbs_perm, x[s0:s1].data_ptr(), n[s0:s1].data_ptr(),
+            tss[s0:s1].data_ptr(), keys[s0:s1].data_ptr(),
+            mask[s0:s1].data_ptr(), hybrid[s0:s1].data_ptr(),
+            slab.data_ptr(), out[s0:s1].data_ptr(), s1 - s0, npad, P, al0,
+            kmax, min(max_len, 1 << 30), grid)
+        cuda_lib.check(status, "cbs_perm")
+        LAUNCHES["perm"] += 1
+    return out
 
 
 def layout(npad: int, edge: bool) -> dict:

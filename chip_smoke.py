@@ -50,17 +50,21 @@ Phases, one JSON line each; any failure exits non-zero:
              through the CLI entry point on a synthetic panel (3 contigs,
              30 Mbp, 400 bp targets every 500 bp, CN 1/3/0/4 events of
              0.8-1.6 Mb on a diploid normal) with --device cuda
-             (whole-recursion CBS engine, kernels B4, K7 and K8) and
-             again with --device cpu (host CBS engine): identical VCFs,
-             K7 and K8 launched at least once a level, every planted
-             event called with its copy number, the stage times of both
-             runs;
+             (whole-recursion CBS engine, kernels K9, B4, K10, K11, K7
+             and K8) and again with --device cpu (host CBS engine):
+             identical VCFs, K7, K8 and K11 launched at least once a
+             level and K9 and K10 once, every planted event called with
+             its copy number, the stage times of both runs;
   7. CBS     the frontier engine on the tumor's ratio coverage of that
-             panel, on CUDA tensors (B4) and on CPU tensors (plain B4):
-             equal segments and the per-level profile; then one more CUDA
-             run under torch.profiler (device busy time and kernel
-             launches) and one under CUDA's sync debug mode (its
-             synchronising calls);
+             panel, on CUDA tensors (K9, B4, K10, K11 and K12, each
+             launched, counted from 0 for the run) and on CPU tensors
+             (their plain versions): equal segments and the per-level
+             profile; then one more CUDA run under torch.profiler (device
+             busy time and kernel launches) and one under CUDA's sync
+             debug mode (its synchronising calls); then bench.py's CBS
+             workload through the frontier engine on cuda (seconds,
+             launches, profile) and with the five kernels' plain versions
+             on the same CUDA tensors (equal segments);
   7b. cbs-mega
              the whole-recursion engine on the same coverage: run_cbs on
              cuda takes it (engine "mega"), its seconds, B4, K7 and K8
@@ -71,7 +75,8 @@ Phases, one JSON line each; any failure exits non-zero:
              segments; one more CUDA run under torch.profiler; the
              frontier's figures from phase CBS and the engine's with
              host-driven loops (HOST_LOOPS_PANEL) beside them; the
-             launches by stage, none in the segment keys (K7 and K8
+             launches by stage (tmax_batch is K9, B4 and K10, the tail
+             probability K11), none in the segment keys (K7 and K8
              derive their keys on the card); K7 and K8 against their
              plain versions on the card on the inputs of the engine's
              first level with a walk and first with an edge test, on the
@@ -85,6 +90,15 @@ Phases, one JSON line each; any failure exits non-zero:
              plain version at every tier
              width the engine uses (1,024 to 65,536, 32 rows of which
              three lie in the tier, the rest zeroed);
+  7c. cbs-stats
+             K9, K10 and K11 against their plain versions on the card on
+             the inputs of the whole-recursion engine's first level at
+             each tier width of the panel (K11: its first level), and K12
+             on the frontier engine's first level with a permutation chunk
+             and its first continuation chunk (the panel's, else bench.py's
+             workload's): bit for bit, both times, the bound and its
+             share (K11's operations: its erfc calls, each the FP64
+             instructions of one call in the SASS of the built library);
   8. e2e-germline
              Germline-WGS through the CLI entry point on the trio's proband
              BAM with --device cuda and again with --device cpu: identical
@@ -232,10 +246,16 @@ PLANS = {
 }
 TYPES = {"father": "Father", "mother": "Mother", "proband": "Proband"}
 
-KERNEL_SOURCES = ("prefix_scan", "viterbi", "arc_scan", "cbs_mega")
+KERNEL_SOURCES = ("prefix_scan", "viterbi", "arc_scan", "cbs_mega",
+                  "cbs_stats")
 # the decode's kernels, by their launch counts' names: B2, K5, B3, K6
 DECODE_KERNELS = ("chunk_matrix", "chunk_scan", "forward_backtrack",
                   "chunk_chase")
+# the CBS engines' kernels, by their launch counts' names: the whole-
+# recursion engine's K9, B4, K10, K11, K7 and K8; the frontier engine's
+# K9, B4, K10, K11 and K12
+MEGA_KERNELS = ("arc_inputs", "arc_scan", "refine", "tail_p", "walk", "edge")
+FRONTIER_KERNELS = ("arc_inputs", "arc_scan", "refine", "tail_p", "perm")
 
 # NVIDIA H100 SXM peaks (data sheet, 700 W): device memory, and f32 outside
 # the tensor cores.  The f32 peak counts an FMA as two operations; the
@@ -250,6 +270,9 @@ FLOPS_PER_OP = 2
 # exclusive or, 12 key additions, the final exclusive or)
 TF_OPS = 73
 P_CHUNK = 512
+# float64 outside the tensor cores (data sheet, H100 SXM): an FMA counts as
+# two, and every FP64 instruction takes an FMA's issue slot
+F64_OPS = 34e12
 
 # B4 at three frontier shapes: (segments, padded length, length of every
 # segment or None for lengths drawn in (0.6 npad, npad])
@@ -403,6 +426,42 @@ def b4_sass() -> dict:
                             k["kPos"] * k["kRun"])
 
 
+FP64_OPCODES = ("DFMA", "DADD", "DMUL", "DSETP", "DMNMX", "DSET",
+                 "MUFU.RCP64H", "MUFU.RSQ64H")
+
+
+def erfc_sass() -> dict:
+    """The FP64 instructions of one call of the math library's erfc, as
+    kernel K11 calls it: those of cbs_stats's erfc_kernel (one erfc and a
+    load and a store) in cuobjdump -sass of the built library, every
+    branch counted once."""
+    import collections
+    import re
+    import shutil
+
+    from canvas_tpu_torch.ops import cuda_lib
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(cuda_lib.nvcc_path()).parent / "cuobjdump")
+    res = subprocess.run([tool, "-sass",
+                          str(cuda_lib.BUILD_DIR / "libcbs_stats.so")],
+                         capture_output=True, text=True, timeout=120)
+    if res.returncode != 0:
+        fail(f"cuobjdump of libcbs_stats.so: {res.stderr[-400:]}")
+    funcs = re.split(r"\n\s*Function : ", res.stdout)
+    body = next((f for f in funcs if "erfc_kernel" in f.split("\n")[0]), None)
+    if body is None:
+        fail("erfc_kernel not in the SASS of libcbs_stats.so")
+    ops = collections.Counter(
+        m.group(2) for m in re.finditer(
+            r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)", body))
+    fp64 = {op: c for op, c in ops.items()
+            if op.startswith(FP64_OPCODES)}
+    if not fp64:
+        fail("no FP64 instruction in the SASS of erfc_kernel")
+    return {"fp64_instructions": sum(fp64.values()), "by_opcode": fp64}
+
+
 def gpu_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -445,6 +504,7 @@ def phase_build() -> dict:
                for name, edge in (("walk", False), ("edge", True))}
     return {"phase": "build", "seconds": secs, "native_seconds": native_s,
             "ptxas": ptxas_report(), "b4_interior_run": sass,
+            "k11_erfc": erfc_sass(),
             "k7_k8_layouts": layouts, "gpu": gpu_line()}
 
 
@@ -839,10 +899,12 @@ def same_vcf(a: Path, b: Path) -> None:
 
 def all_launch_counts() -> list[dict]:
     from canvas_tpu_torch.ops import (arc_scan_cuda, cbs_mega_cuda,
-                                      prefix_cuda, viterbi_cuda)
+                                      cbs_stats_cuda, prefix_cuda,
+                                      viterbi_cuda)
 
     return [prefix_cuda.LAUNCHES, viterbi_cuda.LAUNCHES,
-            arc_scan_cuda.LAUNCHES, cbs_mega_cuda.LAUNCHES]
+            arc_scan_cuda.LAUNCHES, cbs_mega_cuda.LAUNCHES,
+            cbs_stats_cuda.LAUNCHES]
 
 
 def reset_launches() -> None:
@@ -1136,9 +1198,14 @@ def phase_e2e_enrichment(seed: int, workdir: Path) -> tuple[dict, dict]:
     if launches["arc_scan"] < 1:
         fail(f"B4 launched {launches['arc_scan']} times over {n_levels} "
              f"levels of the whole-recursion engine")
-    if min(launches["walk"], launches["edge"]) < max(n_levels, 1):
-        fail(f"K7 and K8 launched {launches['walk']} and "
-             f"{launches['edge']} times over {n_levels} levels")
+    if min(launches["walk"], launches["edge"],
+           launches["tail_p"]) < max(n_levels, 1):
+        fail(f"K7, K8 and K11 launched {launches['walk']}, "
+             f"{launches['edge']} and {launches['tail_p']} times over "
+             f"{n_levels} levels")
+    if min(launches["arc_inputs"], launches["refine"]) < 1:
+        fail(f"K9 and K10 launched {launches['arc_inputs']} and "
+             f"{launches['refine']} times in the whole-recursion engine")
     body_cuda = vcf_body(workdir / "enr_cuda" / "tumor_CNV.vcf.gz")
     body_cpu = vcf_body(workdir / "enr_cpu" / "tumor_CNV.vcf.gz")
     if body_cuda != body_cpu:
@@ -1187,20 +1254,87 @@ def count_syncs(fn):
     return out, sum("synchronizing" in str(w.message) for w in caught)
 
 
+def frontier_plain(run):
+    """run() with the frontier engine's five kernels replaced by their plain
+    versions (on whatever tensors it is given)."""
+    from canvas_tpu_torch.ops import arc_scan_cuda, cbs_mega_cuda
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    swaps = [(st, "arc_inputs", lambda cs, n, npad, al0: (
+                 *st.arc_scan_inputs_plain(cs, n, npad, al0),
+                 n.to(torch.int32))),
+             (arc_scan_cuda, "arc_scan", arc_scan_cuda.arc_scan_plain),
+             (st, "refine", st.refine_plain), (st, "tail_p", st.tail_p_plain),
+             (cbs_mega_cuda, "perm_stats", cbs_mega_cuda.perm_stats_plain)]
+    orig = [getattr(mod, name) for mod, name, _fn in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        return run()
+    finally:
+        for (mod, name, _fn), fn in zip(swaps, orig):
+            setattr(mod, name, fn)
+
+
+def frontier_bench(cov: dict, dev: torch.device) -> dict:
+    """bench.py's CBS workload through the frontier engine on cuda: its
+    seconds and launches (best of 3 after a warm run), one run under
+    torch.profiler, and a run with the five kernels' plain versions on the
+    same CUDA tensors, whose segments must be equal."""
+    from canvas_tpu_torch.ops import cbs_device
+
+    warm = cbs_device.run_cbs_device(cov, device=dev)
+    runs = []
+    for _ in range(3):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lens = cbs_device.run_cbs_device(cov, device=dev)
+        torch.cuda.synchronize()
+        runs.append({"seconds": time.perf_counter() - t0,
+                     "launches": {k: read_launches()[k]
+                                  for k in FRONTIER_KERNELS}})
+        for c in cov:
+            if not np.array_equal(lens[c], warm[c]):
+                fail(f"the frontier engine gave other segments on {c} than "
+                     f"its warm run")
+    traced = trace_cbs(lambda: cbs_device.run_cbs_device(cov, device=dev))
+    t0 = time.perf_counter()
+    plain = frontier_plain(lambda: cbs_device.run_cbs_device(cov, device=dev))
+    plain_s = time.perf_counter() - t0
+    for c in cov:
+        if not np.array_equal(plain[c], warm[c]):
+            fail(f"frontier segments on {c} differ between the kernels and "
+                 f"their plain versions: {warm[c].tolist()} vs "
+                 f"{plain[c].tolist()}")
+    best = min(runs, key=lambda r: r["seconds"])
+    return {"contigs": len(cov), "bins": sum(len(v) for v in cov.values()),
+            "segments": sum(len(v) for v in warm.values()),
+            "best_of_3_s": best["seconds"],
+            "seconds": [r["seconds"] for r in runs],
+            "launches": best["launches"], "plain_kernels_s": plain_s,
+            "equal_to_plain_kernels": True,
+            "profiled_cuda": traced["profile"]}
+
+
 def phase_cbs(workdir: Path, dev: torch.device) -> dict:
     """The frontier engine on the panel's tumor ratio coverage, on CUDA
-    tensors and on CPU tensors."""
+    tensors and on CPU tensors; then on bench.py's CBS workload."""
     from canvas_tpu_torch.ops import arc_scan_cuda, cbs_device
 
     cov = panel_coverage(workdir)
     out = {}
     for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
         levels: list[dict] = []
-        arc_scan_cuda.LAUNCHES["arc_scan"] = 0
+        reset_launches()
         t0 = time.perf_counter()
         lens = cbs_device.run_cbs_device(cov, device=d, levels=levels)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
         out[name] = {"seconds": time.perf_counter() - t0,
                      "arc_scan_launches": arc_scan_cuda.LAUNCHES["arc_scan"],
+                     "launches": {k: read_launches()[k]
+                                  for k in FRONTIER_KERNELS},
                      "levels": levels, "lengths": lens}
     for c in cov:
         if not np.array_equal(out["cuda"]["lengths"][c],
@@ -1210,22 +1344,27 @@ def phase_cbs(workdir: Path, dev: torch.device) -> dict:
                  f"{out['cpu']['lengths'][c].tolist()}")
     if out["cuda"]["arc_scan_launches"] < len(out["cuda"]["levels"]):
         fail("B4 launched fewer times than the engine ran levels")
+    if min(out["cuda"]["launches"].values()) < 1:
+        fail(f"a kernel of the frontier engine did not launch: "
+             f"{out['cuda']['launches']}")
     traced = trace_cbs(lambda: cbs_device.run_cbs_device(cov, device=dev))
     if traced["lengths"] != {c: v.tolist()
                              for c, v in out["cuda"]["lengths"].items()}:
         fail("the profiled frontier run gave other segments")
     _lens, syncs = count_syncs(
         lambda: cbs_device.run_cbs_device(cov, device=dev))
+    bench = frontier_bench(bench_cbs_coverage(), dev)
     return {"phase": "CBS", "bins": {c: len(v) for c, v in cov.items()},
             "segments": {c: len(v) for c, v in out["cuda"]["lengths"].items()},
             "lengths_equal": True,
             "n_levels": len(out["cuda"]["levels"]),
             "cuda_s": out["cuda"]["seconds"], "cpu_s": out["cpu"]["seconds"],
             "arc_scan_launches": out["cuda"]["arc_scan_launches"],
+            "launches": out["cuda"]["launches"],
             "cuda_syncs": syncs,
             "levels_cuda": out["cuda"]["levels"],
             "levels_cpu": out["cpu"]["levels"],
-            "profiled_cuda": traced["profile"]}
+            "profiled_cuda": traced["profile"], "bench_cbs": bench}
 
 
 def trace_cbs(run) -> dict:
@@ -1292,9 +1431,8 @@ def mega_launch_stages(run) -> dict:
 
     from canvas_tpu_torch.ops import cbs_mega, cbs_mega_cuda
 
-    stages = {"tmax_batch (B4 and its refine loop)": (cbs_mega,
-                                                       "tmax_batch"),
-              "tail probability": (cbs_mega, "_tail_p_batch_dev"),
+    stages = {"tmax_batch (K9, B4, K10)": (cbs_mega, "tmax_batch"),
+              "tail probability (K11)": (cbs_mega, "_tail_p_batch_dev"),
               SEG_KEYS_STAGE: (cbs_mega_cuda, "seg_keys"),
               "walks (K7)": (cbs_mega_cuda, "walk"),
               "edge tests (setup, K8)": (cbs_mega, "_edge_tests")}
@@ -1363,22 +1501,21 @@ def capture_kernel_inputs(run) -> dict:
     return got
 
 
-def k7_ops(n, hybrid, chunks, npad, al0=2, kmax=25, n_min=200) -> int:
+def k7_ops(n, hybrid, chunks, npad, al0=2, kmax=25, n_min=200,
+           P=P_CHUNK) -> int:
     """The operations one row's walk needs: per permutation of each chunk,
     n draws of the cipher (TF_OPS each), one operation an element to
     order them and one to add it to the cumsum, and two (a subtraction
     and a |.|-maximum) a term of the statistic: n a lag for the hybrid
     lags al0..min(kmax, npad - 1, n - 1), n - L a lag L for the full
     ones."""
-    from canvas_tpu_torch.ops.cbs_mega_cuda import P_CHUNK
-
     if hybrid:
         terms = n * max(0, min(kmax, npad - 1, n - 1) - al0 + 1)
     else:
         top = min(n_min, npad)
         hi = min(top - al0, top - 1, n - al0, n - 1)
         terms = sum(n - L for L in range(al0, hi + 1))
-    return chunks * P_CHUNK * (n * (TF_OPS + 2) + 2 * terms)
+    return chunks * P * (n * (TF_OPS + 2) + 2 * terms)
 
 
 def k7_case(args) -> dict:
@@ -1499,7 +1636,7 @@ def mega_runs(cov: dict, dev: torch.device) -> dict:
         runs.append({"seconds": time.perf_counter() - t0,
                      "syncs": cbs_mega.SYNCS["cbs_mega"] - s0,
                      "launches": {k: v for k, v in read_launches().items()
-                                  if k in ("arc_scan", "walk", "edge")},
+                                  if k in MEGA_KERNELS},
                      "levels": cbs._LAST_ENGINE["levels"]})
         for c in cov:
             if not np.array_equal(lens[c], warm[c]):
@@ -1557,7 +1694,7 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
     (lens, cuda_s), hidden = count_syncs(
         lambda: (cbs.run_cbs(cov, device=dev), time.perf_counter() - t0))
     launches = {k: v for k, v in read_launches().items()
-                if k in ("arc_scan", "walk", "edge")}
+                if k in MEGA_KERNELS}
     syncs = cbs_mega.SYNCS["cbs_mega"] - s0
     engine, levels = cbs.last_engine(), cbs._LAST_ENGINE["levels"]
     if engine != "mega":
@@ -1647,6 +1784,201 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
                 "cuda_syncs", "profiled_cuda")},
             "K7": k7, "K8": k8, **bench_cases, "bench_cbs": bench,
             "b4_tiers": tiers}
+
+
+def capture_stats_inputs(mega_run, frontier_run) -> dict:
+    """The arguments (cloned) of K9's and K10's first call at each tier
+    width and of K11's first call during mega_run(), and of K12's first
+    call from a frontier level with a row under its mask ("level") and its
+    first continuation chunk ("chunk") during frontier_run(), caught by
+    wrapping the entry points for those runs only."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    got: dict = {"arc_inputs": {}, "refine": {}}
+    orig = {"arc_inputs": st.arc_inputs, "refine": st.refine,
+            "tail_p": st.tail_p, "perm_stats": mc.perm_stats}
+
+    def clone(args):
+        return [a.clone() if torch.is_tensor(a) else a for a in args]
+
+    def arc_inputs(*args):
+        got["arc_inputs"].setdefault(args[2], clone(args))      # npad
+        return orig["arc_inputs"](*args)
+
+    def refine(*args):
+        got["refine"].setdefault(args[8], clone(args))          # npad
+        return orig["refine"](*args)
+
+    def tail_p(*args):
+        got.setdefault("tail_p", clone(args))
+        return orig["tail_p"](*args)
+
+    def perm_stats(*args):
+        key = "level" if sys._getframe(1).f_code.co_name == "_level" \
+            else "chunk"
+        if key not in got and bool(args[4].any()):              # mask
+            got[key] = clone(args)
+        return orig["perm_stats"](*args)
+
+    st.arc_inputs, st.refine, st.tail_p = arc_inputs, refine, tail_p
+    mc.perm_stats = perm_stats
+    try:
+        mega_run()
+        frontier_run()
+    finally:
+        st.arc_inputs, st.refine = orig["arc_inputs"], orig["refine"]
+        st.tail_p, mc.perm_stats = orig["tail_p"], orig["perm_stats"]
+    return got
+
+
+def bits_equal(a, b) -> bool:
+    if a.dtype in (torch.float32, torch.float64):
+        width = torch.int32 if a.dtype == torch.float32 else torch.int64
+        return torch.equal(a.view(width), b.view(width))
+    return torch.equal(a, b)
+
+
+def kernel_case(name, kernel, plain, args, n_bytes, ops, reps,
+                f64=False) -> dict:
+    """kernel(*args) against plain(*args) on the card, every output bit
+    for bit (else the smoke fails), both times, the bound from n_bytes and
+    ops (f32 operations, or with f64 FP64 ones) and its share."""
+    got, want = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(float((a.double() - b.double()).abs().max()) if a.numel()
+              else 0.0 for a, b in zip(got, want))
+    if not all(bits_equal(a, b) for a, b in zip(got, want)):
+        fail(f"{name} differs from its plain version: max |diff| {err}")
+    if f64:
+        t_bytes = n_bytes / HBM_BPS * 1e3
+        t_ops = ops * FLOPS_PER_OP / F64_OPS * 1e3
+        b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                      else (t_ops, "operations"))
+    else:
+        b_ms, b_by = bound(n_bytes, ops)
+    ms = cuda_ms(lambda: kernel(*args), reps=reps, queued=True)
+    plain_ms = cuda_ms(lambda: plain(*args), reps=2)
+    return {"equal": True, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bytes": n_bytes,
+            "operations": ops, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / ms}
+
+
+def k9_case(args) -> dict:
+    """K9 on one captured call: the cumsum read once and the outputs
+    written once; per position two comparisons and a chunk maximum and
+    minimum, and per chunk pair a subtraction and a maximum."""
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    cs, n, npad, _al0 = args
+    B = cs.shape[0]
+    nblk = max(npad // 512, 1)
+    nchunk = npad // min(256, npad)
+    res = kernel_case(
+        "K9", st.arc_inputs,
+        lambda *a: (*st.arc_scan_inputs_plain(*a), a[1].to(torch.int32)),
+        args, 4 * cs.numel() + n.element_size() * B + 20 * B
+        + 4 * B * nblk, B * (4 * npad + 2 * nchunk * nchunk), reps=20)
+    return {"rows": B, "npad": npad, **res}
+
+
+def k10_case(args) -> dict:
+    """K10 on one captured call: per pair of a row with a sub-block
+    (positions i, lags bl0 + k inside [al0, lag_hi] with i + lag <= n - 1)
+    a subtraction, two multiplications, a comparison and a selection; the
+    cumsums of those rows and the [B] vectors read once."""
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    cs, n, _tss, lag_hi, _best, bl0, _ti0, _tj0, npad, al0 = args
+    B = cs.shape[0]
+    sub = min(32, npad)
+    hits = [r for r, b0 in enumerate(bl0.tolist()) if b0 >= 0]
+    n_h, lh_h, b0_h = n.tolist(), lag_hi.tolist(), bl0.tolist()
+    pairs = sum(max(0, n_h[r] - lag) for r in hits
+                for lag in range(max(b0_h[r], al0),
+                                 min(b0_h[r] + sub - 1, lh_h[r]) + 1))
+    res = kernel_case("K10", st.refine, st.refine_plain, args,
+                      4 * npad * len(hits) + 40 * B, 5 * pairs, reps=20)
+    return {"rows": B, "npad": npad, "rows_with_a_sub_block": len(hits),
+            "pairs": pairs, **res}
+
+
+def k11_case(args, erfc: dict) -> dict:
+    """K11 on one captured call: its erfc calls (8,192 series terms and
+    129 Simpson points at each grid point with x > 0.01), each the FP64
+    instructions of one call in the SASS, at the FP64 rate."""
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    b, n, kmax, n_grid = args
+    nf = n.double()
+    delta = torch.clamp((kmax + 1.0) / nf, 0.0, 0.45)
+    dincr = (0.5 - delta) / n_grid
+    ts = 0.5 + (torch.arange(n_grid, device=b.device).double()[None, :]
+                + 0.5) * dincr[:, None]
+    x = (b / torch.sqrt(nf))[:, None] / torch.sqrt(ts * (1 - ts))
+    live = int((x > 0.01).sum())
+    calls = live * (st.NU_SERIES_TERMS + st.NU_TAIL_PANELS + 1)
+    res = kernel_case("K11", st.tail_p, st.tail_p_plain, args,
+                      8 * b.numel() + n.element_size() * n.numel()
+                      + 8 * b.numel(),
+                      calls * erfc["fp64_instructions"], reps=10, f64=True)
+    return {"rows": b.numel(), "grid": n_grid, "grid_points_live": live,
+            "erfc_calls": calls,
+            "erfc_fp64_instructions": erfc["fp64_instructions"], **res}
+
+
+def k12_case(args) -> dict:
+    """K12 on one captured call: K7's count for one chunk of P
+    permutations of every row under the mask; their values read once."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    x, n, _tss, _keys, mask, hybrid, P, al0, kmax, max_len = args
+    S, npad = x.shape
+    rows = torch.nonzero(mask)[:, 0].tolist()
+    n_h, hyb_h = n.tolist(), hybrid.tolist()
+    ops = sum(k7_ops(n_h[r], hyb_h[r], 1, npad, al0, kmax, max_len, P)
+              for r in rows)
+    res = kernel_case("K12", mc.perm_stats, mc.perm_stats_plain, args,
+                      4 * npad * len(rows) + 4 * S * P, ops, reps=5)
+    return {"rows": S, "npad": npad, "P": P, "masked": len(rows),
+            "n": [n_h[r] for r in rows], "hybrid": [hyb_h[r] for r in rows],
+            **res}
+
+
+def phase_cbs_stats(workdir: Path, dev: torch.device, erfc: dict) -> dict:
+    """K9, K10 and K11 on the whole-recursion engine's first level at
+    each tier width of the panel (K11: its first level), K12 on the
+    frontier engine's first level with a permutation chunk and its first
+    continuation chunk (the panel's, else bench.py's workload's), each
+    against its plain version on the card."""
+    from canvas_tpu_torch.ops import cbs_device, cbs_mega
+
+    cov = panel_coverage(workdir)
+    got = capture_stats_inputs(
+        lambda: cbs_mega.run_cbs_mega(cov, device=dev),
+        lambda: cbs_device.run_cbs_device(cov, device=dev))
+    source = {k: "panel" for k in ("level", "chunk") if k in got}
+    if len(source) < 2:
+        more = capture_stats_inputs(
+            lambda: None, lambda: cbs_device.run_cbs_device(
+                bench_cbs_coverage(), device=dev))
+        for k in ("level", "chunk"):
+            if k not in got and k in more:
+                got[k], source[k] = more[k], "bench_cbs"
+    if not got["arc_inputs"] or "tail_p" not in got or "level" not in got:
+        fail(f"no captured call for K9, K11 or K12's level: {sorted(got)}")
+    k9 = {str(w): k9_case(a) for w, a in sorted(got["arc_inputs"].items())}
+    k10 = {str(w): k10_case(a) for w, a in sorted(got["refine"].items())}
+    top = str(max(got["arc_inputs"]))
+    k12 = {k: dict(k12_case(got[k]), inputs=source[k])
+           for k in ("level", "chunk") if k in got}
+    torch.cuda.empty_cache()
+    return {"phase": "cbs-stats", "K9": k9, "K10": k10,
+            "K11": k11_case(got["tail_p"], erfc), "K12": k12,
+            "K9_top": k9[top], "K10_top": k10[top]}
 
 
 def phase_e2e_germline(workdir: Path) -> dict:
@@ -2410,7 +2742,7 @@ def main() -> int:
                 emit(res)
         return out
 
-    run("build", phase_build)
+    build = run("build", phase_build)
     b1 = run("B1", phase_b1, args.seed, dev)
     b2, b3, k5, k6 = run("B2/B3", phase_b2_b3, args.seed, dev)
     torch.cuda.empty_cache()
@@ -2426,6 +2758,8 @@ def main() -> int:
         frontier = run("CBS", phase_cbs, Path(workdir), dev)
         mega = run("cbs-mega", phase_cbs_mega, Path(workdir), dev,
                    frontier)
+        stats = run("cbs-stats", phase_cbs_stats, Path(workdir), dev,
+                    build["k11_erfc"])
         swgs = run("e2e-somatic-wgs", phase_e2e_somatic_wgs, panel,
                    Path(workdir))
     run("gc-bin", phase_gc_bin, args.seed, dev)
@@ -2477,6 +2811,18 @@ def main() -> int:
            "replaces": f"canvas_tpu/ops/cbs_mega.py:{line}",
            "launches": enr["launches"][name], **_timing(mega[key])}
           for name, line, key in (("walk", 419, "K7"), ("edge", 217, "K8"))],
+        *[{"name": name, "route": "cuda",
+           "source": "canvas_tpu_torch/csrc/cbs_stats.cu",
+           "replaces": f"canvas_tpu/ops/cbs_device.py:{line}",
+           "launches": enr["launches"][name], **_timing(res)}
+          for name, line, res in (("arc_inputs", 382, stats["K9_top"]),
+                                  ("refine", 421, stats["K10_top"]),
+                                  ("tail_p", 497, stats["K11"]))],
+        {"name": "perm_stats", "route": "cuda",
+         "source": "canvas_tpu_torch/csrc/cbs_mega.cu",
+         "replaces": "canvas_tpu/ops/cbs_device.py:661",
+         "launches": frontier["launches"]["perm"],
+         **_timing(stats["K12"]["level"])},
     ]
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})

@@ -1,0 +1,286 @@
+"""The CBS level's statistics on the CPU: the plain versions of kernels K9
+(B4's inputs), K10 (the refine and t^2), K11 (the tail probability) and
+K12 (the frontier's permutation chunks) against canvas_tpu's functions on
+the same numpy inputs, and the wrappers' device rule.  canvas_tpu's Pallas
+arc scan runs in interpret mode, at npad <= 2,048 only."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from canvas_tpu.ops import cbs_device as jdev
+from canvas_tpu_torch.ops import cbs_device as tdev
+from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+torch.set_num_threads(1)
+
+AL0 = 2
+
+
+def _bits(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+def _noise_rows(seed, npad, B):
+    """Cumsums f32 [B, npad] of centred noise with a planted step (float64
+    accumulation, as the port's engines), lengths in (npad / 2, npad] and
+    sums of squares."""
+    rng = np.random.default_rng(seed)
+    cs = np.zeros((B, npad), np.float32)
+    n = np.zeros(B, np.int32)
+    tss = np.zeros(B, np.float32)
+    for i in range(B):
+        L = int(rng.integers(npad // 2 + 1, npad + 1))
+        r = rng.normal(0, 1, L)
+        r[L // 4:L // 3] += 1.2
+        r -= r.mean()
+        cs[i, :L] = np.cumsum(r)
+        n[i] = L
+        tss[i] = np.sum(r * r)
+    return cs, n, tss
+
+
+def _tie_rows(seed, npad):
+    """Integer-valued cumsum rows f32 [4, npad] whose extrema and best
+    terms tie: an integer random walk; two equal spikes at n - 2 and
+    n - 10 over a shallow valley (the best term at lag 2 from three
+    positions); a staircase of equal steps (each position's best lag ties
+    with its neighbours'); and a walk with a plateau at its maximum."""
+    rng = np.random.default_rng(seed)
+    cs = np.zeros((4, npad), np.float32)
+    n = np.array([npad - 1, npad, npad - 7, npad // 2 + 3], np.int32)
+    cs[0, :n[0]] = np.cumsum(rng.integers(-1, 2, n[0]))
+    cs[1, n[1] - 2] = 40.0
+    cs[1, n[1] - 10] = 40.0
+    cs[1, n[1] // 2] = -1.0
+    cs[2, :n[2]] = np.repeat(np.arange(n[2] // 16 + 1), 16)[:n[2]] * 3.0
+    walk = np.cumsum(rng.integers(-2, 3, n[3]))
+    top = int(np.argmax(walk))
+    walk[top:top + 40] = walk[top]
+    cs[3, :n[3]] = walk
+    tss = (np.diff(cs, axis=1, prepend=0) ** 2).sum(1).astype(np.float32)
+    return cs, n, tss
+
+
+def _canvas_tpu_inputs(cs, n, npad):
+    """seed, lag_hi, ti0, tj0, psdiff and psd2 as canvas_tpu's
+    _tmax_batch_pallas builds them (cbs_device.py:382-398)."""
+    csj, nj = jnp.asarray(cs), jnp.asarray(n)
+    valid = jnp.arange(npad)[None, :] < nj[:, None]
+    big = jnp.finfo(jnp.float32).max
+    imin = jnp.argmin(jnp.where(valid, csj, big), axis=1)
+    imax = jnp.argmax(jnp.where(valid, csj, -big), axis=1)
+    psdiff = (jnp.take_along_axis(csj, imax[:, None], 1)[:, 0]
+              - jnp.take_along_axis(csj, imin[:, None], 1)[:, 0])
+    nf = nj.astype(jnp.float32)
+    rjs = jnp.maximum(jnp.abs(imax - imin), 1).astype(jnp.float32)
+    seed = jnp.where(psdiff > 0, nf / (rjs * (nf - rjs)) * psdiff * psdiff,
+                     0.0).astype(jnp.float32)
+    lag_hi = jnp.minimum(nj - AL0, nj - 1).astype(jnp.int32)
+    ti0 = jnp.minimum(imin, imax).astype(jnp.int32) + 1
+    tj0 = jnp.maximum(imin, imax).astype(jnp.int32) + 1
+    psd2 = jdev._block_d2_bound(csj, psdiff, npad, min(512, npad))
+    return seed, lag_hi, ti0, tj0, psd2
+
+
+# --- K9 ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("npad,rows", [(512, "noise"), (512, "ties"),
+                                       (2048, "noise"), (2048, "ties"),
+                                       (65536, "noise")])
+def test_arc_scan_inputs_plain_equals_canvas_tpu(npad, rows):
+    """K9's plain version against canvas_tpu's inputs of its arc scan:
+    seed, lag_hi, the seed's split and psd2 (_block_d2_bound) bit for bit;
+    at 65,536 (128 lag blocks, 256 chunks) the JAX function alone."""
+    if rows == "ties":
+        cs, n, _tss = _tie_rows(npad, npad)
+    else:
+        cs, n, _tss = _noise_rows(npad, npad, 2 if npad == 65536 else 4)
+    want = _canvas_tpu_inputs(cs, n, npad)
+    for nt in (torch.as_tensor(n), torch.as_tensor(n.astype(np.int64))):
+        got = st.arc_scan_inputs_plain(torch.as_tensor(cs), nt, npad, AL0)
+        seed, lag_hi, psd2, ti0, tj0 = got
+        np.testing.assert_array_equal(_bits(seed.numpy()), _bits(want[0]))
+        np.testing.assert_array_equal(lag_hi.numpy(), np.asarray(want[1]))
+        np.testing.assert_array_equal(ti0.numpy(), np.asarray(want[2]))
+        np.testing.assert_array_equal(tj0.numpy(), np.asarray(want[3]))
+        np.testing.assert_array_equal(_bits(psd2.numpy()), _bits(want[4]))
+        assert psd2.shape == (cs.shape[0], max(npad // 512, 1))
+        # the wrapper's CPU path, with n as int32 for B4
+        also = st.arc_inputs(torch.as_tensor(cs), nt, npad, AL0)
+        assert all(torch.equal(a, b) for a, b in zip(also[:5], got))
+        assert also[5].dtype == torch.int32
+        assert torch.equal(also[5], nt.to(torch.int32))
+    # the frontier engine's name for it
+    assert tdev.arc_scan_inputs is st.arc_scan_inputs
+
+
+# --- K9 + B4 + K10 ----------------------------------------------------------
+
+@pytest.mark.parametrize("npad", [256, 512, 1024])
+def test_tmax_batch_with_ties_equals_pallas_interpret(npad):
+    """tmax_batch on CPU tensors (K9's plain version, B4's, K10's) against
+    canvas_tpu's _tmax_batch_pallas in interpret mode on integer-valued
+    rows whose best terms tie across positions and lags: t^2 bit for bit
+    and the same first (ti, tj)."""
+    cs, n, tss = _tie_rows(npad + 1, npad)
+    t2j, tij, tjj = jdev._tmax_batch_pallas(
+        jnp.asarray(cs), jnp.asarray(n), jnp.asarray(tss), npad, AL0,
+        interpret=True)
+    t2, ti, tj = tdev.tmax_batch(torch.as_tensor(cs), torch.as_tensor(n),
+                                 torch.as_tensor(tss), npad, AL0)
+    np.testing.assert_array_equal(_bits(t2.numpy()), _bits(t2j))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(tij))
+    np.testing.assert_array_equal(tj.numpy(), np.asarray(tjj))
+    # the spikes: lag 2 from the first of the three tied positions
+    assert (int(ti[1]), int(tj[1])) == (int(n[1]) - 11, int(n[1]) - 9)
+
+
+def test_refine_plain_keeps_the_seed_split_where_b4_never_beat_it():
+    """Rows whose B4 sub-block is -1 keep K9's (ti0, tj0); a row with no
+    admissible pair in its sub-block takes its first position and lag."""
+    npad = 512
+    cs, n, tss = _noise_rows(3, npad, 3)
+    csT, nT, tssT = (torch.as_tensor(a) for a in (cs, n, tss))
+    seed, lag_hi, _psd2, ti0, tj0 = st.arc_scan_inputs_plain(csT, nT, npad,
+                                                             AL0)
+    best = seed.clone()
+    bl0 = torch.tensor([-1, 0, 480], dtype=torch.int32)
+    lag_hi = torch.tensor([int(lag_hi[0]), int(lag_hi[1]), 1],
+                          dtype=torch.int32)
+    t2, ti, tj = st.refine_plain(csT, nT, tssT, lag_hi, best, bl0, ti0, tj0,
+                                 npad, AL0)
+    assert (int(ti[0]), int(tj[0])) == (int(ti0[0]), int(tj0[0]))
+    assert int(tj[1]) - int(ti[1]) in range(AL0, 32)
+    assert (int(ti[2]), int(tj[2])) == (1, 480 + 1)   # nothing admitted
+    assert torch.equal(st.refine(csT, nT, tssT, lag_hi, best, bl0, ti0, tj0,
+                                 npad, AL0)[0], t2)
+
+
+# --- K11 --------------------------------------------------------------------
+
+def _level_batch(seed=14, R=32):
+    """A level's batch of statistics b [R] at n bins: b of 0 and 1e-3
+    (every x <= 0.01), b up to 7 at small n (x past the 9.0 clamp), n from
+    4 to 65,536."""
+    rng = np.random.default_rng(seed)
+    b = rng.uniform(0.05, 7.0, R)
+    b[:3] = [0.0, 1e-3, 1e-3]
+    n = rng.integers(4, 65537, R)
+    n[:6] = [10000, 10000, 4, 30, 57, 65536]
+    return b, n
+
+
+def test_tail_p_plain_at_a_level_batch_equals_canvas_tpu():
+    """The tail probability of a [32 x 100] level batch against canvas_tpu's
+    _tail_p_batch_dev run in float64 (jax's x64 mode): rtol 1e-12, for
+    the sums' order and the two libraries' erfc.  (canvas_tpu runs it in
+    float32, whose error reaches 1.6e-4 relative on this batch.)"""
+    b, n = _level_batch()
+    x = b[:, None] / np.sqrt(n)[:, None] / 0.5
+    assert (x[1] <= 0.01).all() and (x * np.sqrt(8192.5) / 2 > 9.0).any()
+    with jax.enable_x64(True):
+        want = np.asarray(jdev._tail_p_batch_dev(
+            jnp.asarray(b, jnp.float64), jnp.asarray(n, jnp.int64), 25, 100))
+    got = tdev._tail_p_batch_dev(torch.as_tensor(b), torch.as_tensor(n), 25,
+                                 100).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    assert got[0] == 0.0 and np.isfinite(got).all()
+    assert np.array_equal(got, st.tail_p(torch.as_tensor(b),
+                                         torch.as_tensor(n), 25, 100).numpy())
+
+
+def test_tree_sum_is_the_adjacent_pair_tree():
+    """_tree_sum adds slots (0, 1), (2, 3), ... then pairs of pairs, zero
+    past the values: on values whose sum depends on the order, it equals
+    that tree written out, and not the sum left to right."""
+    v = torch.tensor([1e16, 1.0, -1e16, 1.0, 3.0], dtype=torch.float64)
+    want = ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + 0.0) + (0.0 + 0.0))
+    assert float(st._tree_sum(v, 8)) == float(want) == 3.0
+    assert float(((((v[0] + v[1]) + v[2]) + v[3]) + v[4])) == 4.0
+
+
+def test_nu_plain_series_and_tail():
+    """nu at x <= 0.01 is exp(-0.583 x); above, the series of 8,192 terms
+    and the Simpson tail, against canvas_tpu's _nu_dev in float64 (rtol
+    1e-12) and in float32, as canvas_tpu runs it (rtol 1e-5)."""
+    x = np.array([0.0, 0.004, 0.01, 0.0101, 0.05, 0.3, 1.0, 4.0, 30.0])
+    got = st.nu_plain(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(got[:3], np.exp(-0.583 * x[:3]))
+    with jax.enable_x64(True):
+        want = np.asarray(jdev._nu_dev(jnp.asarray(x, jnp.float64)))
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    want = np.asarray(jdev._nu_dev(jnp.asarray(x, jnp.float32)))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+# --- K12 --------------------------------------------------------------------
+
+def _perm_rows(npad, seed, S, full):
+    """S centred rows f32 [S, npad] (lengths in (npad / 2, npad], at most
+    150 for the full-arc statistic), their sums of squares and canvas_tpu's
+    segment keys."""
+    rng = np.random.default_rng(seed)
+    hi = min(npad, 150) if full else npad
+    n = rng.integers(min(hi, npad // 2 + 1), hi + 1, S)
+    n = np.maximum(n, min(npad, 4))
+    x = np.zeros((S, npad), np.float32)
+    for r in range(S):
+        v = rng.normal(0, 1, n[r]).astype(np.float32)
+        v[: n[r] // 3] += 0.4
+        x[r, :n[r]] = v - v.mean()
+    tss = (x.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    keys = jdev._seg_keys_np(11, np.arange(S), 7 * np.arange(S), n, 0)
+    return x, n, tss, keys
+
+
+@pytest.mark.parametrize("npad", [8, 64, 1024])
+@pytest.mark.parametrize("P", [512, 768])
+@pytest.mark.parametrize("full", [False, True])
+def test_perm_stats_equals_canvas_tpu_perm_kernel(npad, P, full):
+    """K12's plain version (_perm_stats on the masked rows) against
+    canvas_tpu's _perm_kernel at the frontier's bucket widths and chunk
+    sizes: the same threefry permutations, so the statistics agree up to
+    canvas_tpu's float32 cumsum (the port's rounds a float64 one: rtol
+    2e-4, as tests/test_torch_cbs.py); rows off the mask are zero."""
+    S = 3
+    x, n, tss, keys = _perm_rows(npad, npad + P + full, S, full)
+    want = np.asarray(jdev._perm_kernel(
+        jnp.asarray(x), jnp.asarray(n.astype(np.int32)), jnp.asarray(tss),
+        jnp.asarray(keys), npad, P, AL0, 25, full))
+    xt, nt, tsst = (torch.as_tensor(a) for a in (x, n, tss))
+    kt = torch.as_tensor(keys.astype(np.int64))
+    got = tdev._perm_stats(xt, nt, tsst, kt, npad, P, AL0, 25, full,
+                           200 if full else npad)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=1e-6)
+    mask = torch.tensor([True, False, True])
+    hybrid = torch.full((S,), not full)
+    masked = mc.perm_stats(xt, nt, tsst, kt, mask, hybrid, P, AL0, 25, 200)
+    assert torch.equal(masked[mask], got[mask])
+    assert bool((masked[1] == 0).all())
+
+
+# --- the wrappers' device rule ------------------------------------------------
+
+def test_statistics_wrappers_raise_on_other_devices():
+    """K9-K12's wrappers take CPU tensors (plain versions) and CUDA ones;
+    any other device raises."""
+    meta = torch.device("meta")
+    cs, n, tss = (torch.as_tensor(a).to(meta) for a in _noise_rows(1, 64, 2))
+    with pytest.raises(ValueError, match="device"):
+        st.arc_inputs(cs, n, 64, AL0)
+    with pytest.raises(ValueError, match="device"):
+        st.arc_scan_inputs(cs, n, 64, AL0)
+    i32 = torch.zeros(2, dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="device"):
+        st.refine(cs, n, tss, i32, tss, i32, i32, i32, 64, AL0)
+    with pytest.raises(ValueError, match="device"):
+        st.tail_p(tss.double(), n, 25, 100)
+    keys = torch.zeros((2, 2), dtype=torch.int64, device=meta)
+    flags = torch.ones(2, dtype=torch.bool, device=meta)
+    with pytest.raises(ValueError, match="device"):
+        mc.perm_stats(cs, n.long(), tss, keys, flags, flags, 512, AL0, 25,
+                      200)

@@ -842,6 +842,326 @@ def test_device_threefry_equals_torch_above_2_32(dev):
     assert torch.equal(unif.view(torch.int32), want_unif.view(torch.int32))
 
 
+def _bits_equal(a, b) -> bool:
+    """Equal tensors, floats bit for bit."""
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if a.dtype == torch.float64:
+        return torch.equal(a.view(torch.int64), b.view(torch.int64))
+    return torch.equal(a, b)
+
+
+def _differ(a, b) -> list:
+    """The first entries where a and b differ, as (index, a, b)."""
+    a, b = a.cpu(), b.cpu()
+    bad = (a != b) if a.dtype not in (torch.float32, torch.float64) else \
+        (a.view(torch.int32 if a.dtype == torch.float32 else torch.int64)
+         != b.view(torch.int32 if b.dtype == torch.float32 else torch.int64))
+    idx = torch.nonzero(bad)[:5]
+    return [(tuple(i.tolist()), a[tuple(i)].item(), b[tuple(i)].item())
+            for i in idx]
+
+
+def _stat_rows(npad, seed):
+    """Cumsum rows f32 [8, npad] as the engines give K9 and K10, with
+    their lengths int64 and sums of squares: noise with a planted step;
+    an integer random walk (ties among the extrema and the terms); two
+    equal spikes at n - 2 and n - 10 over a valley (the best term ties
+    at three positions of one lag); a row zeroed outside its tier (n =
+    2); a constant row (psdiff 0); a row of length npad; and a short
+    one."""
+    rng = np.random.default_rng(seed)
+    cs = np.zeros((8, npad), np.float32)
+    n = np.full(8, 2, np.int64)
+    top = min(npad, 8)
+    lens = [max(top, int(rng.integers(npad // 2 + 1, npad + 1))),
+            max(top, npad - 1), npad, 2, max(2, npad // 2 + 1), npad,
+            min(npad, 5), max(top, npad - 3)]
+    for r, L in enumerate(lens):
+        n[r] = L
+        if r == 0 or r == 5:
+            x = rng.normal(0, 1, L)
+            x[L // 3:L // 2] += 0.8
+            cs[r, :L] = np.cumsum(x - x.mean())
+        elif r in (1, 6, 7):
+            cs[r, :L] = np.cumsum(rng.integers(-1, 2, L))
+        elif r == 2:
+            cs[r, L - 2] = 40.0
+            if L > 12:
+                cs[r, L - 10] = 40.0
+                cs[r, L // 2] = -1.0
+    tss = (np.diff(cs, axis=1, prepend=0) ** 2).sum(1).astype(np.float32)
+    return cs, n, tss
+
+
+@pytest.mark.parametrize("npad", [8, 64, 512] + [1 << k for k in
+                                                 range(10, 17)])
+def test_arc_inputs_and_refine_kernels_match_plain(dev, npad):
+    """K9 and K10 against their plain versions on the card, bit for bit,
+    at frontier buckets 8, 64 and 512 and every whole-recursion tier, n
+    int64 and int32, on rows with ties (_stat_rows); one launch each;
+    and tmax_batch on the card (K9, B4, K10) equal to tmax_batch on the
+    CPU."""
+    from canvas_tpu_torch.ops import arc_scan_cuda, cbs_device
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    cs, n, tss = _stat_rows(npad, npad)
+    csd, tssd = torch.as_tensor(cs, device=dev), torch.as_tensor(tss,
+                                                                 device=dev)
+    for nd in (torch.as_tensor(n, device=dev),
+               torch.as_tensor(n.astype(np.int32), device=dev)):
+        before = dict(st.LAUNCHES)
+        k9 = st.arc_inputs(csd, nd, npad, 2)
+        p9 = (*st.arc_scan_inputs_plain(csd, nd, npad, 2),
+              nd.to(torch.int32))
+        for name, a, b in zip(("seed", "lag_hi", "psd2", "ti0", "tj0",
+                               "n32"), k9, p9):
+            assert _bits_equal(a, b), (name, _differ(a, b))
+        seed, lag_hi, psd2, ti0, tj0, n32 = k9
+        best, bl0 = arc_scan_cuda.arc_scan(csd, n32, lag_hi, seed, psd2, 2)
+        if npad >= 64:
+            assert bool((bl0 >= 0).any()) and bool((bl0 < 0).any())
+        refine_args = (csd, nd, tssd, lag_hi, best, bl0, ti0, tj0, npad, 2)
+        k10 = st.refine(*refine_args)
+        p10 = st.refine_plain(*refine_args)
+        torch.cuda.synchronize()
+        assert st.LAUNCHES["arc_inputs"] == before["arc_inputs"] + 1
+        assert st.LAUNCHES["refine"] == before["refine"] + 1
+        for name, a, b in zip(("t2", "ti", "tj"), k10, p10):
+            assert _bits_equal(a, b), (name, bl0.tolist(), _differ(a, b))
+        a = cbs_device.tmax_batch(csd, nd, tssd, npad, 2)
+        b = cbs_device.tmax_batch(csd.cpu(), nd.cpu(), tssd.cpu(), npad, 2)
+        for name, x, y in zip(("t2", "ti", "tj"), a, b):
+            assert _bits_equal(x.cpu(), y), ("cpu", name, _differ(x, y))
+
+
+@pytest.mark.parametrize("npad", [4096, 16384, 32768, 65536])
+def test_arc_scan_kernel_with_racing_floors(dev, npad):
+    """B4 on eight rows (_stat_rows, six seeds) whose early lag blocks
+    raise the floors of the later ones while those start: every thread of
+    a thread block takes the same admission, so none skips its share of
+    the staged cumsum (before, some read another thread block's stale
+    shared memory, and the garbage maxima pruned the block holding the
+    best term).  Bit for bit against the plain version."""
+    from canvas_tpu_torch.ops import arc_scan_cuda
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    for seed in range(6):
+        cs, n, _tss = _stat_rows(npad, npad + 1000 * seed)
+        csd, nd = torch.as_tensor(cs, device=dev), torch.as_tensor(n,
+                                                                   device=dev)
+        seedv, lag_hi, psd2, _ti0, _tj0, n32 = st.arc_inputs(csd, nd, npad, 2)
+        args = (csd, n32, lag_hi, seedv, psd2, 2)
+        for _ in range(3):
+            best_k, bl0_k = arc_scan_cuda.arc_scan(*args)
+            best_p, bl0_p = arc_scan_cuda.arc_scan_plain(*args)
+            assert _bits_equal(best_k, best_p), (seed, _differ(best_k,
+                                                               best_p))
+            assert torch.equal(bl0_k, bl0_p)
+
+
+def test_tail_kernel_matches_plain(dev):
+    """K11 against its plain version on the card at a level's batch, 32
+    rows x 100 grid points: b of 0 and 1e-3 (every x <= 0.01), x past the
+    9.0 clamp, n from 4 to 65,536 (delta clamped at 0.45 and not); n
+    int64 and int32.  Bit for bit: both call the CUDA math library's
+    erfc, exp, log and sqrt, and add in the same trees."""
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    rng = np.random.default_rng(14)
+    R = 32
+    b = rng.uniform(0.05, 7.0, R)
+    b[:3] = [0.0, 1e-3, 1e-3]
+    n = rng.integers(4, 65537, R)
+    n[:6] = [10000, 10000, 4, 30, 57, 65536]
+    bd = torch.as_tensor(b, device=dev)
+    for nd in (torch.as_tensor(n, device=dev),
+               torch.as_tensor(n.astype(np.int32), device=dev)):
+        before = st.LAUNCHES["tail_p"]
+        got = st.tail_p(bd, nd, 25, 100)
+        want = st.tail_p_plain(bd, nd, 25, 100)
+        torch.cuda.synchronize()
+        assert st.LAUNCHES["tail_p"] == before + 1
+        assert _bits_equal(got, want), float(
+            ((got - want).abs() / want.abs().clamp(min=1e-300)).max())
+        assert bool(torch.isfinite(got).all()) and float(got[0]) == 0.0
+
+
+def test_kernel_erfc_equals_torch_erfc(dev):
+    """K11's erfc (the CUDA math library's) equals torch.special.erfc on
+    the card bit for bit over the arguments the tail probability takes,
+    0 to past 27 (where it underflows), and negative ones."""
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    x = torch.cat([torch.linspace(-6, 30, 200_001, dtype=torch.float64),
+                   torch.tensor([0.0, 1e-300, 5e-324, 26.5, 27.3],
+                                dtype=torch.float64)]).to(dev)
+    assert _bits_equal(st.device_erfc(x), torch.special.erfc(x))
+
+
+def _perm_rows(dev, npad, seed, S):
+    """K12's inputs for S rows of a bucket of width npad: centred noise
+    of lengths in (npad / 2, npad] (and 150 at widths above 256, a
+    full-arc row), hybrid where n > 200, random chunk keys, about two
+    thirds of the rows under the mask."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((S, npad), np.float32)
+    n = rng.integers(npad // 2 + 1, npad + 1, S).astype(np.int64)
+    if npad > 256:
+        n[1::3] = 150
+    n = np.maximum(n, min(npad, 4))
+    for r in range(S):
+        v = rng.normal(0, 1, n[r])
+        v[: n[r] // 3] += 0.3
+        x[r, :n[r]] = v - v.mean()
+    mask = rng.random(S) < 0.67
+    mask[:2] = True
+    return {"x": torch.as_tensor(x, device=dev),
+            "n": torch.as_tensor(n, device=dev),
+            "tss": torch.as_tensor((x.astype(np.float64) ** 2).sum(1)
+                                   .astype(np.float32), device=dev),
+            "keys": torch.as_tensor(rng.integers(0, 2 ** 32, (S, 2)),
+                                    device=dev),
+            "mask": torch.as_tensor(mask, device=dev),
+            "hybrid": torch.as_tensor(n > 200, device=dev)}
+
+
+@pytest.mark.parametrize("npad", [8, 64, 512] + [1 << k for k in
+                                                 range(10, 17)])
+def test_perm_kernel_matches_plain(dev, npad):
+    """K12 against its plain version on the card at frontier buckets 8,
+    64 and 512 and widths 1,024 to 65,536 (the slab): P = 768 where the
+    frontier takes it (npad <= 8,192) and 512, hybrid and full-arc rows
+    (lags bounded by max_len = 200) under a mask, zero elsewhere; one
+    launch; statistics bit for bit."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    S = 12 if npad <= 4096 else 4
+    inp = _perm_rows(dev, npad, npad, S)
+    for P in ((768, 512) if npad <= 8192 else (512,)):
+        before = mc.LAUNCHES["perm"]
+        got = mc.perm_stats(**inp, P=P, al0=2, kmax=25, max_len=200)
+        want = mc.perm_stats_plain(**inp, P=P, al0=2, kmax=25, max_len=200)
+        torch.cuda.synchronize()
+        assert mc.LAUNCHES["perm"] == before + 1
+        assert _bits_equal(got, want)
+        assert bool((got[~inp["mask"]] == 0).all())
+        assert bool((got[inp["mask"]] > 0).any())
+
+
+def test_perm_kernel_full_arcs_without_a_bound(dev):
+    """p_method other than hybrid: every row full-arc with max_len 2^30
+    (the frontier's n_min then), and a walk's continuation chunk: every
+    row under the mask, max_len the longest row."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    inp = _perm_rows(dev, 512, 3, 6)
+    inp["hybrid"] = torch.zeros_like(inp["hybrid"])
+    for max_len in (1 << 30, int(inp["n"].max())):
+        args = dict(inp, P=512, al0=2, kmax=25, max_len=max_len)
+        assert _bits_equal(mc.perm_stats(**args), mc.perm_stats_plain(**args))
+    inp["mask"] = torch.ones_like(inp["mask"])
+    args = dict(inp, P=512, al0=2, kmax=25, max_len=int(inp["n"].max()))
+    assert _bits_equal(mc.perm_stats(**args), mc.perm_stats_plain(**args))
+
+
+def test_statistics_wrappers_raise_on_bad_inputs(dev):
+    """K9-K12's wrappers on the card raise on tensors of other types,
+    and on devices other than cuda and cpu."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    cs, n, tss = (torch.as_tensor(a, device=dev) for a in _stat_rows(64, 1))
+    with pytest.raises(ValueError, match="float32"):
+        st.arc_inputs(cs.double(), n, 64, 2)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        st.arc_inputs(cs, n.float(), 64, 2)
+    seed, lag_hi, psd2, ti0, tj0, _n32 = st.arc_inputs(cs, n, 64, 2)
+    best = seed.clone()
+    bl0 = torch.full_like(lag_hi, -1)
+    with pytest.raises(ValueError, match="bl0"):
+        st.refine(cs, n, tss, lag_hi, best, bl0.long(), ti0, tj0, 64, 2)
+    with pytest.raises(ValueError, match="float64"):
+        st.tail_p(best, n, 25, 100)
+    with pytest.raises(ValueError, match="n_grid"):
+        st.tail_p(best.double(), n, 25, 129)
+    inp = _perm_rows(dev, 64, 2, 4)
+    with pytest.raises(ValueError, match="keys"):
+        mc.perm_stats(**dict(inp, keys=inp["keys"].int()), P=512, al0=2,
+                      kmax=25, max_len=200)
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="device"):
+        st.arc_inputs(cs.to(meta), n.to(meta), 64, 2)
+    with pytest.raises(ValueError, match="device"):
+        st.tail_p(best.double().to(meta), n.to(meta), 25, 100)
+    with pytest.raises(ValueError, match="device"):
+        mc.perm_stats(**{k: v.to(meta) for k, v in inp.items()}, P=512,
+                      al0=2, kmax=25, max_len=200)
+
+
+def test_frontier_level_reads_nothing_before_its_output(dev):
+    """One frontier level on the card (K9, B4, K10, K11 and K12 for chunk
+    0) under CUDA's sync debug mode set to "error": no synchronising call
+    up to the caller's read of its output, which equals the level on CPU
+    tensors (the tail probability within 1e-12: the CPU's erfc is not the
+    card's)."""
+    from canvas_tpu_torch.ops import cbs_device
+
+    cov = _cbs_panel(n=1200)
+    mat = np.stack([cov[k] for k in cov]).astype(np.float32)
+    c, lo, nn = [0, 1, 2, 0], [0, 0, 100, 600], [1200, 1000, 900, 150]
+    keys = cbs_device._seg_keys_np(5, c, lo, nn, 0).astype(np.int64)
+    host = (torch.as_tensor(mat), torch.as_tensor(c), torch.as_tensor(lo),
+            torch.as_tensor(nn), torch.as_tensor(keys))
+    rest = (0.01, 2048, 768, 2, 25, 200, 100, True)
+    want = cbs_device._level(*host, *rest)
+    args = [t.to(dev) for t in host]
+    cbs_device._level(*args, *rest)
+    torch.cuda.synchronize()                 # the kernels are built
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = cbs_device._level(*args, *rest)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = got.cpu()
+    assert bool(got[:, 5].any())             # a row took chunk 0
+    keep = [0, 1, 2, 4, 5] + list(range(6, got.shape[1]))
+    assert torch.equal(got[:, keep], want[:, keep])
+    torch.testing.assert_close(got[:, 3], want[:, 3], rtol=1e-12, atol=0)
+
+
+def test_engines_launch_the_statistics_kernels(dev):
+    """On the card the whole-recursion engine takes K9, B4 and K10 for
+    every non-empty tier and K11 once a level; the frontier engine the
+    same for every bucket, and K12 for its permutation chunks."""
+    from canvas_tpu_torch.ops import (arc_scan_cuda, cbs_device, cbs_mega,
+                                      cbs_mega_cuda, cbs_stats_cuda)
+
+    def counted(run):
+        counts = (arc_scan_cuda.LAUNCHES, cbs_stats_cuda.LAUNCHES,
+                  cbs_mega_cuda.LAUNCHES)
+        before = [dict(c) for c in counts]
+        out = run()
+        torch.cuda.synchronize()
+        diff = {}
+        for c, b in zip(counts, before):
+            diff.update({k: c[k] - b[k] for k in c})
+        return out, diff
+
+    cov = _cbs_panel()
+    counts: dict = {}
+    _lens, d = counted(lambda: cbs_mega.run_cbs_mega(
+        cov, n_perm=1000, device=dev, counts=counts))
+    assert d["arc_inputs"] == d["refine"] == d["arc_scan"] >= 1
+    assert d["tail_p"] == counts["levels"] and d["perm"] == 0
+    levels: list = []
+    _lens, d = counted(lambda: cbs_device.run_cbs_device(
+        cov, n_perm=1000, device=dev, levels=levels))
+    buckets = sum(lv["buckets"] for lv in levels)
+    assert d["arc_inputs"] == d["refine"] == d["arc_scan"] == buckets
+    assert d["tail_p"] == buckets and d["perm"] >= buckets
+
+
 def test_run_cbs_engines_on_card(dev, monkeypatch):
     """run_cbs on cuda: the whole-recursion engine for the planted panel,
     the frontier engine where its table overflows, the host engine above
