@@ -23,32 +23,56 @@
 //       among equal terms, and the row the first position among equal
 //       maxima: ti = i + 1, tj = i + lag + 1.  A row with bl0 = -1 keeps
 //       (ti0, tj0).  Every row: t2 = best / ((tssv - best) / max(n - 2, 1))
-//       with tssv = best + 1 where tss <= best + 1e-4, else tss.  One
-//       block a row.
+//       with tssv = best + 1 where tss <= best + 1e-4, else tss.  A block a
+//       tile of 512 positions of a row, its lag window staged in shared
+//       memory; the row's winner is the largest (term, -i, -k) key, taken
+//       by a 64-bit atomicMax, and the row's last tile to finish writes it.
 //   K11 (tail_kernel) _tail_p_batch_dev with _nu_dev (:461-510): the OU
 //       tail probability of b at n bins, in float64, over a grid of
 //       n_grid = 100 points; at each point nu(x) takes 8,192 series terms
-//       and a 129-point Simpson tail.  A cluster of 8 blocks a row and a
-//       warp a grid point; the cluster's first warp sums the grid points'
-//       terms from the blocks' shared memory.
+//       and a 129-point Simpson tail.  One cooperative launch of resident
+//       blocks: the grid points' x and a list of the live ones (x > 0.01),
+//       then a block an item, 2,048 series terms of a live point and a
+//       quarter of its Simpson points, each block taking the next item as
+//       it comes free, then a block a row for nu, the terms and their sum;
+//       grid barriers between.  sqrt(k) and 2 / k come from a table made
+//       once a device.
 //
 // What bounds them on the H100.  K9 reads cs once: bytes (3.35 TB/s); its
 // chunk pairs are nchunk^2 <= 65,536 a row.  K10 evaluates 32 lags at each
 // position of the rows with a sub-block: about 5 f32 operations a pair,
-// operations.  K11 is float64 operations: 819,200 erfc calls and 12,900 more
-// a row, at the card's float64 rate, half a warp's issue a clock an SM.
+// operations, so few on a level (1.7e6) that a launch's latency is the
+// floor.  K11 is float64 operations: 819,200 erfc calls and 12,900 more a
+// row with live grid points, at the card's float64 rate, half a warp's
+// issue a clock an SM.  Three rows of 32 are live on a typical level, so
+// K11 spreads the live grid points' items over every SM, and K10 a row's
+// positions over its tiles; both are sized from the shapes alone, with no
+// read from the card.  K11's list keeps dead grid points (no series) from
+// taking any warp's time; K10's tiles past a row's end, or of a row
+// without a sub-block, exit at once.
 //
 // Exactness.  Each kernel repeats its plain version (ops/cbs_stats_cuda.py)
 // operation for operation with correctly rounded intrinsics (__fadd_rn,
 // __fmul_rn, __fdiv_rn and their float64 forms), so nothing is contracted
 // into a fused multiply-add; maxima, minima and first indices do not depend
 // on their order.  K11's sums are the plain version's adjacent-pair trees:
-// each 2,048-term chunk of the series (a lane's 64 consecutive terms, then
-// the lanes pairwise by shuffles), the chunks added in order, the Simpson
-// points padded to 256 and the grid points padded to 128 the same way.  Its
-// erfc, exp, log and sqrt are the CUDA math library's, which torch's CUDA
-// operators also call.  So K9 and K10 equal their plain versions bit for
-// bit on any device, and K11 on the card.
+// each 2,048-term chunk of the series (a lane's 8 consecutive terms, the
+// lanes pairwise by shuffles, then 8 such units of 256), the chunks added
+// in order, the Simpson points padded to 256 and the grid points padded to
+// 128 the same way.  An adjacent-pair tree is the pairwise sum of its
+// trees over aligned power-of-two sub-ranges, so splitting it over warps
+// changes no bit, and neither does the order in which points join the
+// list or blocks take items.  Its table holds __dsqrt_rn(k) and __ddiv_rn(2, k),
+// what torch's sqrt and division give; the plain version's division by 2
+// is a multiplication by 0.5 here (the same rounded value, subnormals
+// too), while its division by sqrt(2) stays a division.  Its erfc, exp,
+// log and sqrt are the CUDA math library's, which torch's CUDA operators
+// also call.  So K9 and K10 equal their plain versions bit for bit on any
+// device, and K11 on the card.
+//
+// K10's row counters and keys and K11's two counters live in device memory
+// that the wrapper zeroes once a device; each launch leaves them zero
+// (K10: a row's last block), so calls on one stream reuse them.
 
 #include <climits>
 #include <cooperative_groups.h>
@@ -64,22 +88,30 @@ typedef long long i64;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kRowThreads = 256;      // K9: threads a row
 constexpr int kRowWarps = kRowThreads / 32;
-constexpr int kRefineThreads = 512;   // K10: threads a row
+constexpr int kRefineThreads = 256;   // K10: threads a block
 constexpr int kRefineWarps = kRefineThreads / 32;
+constexpr int kRefineTile = 512;      // K10: positions a block
+constexpr int kPosBits = 26;          // K10's key: positions below 2^26
+constexpr unsigned kPosMask = (1u << kPosBits) - 1;
 constexpr int kBChunk = 256;          // positions a chunk of the d^2 bound
 constexpr int kPBlk = 512;            // lags a pruning block (B4's blk)
 constexpr int kPTbl = 32;             // lags a sub-block (B4's sub)
 
 // K11
-constexpr int kTailWarps = 16;        // warps a block, a grid point each
-constexpr int kTailCluster = 8;       // blocks a row: 128 grid points
-constexpr int kMaxGrid = kTailWarps * kTailCluster;
+constexpr int kTailThreads = 256;     // threads a block
+constexpr int kTailWarps = kTailThreads / 32;
+constexpr int kMaxGrid = 128;         // grid points a row, the grid's tree
 constexpr int kSeriesChunks = 4;      // 4 x 2,048 = 8,192 series terms
 constexpr int kSeriesChunk = 2048;
-constexpr int kLaneTerms = kSeriesChunk / 32;   // 64, a lane's run
-constexpr int kPanels = 128;          // Simpson panels: 129 points
-constexpr int kSimpsonSlots = 256;    // the points' tree, zero-padded
-constexpr int kLanePoints = kSimpsonSlots / 32; // 8
+constexpr int kSeriesTerms = kSeriesChunks * kSeriesChunk;
+constexpr int kUnit = 256;            // series terms a warp's item
+constexpr int kLaneTerms = kUnit / 32;            // 8, a lane's run
+constexpr int kUnits = kSeriesTerms / kUnit;      // 32 a grid point
+constexpr int kChunkUnits = kSeriesChunk / kUnit; // 8 a chunk
+constexpr int kPanels = 128;          // Simpson panels: 129 points in
+                                      // 256 slots, zero-padded
+constexpr int kSimpsonRuns = 8;       // the slots' runs of 32
+constexpr int kItems = kUnits + kSimpsonRuns;  // a live point's partial sums
 constexpr double kSqrt2 = 1.4142135623730951;      // np.sqrt(2.0)
 constexpr double kSqrtTail = 90.51243008559653;    // np.sqrt(8192 + 0.5)
 constexpr double kLog2 = 0.6931471805599453;       // np.log(2.0)
@@ -214,20 +246,33 @@ __global__ void __launch_bounds__(kRowThreads) arc_inputs_kernel(
 // K10
 // ---------------------------------------------------------------------------
 
+// A position's candidate as a key whose order is that of (term, -i, -k):
+// the term's bits above (terms are +0 or more, or the -1 of a position
+// without an admissible lag, below them all), then kPosMask - i and k.
+__device__ __forceinline__ unsigned long long refine_key(float v, int i,
+                                                         int k) {
+  const unsigned hi = v > 0.0f ? __float_as_uint(v) + 1u
+                               : (v == 0.0f ? 1u : 0u);
+  return (static_cast<unsigned long long>(hi) << 32)
+      | ((kPosMask - unsigned(i)) << 5) | unsigned(k);
+}
+
 __global__ void __launch_bounds__(kRefineThreads) refine_kernel(
     const float* __restrict__ cs, const void* n, int n64,
     const float* tss, const int32_t* lag_hi, const float* best_in,
     const int32_t* bl0, const int32_t* ti0, const int32_t* tj0, int npad,
-    int al0, float* t2, int32_t* ti, int32_t* tj) {
+    int al0, int tiles, unsigned long long* key, unsigned* count, float* t2,
+    int32_t* ti, int32_t* tj) {
   __shared__ float s_w[kPTbl];
-  __shared__ float s_v[kRefineWarps];
-  __shared__ int s_i[kRefineWarps], s_k[kRefineWarps];
-  const int b = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  __shared__ float s_c[kRefineTile + kPTbl];   // cs[i0 + bl0, ...)
+  __shared__ unsigned long long s_key[kRefineWarps];
+  const int b = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const float* row = cs + size_t(b) * npad;
   const i64 nb = row_n(n, n64, b);
   const float nf = __ll2float_rn(nb);
-  const float best = best_in[b];
-  if (t == 0) {
+  if (tile == 0 && t == 0) {
+    const float best = best_in[b];
     const float tb = tss[b];
     const float tssv = tb <= __fadd_rn(best, 1e-4f) ? __fadd_rn(best, 1.0f)
                                                     : tb;
@@ -236,73 +281,80 @@ __global__ void __launch_bounds__(kRefineThreads) refine_kernel(
   }
   const int b0 = bl0[b];
   if (b0 < 0) {                    // the seed was never beaten
-    if (t == 0) {
+    if (tile == 0 && t == 0) {
       ti[b] = ti0[b];
       tj[b] = tj0[b];
     }
     return;
   }
+  // an empty row's result is position 0's empty pair: its tile takes part
+  const int nv = nb < 1 ? 1 : (nb > npad ? npad : int(nb));
+  const int i0 = tile * kRefineTile;
+  if (i0 >= nv) return;
   const int blk = npad < kPBlk ? npad : kPBlk;
   const int sub = blk < kPTbl ? blk : kPTbl;
-  const i64 lh = lag_hi[b];
-  if (t < sub) {
+  if (t < kPTbl) {
     const int lag = b0 + t;
     const float lf = __int2float_rn(lag > 1 ? lag : 1);
-    s_w[t] = __fdiv_rn(nf, __fmul_rn(lf, __fsub_rn(nf, lf)));
+    s_w[t] = t < sub ? __fdiv_rn(nf, __fmul_rn(lf, __fsub_rn(nf, lf))) : 0.0f;
+  }
+  for (int j = t; j < kRefineTile + sub; j += kRefineThreads) {
+    const i64 at = i64(i0) + b0 + j;
+    s_c[j] = at < npad ? row[at] : 0.0f;
   }
   __syncthreads();
-  const int nv = nb < 0 ? 0 : (nb > npad ? npad : int(nb));
-  // a position's (term, k) keeps the smallest k among equal terms; the
-  // row's candidate starts as position 0's empty pair, (-1, 0, 0)
-  float cv = -1.0f;
-  int ci = t == 0 ? 0 : INT_MAX, ck = 0;
-  for (int i = t; i < nv; i += kRefineThreads) {
+  // the admissible k of a position i: lag = b0 + k in [al0, lag_hi] and
+  // i + lag <= n - 1, so k in [klo, min(khi_row, n - 1 - i - b0)]
+  const int klo = al0 - b0 > 0 ? al0 - b0 : 0;
+  const i64 lh = i64(lag_hi[b]) - b0;
+  const i64 khi_row = lh < sub - 1 ? lh : sub - 1;
+  float w[kPTbl];
+#pragma unroll
+  for (int k = 0; k < kPTbl; ++k) w[k] = s_w[k];
+  // a position's (term, k) keeps the smallest k among equal terms
+  unsigned long long best = 0;
+  for (int p = t; p < kRefineTile && i0 + p < nv; p += kRefineThreads) {
+    const int i = i0 + p;
     const float c = row[i];
+    const i64 kh = nb - 1 - i - b0 < khi_row ? nb - 1 - i - b0 : khi_row;
+    const int khi = kh < 0 ? -1 : int(kh);
     float val = -1.0f;
     int lk = 0;
-    for (int k = 0; k < sub; ++k) {
-      const int lag = b0 + k;
-      if (lag >= al0 && lag <= lh && i64(i) + lag <= nb - 1) {
-        const float d = __fsub_rn(row[i + lag], c);
-        const float v = __fmul_rn(__fmul_rn(s_w[k], d), d);
+#pragma unroll
+    for (int k = 0; k < kPTbl; ++k) {
+      if (k >= klo && k <= khi) {
+        const float d = __fsub_rn(s_c[p + k], c);
+        const float v = __fmul_rn(__fmul_rn(w[k], d), d);
         if (v > val) {
           val = v;
           lk = k;
         }
       }
     }
-    if (val > cv) {                // ascending i: the first position wins
-      cv = val;
-      ci = i;
-      ck = lk;
-    }
+    const unsigned long long kv = refine_key(val, i, lk);
+    best = kv > best ? kv : best;
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    const float v2 = __shfl_xor_sync(kFull, cv, o);
-    const int i2 = __shfl_xor_sync(kFull, ci, o);
-    const int k2 = __shfl_xor_sync(kFull, ck, o);
-    if (v2 > cv || (v2 == cv && i2 < ci)) {
-      cv = v2;
-      ci = i2;
-      ck = k2;
-    }
+    const unsigned long long other = __shfl_xor_sync(kFull, best, o);
+    best = other > best ? other : best;
   }
-  if (lane == 0) {
-    s_v[warp] = cv;
-    s_i[warp] = ci;
-    s_k[warp] = ck;
-  }
+  if (lane == 0) s_key[warp] = best;
   __syncthreads();
   if (t == 0) {
     for (int w = 1; w < kRefineWarps; ++w)
-      if (s_v[w] > cv || (s_v[w] == cv && s_i[w] < ci)) {
-        cv = s_v[w];
-        ci = s_i[w];
-        ck = s_k[w];
-      }
-    ti[b] = int32_t(ci + 1);
-    tj[b] = int32_t(i64(ci) + b0 + ck + 1);
+      best = s_key[w] > best ? s_key[w] : best;
+    atomicMax(key + b, best);
+    __threadfence();
+    const unsigned live = unsigned((nv + kRefineTile - 1) / kRefineTile);
+    if (atomicAdd(count + b, 1u) == live - 1) {   // the row's last tile
+      __threadfence();
+      const unsigned long long won = atomicExch(key + b, 0ull);
+      count[b] = 0;
+      const int i = int(kPosMask - unsigned((won >> 5) & kPosMask));
+      ti[b] = int32_t(i + 1);
+      tj[b] = int32_t(i64(i) + b0 + int(won & 31) + 1);
+    }
   }
 }
 
@@ -325,58 +377,77 @@ __device__ __forceinline__ double tree8(const double* v) {
                    __dadd_rn(__dadd_rn(v[4], v[5]), __dadd_rn(v[6], v[7])));
 }
 
-// Series term k of nu(x): ndtr(-x sqrt(k) / 2) (2 / k), as _nu_dev rounds.
-__device__ __forceinline__ double series_term(double x, int k) {
-  const double kd = double(k);
-  const double z = __ddiv_rn(__ddiv_rn(__dmul_rn(x, sqrt(kd)), 2.0), kSqrt2);
-  return __dmul_rn(__dmul_rn(erfc(z), 0.5), __ddiv_rn(2.0, kd));
+// The table's slot of series term k = s + 1, s = 256 u + 8 l + j: lane l
+// of unit u reads its j-th term at 256 u + 32 j + l, next to its
+// neighbours'.
+__device__ __forceinline__ int table_slot(int s) {
+  return (s & ~(kUnit - 1)) | ((s & (kLaneTerms - 1)) << 5)
+      | ((s >> 3) & 31);
 }
 
-// nu(x) of TailProbability.Nu as _nu_dev evaluates it, by one warp (every
-// lane's value).
-__device__ double nu_of(double x) {
-  const int lane = threadIdx.x & 31;
+// Series term k of nu(x), ndtr(-x sqrt(k) / 2) (2 / k) as _nu_dev rounds
+// it, from the table's (sqrt(k), 2 / k).
+__device__ __forceinline__ double series_term(double x, double2 e) {
+  const double z = __ddiv_rn(__dmul_rn(__dmul_rn(x, e.x), 0.5), kSqrt2);
+  return __dmul_rn(__dmul_rn(erfc(z), 0.5), e.y);
+}
+
+struct GridPoint {
+  double x, tl, dincr;
+};
+
+// Grid point g of a row at b, n bins, as _tail_p_batch_dev places it.
+__device__ __forceinline__ GridPoint grid_point(double b, double nf,
+                                                int kmax, int n_grid, int g) {
+  const double delta = fmin(fmax(__ddiv_rn(double(kmax) + 1.0, nf), 0.0),
+                            0.45);
+  const double dincr = __ddiv_rn(__dsub_rn(0.5, delta), double(n_grid));
+  const double gi = double(g);
+  const double tl = __dadd_rn(0.5, __dmul_rn(gi, dincr));
+  const double ts = __dadd_rn(0.5, __dmul_rn(__dadd_rn(gi, 0.5), dincr));
+  const double x = __ddiv_rn(__ddiv_rn(b, sqrt(nf)),
+                             sqrt(__dmul_rn(ts, __dsub_rn(1.0, ts))));
+  return {x, tl, dincr};
+}
+
+// The Simpson tail's span [v0c, 9] at x and its panel width h.
+__device__ __forceinline__ double tail_v0c(double x) {
+  return fmin(__ddiv_rn(__dmul_rn(x, kSqrtTail), 2.0), kTailHi);
+}
+__device__ __forceinline__ double tail_h(double v0c) {
+  return __ddiv_rn(__dsub_rn(kTailHi, v0c), double(kPanels));
+}
+
+// Simpson point j (weights 1, 4, 2, ..., 4, 1; 0 in the padding past 128).
+__device__ __forceinline__ double simpson_point(double v0c, double h, int j) {
+  if (j > kPanels) return 0.0;
+  const double u = __dadd_rn(v0c, __dmul_rn(h, double(j)));
+  const double fu = __ddiv_rn(__dmul_rn(0.5, erfc(__ddiv_rn(u, kSqrt2))),
+                              fmax(u, 1e-12));
+  const double wgt = (j == 0 || j == kPanels) ? 1.0 : ((j & 1) ? 4.0 : 2.0);
+  return __dmul_rn(fu, wgt);
+}
+
+// nu(x) of TailProbability.Nu as _nu_dev evaluates it, from a live grid
+// point's partial sums: its 32 units of 256 series terms, then its 8 runs
+// of 32 Simpson slots.
+__device__ double nu_of(double x, const double* part) {
   if (x <= 0.01) return exp(__dmul_rn(-0.583, x));
   double series = 0.0;
-  for (int c = 0; c < kSeriesChunks; ++c) {
-    // the lane's run of 64 terms as 8 groups of 8; the groups' tree by a
-    // stack of partial sums (level q of it: 8 << q slots)
-    const int k0 = c * kSeriesChunk + lane * kLaneTerms + 1;
-    double stk[4];
-    for (int q = 0; q < kLaneTerms / 8; ++q) {
-      double t[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) t[j] = series_term(x, k0 + 8 * q + j);
-      double v = tree8(t);
-      int lvl = 0;
-      while ((q >> lvl) & 1) {
-        v = __dadd_rn(stk[lvl], v);
-        ++lvl;
-      }
-      stk[lvl] = v;
-    }
-    const double s = lanes_tree(stk[3]);
+  for (int c = 0; c < kSeriesChunks; ++c) {
+    double v[kChunkUnits];
+#pragma unroll
+    for (int q = 0; q < kChunkUnits; ++q)
+      v[q] = __ldcg(part + c * kChunkUnits + q);
+    const double s = tree8(v);           // a chunk: the tree of its units
     series = c == 0 ? s : __dadd_rn(series, s);
   }
-  // the Simpson tail over [v0c, 9]: 129 points, weights 1, 4, 2, ..., 4, 1,
-  // zero-padded to 256 slots, the lane's 8 consecutive ones
-  const double v0c = fmin(__ddiv_rn(__dmul_rn(x, kSqrtTail), 2.0), kTailHi);
-  const double h = __ddiv_rn(__dsub_rn(kTailHi, v0c), double(kPanels));
-  double f[kLanePoints];
+  double r[kSimpsonRuns];
 #pragma unroll
-  for (int q = 0; q < kLanePoints; ++q) {
-    const int j = lane * kLanePoints + q;
-    f[q] = 0.0;
-    if (j <= kPanels) {
-      const double u = __dadd_rn(v0c, __dmul_rn(h, double(j)));
-      const double fu = __ddiv_rn(__dmul_rn(0.5, erfc(__ddiv_rn(u, kSqrt2))),
-                                  fmax(u, 1e-12));
-      const double wgt = (j == 0 || j == kPanels) ? 1.0
-                                                  : ((j & 1) ? 4.0 : 2.0);
-      f[q] = __dmul_rn(fu, wgt);
-    }
-  }
-  const double simpson = lanes_tree(tree8(f));
+  for (int q = 0; q < kSimpsonRuns; ++q) r[q] = __ldcg(part + kUnits + q);
+  const double simpson = tree8(r);
+  const double h = tail_h(tail_v0c(x));
   const double tail = __dmul_rn(__dmul_rn(4.0, __ddiv_rn(h, 3.0)), simpson);
   const double lnu = __dsub_rn(
       __dsub_rn(__dsub_rn(kLog2, __dmul_rn(2.0, log(fmax(x, 1e-12)))), series),
@@ -393,54 +464,109 @@ __device__ __forceinline__ double integral_f(double y) {
   return __dadd_rn(a, __dmul_rn(2.0, l));
 }
 
-__global__ void __cluster_dims__(kTailCluster, 1, 1)
-    __launch_bounds__(kTailWarps * 32) tail_kernel(
-        const double* b_in, const void* n, int n64, int kmax, int n_grid,
-        double* p) {
-  __shared__ double s_term[kTailWarps];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = int(cluster.block_rank());
-  const int row = blockIdx.x / kTailCluster;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = rank * kTailWarps + warp;       // this warp's grid point
-  const double b = b_in[row];
-  const double nf = double(row_n(n, n64, row));
-  double term = 0.0;
-  if (g < n_grid) {
-    const double delta = fmin(fmax(__ddiv_rn(double(kmax) + 1.0, nf), 0.0),
-                              0.45);
-    const double dincr = __ddiv_rn(__dsub_rn(0.5, delta), double(n_grid));
-    const double gi = double(g);
-    const double tl = __dadd_rn(0.5, __dmul_rn(gi, dincr));
-    const double ts = __dadd_rn(0.5, __dmul_rn(__dadd_rn(gi, 0.5), dincr));
-    const double x = __ddiv_rn(__ddiv_rn(b, sqrt(nf)),
-                               sqrt(__dmul_rn(ts, __dsub_rn(1.0, ts))));
-    const double nu = nu_of(x);
-    const double integ =
-        __dsub_rn(integral_f(__dsub_rn(__dadd_rn(tl, dincr), 0.5)),
-                  integral_f(__dsub_rn(tl, 0.5)));
-    term = __dmul_rn(__dmul_rn(nu, nu), integ);
+// The series table: (sqrt(k), 2 / k) for k = 1..8,192 at table_slot(k - 1).
+__global__ void tail_table_kernel(double2* tbl) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s < kSeriesTerms) {
+    const double k = double(s + 1);
+    tbl[table_slot(s)] = make_double2(__dsqrt_rn(k), __ddiv_rn(2.0, k));
   }
-  if (lane == 0) s_term[warp] = term;
-  cluster.sync();
-  if (rank == 0 && warp == 0) {
-    // lane l sums grid slots [4 l, 4 l + 4), read from their blocks
-    double e[4];
+}
+
+// One cooperative launch, every block resident, in three phases split by
+// grid barriers:
+//   1. a thread a grid point (R x n_grid of them): x into xs, and the live
+//      points (x > 0.01) appended to `live` (their order does not matter:
+//      every partial sum has its point's own slot);
+//   2. a block an item (a live point and a chunk c of its 2,048 series
+//      terms), taken from a counter as the block comes free (a static
+//      share would leave some blocks the costlier erfc arguments of every
+//      point): warp w its unit 8 c + w of 256 terms, warps 0 and 1 also
+//      the Simpson slots 64 c + 32 w + lane; each tree into part[point,
+//      its slot];
+//   3. a block a row: a thread a grid point, its nu from its partial sums
+//      (or exp(-0.583 x) where dead) and its term, and the grid's tree.
+// nlive[0], the live points' count, and nlive[1], the items taken, are
+// zero at the call and left zero.
+__global__ void __launch_bounds__(kTailThreads, 4) tail_kernel(
+    const double* b_in, const void* n, int n64, int kmax, int n_grid, int R,
+    const double2* __restrict__ tbl, double* xs, int32_t* live,
+    double* part, unsigned* nlive, double* p) {
+  __shared__ double s_sum[kMaxGrid / 32];
+  __shared__ int s_item;
+  cg::grid_group grid = cg::this_grid();
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int points = R * n_grid;
+  for (int i = blockIdx.x * kTailThreads + t; i < points;
+       i += gridDim.x * kTailThreads) {
+    const int row = i / n_grid;
+    const double x = grid_point(b_in[row], double(row_n(n, n64, row)), kmax,
+                                n_grid, i - row * n_grid).x;
+    xs[i] = x;
+    if (x > 0.01) live[atomicAdd(nlive, 1u)] = i;
+  }
+  grid.sync();
+  const int items = int(__ldcg(nlive)) * kSeriesChunks;
+  for (;;) {
+    if (t == 0) s_item = int(atomicAdd(nlive + 1, 1u));
+    __syncthreads();
+    const int item = s_item;
+    __syncthreads();
+    if (item >= items) break;
+    const int i = __ldcg(live + item / kSeriesChunks);
+    const int c = item % kSeriesChunks;
+    const double x = __ldcg(xs + i);
+    const int u = c * kChunkUnits + warp;
+    const double2* e = tbl + u * kUnit + lane;
+    double v[kLaneTerms];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int slot = 4 * lane + q;
-      e[q] = *cluster.map_shared_rank(s_term + slot % kTailWarps,
-                                      slot / kTailWarps);
+    for (int j = 0; j < kLaneTerms; ++j) v[j] = series_term(x, e[32 * j]);
+    const double s = lanes_tree(tree8(v));
+    if (lane == 0) part[size_t(i) * kItems + u] = s;
+    if (warp < 2) {
+      const double v0c = tail_v0c(x);
+      const double q = lanes_tree(
+          simpson_point(v0c, tail_h(v0c), 64 * c + 32 * warp + lane));
+      if (lane == 0) part[size_t(i) * kItems + kUnits + 2 * c + warp] = q;
     }
-    const double out = lanes_tree(__dadd_rn(__dadd_rn(e[0], e[1]),
-                                            __dadd_rn(e[2], e[3])));
-    if (lane == 0) {
+  }
+  grid.sync();
+  if (blockIdx.x == 0 && t == 0) nlive[0] = nlive[1] = 0;  // all read them
+  for (int row = blockIdx.x; row < R; row += gridDim.x) {
+    const double b = b_in[row];
+    double term = 0.0;
+    if (t < n_grid) {
+      const int i = row * n_grid + t;
+      const GridPoint gp = grid_point(b, double(row_n(n, n64, row)), kmax,
+                                      n_grid, t);
+      const double nu = nu_of(gp.x, part + size_t(i) * kItems);
+      const double integ =
+          __dsub_rn(integral_f(__dsub_rn(__dadd_rn(gp.tl, gp.dincr), 0.5)),
+                    integral_f(__dsub_rn(gp.tl, 0.5)));
+      term = __dmul_rn(__dmul_rn(nu, nu), integ);
+    }
+    if (warp < kMaxGrid / 32) {     // the grid's tree: 4 warps of 32 slots
+      term = lanes_tree(term);
+      if (lane == 0) s_sum[warp] = term;
+    }
+    __syncthreads();
+    if (t == 0) {
+      const double out = __dadd_rn(__dadd_rn(s_sum[0], s_sum[1]),
+                                   __dadd_rn(s_sum[2], s_sum[3]));
       const double bcube = __dmul_rn(__dmul_rn(b, b), b);
       const double ex = exp(__ddiv_rn(__dmul_rn(-b, b), 2.0));
       p[row] = __dmul_rn(__dmul_rn(__dmul_rn(kTailConst, bcube), ex), out);
     }
+    __syncthreads();
   }
-  cluster.sync();      // every block's s_term lives until rank 0 has read it
+}
+
+// Series term i % 8,192 + 1 of nu(x[i]) as K11 computes it, for tests and
+// for counting one term's instructions in the SASS.
+__global__ void series_term_kernel(const double* x, const double2* tbl,
+                                   double* out, int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < count) out[i] = series_term(x[i], tbl[table_slot(i % kSeriesTerms)]);
 }
 
 // The math library's erfc on its own, for tests and for counting one
@@ -469,34 +595,83 @@ extern "C" int cbs_arc_inputs(const void* cs, const void* n, int n64,
 }
 
 // K10.  cs f32 [B, npad], n int64 or int32, tss f32, lag_hi int32, best
-// f32, bl0, ti0, tj0 int32 [B]; outputs t2 f32, ti and tj int32 [B].
+// f32, bl0, ti0, tj0 int32 [B]; outputs t2 f32, ti and tj int32 [B].  key
+// (u64) and count (u32), at least [B], are zero and are left zero.
 extern "C" int cbs_refine(const void* cs, const void* n, int n64,
                           const void* tss, const void* lag_hi,
                           const void* best, const void* bl0, const void* ti0,
-                          const void* tj0, void* t2, void* ti, void* tj,
-                          int B, int npad, int al0, void* stream) {
+                          const void* tj0, void* key, void* count, void* t2,
+                          void* ti, void* tj, int B, int npad, int al0,
+                          void* stream) {
   if (B <= 0) return 0;
-  refine_kernel<<<unsigned(B), kRefineThreads, 0,
+  if (npad < 1 || unsigned(npad) > kPosMask)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (npad + kRefineTile - 1) / kRefineTile;
+  refine_kernel<<<unsigned(B) * unsigned(tiles), kRefineThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cs), n, n64, static_cast<const float*>(tss),
       static_cast<const int32_t*>(lag_hi), static_cast<const float*>(best),
       static_cast<const int32_t*>(bl0), static_cast<const int32_t*>(ti0),
-      static_cast<const int32_t*>(tj0), npad, al0, static_cast<float*>(t2),
-      static_cast<int32_t*>(ti), static_cast<int32_t*>(tj));
+      static_cast<const int32_t*>(tj0), npad, al0, tiles,
+      static_cast<unsigned long long*>(key), static_cast<unsigned*>(count),
+      static_cast<float*>(t2), static_cast<int32_t*>(ti),
+      static_cast<int32_t*>(tj));
   return static_cast<int>(cudaGetLastError());
 }
 
+// K11's series table, double2 [8,192].
+extern "C" int cbs_tail_table(void* tbl, void* stream) {
+  tail_table_kernel<<<kSeriesTerms / 256, 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<double2*>(tbl));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K11's blocks on the current device, for a cooperative launch: its SMs
+// times the blocks the occupancy calculator lets each hold, into *grid.
+extern "C" int cbs_tail_grid(int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, tail_kernel, kTailThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *grid = sms * per_sm;
+  return per_sm > 0 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
 // K11.  b float64 [R], n int64 or int32 [R]; output p float64 [R];
-// n_grid <= 128.
-extern "C" int cbs_tail_p(const void* b, const void* n, int n64, void* p,
-                          int R, int kmax, int n_grid, void* stream) {
+// n_grid <= 128; grid from cbs_tail_grid.  tbl: the series table;
+// scratch xs float64 [R n_grid], live int32 [R n_grid], part float64
+// [R n_grid, 40]; nlive (u32 [2]) is zero and is left zero.
+extern "C" int cbs_tail_p(const void* b, const void* n, int n64,
+                          const void* tbl, void* xs, void* live, void* part,
+                          void* nlive, void* p, int R, int kmax, int n_grid,
+                          int grid, void* stream) {
   if (R <= 0) return 0;
-  if (n_grid < 1 || n_grid > kMaxGrid)
+  if (n_grid < 1 || n_grid > kMaxGrid || grid <= 0 ||
+      static_cast<long long>(R) * n_grid * kItems > 0x7FFFFFFFll)
     return static_cast<int>(cudaErrorInvalidValue);
-  tail_kernel<<<unsigned(R) * kTailCluster, kTailWarps * 32, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(b), n, n64, kmax, n_grid,
-      static_cast<double*>(p));
+  void* args[] = {&b, &n, &n64, &kmax, &n_grid, &R, &tbl, &xs, &live, &part,
+                  &nlive, &p};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(tail_kernel), dim3(unsigned(grid)),
+      dim3(kTailThreads), args, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Series term i % 8,192 + 1 of nu(x[i]) for x float64 [count], from the
+// table, into out.
+extern "C" int cbs_series_term(const void* x, const void* tbl, void* out,
+                               int count, void* stream) {
+  if (count <= 0) return 0;
+  series_term_kernel<<<(count + 255) / 256, 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(x), static_cast<const double2*>(tbl),
+      static_cast<double*>(out), count);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,15 +17,22 @@ versions.
 
 On CUDA tensors the wrappers launch csrc/cbs_stats.cu, one launch a call,
 and count it in LAUNCHES; on CPU tensors they run the plain versions; any
-other device raises.  K9 and K10 round every f32 operation as their plain
-versions do and take maxima, minima and first indices exactly, so they are
-equal bit for bit.  The plain tail probability fixes its arithmetic: every
-division by a constant divides by a 0-dim tensor on the batch's device (so
-it is IEEE division on every device; torch's CUDA division by a Python
-scalar multiplies by the reciprocal), and every sum is an adjacent-pair tree
-(_tree_sum: a 2,048-term chunk of the series, the 129 Simpson points padded
-to 256, the grid points padded to 128), the series' chunks added in order.
-K11 repeats that arithmetic with the CUDA math library's erfc, exp, log and
+other device raises.  K10 spreads a row over thread blocks, the row's
+last block to finish writing its result; K11 is one cooperative launch
+whose blocks share the live grid points' series.  Each CUDA device keeps
+their counters (K10's a row, K11's two) and K10's row
+keys, zeroed once and left zero by every launch, so calls on one device
+run on one stream at a time, and K11's table of sqrt(k) and 2 / k and its
+grid (made at the device's first call).  K9 and K10 round every f32
+operation as their plain versions do and take maxima, minima and first
+indices exactly, so they are equal bit for bit.  The plain tail
+probability fixes its arithmetic: every division by a constant divides by
+a 0-dim tensor on the batch's device (so it is IEEE division on every
+device; torch's CUDA division by a Python scalar multiplies by the
+reciprocal), and every sum is an adjacent-pair tree (_tree_sum: a
+2,048-term chunk of the series, the 129 Simpson points padded to 256, the
+grid points padded to 128), the series' chunks added in order.  K11
+repeats that arithmetic with the CUDA math library's erfc, exp, log and
 sqrt, which torch's CUDA operators call too, so on the card it equals the
 plain version bit for bit.
 """
@@ -33,6 +40,7 @@ plain version bit for bit.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -47,15 +55,27 @@ NU_TAIL_SLOTS = 256     # the Simpson points' tree, zero-padded
 MAX_GRID = 128          # grid points K11 takes a row, the grid's tree
 _NU_BATCH = 4096        # x values a [batch, 2048] series block (plain)
 
+_NU_PARTS = 40          # K11's partial sums a live grid point: 32 units
+                        # of 256 series terms, 8 runs of 32 Simpson slots
+_MIN_ROWS = 1024        # rows the per-device counters hold at least
+
 # launches of the kernels, counted by the wrappers
 LAUNCHES = {"arc_inputs": 0, "refine": 0, "tail_p": 0}
+
+# per CUDA device: {"table", "grid", "count", "key", "rows"}
+# (_device_state)
+_STATE: dict = {}
+_STATE_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "cbs_arc_inputs": [_P, _P, _I] + [_P] * 6 + [_I] * 3 + [_P],
-    "cbs_refine": [_P, _P, _I] + [_P] * 9 + [_I] * 3 + [_P],
-    "cbs_tail_p": [_P, _P, _I, _P] + [_I] * 3 + [_P],
+    "cbs_refine": [_P, _P, _I] + [_P] * 11 + [_I] * 3 + [_P],
+    "cbs_tail_table": [_P, _P],
+    "cbs_tail_grid": [_P],
+    "cbs_tail_p": [_P, _P, _I] + [_P] * 6 + [_I] * 4 + [_P],
+    "cbs_series_term": [_P, _P, _P, _I, _P],
     "cbs_erfc": [_P, _P, _I, _P],
 }
 
@@ -313,6 +333,34 @@ def arc_scan_inputs(cs, n, npad: int, al0: int):
     return arc_inputs(cs, n, npad, al0)[:5]
 
 
+def _device_state(dev: torch.device, rows: int) -> dict:
+    """The CUDA device's K11 series table (float64 [8,192 x 2], made on the
+    card at its first call) and K11's cooperative grid, and zeroed row
+    counters (int32; K11 counts in the first two) and K10 row
+    keys (int64) for at least `rows` rows, grown to a power of two."""
+    with _STATE_LOCK:
+        state = _STATE.get(dev)
+        if state is None:
+            lib = cuda_lib.load("cbs_stats", _SIGNATURES)
+            table = torch.empty(2 * NU_SERIES_TERMS, dtype=torch.float64,
+                                device=dev)
+            cuda_lib.check(cuda_lib.launch(dev, lib.cbs_tail_table,
+                                           table.data_ptr()),
+                           "cbs_tail_table")
+            grid = ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                cuda_lib.check(lib.cbs_tail_grid(ctypes.byref(grid)),
+                               "cbs_tail_grid")
+            state = _STATE[dev] = {"table": table, "grid": grid.value,
+                                   "rows": 0}
+        if state["rows"] < rows:
+            cap = max(_MIN_ROWS, 1 << (rows - 1).bit_length())
+            state["count"] = torch.zeros(cap, dtype=torch.int32, device=dev)
+            state["key"] = torch.zeros(cap, dtype=torch.int64, device=dev)
+            state["rows"] = cap
+        return state
+
+
 def refine(cs, n, tss, lag_hi, best, bl0, ti0, tj0, npad: int, al0: int):
     """K10: (t^2 f32, ti, tj int32) [B] of the rows of cs f32 [B, npad]
     with n int32 or int64, tss f32, K9's lag_hi, ti0, tj0 and B4's best
@@ -331,11 +379,13 @@ def refine(cs, n, tss, lag_hi, best, bl0, ti0, tj0, npad: int, al0: int):
     t2 = torch.empty(B, dtype=torch.float32, device=dev)
     ti = torch.empty(B, dtype=torch.int32, device=dev)
     tj = torch.empty(B, dtype=torch.int32, device=dev)
+    state = _device_state(dev, B)
     lib = cuda_lib.load("cbs_stats", _SIGNATURES)
     status = cuda_lib.launch(
         dev, lib.cbs_refine, cs.data_ptr(), n.data_ptr(), n64,
         tss.data_ptr(), lag_hi.data_ptr(), best.data_ptr(), bl0.data_ptr(),
-        ti0.data_ptr(), tj0.data_ptr(), t2.data_ptr(), ti.data_ptr(),
+        ti0.data_ptr(), tj0.data_ptr(), state["key"].data_ptr(),
+        state["count"].data_ptr(), t2.data_ptr(), ti.data_ptr(),
         tj.data_ptr(), B, npad, al0)
     cuda_lib.check(status, "cbs_refine")
     LAUNCHES["refine"] += 1
@@ -355,12 +405,33 @@ def tail_p(b, n, kmax: int, n_grid: int):
     cuda_lib.require_cuda_tensor("b", b, torch.float64)
     n64 = _check_rows("n", n, R, dev)
     p = torch.empty(R, dtype=torch.float64, device=dev)
+    xs = torch.empty(R * n_grid, dtype=torch.float64, device=dev)
+    live = torch.empty(R * n_grid, dtype=torch.int32, device=dev)
+    part = torch.empty(R * n_grid * _NU_PARTS, dtype=torch.float64,
+                       device=dev)
+    state = _device_state(dev, 1)
     lib = cuda_lib.load("cbs_stats", _SIGNATURES)
     status = cuda_lib.launch(dev, lib.cbs_tail_p, b.data_ptr(), n.data_ptr(),
-                             n64, p.data_ptr(), R, kmax, n_grid)
+                             n64, state["table"].data_ptr(), xs.data_ptr(),
+                             live.data_ptr(), part.data_ptr(),
+                             state["count"].data_ptr(), p.data_ptr(), R,
+                             kmax, n_grid, state["grid"])
     cuda_lib.check(status, "cbs_tail_p")
     LAUNCHES["tail_p"] += 1
     return p
+
+
+def device_series_terms(x):
+    """Series term k = i % 8,192 + 1 of nu(x[i]) as K11 computes it, from
+    its table, on x float64 [count] on a CUDA device, for tests."""
+    cuda_lib.require_cuda_tensor("x", x, torch.float64)
+    out = torch.empty_like(x)
+    table = _device_state(x.device, 0)["table"]
+    lib = cuda_lib.load("cbs_stats", _SIGNATURES)
+    status = cuda_lib.launch(x.device, lib.cbs_series_term, x.data_ptr(),
+                             table.data_ptr(), out.data_ptr(), x.numel())
+    cuda_lib.check(status, "cbs_series_term")
+    return out
 
 
 def device_erfc(x):

@@ -8,8 +8,11 @@ Phases, one JSON line each; any failure exits non-zero:
   1. build   nvcc-builds the kernels from csrc/ and prints the build time,
              ptxas's lines on each kernel's registers, shared memory and
              spills (-Xptxas -v), the instructions of one interior run of
-             B4's lag loop in its SASS (cuobjdump) and the card's name and
-             power limit;
+             B4's lag loop in its SASS (cuobjdump), the FP64 instructions
+             of one erfc and of one series term of K11 (and of the
+             term's earlier form, built beside it from BEFORE_TERM_CU) and
+             the
+             card's name and power limit;
   2. B1      the prefix-scan kernel at chr1 length (248,956,422 positions,
              tracks made by numpy from --seed) against its plain torch
              version on the card: int32 equality, both times, and the
@@ -99,6 +102,11 @@ Phases, one JSON line each; any failure exits non-zero:
              workload's): bit for bit, both times, the bound and its
              share (K11's operations: its erfc calls, each the FP64
              instructions of one call in the SASS of the built library);
+             then K10 and K11 on a fully live level of 32 rows (every row
+             with a B4 sub-block and live grid points: 32 rows of
+             19,000-32,768 bins at 32,768, b their statistic), and the
+             earlier designs' times of K10 and K11 (BEFORE_STATS) beside
+             this run's;
   8. e2e-germline
              Germline-WGS through the CLI entry point on the trio's proband
              BAM with --device cuda and again with --device cpu: identical
@@ -430,11 +438,9 @@ FP64_OPCODES = ("DFMA", "DADD", "DMUL", "DSETP", "DMNMX", "DSET",
                  "MUFU.RCP64H", "MUFU.RSQ64H")
 
 
-def erfc_sass() -> dict:
-    """The FP64 instructions of one call of the math library's erfc, as
-    kernel K11 calls it: those of cbs_stats's erfc_kernel (one erfc and a
-    load and a store) in cuobjdump -sass of the built library, every
-    branch counted once."""
+def sass_fp64(lib: Path, kernel: str) -> dict:
+    """The FP64 instructions of `kernel` in cuobjdump -sass of the library
+    lib, every branch counted once."""
     import collections
     import re
     import shutil
@@ -443,23 +449,82 @@ def erfc_sass() -> dict:
 
     tool = shutil.which("cuobjdump") or str(
         Path(cuda_lib.nvcc_path()).parent / "cuobjdump")
-    res = subprocess.run([tool, "-sass",
-                          str(cuda_lib.BUILD_DIR / "libcbs_stats.so")],
-                         capture_output=True, text=True, timeout=120)
+    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120)
     if res.returncode != 0:
-        fail(f"cuobjdump of libcbs_stats.so: {res.stderr[-400:]}")
+        fail(f"cuobjdump of {lib.name}: {res.stderr[-400:]}")
     funcs = re.split(r"\n\s*Function : ", res.stdout)
-    body = next((f for f in funcs if "erfc_kernel" in f.split("\n")[0]), None)
+    body = next((f for f in funcs if kernel in f.split("\n")[0]), None)
     if body is None:
-        fail("erfc_kernel not in the SASS of libcbs_stats.so")
+        fail(f"{kernel} not in the SASS of {lib.name}")
     ops = collections.Counter(
         m.group(2) for m in re.finditer(
             r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)", body))
     fp64 = {op: c for op, c in ops.items()
             if op.startswith(FP64_OPCODES)}
     if not fp64:
-        fail("no FP64 instruction in the SASS of erfc_kernel")
+        fail(f"no FP64 instruction in the SASS of {kernel}")
     return {"fp64_instructions": sum(fp64.values()), "by_opcode": fp64}
+
+
+def erfc_sass() -> dict:
+    """The FP64 instructions of one call of the math library's erfc, as
+    kernel K11 calls it: those of cbs_stats's erfc_kernel (one erfc and a
+    load and a store)."""
+    from canvas_tpu_torch.ops import cuda_lib
+
+    return sass_fp64(cuda_lib.BUILD_DIR / "libcbs_stats.so", "erfc_kernel")
+
+
+# K11's series term as its earlier design computed it (sqrt(k) and 2 / k
+# each term, the division by 2 a division), built only to count its FP64
+# instructions in the SASS beside the committed kernel's series_term_kernel
+BEFORE_TERM_CU = r"""
+#include <cuda_runtime.h>
+namespace {
+__global__ void series_term_kernel(const double* x, double* out, int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < count) {
+    const double kd = double(i % 8192 + 1);
+    const double z = __ddiv_rn(__ddiv_rn(__dmul_rn(x[i], sqrt(kd)), 2.0),
+                               1.4142135623730951);
+    out[i] = __dmul_rn(__dmul_rn(erfc(z), 0.5), __ddiv_rn(2.0, kd));
+  }
+}
+}  // namespace
+extern "C" int series_term_before(const void* x, void* out, int count,
+                                void* stream) {
+  series_term_kernel<<<(count + 255) / 256, 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(x), static_cast<double*>(out), count);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+BEFORE_TERM = "series_term_before"
+
+
+def before_term_source() -> Path:
+    from canvas_tpu_torch.ops import cuda_lib
+
+    src = cuda_lib.BUILD_DIR / "variants" / f"{BEFORE_TERM}.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(BEFORE_TERM_CU)
+    return src
+
+
+def term_sass(erfc: dict) -> dict:
+    """The FP64 instructions of one series term of K11 (cbs_stats's
+    series_term_kernel, sqrt(k) and 2 / k from the table) and of its
+    earlier form (BEFORE_TERM_CU), each with its count less erfc's."""
+    from canvas_tpu_torch.ops import cuda_lib
+
+    now = sass_fp64(cuda_lib.BUILD_DIR / "libcbs_stats.so",
+                    "series_term_kernel")
+    then = sass_fp64(cuda_lib.BUILD_DIR / f"lib{BEFORE_TERM}.so",
+                     "series_term_kernel")
+    e = erfc["fp64_instructions"]
+    return {"now": dict(now, besides_erfc=now["fp64_instructions"] - e),
+            "before": dict(then, besides_erfc=then["fp64_instructions"] - e)}
 
 
 def gpu_line() -> str:
@@ -481,9 +546,14 @@ def phase_build() -> dict:
         out = cuda_lib.BUILD_DIR / f"lib{name}.so"
         if out.exists():
             out.unlink()              # always build from the checkout
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
-        list(ex.map(cuda_lib.build, KERNEL_SOURCES))
+    # one nvcc per source, all started together (and the earlier series
+    # term, for its SASS)
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as ex:
+        jobs = [ex.submit(cuda_lib.build, name) for name in KERNEL_SOURCES]
+        jobs.append(ex.submit(cuda_lib.build, BEFORE_TERM,
+                              before_term_source()))
+        for job in jobs:
+            job.result()
     secs = time.perf_counter() - t0
     # the host BAM scanner (g++), so that neither timed run builds it
     t0 = time.perf_counter()
@@ -502,9 +572,10 @@ def phase_build() -> dict:
     layouts = {name: {1 << k: cbs_mega_cuda.layout(1 << k, edge)
                       for k in range(10, 17)}
                for name, edge in (("walk", False), ("edge", True))}
+    erfc = erfc_sass()
     return {"phase": "build", "seconds": secs, "native_seconds": native_s,
             "ptxas": ptxas_report(), "b4_interior_run": sass,
-            "k11_erfc": erfc_sass(),
+            "k11_erfc": erfc, "k11_series_term": term_sass(erfc),
             "k7_k8_layouts": layouts, "gpu": gpu_line()}
 
 
@@ -1906,10 +1977,11 @@ def k10_case(args) -> dict:
             "pairs": pairs, **res}
 
 
-def k11_case(args, erfc: dict) -> dict:
-    """K11 on one captured call: its erfc calls (8,192 series terms and
-    129 Simpson points at each grid point with x > 0.01), each the FP64
-    instructions of one call in the SASS, at the FP64 rate."""
+def k11_case(args, erfc: dict, term: dict) -> dict:
+    """K11 on one call: its erfc calls (8,192 series terms and 129
+    Simpson points at each grid point with x > 0.01), each the FP64
+    instructions of one call in the SASS, at the FP64 rate; beside them a
+    series term's FP64 instructions, now and before (term_sass)."""
     from canvas_tpu_torch.ops import cbs_stats_cuda as st
 
     b, n, kmax, n_grid = args
@@ -1926,8 +1998,11 @@ def k11_case(args, erfc: dict) -> dict:
                       + 8 * b.numel(),
                       calls * erfc["fp64_instructions"], reps=10, f64=True)
     return {"rows": b.numel(), "grid": n_grid, "grid_points_live": live,
+            "rows_live": int((x > 0.01).any(dim=1).sum()),
             "erfc_calls": calls,
-            "erfc_fp64_instructions": erfc["fp64_instructions"], **res}
+            "erfc_fp64_instructions": erfc["fp64_instructions"],
+            "term_fp64_instructions": {
+                k: v["fp64_instructions"] for k, v in term.items()}, **res}
 
 
 def k12_case(args) -> dict:
@@ -1948,12 +2023,55 @@ def k12_case(args) -> dict:
             **res}
 
 
-def phase_cbs_stats(workdir: Path, dev: torch.device, erfc: dict) -> dict:
+# K10 and K11 before their redesign for the whole card (a block a row, a
+# cluster of 8 blocks a row; NVIDIA H100 80GB HBM3, 700.00 W, PERF.md
+# section 6), printed beside this run's times: K10 by the tier width of
+# the panel's first call there, K11 on the panel's first level
+BEFORE_STATS = {"K10_ms": {"1024": 0.0077, "2048": 0.0110, "4096": 0.0151,
+                         "8192": 0.0211, "16384": 0.0547, "32768": 0.0825},
+              "K11_ms": 0.1694}
+
+
+def live_level(dev: torch.device, seed: int = 15, npad: int = 32_768):
+    """K10's and K11's arguments on a fully live level of 32 rows at
+    width npad: centred noise of 19,000 to npad bins with a planted step,
+    through K9 and B4; a row whose seed B4 never beat takes the sub-block
+    of its seed's lag, so every row has one.  K11 takes the rows' b =
+    sqrt(t^2) from K10 at n bins (kmax 25, 100 grid points)."""
+    from canvas_tpu_torch.ops import arc_scan_cuda
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    rng = np.random.default_rng(seed)
+    B, al0 = 32, 2
+    cs = np.zeros((B, npad), np.float32)
+    n = rng.integers(19_000, npad + 1, B)
+    for r in range(B):
+        x = rng.normal(0, 1, n[r])
+        lo = int(rng.integers(0, n[r] - 2_000))
+        x[lo:lo + int(rng.integers(200, 2_000))] += rng.uniform(0.1, 0.8)
+        cs[r, :n[r]] = np.cumsum(x - x.mean())
+    tss = (np.diff(cs, axis=1, prepend=0) ** 2).sum(1).astype(np.float32)
+    csd = torch.as_tensor(cs, device=dev)
+    nd = torch.as_tensor(n, device=dev)
+    tssd = torch.as_tensor(tss, device=dev)
+    seedv, lag_hi, psd2, ti0, tj0, n32 = st.arc_inputs(csd, nd, npad, al0)
+    best, bl0 = arc_scan_cuda.arc_scan(csd, n32, lag_hi, seedv, psd2, al0)
+    bl0 = torch.where(bl0 >= 0, bl0, (tj0 - ti0) // 32 * 32)
+    refine_args = [csd, nd, tssd, lag_hi, best, bl0, ti0, tj0, npad, al0]
+    t2 = st.refine_plain(*refine_args)[0]
+    b = torch.sqrt(torch.clamp(t2.double(), min=0.0))
+    return refine_args, [b, nd, 25, 100]
+
+
+def phase_cbs_stats(workdir: Path, dev: torch.device, erfc: dict,
+                    term: dict) -> dict:
     """K9, K10 and K11 on the whole-recursion engine's first level at
     each tier width of the panel (K11: its first level), K12 on the
     frontier engine's first level with a permutation chunk and its first
     continuation chunk (the panel's, else bench.py's workload's), each
-    against its plain version on the card."""
+    against its plain version on the card; then K10 and K11 on a fully
+    live level (live_level), and the earlier designs' times beside this
+    run's."""
     from canvas_tpu_torch.ops import cbs_device, cbs_mega
 
     cov = panel_coverage(workdir)
@@ -1975,10 +2093,21 @@ def phase_cbs_stats(workdir: Path, dev: torch.device, erfc: dict) -> dict:
     top = str(max(got["arc_inputs"]))
     k12 = {k: dict(k12_case(got[k]), inputs=source[k])
            for k in ("level", "chunk") if k in got}
+    k11 = k11_case(got["tail_p"], erfc, term)
+    refine_args, tail_args = live_level(dev)
+    live10 = k10_case(refine_args)
+    live11 = k11_case(tail_args, erfc, term)
+    if live10["rows_with_a_sub_block"] != 32 or live11["rows_live"] != 32:
+        fail(f"the live level has {live10['rows_with_a_sub_block']} rows "
+             f"with a sub-block and {live11['rows_live']} live rows of 32")
     torch.cuda.empty_cache()
-    return {"phase": "cbs-stats", "K9": k9, "K10": k10,
-            "K11": k11_case(got["tail_p"], erfc), "K12": k12,
-            "K9_top": k9[top], "K10_top": k10[top]}
+    return {"phase": "cbs-stats", "K9": k9, "K10": k10, "K11": k11,
+            "K12": k12, "K9_top": k9[top], "K10_top": k10[top],
+            "live_level": {"K10": live10, "K11": live11},
+            "now_vs_before_ms": {
+                "K10": {w: [k10[w]["ms"], BEFORE_STATS["K10_ms"].get(w)]
+                        for w in k10},
+                "K11": [k11["ms"], BEFORE_STATS["K11_ms"]]}}
 
 
 def phase_e2e_germline(workdir: Path) -> dict:
@@ -2759,7 +2888,7 @@ def main() -> int:
         mega = run("cbs-mega", phase_cbs_mega, Path(workdir), dev,
                    frontier)
         stats = run("cbs-stats", phase_cbs_stats, Path(workdir), dev,
-                    build["k11_erfc"])
+                    build["k11_erfc"], build["k11_series_term"])
         swgs = run("e2e-somatic-wgs", phase_e2e_somatic_wgs, panel,
                    Path(workdir))
     run("gc-bin", phase_gc_bin, args.seed, dev)

@@ -14,6 +14,7 @@ from canvas_tpu.ops import cbs_device as jdev
 from canvas_tpu_torch.ops import cbs_device as tdev
 from canvas_tpu_torch.ops import cbs_mega_cuda as mc
 from canvas_tpu_torch.ops import cbs_stats_cuda as st
+from tests.test_torch_cuda import _step_row
 
 torch.set_num_threads(1)
 
@@ -215,6 +216,205 @@ def test_nu_plain_series_and_tail():
     np.testing.assert_allclose(got, want, rtol=1e-12)
     want = np.asarray(jdev._nu_dev(jnp.asarray(x, jnp.float32)))
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+# --- what K10's and K11's layouts on the card rest on ----------------------
+
+KERNEL_TILE = 512        # K10's positions a thread block (csrc/cbs_stats.cu)
+
+
+def _refine_lex_numpy(cs, n, lag_hi, bl0):
+    """(ti, tj) of each row with a sub-block, as the lexicographic maximum
+    of (term, -i, -k) over its admissible pairs (position i, lag bl0 + k,
+    k < 32, the lag in [AL0, lag_hi], i + lag <= n - 1), the term (w d) d
+    in float32; (1, bl0 + 1) where none is admissible; None where bl0 is
+    -1."""
+    B, npad = cs.shape
+    sub = min(32, npad)
+    i = np.arange(npad)[:, None]
+    k = np.arange(sub)[None, :]
+    out = []
+    for r in range(B):
+        if bl0[r] < 0:
+            out.append(None)
+            continue
+        lag = bl0[r] + k
+        ok = (lag >= AL0) & (lag <= lag_hi[r]) & (i + lag <= n[r] - 1)
+        d = cs[r][np.minimum(i + lag, npad - 1)] - cs[r][i]
+        lf = np.maximum(lag, 1).astype(np.float32)
+        nf = np.float32(n[r])
+        with np.errstate(divide="ignore", invalid="ignore"):
+            w = nf / (lf * (nf - lf))          # inf where lag = n: not ok
+            term = np.where(ok, (w * d) * d, -np.inf)
+        best_i, best_k = np.unravel_index(np.argmax(term), term.shape)
+        out.append((int(best_i) + 1, int(best_i + bl0[r] + best_k) + 1))
+    return out
+
+
+def _straddling_rows(seed, npad):
+    """Integer rows f32 [4, npad]: _tie_rows' random walk and plateau
+    walk, and two of steps (_step_row) whose best pairs tie: rises of 2 a
+    position over lag 9 from a tile's last position and from a position
+    of the next tile, and from 505, whose pair crosses the tile edge, and
+    from 3 tiles on (at widths of one tile: from 100 and 300, 200 and
+    400)."""
+    rng = np.random.default_rng(seed)
+    cs, n, _tss = _tie_rows(seed, npad)
+    starts = ([[100, 300], [200, 400]] if npad <= KERNEL_TILE else
+              [[KERNEL_TILE - 1, KERNEL_TILE + 90],
+               [KERNEL_TILE - 7, 3 * KERNEL_TILE]])
+    lens = [npad - 5, npad]
+    more = [_step_row(rng, npad, lens[r], starts[r], 9) for r in range(2)]
+    return (np.concatenate([cs[[0, 3]], np.stack(more)]),
+            np.concatenate([n[[0, 3]], lens]), [s[0] for s in starts])
+
+
+@pytest.mark.parametrize("npad", [512, 2048, 32768])
+def test_refine_plain_is_the_lexicographic_maximum(npad):
+    """refine_plain's (ti, tj) equals the lexicographic maximum of
+    (term, -i, -k) over every admissible pair, which the kernel takes
+    across its tiles in any order: integer rows whose terms tie across
+    positions and lags, equal best pairs on both sides of a tile edge, a
+    row whose sub-block admits no pair (position 0, the sub-block's first
+    lag) and one without a sub-block (the seed's split)."""
+    cs, n, firsts = _straddling_rows(npad + 7, npad)
+    B = cs.shape[0] + 2
+    cs = np.concatenate([cs, cs[:2]])
+    n = np.concatenate([n, n[:2]]).astype(np.int64)
+    lag_hi = np.minimum(n - AL0, n - 1).astype(np.int32)
+    bl0 = np.array([0, 32, 0, 0, min(npad - 32, 480), -1], np.int32)
+    lag_hi[4] = bl0[4] - 1                    # nothing admitted
+    csT = torch.as_tensor(cs)
+    ti0 = torch.arange(1, B + 1, dtype=torch.int32)
+    tj0 = ti0 + 5
+    t2, ti, tj = st.refine_plain(
+        csT, torch.as_tensor(n), torch.ones(B), torch.as_tensor(lag_hi),
+        torch.full((B,), 0.5), torch.as_tensor(bl0), ti0, tj0, npad, AL0)
+    want = _refine_lex_numpy(cs, n, lag_hi, bl0)
+    for r in range(B):
+        got = (int(ti[r]), int(tj[r]))
+        assert got == (want[r] or (int(ti0[r]), int(tj0[r]))), (r, got,
+                                                                 want[r])
+    assert [want[2], want[3]] == [(i + 1, i + 10) for i in firsts]
+    assert want[4] == (1, int(bl0[4]) + 1)
+
+
+def _nu_terms(x, chunk):
+    """nu_plain's series terms of chunk `chunk` at each x [X]: float64
+    [X, 2,048], as it computes them."""
+    K = st.NU_SERIES_CHUNK
+    two, sqrt2 = st._const(2.0, x), st._const(float(np.sqrt(2.0)), x)
+    k = (chunk * K + torch.arange(1, K + 1)).double()
+    z = x[:, None] * torch.sqrt(k)[None, :] / two / sqrt2
+    return torch.special.erfc(z) * 0.5 * (two / k)[None, :]
+
+
+def _by_units(v, slots, units):
+    """The adjacent-pair tree over `slots` slots of v as the kernel takes
+    it: the trees over aligned runs of units[0] slots, those over runs of
+    units[1] of them, and so on, then the tree over what is left."""
+    v = torch.nn.functional.pad(v, (0, slots - v.shape[-1]))
+    width = 1
+    for u in units:
+        v = st._tree_sum(v.reshape(*v.shape[:-1], -1, u), u)
+        width *= u
+    return st._tree_sum(v, slots // width)
+
+
+def _nu_x(seed):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(np.concatenate([
+        [0.0101, 0.05, 9.0 / np.sqrt(2048.125), 30.0],
+        np.exp(rng.uniform(np.log(0.0101), np.log(40.0), 12))]))
+
+
+@pytest.mark.parametrize("units", [(8, 32, 8), (8, 32), (256,), (512,),
+                                   (2, 2, 2, 2, 2, 2, 2, 2, 2, 2)])
+def test_series_chunk_tree_splits_into_aligned_units(units):
+    """On nu_plain's own float64 terms (x from a seed, 0.0101 to 40), the
+    tree over each 2,048-term chunk equals bit for bit the pairwise tree of
+    its trees over aligned runs: a lane's 8 terms, 32 lanes a warp, 8
+    warps a block (K11's units of 256), and other splits."""
+    x = _nu_x(15)
+    in_order = True
+    for c in range(st.NU_SERIES_TERMS // st.NU_SERIES_CHUNK):
+        t = _nu_terms(x, c)
+        want = st._tree_sum(t, st.NU_SERIES_CHUNK)
+        got = _by_units(t, st.NU_SERIES_CHUNK, units)
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+        in_order &= torch.equal(torch.cumsum(t, dim=1)[:, -1], want)
+    assert not in_order        # the order matters: a sum left to right differs
+
+
+def _tail_p_as_the_kernel(b, n, kmax, n_grid):
+    """tail_p_plain's arithmetic in K11's layout: each grid point's series
+    as 4 chunks of 8 units of 32 lanes of 8 terms (sqrt(k) and 2 / k as a
+    table, x sqrt(k) times 0.5), its Simpson points as 8 runs of 32, the
+    grid's terms as 4 warps of 32."""
+    dt = b.dtype
+    nf = n.to(dt)
+    delta = torch.clamp(st._const(kmax + 1.0, b) / nf, 0.0, 0.45)
+    dincr = (0.5 - delta) / st._const(n_grid, b)
+    i = torch.arange(n_grid).to(dt)[None, :]
+    tls = 0.5 + i * dincr[:, None]
+    ts = 0.5 + (i + 0.5) * dincr[:, None]
+    x = ((b / torch.sqrt(nf))[:, None] / torch.sqrt(ts * (1 - ts))).reshape(-1)
+    k = torch.arange(1, st.NU_SERIES_TERMS + 1).to(dt)
+    two, sqrt2 = st._const(2.0, b), st._const(float(np.sqrt(2.0)), b)
+    sqrt_k, two_k = torch.sqrt(k), two / k
+    series = None
+    for c in range(4):
+        sl = slice(c * 2048, (c + 1) * 2048)
+        z = x[:, None] * sqrt_k[None, sl] * 0.5 / sqrt2
+        t = torch.special.erfc(z) * 0.5 * two_k[None, sl]
+        s = _by_units(t, 2048, (8, 32, 8))
+        series = s if series is None else series + s
+    v0c = torch.clamp(x * float(np.sqrt(st.NU_SERIES_TERMS + 0.5)) / two,
+                      max=9.0)
+    h = (9.0 - v0c) / st._const(st.NU_TAIL_PANELS, b)
+    j = torch.arange(st.NU_TAIL_PANELS + 1)
+    u = v0c[:, None] + h[:, None] * j.to(dt)[None, :]
+    f = 0.5 * torch.special.erfc(u / sqrt2) / torch.clamp(u, min=1e-12)
+    simp = torch.where((j == 0) | (j == st.NU_TAIL_PANELS), 1.0,
+                       torch.where(j % 2 == 1, 4.0, 2.0)).to(dt)
+    simpson = _by_units(f * simp[None, :], st.NU_TAIL_SLOTS, (32,))
+    tail = 4.0 * (h / st._const(3.0, b)) * simpson
+    lnu = float(np.log(2.0)) - 2.0 * torch.log(torch.clamp(x, min=1e-12)) \
+        - series - tail
+    nu = torch.where(x <= 0.01, torch.exp(-0.583 * x), torch.exp(lnu))
+    nu = nu.reshape(-1, n_grid)
+    integ = st._integral_inv_t1t_sq(tls, dincr[:, None])
+    out = _by_units(nu * nu * integ, st.MAX_GRID, (32,))
+    return 2.0 * 9.973557e-2 * (b * b * b) \
+        * torch.exp(-b * b / st._const(2.0, b)) * out
+
+
+@pytest.mark.parametrize("n_grid", [1, 100, 128])
+def test_tail_p_in_the_kernels_layout_equals_plain(n_grid):
+    """tail_p_plain on a level's batch (dead, live and clamped rows) equals
+    bit for bit its arithmetic redone in K11's layout on the card: the
+    series by units of 256 terms with sqrt(k) and 2 / k from a table and
+    the division by 2 a multiplication by 0.5, the Simpson points and the
+    grid points in aligned runs."""
+    b, n = _level_batch(R=12)
+    bt, nt = torch.as_tensor(b), torch.as_tensor(n)
+    want = st.tail_p_plain(bt, nt, 25, n_grid)
+    got = _tail_p_as_the_kernel(bt, nt, 25, n_grid)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+def test_halving_by_multiplication_equals_division():
+    """x / 2 and x * 0.5 round alike in float64, subnormal results too:
+    K11 multiplies where the plain version divides by 2."""
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(np.concatenate([
+        rng.uniform(-1e3, 1e3, 10_000),
+        rng.uniform(0, 1, 10_000) * 4.9e-324 * 2 ** rng.integers(0, 60,
+                                                                10_000),
+        [5e-324, 1e-323, 2.2250738585072014e-308, 1.7976931348623157e308]]))
+    two = st._const(2.0, x)
+    assert torch.equal((x * 0.5).view(torch.int64),
+                       (x / two).view(torch.int64))
 
 
 # --- K12 --------------------------------------------------------------------

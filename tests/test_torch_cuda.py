@@ -999,6 +999,243 @@ def test_kernel_erfc_equals_torch_erfc(dev):
     assert _bits_equal(st.device_erfc(x), torch.special.erfc(x))
 
 
+# --- K10 and K11 across thread blocks ---------------------------------------
+
+_TILE = 512          # K10's positions a thread block (csrc/cbs_stats.cu)
+
+
+def _refine_inputs(dev, cs, n, bl0, al0=2):
+    """K10's arguments for cumsum rows cs [B, npad] with lengths n and
+    sub-blocks bl0 (-1: none): lag_hi = min(n - al0, n - 1) as K9 gives
+    it, best and tss from a seed, the seed's split (1, 2)."""
+    B, npad = cs.shape
+    rng = np.random.default_rng(B + npad)
+    n = np.asarray(n, np.int64)
+    return (torch.as_tensor(cs, device=dev), torch.as_tensor(n, device=dev),
+            torch.as_tensor(rng.uniform(50, 90, B).astype(np.float32),
+                            device=dev),
+            torch.as_tensor(np.minimum(n - al0, n - 1).astype(np.int32),
+                            device=dev),
+            torch.as_tensor(rng.uniform(1, 40, B).astype(np.float32),
+                            device=dev),
+            torch.as_tensor(np.asarray(bl0, np.int32), device=dev),
+            torch.ones(B, dtype=torch.int32, device=dev),
+            torch.full((B,), 2, dtype=torch.int32, device=dev), npad, al0)
+
+
+def _step_row(rng, npad, n, starts, lag):
+    """A row of n values on integer levels: -lag and noise of -1, 0 or 1
+    (ties everywhere), rising at each start s in a ramp of 2 a position
+    from exactly -lag - 1 at s to lag + 1 at s + lag, 20 positions up
+    there, then falling over lag + 8 positions.  Its best pairs are the
+    ramps' (s, s + lag), equal terms: no other pair has as large a
+    difference at as short a lag."""
+    row = np.zeros(npad, np.float32)
+    level = np.full(n, -float(lag))
+    for s in starts:
+        level[s:s + lag + 1] = -lag + 2 * np.arange(lag + 1)
+        level[s + lag:s + lag + 21] = lag
+        down = s + lag + 21 + np.arange(lag + 8)
+        down = down[down < n]
+        level[down] = lag - 2 * lag * (np.arange(len(down)) + 1) / (lag + 8)
+    row[:n] = np.round(level) + rng.integers(-1, 2, n)
+    for s in starts:
+        row[s + 1:s + lag] = level[s + 1:s + lag]
+        row[s], row[s + lag] = -lag - 1, lag + 1
+    return row
+
+
+@pytest.mark.parametrize("npad", [2048, 32768])
+@pytest.mark.parametrize("where", ["first", "last", "halo"])
+def test_refine_kernel_winner_at_a_tiles_edges(dev, npad, where):
+    """K10 with the winning pair at a tile's first position, at its last,
+    and with i + lag in the 32 positions past the tile's window (its halo),
+    in the first, a middle and the last tile of 4 rows: bit for bit
+    against the plain version, and the planted (ti, tj)."""
+    rng = np.random.default_rng(npad + len(where))
+    tiles = [0, npad // _TILE // 2, npad // _TILE - 1, 1]
+    cs, n, bl0, want = [], [], [], []
+    for r, tile in enumerate(tiles):
+        b0 = 32 * (r + 1) if npad > 2048 else 32 * r
+        lag = b0 + {"first": 3, "last": 17, "halo": 31}[where]
+        i = tile * _TILE + {"first": 0, "last": _TILE - 1,
+                            "halo": 500}[where]
+        while i + lag + 30 > npad:
+            i -= _TILE
+        length = min(npad, i + lag + 30 + int(rng.integers(0, 200)))
+        cs.append(_step_row(rng, npad, length, [i], lag))
+        n.append(length)
+        bl0.append(b0)
+        want.append((i + 1, i + lag + 1))
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    args = _refine_inputs(dev, np.stack(cs), n, bl0)
+    got, plain = st.refine(*args), st.refine_plain(*args)
+    for name, x, y in zip(("t2", "ti", "tj"), got, plain):
+        assert _bits_equal(x, y), (name, _differ(x, y))
+    assert list(zip(got[1].tolist(), got[2].tolist())) == want
+
+
+@pytest.mark.parametrize("npad", [512, 2048, 32768])
+def test_refine_kernel_ties_across_tiles_and_rows(dev, npad):
+    """K10 on 32 rows, each with a sub-block: equal maxima at two positions
+    in two tiles (the first wins), the same row twice (equal maxima in two
+    rows), lengths that are not a multiple of the tile, an integer random
+    walk (ties among lags and positions), rows without an admissible pair
+    (the empty row: position 0, lag bl0) and rows of length 1 and 0; ten
+    calls back to back each bit for bit against the plain version (the row
+    counters and keys are reset), then one under CUDA's sync debug mode
+    set to "error"."""
+    rng = np.random.default_rng(npad)
+    B = 32
+    cs = np.zeros((B, npad), np.float32)
+    n = np.zeros(B, np.int64)
+    bl0 = np.zeros(B, np.int32)
+    ties = []
+    for r in range(B):
+        length = int(rng.integers(npad // 2, npad + 1))
+        if r % 4 == 1:
+            length = min(npad, (length // _TILE) * _TILE + 77)
+        n[r] = max(length, 40)
+        b0 = 32 * int(rng.integers(0, min(n[r] // 128, 8) + 1))
+        bl0[r] = b0
+        kind = r % 8
+        if kind in (0, 1):      # equal maxima at two positions, two tiles
+            lag = b0 + 5
+            i1 = int(rng.integers(0, 40))
+            i2 = min(i1 + 2 * _TILE, int(n[r]) - lag - 30)
+            starts = [i1, i2] if i2 > i1 + 2 * lag + 40 else [i1]
+            cs[r] = _step_row(rng, npad, int(n[r]), starts, lag)
+            ties.append((r, i1, lag))
+        elif kind in (2, 3):    # an integer random walk
+            cs[r, :n[r]] = np.cumsum(rng.integers(-1, 2, n[r]))
+        elif kind == 4:         # no admissible pair: lags past lag_hi
+            bl0[r] = (max(npad, 64) - 32) // 32 * 32
+            n[r] = min(n[r], bl0[r])
+            cs[r, :n[r]] = rng.integers(-2, 3, n[r])
+        elif kind == 5:
+            n[r] = [1, 0, 1, 0][r // 8]
+            cs[r, :n[r]] = 3.0
+        else:                   # noise with a step
+            x = rng.normal(0, 1, n[r])
+            x[n[r] // 3:n[r] // 2] += 0.7
+            cs[r, :n[r]] = np.cumsum(x - x.mean())
+    cs[9], n[9], bl0[9] = cs[8], n[8], bl0[8]       # the same row twice
+    ties = [t for t in ties if t[0] != 9]
+    args = _refine_inputs(dev, cs, n, bl0)
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    want = st.refine_plain(*args)
+    got = [st.refine(*args) for _ in range(10)]
+    torch.cuda.synchronize()
+    for out in got:
+        for name, a, b in zip(("t2", "ti", "tj"), out, want):
+            assert _bits_equal(a, b), (name, _differ(a, b))
+    ti, tj = want[1].tolist(), want[2].tolist()
+    assert (ti[8], tj[8]) == (ti[9], tj[9])
+    assert all((ti[r], tj[r]) == (i + 1, i + lag + 1) for r, i, lag in ties)
+    empty = [r for r in range(B) if r % 8 in (4, 5)]
+    assert all((ti[r], tj[r]) == (1, int(bl0[r]) + 1) for r in empty)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = st.refine(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(_bits_equal(a, b) for a, b in zip(again, want))
+
+
+def _grid_x(b, n, n_grid, g):
+    """x at grid point g of rows b at n bins (kmax 25), as K11 places it."""
+    dincr = (0.5 - np.clip(26.0 / n, 0.0, 0.45)) / n_grid
+    ts = 0.5 + (g + 0.5) * dincr
+    return b / np.sqrt(n) / np.sqrt(ts * (1 - ts))
+
+
+def _live_batch(R, n_grid, seed):
+    """A level's batch b [R] in [0.05, 7) at n bins (4 to 65,536), every
+    row with a grid point at x > 0.01, the rows of small b / sqrt(n) with
+    dead points (x <= 0.01, no series) before their live ones."""
+    rng = np.random.default_rng(seed)
+    b, n = np.zeros(R), np.zeros(R, np.int64)
+    for r in range(R):
+        while True:
+            b[r] = rng.uniform(0.05, 7.0)
+            u = np.exp(rng.uniform(np.log(0.002), np.log(0.5)))
+            n[r] = min(65536, max(4, int((b[r] / u) ** 2)))
+            if _grid_x(b[r], n[r], n_grid, n_grid - 1) > 0.01:
+                break
+    return b, n
+
+
+@pytest.mark.parametrize("R", [1, 32, 257])
+@pytest.mark.parametrize("n_grid", [1, 100, 128])
+def test_tail_kernel_all_rows_live(dev, R, n_grid):
+    """K11 with every row live (b 0.05-7, n 4 to 65,536; rows with dead
+    grid points before their live ones among them), at n_grid 1, 100 and
+    128 and R 1, 32 and 257: bit for bit against the plain version, one
+    launch."""
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    b, n = _live_batch(R, n_grid, 1000 * R + n_grid)
+    bd, nd = torch.as_tensor(b, device=dev), torch.as_tensor(n, device=dev)
+    if R > 1 and n_grid > 1:
+        assert (_grid_x(b, n, n_grid, 0) <= 0.01).any()
+    before = st.LAUNCHES["tail_p"]
+    got = st.tail_p(bd, nd, 25, n_grid)
+    want = st.tail_p_plain(bd, nd, 25, n_grid)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES["tail_p"] == before + 1
+    assert _bits_equal(got, want), _differ(got, want)
+    assert bool(torch.isfinite(got).all())
+
+
+def test_tail_kernel_repeats_and_does_not_synchronise(dev):
+    """K11 ten times back to back on a level of 32 rows, live and dead,
+    each bit for bit against the plain version (its count of live points
+    is reset), then once under CUDA's sync debug mode set to "error", and
+    once on a level without a live grid point."""
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    b, n = _live_batch(32, 100, 15)
+    b[:4] = [0.0, 1e-3, 0.05, 2.0]
+    n[:4] = [10000, 10000, 65536, 30]
+    bd, nd = torch.as_tensor(b, device=dev), torch.as_tensor(n, device=dev)
+    want = st.tail_p_plain(bd, nd, 25, 100)
+    got = [st.tail_p(bd, nd, 25, 100) for _ in range(10)]
+    torch.cuda.synchronize()
+    assert all(_bits_equal(g, want) for g in got)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = st.tail_p(bd, nd, 25, 100)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _bits_equal(again, want)
+    dead = bd * 1e-4                      # no live grid point at all
+    assert _bits_equal(st.tail_p(dead, nd, 25, 100),
+                       st.tail_p_plain(dead, nd, 25, 100))
+
+
+def test_tail_kernel_series_terms_equal_plain(dev):
+    """K11's series terms, from its table of sqrt(k) and 2 / k and with its
+    division by 2 made a multiplication by 0.5, equal nu_plain's terms
+    bit for bit at every k = 1..8,192, for x of 0.0101 to 30 and x whose
+    products fall to subnormals."""
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    xs = torch.tensor([0.0101, 0.3, 1.0, 4.0, 30.0, 3e-308, 1e-320],
+                      dtype=torch.float64, device=dev)
+    K = st.NU_SERIES_TERMS
+    x = xs.repeat_interleave(K)
+    k = torch.arange(1, K + 1, device=dev).double().repeat(len(xs))
+    two = torch.full((), 2.0, dtype=torch.float64, device=dev)
+    sqrt2 = torch.full((), float(np.sqrt(2.0)), dtype=torch.float64,
+                       device=dev)
+    want = torch.special.erfc(x * torch.sqrt(k) / two / sqrt2) * 0.5 \
+        * (two / k)
+    got = st.device_series_terms(x)
+    assert _bits_equal(got, want), _differ(got, want)
+
+
 def _perm_rows(dev, npad, seed, S):
     """K12's inputs for S rows of a bucket of width npad: centred noise
     of lengths in (npad / 2, npad] (and 150 at widths above 256, a
@@ -1429,3 +1666,29 @@ def test_dryrun_on_the_visible_cards(dev, capsys):
     cards = _cards()
     graft_entry.dryrun_multichip(len(cards))
     assert "split == single-device" in capsys.readouterr().out
+
+
+def test_statistics_kernels_keep_their_state_per_card(dev):
+    """K10 and K11 on cuda:1 while cuda:0 is current, in turns with calls
+    on cuda:0: each card makes and keeps its own series table, grid and
+    zeroed counters, and every result equals the plain version."""
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    cards = _cards()[:2]
+    torch.cuda.set_device(0)
+    b, n = _live_batch(32, 100, 16)
+    b[:3] = 0.0
+    cs, nn, tss = _stat_rows(4096, 4096)
+    for d in (cards[1], cards[0], cards[1], cards[0]):
+        bd, nd = torch.as_tensor(b, device=d), torch.as_tensor(n, device=d)
+        assert _bits_equal(st.tail_p(bd, nd, 25, 100),
+                           st.tail_p_plain(bd, nd, 25, 100))
+        args = _refine_inputs(d, cs, nn, [32 * r for r in range(8)])
+        for x, y in zip(st.refine(*args), st.refine_plain(*args)):
+            assert _bits_equal(x, y), _differ(x, y)
+        torch.cuda.synchronize(d)
+    states = [st._STATE[d] for d in cards]
+    assert states[0] is not states[1]
+    for d, state in zip(cards, states):
+        assert all(state[k].device == d for k in ("table", "count", "key"))
+    assert torch.cuda.current_device() == 0
