@@ -37,7 +37,20 @@
 //   the counters p * npad + j, and their hybrid or full max-t statistics
 //   (full: lags bounded by max_len, at least every full row's n); the
 //   other rows' statistics are zero.  No walk: the items of the launch go
-//   to the groups, and the launch is an ordinary one.
+//   to the groups, and the launch is an ordinary one.  Its groups come
+//   from the launch's items, counted on the card (perm_layout): a block's
+//   share of the nact x P items in as few rounds as its cap allows, by the
+//   fewest groups that take it in those rounds.  The cap is the groups
+//   whose slices hold two buffers where those take the share in one round
+//   or the width is 8,192 or more, else K7's groups of the width; a slice
+//   with two buffers keeps the draws for the scatter (the cipher runs once
+//   a position, not twice), and from 8,192 on the row's values are copied
+//   by cp.async into the draw buffer the scatter has freed while the
+//   buckets sort, so the cumsum gathers them from shared memory.  One row
+//   at P 768 on 132 blocks: 6 groups of 5 warps with two buffers up to
+//   4,096, 3 of 10 warps at 8,192.  Its shared memory holds no walk state
+//   and no keys (2 KB before the slices, K7's 17 KB), so that 6 groups
+//   hold two buffers at 4,096.
 //
 // A row's chunk c depends on its own key and counter alone, and every row
 // still walking takes its next chunk in each iteration, so a row that walks
@@ -68,7 +81,7 @@
 // The loop ends when no row walks.
 //
 // What bounds it.  Per item the work is the n draws of a 20-round integer
-// cipher, a sort (K7) or a selection (K8), and for K7 the statistic:
+// cipher, a sort (K7, K12) or a selection (K8), and for K7 the statistic:
 // (kmax - al0 + 1) * n terms, each a subtraction and a |.|-maximum.  All of
 // it is integer and f32 issue slots on data in registers and shared memory;
 // device memory sees only x (L2-resident, gathered once in permuted order)
@@ -82,14 +95,18 @@
 //   widest tier, 65,536, sorts in a per-block slab of device memory.  The
 //   order: u = m * 2^-23 with m the draw's top 23 bits, so the order (u, j)
 //   is the order of the 39-bit words (m, j).  A counting pass over the top
-//   B bits of m (B = log2(npad) - 3, 7..13, so about 8 positions a bucket)
+//   B bits of m (B = log2(npad) - 2, 7..13, so about 4 positions a bucket)
 //   places each position in its bucket, as the 32-bit word (low 23 - B
-//   bits of m, j); an insertion sort in each bucket finishes it.  x is
-//   gathered once over the words, 8 loads in flight a thread, and the
-//   cumsum runs in place.  The statistic takes 8 lags at a time over runs
-//   of 5 positions a thread, each value read once into registers; each
-//   lag's maximum goes to shared memory by a warp reduction and an atomic
-//   maximum, and the lag terms are computed a thread a lag and reduced
+//   bits of m, j); a sort in each bucket finishes it, by a network of 19
+//   compare-exchanges in registers for buckets of up to 8 words, by
+//   insertion for larger ones.
+//   x is gathered once over the words, 8 loads in flight a thread (from
+//   shared memory where K12 stages the row), and the cumsum runs in place.
+//   The statistic takes 8 lags at a time over runs of 5 positions a
+//   thread, each value read once into registers; the 8
+//   lags' warp maxima come from one butterfly of 9 shuffles (each step
+//   halving the lags a lane holds) and go to shared memory by atomic
+//   maxima, and the lag terms are computed a thread a lag and reduced
 //   with a maximum.
 //   K8 with m1 <= 32 streams the draws through a warp, four a lane at a
 //   time: the lanes hold the m1 smallest (key, j) so far as a sorted list,
@@ -356,7 +373,7 @@ __device__ T group_reduce(const Group& g, T v, T* sh, Op op) {
 __device__ __forceinline__ int log2_pow2(int v) { return 31 - __clz(v); }
 
 __host__ __device__ inline int bucket_bits(int npad_log2) {
-  const int b = npad_log2 - 3;
+  const int b = npad_log2 - 2;
   return b < 7 ? 7 : (b > 13 ? 13 : b);
 }
 
@@ -469,11 +486,53 @@ __device__ __forceinline__ float arc_term(float nf, int L, float D) {
   return __fmul_rn(__fmul_rn(w, D), D);
 }
 
+// The sz <= 8 words at w, sorted in registers by the 19 compare-exchanges
+// of Batcher's network for 8 (words are distinct and below 0xFFFFFFFF,
+// which pads).
+__device__ __forceinline__ void sort8(uint32_t* w, int sz) {
+  uint32_t v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = i < sz ? w[i] : 0xFFFFFFFFu;
+  constexpr int kNet[19][2] = {{0, 1}, {2, 3}, {4, 5}, {6, 7}, {0, 2},
+                               {1, 3}, {4, 6}, {5, 7}, {1, 2}, {5, 6},
+                               {0, 4}, {3, 7}, {1, 5}, {2, 6}, {1, 4},
+                               {3, 6}, {2, 4}, {3, 5}, {3, 4}};
+#pragma unroll
+  for (int c = 0; c < 19; ++c) {
+    const uint32_t a = v[kNet[c][0]], b = v[kNet[c][1]];
+    v[kNet[c][0]] = min(a, b);
+    v[kNet[c][1]] = max(a, b);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (i < sz) w[i] = v[i];
+}
+
+// Copies the n values of xrow (16-byte aligned, zero-padded to a multiple
+// of 4) into dst, 16 bytes a cp.async, without waiting for them.
+__device__ __forceinline__ void stage_row(const Group& g, float* dst,
+                                          const float* __restrict__ xrow,
+                                          int n) {
+  const unsigned base =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  for (int q = g.t; 4 * q < n; q += g.size)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 ::"r"(base + 16u * unsigned(q)), "l"(xrow + 4 * q)
+                 : "memory");
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
 // The positions j < n of permutation p under key, ordered by (u, j), as
 // 32-bit words (low bits of m, j) in s.B[0, n).  In kDouble mode the draws
 // wait in s.A for the scatter; otherwise the scatter draws them again.
+// With `stage` (kDouble mode only), the row's values are copied into s.A
+// once the scatter has read the draws, while the buckets sort.  A bucket
+// of up to 8 words is sorted by a network of 19 compare-exchanges in
+// registers, a fixed path that ends with its group's other threads; a
+// larger one by insertion.
 __device__ void permute(const Group& g, const Slice& s, int mode, uint2 key,
-                        int n, int npad, int p) {
+                        int n, int npad, int p,
+                        const float* __restrict__ stage = nullptr) {
   const int t = g.t, G = g.size;
   const int B = bucket_bits(log2_pow2(npad));
   const int nb = 1 << B, shift = 23 - B;
@@ -511,10 +570,15 @@ __device__ void permute(const Group& g, const Slice& s, int mode, uint2 key,
     s.B[slot] = ((m & low) << 16) | uint32_t(j);
   }
   gsync(g);
+  if (stage) stage_row(g, reinterpret_cast<float*>(s.A), stage, n);
   // hist[b] is now the end of bucket b; sort each bucket's words
   uint32_t* buf = s.B;
   for (int b = t; b < nb; b += G) {
     const int lo = b ? int(hist[b - 1]) : 0, hi = int(hist[b]);
+    if (hi - lo <= 8) {
+      sort8(buf + lo, hi - lo);
+      continue;
+    }
     for (int i = lo + 1; i < hi; ++i) {
       const uint32_t v = buf[i];
       int k = i - 1;
@@ -525,13 +589,16 @@ __device__ void permute(const Group& g, const Slice& s, int mode, uint2 key,
       buf[k + 1] = v;
     }
   }
+  if (stage) asm volatile("cp.async.wait_all;" ::: "memory");
   gsync(g);
 }
 
 // The f32 cumsum (float64 running sums, rounded at each position) of xrow
 // in the order of the words s.B[0, n), written over them as f32 bits; x is
 // read once, kBatch values loaded before they are stored.  A thread's run
-// has odd length, so a warp's runs start in distinct banks.
+// has odd length, so a warp's runs start in distinct banks.  kStaged: xrow
+// is the row's copy in shared memory, else it is read from device memory.
+template <bool kStaged>
 __device__ void permuted_cumsum(const Group& g, const Slice& s,
                                 const float* __restrict__ xrow, int n) {
   const int per = ((n + g.size - 1) / g.size) | 1;
@@ -542,7 +609,9 @@ __device__ void permuted_cumsum(const Group& g, const Slice& s,
     float v[kBatch];
 #pragma unroll
     for (int q = 0; q < kBatch; ++q)
-      if (kb + q < k1) v[q] = __ldg(xrow + (buf[kb + q] & 0xFFFFu));
+      if (kb + q < k1)
+        v[q] = kStaged ? xrow[buf[kb + q] & 0xFFFFu]
+                       : __ldg(xrow + (buf[kb + q] & 0xFFFFu));
 #pragma unroll
     for (int q = 0; q < kBatch; ++q)
       if (kb + q < k1) {
@@ -618,17 +687,29 @@ __device__ float max_t(const Group& g, const Slice& s, const float* cs, int n,
               m[u] = fmaxf(m[u], fabsf(__fsub_rn(cs[n - L + j], cs[j])));
           }
       }
+      // the warp's maxima of the 8 lags by a butterfly that halves the
+      // lags a lane holds at each of the first three steps (4 + 2 + 1
+      // shuffles, then 2 for the last lag): lane l ends with lag
+      // (l >> 2) & 7's maximum
+      const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4;
+      float r4[4], r2[2];
 #pragma unroll
-      for (int u = 0; u < kLagBlock; ++u) {
-        float v = m[u];
+      for (int q = 0; q < 4; ++q)
+        r4[q] = fmaxf(h4 ? m[q + 4] : m[q],
+                      __shfl_xor_sync(kFull, h4 ? m[q] : m[q + 4], 16));
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-        // non-negative floats order as their bits
-        if (lane == 0 && u < cnt)
-          atomicMax(reinterpret_cast<unsigned int*>(s.lag + lb + u),
-                    __float_as_uint(v));
-      }
+      for (int q = 0; q < 2; ++q)
+        r2[q] = fmaxf(h3 ? r4[q + 2] : r4[q],
+                      __shfl_xor_sync(kFull, h3 ? r4[q] : r4[q + 2], 8));
+      float v = fmaxf(h2 ? r2[1] : r2[0],
+                      __shfl_xor_sync(kFull, h2 ? r2[0] : r2[1], 4));
+      v = fmaxf(v, __shfl_xor_sync(kFull, v, 2));
+      v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
+      const int u = (lane >> 2) & 7;
+      // non-negative floats order as their bits
+      if ((lane & 3) == 0 && u < cnt)
+        atomicMax(reinterpret_cast<unsigned int*>(s.lag + lb + u),
+                  __float_as_uint(v));
     }
     gsync(g);
     for (int li = t; li < nl; li += G)
@@ -753,7 +834,7 @@ __global__ void __launch_bounds__(kThreads, 1) walk_kernel(WalkArgs a) {
         const Slice s = carve7(slices + size_t(gi) * slice, npad, mode,
                                slab);
         permute(g, s, mode, f.rkey[ai], n, npad, p);
-        permuted_cumsum(g, s, a.x + size_t(r) * a.Tmax, n);
+        permuted_cumsum<false>(g, s, a.x + size_t(r) * a.Tmax, n);
         const float st = max_t(g, s, reinterpret_cast<const float*>(s.B), n,
                                npad, a.tss[r], a.hybrid[r], a.al0, a.kmax,
                                a.n_min);
@@ -1067,7 +1148,7 @@ __global__ void __launch_bounds__(kThreads, 1) edge_kernel(EdgeArgs a) {
 // ---------------------------------------------------------------------------
 
 struct PermArgs {
-  const float* x;          // [S, npad]
+  const float* x;          // [S, npad], 16-byte aligned
   const i64* n;            // [S]
   const float* tss;
   const i64* keys;         // [S, 2]: the rows' chunk keys
@@ -1078,39 +1159,90 @@ struct PermArgs {
   int S, npad, P, al0, kmax, max_len;
 };
 
+// K12's own shared memory before the slices: the masked rows' list (16
+// bits a row) and a scan's scratch; no walk state and no keys (an item
+// reads its row's key from device memory), so that a slice of 6 groups
+// holds two buffers at width 4,096.
+constexpr int kPermFixedBytes = align16(kMaxRows * 2 + (kWarps + 1) * 4);
+constexpr int kPermBudget = kSmemBytes - kPermFixedBytes;
+
+// The bytes of a K7-style slice of width npad with two buffers.
+__host__ __device__ inline int double_bytes(int npad) {
+  return kHead7 + 4 * ((1 << bucket_bits(ilog2(npad))) + 2 * npad);
+}
+
+// Widths from which K12 keeps the draws in a second buffer even where that
+// costs a block more rounds (there a row's draws outweigh a round; only
+// 8,192 and 16,384 have room for two buffers), and stages the row's values
+// in shared memory (below it, gathering them from device memory is the
+// quicker: a narrower row's gather is short, and the copy's wait is not).
+constexpr int kWideRow = 8192;
+
+// K12's groups for a launch of `items` = masked rows x P items over `grid`
+// blocks at width npad.  The cap is what two buffers a slice allow where
+// they take the block's share of the items in one round (or the width is
+// kWideRow or more), else K7's layout of the width (never more); the
+// block's share goes in as few rounds as the cap allows, by the fewest
+// groups that take it in those rounds; a slice keeps two buffers wherever
+// it holds them (the draws kept; from kWideRow on, the row's values
+// staged).  bytes is a group's slice.
+__host__ __device__ inline Layout perm_layout(int npad, int items,
+                                              int grid) {
+  const int kcap = k7_layout(npad).k;
+  int kd = npad >= kSlabTier ? 0 : kPermBudget / double_bytes(npad);
+  kd = kd < kcap ? kd : kcap;
+  int share = grid > 0 ? (items + grid - 1) / grid : items;
+  share = share < 1 ? 1 : share;
+  const int cap = kd >= 1 && (share <= kd || npad >= kWideRow) ? kd : kcap;
+  const int rounds = (share + cap - 1) / cap;
+  Layout l;
+  l.k = (share + rounds - 1) / rounds;
+  l.bytes = (kPermBudget / l.k) & ~15;
+  l.mode = npad >= kSlabTier ? kSlab
+         : (double_bytes(npad) <= l.bytes ? kDouble : kSingle);
+  return l;
+}
+
 __global__ void __launch_bounds__(kThreads, 1) perm_kernel(PermArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Fixed f = carve_fixed(smem_raw);
-  unsigned char* slices = smem_raw + kFixedBytes;
+  uint32_t* red = reinterpret_cast<uint32_t*>(smem_raw);
+  uint16_t* list = reinterpret_cast<uint16_t*>(red + kWarps + 1);
+  unsigned char* slices = smem_raw + kPermFixedBytes;
   const int tid = threadIdx.x;
-  const int nact = list_where(tid < a.S && a.mask[tid], f.list, f.red);
+  const bool mine = tid < a.S && a.mask[tid];
+  uint32_t count;
+  const uint32_t at = block_exclusive_scan<uint32_t>(mine ? 1u : 0u, red,
+                                                     &count);
+  if (mine) list[at] = uint16_t(tid);
+  __syncthreads();
+  const int nact = int(count);
   const size_t total = size_t(a.S) * size_t(a.P);
   for (size_t i = size_t(blockIdx.x) * kThreads + tid; i < total;
        i += size_t(gridDim.x) * kThreads)
     if (!a.mask[i / a.P]) a.out[i] = 0.0f;
-  if (tid < nact) {
-    const int r = f.list[tid];
-    f.rkey[tid] = make_uint2(uint32_t(a.keys[2 * r]),
-                             uint32_t(a.keys[2 * r + 1]));
-  }
-  __syncthreads();
-  // as many groups as the bucket's width allows, each running its items
-  // with no block barrier
-  const int k = k7_layout(a.npad).k;
-  const int slice = (kGroupBudget / k) & ~15;
-  const int gsize = (kWarps / k) * 32;
+  if (nact == 0) return;
+  // the groups from the launch's items, each running its items with no
+  // block barrier
+  const Layout l = perm_layout(a.npad, nact * a.P, gridDim.x);
+  const int gsize = (kWarps / l.k) * 32;
   const int gi = tid / gsize;
-  if (gi >= k) return;
+  if (gi >= l.k) return;
   const Group g{tid - gi * gsize, gsize, 1 + gi};
-  const int mode = k7_mode(a.npad, slice);
-  const Slice s = carve7(slices + size_t(gi) * slice, a.npad, mode,
+  const Slice s = carve7(slices + size_t(gi) * l.bytes, a.npad, l.mode,
                          a.gbuf + size_t(blockIdx.x) * size_t(a.npad));
+  const bool staged = l.mode == kDouble && a.npad >= kWideRow;
   for (int item = blockIdx.x + gridDim.x * gi; item < nact * a.P;
-       item += gridDim.x * k) {
-    const int ai = item / a.P, p = item % a.P, r = f.list[ai];
+       item += gridDim.x * l.k) {
+    const int p = item % a.P, r = list[item / a.P];
     const int n = int(a.n[r]);
-    permute(g, s, mode, f.rkey[ai], n, a.npad, p);
-    permuted_cumsum(g, s, a.x + size_t(r) * a.npad, n);
+    const float* xrow = a.x + size_t(r) * a.npad;
+    const uint2 key = make_uint2(uint32_t(__ldg(a.keys + 2 * r)),
+                                 uint32_t(__ldg(a.keys + 2 * r + 1)));
+    permute(g, s, l.mode, key, n, a.npad, p, staged ? xrow : nullptr);
+    if (staged)
+      permuted_cumsum<true>(g, s, reinterpret_cast<const float*>(s.A), n);
+    else
+      permuted_cumsum<false>(g, s, xrow, n);
     const float st = max_t(g, s, reinterpret_cast<const float*>(s.B), n,
                            a.npad, a.tss[r], a.hybrid[r], a.al0, a.kmax,
                            a.max_len);
@@ -1299,9 +1431,21 @@ extern "C" int cbs_edge(const void* xw, const void* wn, const void* m1,
                             args, static_cast<cudaStream_t>(stream));
 }
 
-// K12.  x f32 [S, npad], n int64, tss f32, keys int64 [S, 2], mask and
-// hybrid bool [S]; out f32 [S, P]; slab: [grid, npad] 32-bit words when
-// npad >= 65,536; S <= 1,024.
+// K12's layout of a launch of `items` items over `grid` blocks at width
+// npad: (groups a block, buffer mode as cbs_layout's, a group's slice
+// bytes, the bytes two buffers take) into out[4].
+extern "C" int cbs_perm_layout(int npad, int items, int grid, int* out) {
+  const Layout l = perm_layout(npad, items, grid);
+  out[0] = l.k;
+  out[1] = l.mode;
+  out[2] = l.bytes;
+  out[3] = double_bytes(npad);
+  return 0;
+}
+
+// K12.  x f32 [S, npad] (16-byte aligned), n int64, tss f32, keys int64
+// [S, 2], mask and hybrid bool [S]; out f32 [S, P]; slab: [grid, npad]
+// 32-bit words when npad >= 65,536; S <= 1,024.
 extern "C" int cbs_perm(const void* x, const void* n, const void* tss,
                         const void* keys, const void* mask,
                         const void* hybrid, void* slab, void* out, int S,

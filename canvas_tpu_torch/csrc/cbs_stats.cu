@@ -14,7 +14,11 @@
 //       512-lag block k, psd2[b, k] = min(psdiff, bound_k)^2, where
 //       bound_k is the largest M[c] - m[a] over the 256-position chunks
 //       a, c at the chunk distances block k reaches (M, m: a chunk's max
-//       and min over all its positions).  One block a row.
+//       and min over all its positions).  A block a tile of 8,192
+//       positions of a row, read once with 16-byte loads issued
+//       together (a row of 32,768 is 4 blocks); the row's last tile to
+//       finish merges the tiles' extrema, a lane a tile, and computes the
+//       rest.
 //   K10 (refine_kernel) the refine lax.fori_loop and the t^2 formula
 //       (:408-454).  Per row whose B4 sub-block bl0 is not -1: over the
 //       positions i and the lags bl0 + k, k < 32, with the lag in [al0,
@@ -39,7 +43,10 @@
 //       once a device.
 //
 // What bounds them on the H100.  K9 reads cs once: bytes (3.35 TB/s); its
-// chunk pairs are nchunk^2 <= 65,536 a row.  K10 evaluates 32 lags at each
+// chunk pairs are nchunk^2 <= 65,536 a row, in the row's last block a
+// thread two chunk distances of nchunk + 1 pairs together.  Under 4 MB a
+// level, a launch's own latency is its floor, so its tiles spread a wide
+// row over the SMs rather than over one.  K10 evaluates 32 lags at each
 // position of the rows with a sub-block: about 5 f32 operations a pair,
 // operations, so few on a level (1.7e6) that a launch's latency is the
 // floor.  K11 is float64 operations: 819,200 erfc calls and 12,900 more a
@@ -70,9 +77,12 @@
 // also call.  So K9 and K10 equal their plain versions bit for bit on any
 // device, and K11 on the card.
 //
-// K10's row counters and keys and K11's two counters live in device memory
-// that the wrapper zeroes once a device; each launch leaves them zero
-// (K10: a row's last block), so calls on one stream reuse them.
+// K9's and K10's row counters, K10's keys and K11's two counters live in
+// device memory that the wrapper zeroes once a device; each launch leaves
+// them zero (K9 and K10: a row's last block), so calls on one stream reuse
+// them.  K9's tile extrema and chunk extrema go through scratch there
+// too; a tile's first index among equal values survives the merge
+// whatever order the tiles finish in.
 
 #include <climits>
 #include <cooperative_groups.h>
@@ -86,8 +96,10 @@ namespace {
 typedef long long i64;
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kRowThreads = 256;      // K9: threads a row
+constexpr int kRowThreads = 256;      // K9: threads a block
 constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kTile = 8192;           // K9: positions a block
+constexpr int kGroups = kTile / (4 * kRowThreads);  // K9: loads a thread
 constexpr int kRefineThreads = 256;   // K10: threads a block
 constexpr int kRefineWarps = kRefineThreads / 32;
 constexpr int kRefineTile = 512;      // K10: positions a block
@@ -139,27 +151,90 @@ __device__ __forceinline__ void arg_merge(float& v, int& i, float v2, int i2,
   }
 }
 
+// A tile's first-index extrema over the row's real positions in it (an
+// index of INT_MAX where it holds none).
+struct TileExt {
+  float vmin, vmax;
+  int imin, imax;
+};
+
+// Block b = row * tiles + tile reads its tile of kTile positions of the
+// row once, 16 bytes a load: the tile's first-index argmin and argmax over
+// the real positions, and the maxima and minima of its chunks of C =
+// min(256, npad) positions over all positions.  A row of one tile goes on
+// from shared memory; otherwise each block writes its tile's results to
+// the scratch ext [B, tiles] and chunk [B, nchunk] (M, m), and the row's
+// last block to finish (an atomic counter, left zero) merges them: the
+// smaller index among equal values, so the first index wins whatever
+// tile ends last.  That block computes the rest with all its threads:
+// the chunk-distance bounds, psd2, the seed, lag_hi, ti0, tj0 and n32.
 __global__ void __launch_bounds__(kRowThreads) arc_inputs_kernel(
     const float* __restrict__ cs, const void* n, int n64, int npad, int al0,
-    float* seed, int32_t* lag_hi, int32_t* ti0, int32_t* tj0, int32_t* n32,
+    int tiles, TileExt* ext, float2* chunk, unsigned* count, float* seed,
+    int32_t* lag_hi, int32_t* ti0, int32_t* tj0, int32_t* n32,
     float* psd2) {
   __shared__ float s_v[2][kRowWarps];
   __shared__ int s_i[2][kRowWarps];
   __shared__ float s_M[kBChunk], s_m[kBChunk], s_db[kBChunk];
-  __shared__ float s_psdiff;
-  const int b = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  __shared__ float s_wM[kTile / 128], s_wm[kTile / 128];
+  __shared__ TileExt s_ext;
+  __shared__ bool s_last;
+  const int b = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const float* row = cs + size_t(b) * npad;
   const i64 nb = row_n(n, n64, b);
   const int nv = nb < 0 ? 0 : (nb > npad ? npad : int(nb));
+  const int T = npad < kTile ? npad : kTile;
+  const int i0 = tile * T;
+  const int C = npad < kBChunk ? npad : kBChunk;
+  const int nchunk = npad / C;
 
-  // first-index argmin and argmax over the real positions (an index of
-  // INT_MAX marks "none yet"; no real position leaves both at index 0)
+  // one pass: a thread's 4-position groups g = t, t + 256, ..., all its
+  // loads issued before any is used; a warp's 32 groups (128 positions)
+  // lie in one chunk when C >= 128, and a row narrower than that is one
+  // chunk
   float vmin = INFINITY, vmax = -INFINITY;
   int imin = INT_MAX, imax = INT_MAX;
-  for (int i = t; i < nv; i += kRowThreads) {
-    const float v = row[i];
-    if (v < vmin) { vmin = v; imin = i; }
-    if (v > vmax) { vmax = v; imax = i; }
+  const int groups = T >= 4 ? T / 4 : 1;
+  float4 w[kGroups];
+#pragma unroll
+  for (int q = 0; q < kGroups; ++q) {
+    const int g = q * kRowThreads + t;
+    if (T >= 4 && g < groups)
+      w[q] = __ldg(reinterpret_cast<const float4*>(row + i0) + g);
+    else if (g == 0)                    // a row of 1 or 2 positions
+      w[q] = make_float4(row[0], T > 1 ? row[1] : row[0], row[0], row[0]);
+  }
+#pragma unroll
+  for (int q = 0; q < kGroups; ++q) {
+    if (q * kRowThreads >= groups) break;
+    const int g = q * kRowThreads + t;
+    float M = -INFINITY, m = INFINITY;
+    if (g < groups) {
+      const float v[4] = {w[q].x, w[q].y, w[q].z, w[q].w};
+      const int cnt = T >= 4 ? 4 : T;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j >= cnt) break;
+        const int i = i0 + 4 * g + j;
+        if (i < nv) {
+          if (v[j] < vmin) { vmin = v[j]; imin = i; }
+          if (v[j] > vmax) { vmax = v[j]; imax = i; }
+        }
+        M = fmaxf(M, v[j]);
+        m = fminf(m, v[j]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      M = fmaxf(M, __shfl_xor_sync(kFull, M, o));
+      m = fminf(m, __shfl_xor_sync(kFull, m, o));
+    }
+    const int wq = q * kRowWarps + warp;   // the tile's 128-position run
+    if (lane == 0 && 32 * wq < groups) {
+      s_wM[wq] = M;
+      s_wm[wq] = m;
+    }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -172,39 +247,72 @@ __global__ void __launch_bounds__(kRowThreads) arc_inputs_kernel(
     s_v[0][warp] = vmin; s_i[0][warp] = imin;
     s_v[1][warp] = vmax; s_i[1][warp] = imax;
   }
-  // the chunks' maxima and minima over all their positions, a warp a chunk
-  const int C = npad < kBChunk ? npad : kBChunk;
-  const int nchunk = npad / C;
-  for (int c = warp; c < nchunk; c += kRowWarps) {
-    float M = -INFINITY, m = INFINITY;
-    for (int j = lane; j < C; j += 32) {
-      const float v = row[c * C + j];
-      M = fmaxf(M, v);
-      m = fminf(m, v);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      M = fmaxf(M, __shfl_xor_sync(kFull, M, o));
-      m = fminf(m, __shfl_xor_sync(kFull, m, o));
-    }
-    if (lane == 0) {
-      s_M[c] = M;
-      s_m[c] = m;
-    }
-  }
   __syncthreads();
-  if (t == 0) {
-    for (int w = 1; w < kRowWarps; ++w) {
-      arg_merge(vmin, imin, s_v[0][w], s_i[0][w], false);
-      arg_merge(vmax, imax, s_v[1][w], s_i[1][w], true);
+  // the tile's chunks from its runs, and its extrema
+  const int runs = (groups + 31) / 32, per = C >= 128 ? C / 128 : runs;
+  const int c0 = i0 / C;
+  for (int c = t; c * per < runs; c += kRowThreads) {
+    float M = s_wM[c * per], m = s_wm[c * per];
+    for (int q = 1; q < per; ++q) {
+      M = fmaxf(M, s_wM[c * per + q]);
+      m = fminf(m, s_wm[c * per + q]);
     }
-    // no real position: torch's argmin and argmax of the row give 0
-    if (imin == INT_MAX) imin = 0;
-    if (imax == INT_MAX) imax = 0;
-    const float cmin = row[imin], cmax = row[imax];
+    s_M[c0 + c] = M;
+    s_m[c0 + c] = m;
+    if (tiles > 1) chunk[size_t(b) * nchunk + c0 + c] = make_float2(M, m);
+  }
+  if (t == 0) {
+    for (int q = 1; q < kRowWarps; ++q) {
+      arg_merge(vmin, imin, s_v[0][q], s_i[0][q], false);
+      arg_merge(vmax, imax, s_v[1][q], s_i[1][q], true);
+    }
+    s_ext = {vmin, vmax, imin, imax};
+    if (tiles > 1) ext[size_t(b) * tiles + tile] = s_ext;
+  }
+  if (tiles > 1) {
+    __threadfence();
+    __syncthreads();
+    if (t == 0)
+      s_last = atomicAdd(count + b, 1u) == unsigned(tiles - 1);
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    for (int c = t; c < nchunk; c += kRowThreads) {
+      const float2 Mm = __ldcg(chunk + size_t(b) * nchunk + c);
+      s_M[c] = Mm.x;
+      s_m[c] = Mm.y;
+    }
+    if (warp == 0) {            // the tiles' extrema, a lane a tile
+      TileExt e = {INFINITY, -INFINITY, INT_MAX, INT_MAX};
+      if (lane < tiles) {
+        const TileExt* src = ext + size_t(b) * tiles + lane;
+        e = {__ldcg(&src->vmin), __ldcg(&src->vmax), __ldcg(&src->imin),
+             __ldcg(&src->imax)};
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        arg_merge(e.vmin, e.imin, __shfl_xor_sync(kFull, e.vmin, o),
+                  __shfl_xor_sync(kFull, e.imin, o), false);
+        arg_merge(e.vmax, e.imax, __shfl_xor_sync(kFull, e.vmax, o),
+                  __shfl_xor_sync(kFull, e.imax, o), true);
+      }
+      if (lane == 0) {
+        s_ext = e;
+        count[b] = 0;
+      }
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    // the extrema's values are cs[imin] and cs[imax]; with no real
+    // position, torch's argmin and argmax of the row give 0
+    const bool none = s_ext.imin == INT_MAX;
+    const int jmin = none ? 0 : s_ext.imin, jmax = none ? 0 : s_ext.imax;
+    const float cmin = none ? row[0] : s_ext.vmin;
+    const float cmax = none ? row[0] : s_ext.vmax;
     const float psdiff = __fsub_rn(cmax, cmin);
     const float nf = __ll2float_rn(nb);
-    const int dj = imax > imin ? imax - imin : imin - imax;
+    const int dj = jmax > jmin ? jmax - jmin : jmin - jmax;
     const float rjs = __int2float_rn(dj > 1 ? dj : 1);
     seed[b] = psdiff > 0.0f
         ? __fmul_rn(__fmul_rn(__fdiv_rn(nf, __fmul_rn(rjs, __fsub_rn(nf, rjs))),
@@ -213,22 +321,32 @@ __global__ void __launch_bounds__(kRowThreads) arc_inputs_kernel(
         : 0.0f;
     const i64 lh = nb - al0 < nb - 1 ? nb - al0 : nb - 1;
     lag_hi[b] = int32_t(lh);
-    ti0[b] = int32_t((imin < imax ? imin : imax) + 1);
-    tj0[b] = int32_t((imin > imax ? imin : imax) + 1);
+    ti0[b] = int32_t((jmin < jmax ? jmin : jmax) + 1);
+    tj0[b] = int32_t((jmin > jmax ? jmin : jmax) + 1);
     n32[b] = int32_t(nb);
-    s_psdiff = psdiff;
+    s_ext.vmin = psdiff;
   }
-  // the largest M[c] - m[a] at each chunk distance db = |c - a|
-  for (int db = t; db < nchunk; db += kRowThreads) {
-    float best = -INFINITY;
-    for (int a = 0; a + db < nchunk; ++a) {
-      best = fmaxf(best, __fsub_rn(s_M[a + db], s_m[a]));
-      best = fmaxf(best, __fsub_rn(s_M[a], s_m[a + db]));
+  // the largest M[c] - m[a] at each chunk distance db = |c - a|: a thread
+  // the distances d and nchunk - 1 - d, nchunk + 1 pairs of chunks either
+  // way, so every thread's share is equal
+  __syncthreads();
+  for (int d0 = t; 2 * d0 < nchunk; d0 += kRowThreads) {
+    const int d1 = nchunk - 1 - d0;
+    float b0 = -INFINITY, b1 = -INFINITY;
+    for (int a = 0; a + d0 < nchunk; ++a) {
+      b0 = fmaxf(b0, __fsub_rn(s_M[a + d0], s_m[a]));
+      b0 = fmaxf(b0, __fsub_rn(s_M[a], s_m[a + d0]));
     }
-    s_db[db] = best;
+    for (int a = 0; a + d1 < nchunk; ++a) {
+      b1 = fmaxf(b1, __fsub_rn(s_M[a + d1], s_m[a]));
+      b1 = fmaxf(b1, __fsub_rn(s_M[a], s_m[a + d1]));
+    }
+    s_db[d0] = b0;
+    s_db[d1] = b1;
   }
   __syncthreads();
   // each lag block: the largest over the chunk distances it reaches
+  const float psdiff = s_ext.vmin;
   const int blk = npad < kPBlk ? npad : kPBlk;
   const int nblk = npad / blk;
   for (int k = t; k < nblk; k += kRowThreads) {
@@ -237,7 +355,7 @@ __global__ void __launch_bounds__(kRowThreads) arc_inputs_kernel(
     const int db_hi = hi < nchunk - 1 ? hi : nchunk - 1;
     float bnd = -INFINITY;
     for (int db = db_lo; db <= db_hi; ++db) bnd = fmaxf(bnd, s_db[db]);
-    const float d = fminf(s_psdiff, bnd);
+    const float d = fminf(psdiff, bnd);
     psd2[size_t(b) * nblk + k] = __fmul_rn(d, d);
   }
 }
@@ -578,19 +696,28 @@ __global__ void erfc_kernel(const double* x, double* out, int count) {
 
 }  // namespace
 
-// K9.  cs: f32 [B, npad]; n: int64 (n64 = 1) or int32 [B]; outputs seed
-// f32, lag_hi, ti0, tj0 and n32 (n as int32) [B], psd2 f32 [B, nblk].
+// K9.  cs: f32 [B, npad] (16-byte aligned); n: int64 (n64 = 1) or int32
+// [B]; outputs seed f32, lag_hi, ti0, tj0 and n32 (n as int32) [B], psd2
+// f32 [B, nblk].  Scratch where a row has more than one tile: ext (16
+// bytes) [B, tiles], chunk (8 bytes) [B, nchunk], and count (u32, at least
+// [B]), zero and left zero.
 extern "C" int cbs_arc_inputs(const void* cs, const void* n, int n64,
+                              void* ext, void* chunk, void* count,
                               void* seed, void* lag_hi, void* ti0, void* tj0,
                               void* n32, void* psd2, int B, int npad, int al0,
                               void* stream) {
   if (B <= 0) return 0;
-  arc_inputs_kernel<<<unsigned(B), kRowThreads, 0,
+  if (npad < 1 || npad > 65536 || (npad & (npad - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = npad > kTile ? npad / kTile : 1;
+  arc_inputs_kernel<<<unsigned(B) * unsigned(tiles), kRowThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cs), n, n64, npad, al0,
-      static_cast<float*>(seed), static_cast<int32_t*>(lag_hi),
-      static_cast<int32_t*>(ti0), static_cast<int32_t*>(tj0),
-      static_cast<int32_t*>(n32), static_cast<float*>(psd2));
+      static_cast<const float*>(cs), n, n64, npad, al0, tiles,
+      static_cast<TileExt*>(ext), static_cast<float2*>(chunk),
+      static_cast<unsigned*>(count), static_cast<float*>(seed),
+      static_cast<int32_t*>(lag_hi), static_cast<int32_t*>(ti0),
+      static_cast<int32_t*>(tj0), static_cast<int32_t*>(n32),
+      static_cast<float*>(psd2));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -44,6 +44,14 @@ the host path stays the engine on the CPU device and is the parity gate):
     closed-form Euler–Maclaurin integral tail instead of the reference's
     doubling-block truncation (TailProbability.cs ``Nu``); the device value
     is the more accurate one (~1e-8 vs ~1e-6 relative error).
+
+Deviation from the JAX package's frontier engine (C5, settled: float64
+kept): the tail probability p1 stays float64 through tail_ok and the
+walk's limit int((alpha - p1) n_perm), where the JAX package takes p1 in
+float32; its limit differs on the rare rows whose (alpha - p1) n_perm
+lies within its float32 error of an integer, and the float64 one is the
+host engine's (ops/cbs_mega.py's module note; tests/test_torch_cbs_mega.py::
+test_tail_precision_changes_walk_limits_c5).
 """
 
 from __future__ import annotations

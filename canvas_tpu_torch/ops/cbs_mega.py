@@ -57,6 +57,19 @@ Documented deviations from the host path, as for the frontier engine
 (Monte-Carlo-level): threefry permutations instead of the numpy stream,
 f32 statistics with the reference's 1e-5 slack factor, exact arc-scan
 ties resolved at block granularity.
+
+Deviation from the JAX package's engine (C5, settled: float64 kept): the
+tail probability p1 is float64 here, rounded to f32 before tail_ok = p1
+<= alpha and the walk's limit nrejc = int((alpha - p1) n_perm); the JAX
+package takes it in float32, off from its own float64 tail by up to
+1.6e-4 relative on tests/test_torch_cbs_stats.py's level batch.  tail_ok
+agrees, but a limit differs on the rare rows whose (alpha - p1) n_perm
+lies that close to an integer, a limit one apart, which can decide a walk
+the other way.  The float64 limit is the one the host
+engine's float64 tail and Canvas's C# double give, and it keeps a CUDA
+run equal to a CPU run (no float32 kernel could match XLA's float32 erfc
+and exp bit for bit).  tests/test_torch_cbs_mega.py::
+test_tail_precision_changes_walk_limits_c5 shows it.
 """
 
 from __future__ import annotations

@@ -31,6 +31,8 @@ with their plain torch versions.
                 to 65,536), with K7's permutation, cumsum and statistic
                 code; f32 [S, P], zero on the other rows.  Its plain
                 version is cbs_device._perm_stats on the masked rows.
+                The kernel sizes its groups from the launch's items on
+                the card; perm_layout mirrors that rule.
 
 Each row (lane) is decided by its own chunk sequence alone, so the order
 in which rows draw their chunks does not matter: canvas_tpu's compaction
@@ -81,7 +83,32 @@ _SIGNATURES = {
     "cbs_perm": [_P] * 8 + [_I] * 7 + [_P],
     "cbs_grid": [_I, _P],
     "cbs_layout": [_I, _I, _P],
+    "cbs_perm_layout": [_I, _I, _I, _P],
 }
+
+# csrc/cbs_mega.cu's shared-memory plan, mirrored for layout() and
+# perm_layout() (the card tests hold them equal to the source's)
+_THREADS = 1024
+_WARPS = _THREADS // 32
+_SMEM = 232448             # 227 KB, the most a block can have
+_MAX_GROUPS = 8
+_LAG_TILE = 256
+_DIGIT_BINS = 2048
+_MODES = ("shared, two buffers", "shared, one buffer", "device-memory slab")
+_DOUBLE, _SINGLE, _SLAB = 0, 1, 2
+
+
+def _align16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+_HEAD7_LAG = _align16((_WARPS + 1) * 8 + (_WARPS + 1) * 4 + 16)
+_HEAD7 = _HEAD7_LAG + _LAG_TILE * 4
+_FIXED = _align16(MAX_ROWS * 8 + 2 * MAX_ROWS * 4 + (_WARPS + 1) * 4
+                  + MAX_ROWS)
+_BUDGET = _SMEM - _FIXED
+_PERM_FIXED = _align16(MAX_ROWS * 2 + (_WARPS + 1) * 4)
+_PERM_BUDGET = _SMEM - _PERM_FIXED
 
 
 def _fsum(v: torch.Tensor) -> torch.Tensor:
@@ -472,6 +499,8 @@ def perm_stats(x, n, tss, keys, mask, hybrid, P: int, al0: int, kmax: int,
     if npad < 1 or npad > SLAB_TIER or npad & (npad - 1):
         raise ValueError(f"npad must be a power of two up to {SLAB_TIER}, "
                          f"got {npad}")
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
     dev = x.device
     out = torch.empty((S, P), dtype=torch.float32, device=dev)
     if S == 0:
@@ -492,18 +521,97 @@ def perm_stats(x, n, tss, keys, mask, hybrid, P: int, al0: int, kmax: int,
     return out
 
 
+def _bucket_nb(npad: int) -> int:
+    """The counting sort's buckets at width npad: 2^B, B = log2(npad) - 2
+    clamped to 7..13."""
+    lg = max(0, (int(npad) - 1).bit_length())
+    return 1 << min(13, max(7, lg - 2))
+
+
+def _k7_groups(npad: int, edge: bool) -> tuple[int, int, int]:
+    """(groups, mode, bytes) of k7_layout / k8_layout."""
+    if edge:
+        mode = _SLAB if npad >= SLAB_TIER else _SINGLE
+        need = _align16(_HEAD7_LAG + 4 * (_DIGIT_BINS
+                                          + (0 if mode == _SLAB else npad)))
+    elif npad >= SLAB_TIER:
+        mode, need = _SLAB, _align16(_HEAD7 + 4 * _bucket_nb(npad))
+    else:
+        mode = _SINGLE
+        need = _align16(_HEAD7 + 4 * (_bucket_nb(npad) + npad))
+    k = 1 if mode == _SLAB else min(_MAX_GROUPS, _BUDGET // need)
+    return k, mode, need
+
+
 def layout(npad: int, edge: bool) -> dict:
     """How a launch of K7 (or K8, for a subset above 32) works a row
     of tier width npad: the groups of warps a block runs at once (K7: in
     an iteration whose widest walking row has this tier), where a
     permutation's buffers live ("shared, two buffers", "shared, one
     buffer" or "device-memory slab") and a group's shared bytes."""
+    k, mode, need = _k7_groups(npad, edge)
+    return {"groups": k, "buffers": _MODES[mode], "bytes": need}
+
+
+def _double_bytes(npad: int) -> int:
+    return _HEAD7 + 4 * (_bucket_nb(npad) + 2 * npad)
+
+
+WIDE_ROW = 8192        # K12 keeps two buffers from here at more rounds,
+                       # and stages the row's values
+
+
+def perm_layout(npad: int, items: int, grid: int) -> dict:
+    """K12's groups for a launch of `items` (masked rows x P) over `grid`
+    blocks at width npad, as csrc/cbs_mega.cu's perm_layout chooses them on
+    the card.  The cap is what two buffers a slice allow where they take
+    each block's share of the items in one round (or the width is
+    WIDE_ROW or more), else layout(npad, False)'s (never more); the
+    share goes in as few rounds as the cap allows, by the fewest groups
+    that take it in those rounds; a slice keeps two buffers wherever it
+    holds them (the scatter then reads the kept draws, one cipher call a
+    position instead of two; from WIDE_ROW on, the row's values are staged
+    in shared memory).  Returns the groups, the buffers, a group's slice
+    bytes, the bytes two buffers take, the rounds, the cipher calls a
+    position and whether the values are staged."""
+    kcap = _k7_groups(npad, False)[0]
+    kd = 0 if npad >= SLAB_TIER else min(kcap,
+                                         _PERM_BUDGET // _double_bytes(npad))
+    share = max(1, -(-items // grid) if grid > 0 else items)
+    cap = kd if kd >= 1 and (share <= kd or npad >= WIDE_ROW) else kcap
+    rounds = -(-share // cap)
+    k = -(-share // rounds)
+    slice_ = (_PERM_BUDGET // k) & ~15
+    mode = _SLAB if npad >= SLAB_TIER else (
+        _DOUBLE if _double_bytes(npad) <= slice_ else _SINGLE)
+    return {"groups": k, "buffers": _MODES[mode], "bytes": slice_,
+            "double_bytes": _double_bytes(npad), "rounds": -(-share // k),
+            "draws_a_position": 1 if mode == _DOUBLE else 2,
+            "staged": mode == _DOUBLE and npad >= WIDE_ROW}
+
+
+def device_layout(npad: int, edge: bool) -> dict:
+    """layout() as csrc/cbs_mega.cu computes it (k7_layout, k8_layout),
+    from the built library, for tests."""
     out = (ctypes.c_int * 3)()
     cuda_lib.check(cuda_lib.load("cbs_mega", _SIGNATURES).cbs_layout(
         npad, int(edge), out), "cbs_layout")
-    modes = ("shared, two buffers", "shared, one buffer",
-             "device-memory slab")
-    return {"groups": out[0], "buffers": modes[out[1]], "bytes": out[2]}
+    return {"groups": out[0], "buffers": _MODES[out[1]], "bytes": out[2]}
+
+
+def device_perm_layout(npad: int, items: int, grid: int) -> dict:
+    """(groups, buffers, slice bytes, bytes of two buffers) of
+    perm_layout() as csrc/cbs_mega.cu computes it, for tests."""
+    out = (ctypes.c_int * 4)()
+    cuda_lib.check(cuda_lib.load("cbs_mega", _SIGNATURES).cbs_perm_layout(
+        npad, items, grid, out), "cbs_perm_layout")
+    return {"groups": out[0], "buffers": _MODES[out[1]], "bytes": out[2],
+            "double_bytes": out[3]}
+
+
+def perm_grid(dev: torch.device) -> int:
+    """K12's thread blocks a launch on the CUDA device dev."""
+    return _grid(cuda_lib.load("cbs_mega", _SIGNATURES), dev, _PERM)
 
 
 def device_draws(keys, data, counter0: int, count: int):

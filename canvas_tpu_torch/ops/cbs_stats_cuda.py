@@ -17,13 +17,14 @@ versions.
 
 On CUDA tensors the wrappers launch csrc/cbs_stats.cu, one launch a call,
 and count it in LAUNCHES; on CPU tensors they run the plain versions; any
-other device raises.  K10 spreads a row over thread blocks, the row's
-last block to finish writing its result; K11 is one cooperative launch
-whose blocks share the live grid points' series.  Each CUDA device keeps
-their counters (K10's a row, K11's two) and K10's row
-keys, zeroed once and left zero by every launch, so calls on one device
-run on one stream at a time, and K11's table of sqrt(k) and 2 / k and its
-grid (made at the device's first call).  K9 and K10 round every f32
+other device raises.  K9 and K10 spread a row over thread blocks (K9:
+tiles of K9_TILE positions), the row's last block to finish writing its
+result; K11 is one cooperative launch whose blocks share the live grid
+points' series.  Each CUDA device keeps their counters (K9's and K10's a
+row, K11's two), K10's row keys and K9's scratch, the counters zeroed
+once and left zero by every launch, so calls on one device run on one
+stream at a time, and K11's table of sqrt(k) and 2 / k and its grid (made
+at the device's first call).  K9 and K10 round every f32
 operation as their plain versions do and take maxima, minima and first
 indices exactly, so they are equal bit for bit.  The plain tail
 probability fixes its arithmetic: every division by a constant divides by
@@ -58,19 +59,21 @@ _NU_BATCH = 4096        # x values a [batch, 2048] series block (plain)
 _NU_PARTS = 40          # K11's partial sums a live grid point: 32 units
                         # of 256 series terms, 8 runs of 32 Simpson slots
 _MIN_ROWS = 1024        # rows the per-device counters hold at least
+K9_TILE = 8192          # K9's positions a thread block
+_K9_EXT_WORDS = 4       # a tile's extrema: vmin, vmax, imin, imax
 
 # launches of the kernels, counted by the wrappers
 LAUNCHES = {"arc_inputs": 0, "refine": 0, "tail_p": 0}
 
-# per CUDA device: {"table", "grid", "count", "key", "rows"}
-# (_device_state)
+# per CUDA device: {"table", "grid", "count", "key", "k9_count", "k9_ext",
+# "k9_chunk", "rows"} (_device_state)
 _STATE: dict = {}
 _STATE_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cbs_arc_inputs": [_P, _P, _I] + [_P] * 6 + [_I] * 3 + [_P],
+    "cbs_arc_inputs": [_P, _P, _I] + [_P] * 9 + [_I] * 3 + [_P],
     "cbs_refine": [_P, _P, _I] + [_P] * 11 + [_I] * 3 + [_P],
     "cbs_tail_table": [_P, _P],
     "cbs_tail_grid": [_P],
@@ -302,25 +305,39 @@ def _check_cs(cs, npad) -> tuple[int, torch.device]:
     return cs.shape[0], cs.device
 
 
+def arc_tiles(npad: int) -> int:
+    """K9's thread blocks a row of width npad: tiles of K9_TILE
+    positions, one where the row is narrower."""
+    return max(1, npad // K9_TILE)
+
+
 def arc_inputs(cs, n, npad: int, al0: int):
     """K9, and n as int32 beside its outputs for B4: (seed f32, lag_hi
     int32, psd2 f32 [B, nblk], ti0, tj0, n32 int32) for the cumsum cs f32
-    [B, npad] (npad a power of two) and n int32 or int64 [B]."""
+    [B, npad] (npad a power of two up to 65,536; on the card 16-byte
+    aligned) and n int32 or int64 [B]."""
     if _device_of(cs, "arc_scan_inputs") == "cpu":
         return (*arc_scan_inputs_plain(cs, n, npad, al0),
                 n.to(torch.int32))
     B, dev = _check_cs(cs, npad)
     n64 = _check_rows("n", n, B, dev)
+    if npad > 65536:
+        raise ValueError(f"npad must be at most 65536, got {npad}")
+    if cs.data_ptr() % 16:
+        raise ValueError("cs must be 16-byte aligned")
     nblk = arc_scan_cuda.geometry(npad)[2]
     seed = torch.empty(B, dtype=torch.float32, device=dev)
     lag_hi, ti0, tj0, n32 = (torch.empty(B, dtype=torch.int32, device=dev)
                              for _ in range(4))
     psd2 = torch.empty((B, nblk), dtype=torch.float32, device=dev)
+    state = _device_state(dev, B)
     lib = cuda_lib.load("cbs_stats", _SIGNATURES)
     status = cuda_lib.launch(
         dev, lib.cbs_arc_inputs, cs.data_ptr(), n.data_ptr(), n64,
-        seed.data_ptr(), lag_hi.data_ptr(), ti0.data_ptr(), tj0.data_ptr(),
-        n32.data_ptr(), psd2.data_ptr(), B, npad, al0)
+        state["k9_ext"].data_ptr(), state["k9_chunk"].data_ptr(),
+        state["k9_count"].data_ptr(), seed.data_ptr(), lag_hi.data_ptr(),
+        ti0.data_ptr(), tj0.data_ptr(), n32.data_ptr(), psd2.data_ptr(), B,
+        npad, al0)
     cuda_lib.check(status, "cbs_arc_inputs")
     LAUNCHES["arc_inputs"] += 1
     return seed, lag_hi, psd2, ti0, tj0, n32
@@ -335,9 +352,11 @@ def arc_scan_inputs(cs, n, npad: int, al0: int):
 
 def _device_state(dev: torch.device, rows: int) -> dict:
     """The CUDA device's K11 series table (float64 [8,192 x 2], made on the
-    card at its first call) and K11's cooperative grid, and zeroed row
-    counters (int32; K11 counts in the first two) and K10 row
-    keys (int64) for at least `rows` rows, grown to a power of two."""
+    card at its first call) and K11's cooperative grid, and for at least
+    `rows` rows, grown to a power of two: zeroed row counters (int32; K11
+    counts in the first two) and K10 row keys (int64), K9's own zeroed row
+    counters and its scratch of tile extrema and chunk extrema (8 tiles
+    and 256 chunks a row, the most a width of 65,536 has)."""
     with _STATE_LOCK:
         state = _STATE.get(dev)
         if state is None:
@@ -357,6 +376,13 @@ def _device_state(dev: torch.device, rows: int) -> dict:
             cap = max(_MIN_ROWS, 1 << (rows - 1).bit_length())
             state["count"] = torch.zeros(cap, dtype=torch.int32, device=dev)
             state["key"] = torch.zeros(cap, dtype=torch.int64, device=dev)
+            state["k9_count"] = torch.zeros(cap, dtype=torch.int32,
+                                            device=dev)
+            state["k9_ext"] = torch.empty(
+                cap * arc_tiles(65536) * _K9_EXT_WORDS, dtype=torch.int32,
+                device=dev)
+            state["k9_chunk"] = torch.empty(cap * (65536 // BCHUNK) * 2,
+                                            dtype=torch.float32, device=dev)
             state["rows"] = cap
         return state
 

@@ -1,22 +1,34 @@
 """Time kernels K7 (walks) and K8 (edge tests) of csrc/cbs_mega.cu on one
 CUDA card, beside another build of the source: an earlier design, or the
-same source with a part taken out to see what the rest costs.
+same source with a part taken out to see what the rest costs; with --k12,
+kernel K12 (the frontier's permutation chunks) the same way.
 
     python3 -m canvas_tpu_torch.tools.cbs_kernel_variants \\
-        [--old PATH [--old-parts]] [--no-committed] [--reps N]
+        [--old PATH [--old-parts]] [--no-committed] [--reps N] [--k12]
 
 The inputs are made from a seed, shaped like the first walking and
 edge-testing levels of chip_smoke.py's panel (Tumor-normal-enrichment,
 three contigs of about 19,930 bins): K7 on 32 rows at Tmax 32,768, two of
 them walking (hybrid, n 2,476 and 4,810); K8 on 64 lanes (32 rows, two
-edges each), two of them active (wn 2,474, m1 2).  Each row and lane runs
-a fixed number of chunks whatever its statistics (K7: ostat +inf and a
-boundary no count reaches, so a walk ends at n_perm = 1,024, two chunks;
-K8: ostat +inf, so a lane runs all 20 chunks of n_perm = 10,000), so a
-variant that changes the statistics does the same amount of work.
+edges each), two of them active (wn 2,474, m1 2); K7 also on the same 32
+rows all walking (n 2,000-8,000 from the seed: many rounds a block).  Each row and lane
+runs a fixed number of chunks whatever its statistics (K7: ostat +inf and
+a boundary no count reaches, so a walk ends at n_perm = 1,024, two
+chunks; K8: ostat +inf, so a lane runs all 20 chunks of n_perm = 10,000),
+so a variant that changes the statistics does the same amount of work.
 
 --parts builds the committed source with each edit of PARTS, a part taken
 out (or, where marked exact, written another way), and times it too.
+
+--k12 times K12 instead, on launches shaped like chip_smoke.py's captured
+calls: one row under the mask of 2,476 bins at width 4,096 with P 768 (the
+panel's first frontier level with a chunk), one of 7,593 at 8,192 with
+P 512 (bench.py's first continuation chunk), 33 rows of 3,000 at 4,096
+with P 768 (many rounds a block), and one row of 12,000 at 16,384 with
+P 768 and with P 512; with --parts, each edit of K12_PARTS too (the
+exact ones must give the committed statistics); with --old PATH, the K12
+of a cbs_mega.cu with the same cbs_perm entry point (an earlier commit's)
+as it is.
 
 --old PATH takes a cbs_mega.cu whose entry points take one threefry key a
 row (the design that gives a whole block to each permutation and draws K7's
@@ -26,15 +38,17 @@ with --old-parts, with each edit of OLD_VARIANTS, under its own name in
 canvas_tpu_torch/_build/variants/, and handed the keys that the committed
 kernels derive on the card (ops/cbs_mega_cuda.seg_keys and edge_keys), so
 every exact build must give the committed kernels' flags, counts and
-statistics.  Every build is timed twice, in the order committed, builds,
-builds reversed, committed, with CUDA events (a sleep kernel holds the
-stream while the calls are queued).  Prints one JSON line a build and
+statistics.  The builds are compiled in parallel.  Every build is timed
+twice, in the order committed, builds, builds reversed, committed, with
+CUDA events (a sleep kernel holds the stream while the calls are
+queued).  Prints one JSON line a build and
 kernel, and last the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import ctypes
 import json
 import re
@@ -112,6 +126,8 @@ OLD_VARIANTS = {
 }
 
 
+_NETWORK = "    if (hi - lo <= 8) {"
+_NO_NETWORK = replace(_NETWORK, "    if (false) {")
 # edits of the committed source, each taking a part out (or, where exact,
 # writing it another way that must give the same results)
 PARTS = {
@@ -123,12 +139,12 @@ PARTS = {
         replace("      m = draw_bits(key, base + j) >> 9;",
                 f"      m = {_HASH} >> 9;")),
         False),
-    "K7 without the buckets' insertion sort": (replace(
-        "for (int i = lo + 1; i < hi; ++i) {",
-        "for (int i = hi; i < hi; ++i) {"), False),
+    "K7 without the buckets' sort": (replace(
+        _NETWORK, "    if (lo < hi) continue;\n" + _NETWORK), False),
+    "K7 with insertion sorts only (no network)": (_NO_NETWORK, True),
     "K7 without the gather of x (a hash of the word instead)": (replace(
-        "if (kb + q < k1) v[q] = __ldg(xrow + (buf[kb + q] & 0xFFFFu));",
-        "if (kb + q < k1) v[q] = __uint_as_float(0x3F800000u | ((buf[kb + q]"
+        ": __ldg(xrow + (buf[kb + q] & 0xFFFFu));",
+        ": __uint_as_float(0x3F800000u | ((buf[kb + q]"
         " * 2654435761u) >> 9)) - 1.5f;"), False),
     "K7 with two buffers where the budget holds them (fewer groups, "
     "each key drawn once)": (replace(
@@ -170,14 +186,68 @@ PARTS = {
 }
 
 
-def variant_lib(src_path: Path, label: str, edit, prefix: str,
-                signatures: dict):
-    name = prefix + re.sub(r"\W+", "_", label).strip("_").lower()
+_K12_MAXT = ("    const float st = max_t(g, s, reinterpret_cast<const float*>"
+             "(s.B), n,\n                           a.npad, a.tss[r], "
+             "a.hybrid[r], a.al0, a.kmax,\n                           "
+             "a.max_len);")
+_K12_CUMSUM = ("    if (staged)\n      permuted_cumsum<true>(g, s, "
+               "reinterpret_cast<const float*>(s.A), n);\n    else\n"
+               "      permuted_cumsum<false>(g, s, xrow, n);\n")
+_K12_PERMUTE = ("    permute(g, s, l.mode, key, n, a.npad, p, staged ? xrow : "
+                "nullptr);\n")
+_SCATTER = ("    const uint32_t slot = atomicAdd(&hist[m >> shift], 1u);\n"
+            "    s.B[slot] = ((m & low) << 16) | uint32_t(j);\n")
+_NO_STAT = replace(_K12_MAXT, "    const float st = 0.0f;")
+_NO_CUMSUM = replace(_K12_CUMSUM, "")
+_NO_SORT = replace(_NETWORK, "    if (lo < hi) continue;\n" + _NETWORK)
+# edits of the committed source for K12 (--k12 --parts): parts taken out
+# one after another from the end of an item's chain, then other layouts
+K12_PARTS = {
+    "K12 without the statistic": (_NO_STAT, False),
+    "K12 without the statistic and the cumsum": (
+        chain(_NO_STAT, _NO_CUMSUM), False),
+    "K12 with only the draws, the bucket scan and the scatter": (chain(
+        _NO_STAT, _NO_CUMSUM, _NO_SORT),
+        False),
+    "K12 with only the draws and the bucket scan": (chain(
+        _NO_STAT, _NO_CUMSUM, _NO_SORT, replace(_SCATTER, "")), False),
+    "K12 with an empty item": (chain(
+        _NO_STAT, _NO_CUMSUM, replace(_K12_PERMUTE, "")), False),
+    "K12 with insertion sorts only (no network)": (_NO_NETWORK, True),
+    "K12 with two buffers only where they take a block's share in one "
+    "round (no wide-row rule)": (replace(
+        "(share <= kd || npad >= kWideRow)", "share <= kd"), True),
+    "K12 with the row's values staged at every width": (replace(
+        "  const bool staged = l.mode == kDouble && a.npad >= kWideRow;",
+        "  const bool staged = l.mode == kDouble && a.npad >= 4;"), True),
+    "K12 without the row's values staged": (replace(
+        "  const bool staged = l.mode == kDouble && a.npad >= kWideRow;",
+        "  const bool staged = false;"), True),
+    "K12 with K7's groups of the width, one buffer": (replace(
+        "  const Layout l = perm_layout(a.npad, nact * a.P, gridDim.x);",
+        "  Layout l = k7_layout(a.npad);\n"
+        "  l.bytes = (kPermBudget / l.k) & ~15;\n"
+        "  l.mode = a.npad >= kSlabTier ? kSlab : kSingle;"), True),
+}
+
+
+def variant_libs(src_path: Path, edits: dict, prefix: str,
+                 signatures: dict) -> dict:
+    """{label: library} for each (label, edit) of edits: src_path with the
+    edit (None: as it is) under its own name in VARIANT_DIR, the builds
+    compiled in parallel."""
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
-    src = VARIANT_DIR / f"{name}.cu"
     text = src_path.read_text()
-    src.write_text(edit(text) if edit else text)
-    return cuda_lib.load(name, signatures, src)
+    srcs = {}
+    for label, edit in edits.items():
+        name = prefix + re.sub(r"\W+", "_", label).strip("_").lower()
+        src = VARIANT_DIR / f"{name}.cu"
+        src.write_text(edit(text) if edit else text)
+        srcs[label] = (name, src)
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda ns: cuda_lib.build(*ns), srcs.values()))
+    return {label: cuda_lib.load(name, signatures, src)
+            for label, (name, src) in srcs.items()}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -201,8 +271,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def panel_like(dev: torch.device, seed: int) -> tuple[dict, dict]:
-    """(K7's arguments, K8's arguments) as the module docstring says."""
+def panel_like(dev: torch.device, seed: int) -> tuple[dict, dict, dict]:
+    """(K7's arguments, K8's arguments, K7's arguments with every row
+    walking) as the module docstring says."""
     rng = np.random.default_rng(seed)
     key0 = torch.tensor([0, seed], dtype=torch.int64, device=dev)
     W, Tmax = 32, 32768
@@ -241,7 +312,107 @@ def panel_like(dev: torch.device, seed: int) -> tuple[dict, dict]:
             "key0": key0, "seg_c": seg_c, "seg_lo": seg_lo,
             "seg_n": t(rng.integers(3000, 9000, W)),
             "limit": torch.tensor(100.0, device=dev), "n_perm": 10000}
-    return walk, edge
+    nm = rng.integers(2000, 8001, W)
+    xm = np.zeros((W, Tmax), np.float32)
+    for r in range(W):
+        v = rng.normal(0, 1, nm[r])
+        v[nm[r] // 3:nm[r] // 2] += 0.3
+        xm[r, :nm[r]] = v - v.mean()
+    many = dict(walk, x=t(xm), n=t(nm),
+                tss=t((xm.astype(np.float64) ** 2).sum(1).astype(np.float32)),
+                walking=t(np.ones(W, bool)), hybrid=t(nm > 200))
+    return walk, edge, many
+
+
+def perm_like(dev: torch.device, seed: int) -> dict:
+    """K12's arguments for the launches of the module docstring."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    out = {}
+    for name, npad, n, P, rows in (("level", 4096, 2476, 768, 1),
+                                   ("chunk", 8192, 7593, 512, 1),
+                                   ("33 rows", 4096, 3000, 768, 33),
+                                   ("16384", 16384, 12000, 768, 1),
+                                   ("16384, P 512", 16384, 12000, 512, 1)):
+        S = max(rows, 32 if npad == 4096 else 1)
+        nn = np.full(S, 20, np.int64)
+        nn[:rows] = n
+        x = np.zeros((S, npad), np.float32)
+        for r in range(S):
+            v = rng.normal(0, 1, nn[r])
+            v[: nn[r] // 3] += 0.3
+            x[r, :nn[r]] = v - v.mean()
+        out[name] = {"x": t(x), "n": t(nn),
+                     "tss": t((x.astype(np.float64) ** 2).sum(1)
+                              .astype(np.float32)),
+                     "keys": t(rng.integers(0, 2 ** 32, (S, 2))),
+                     "mask": t(np.arange(S) < rows), "hybrid": t(nn > 200),
+                     "P": P, "al0": 2, "kmax": 25, "max_len": 200}
+    return out
+
+
+def perm_call(lib, args: dict, dev: torch.device):
+    """A call of lib's K12 on args and the output it writes."""
+    S, npad = args["x"].shape
+    grid = mc.perm_grid(dev)
+    slab = torch.empty(grid * npad if npad >= mc.SLAB_TIER else 1,
+                       dtype=torch.int32, device=dev)
+    out = torch.empty((S, args["P"]), dtype=torch.float32, device=dev)
+    a = args
+
+    def call():
+        cuda_lib.check(cuda_lib.launch(
+            dev, lib.cbs_perm, a["x"].data_ptr(), a["n"].data_ptr(),
+            a["tss"].data_ptr(), a["keys"].data_ptr(), a["mask"].data_ptr(),
+            a["hybrid"].data_ptr(), slab.data_ptr(), out.data_ptr(), S, npad,
+            a["P"], a["al0"], a["kmax"], a["max_len"], grid), "cbs_perm")
+
+    return call, out
+
+
+def time_k12(args, dev: torch.device) -> int:
+    """--k12: the committed K12 and, with --parts, K12_PARTS' builds, each
+    on perm_like's launches, timed in turns (committed, builds, builds
+    reversed, committed)."""
+    cases = perm_like(dev, args.seed)
+    builds = {"committed": (cuda_lib.load("cbs_mega", mc._SIGNATURES),
+                            True)}
+    if args.parts:
+        libs = variant_libs(cuda_lib.CSRC_DIR / "cbs_mega.cu",
+                            {k: e for k, (e, _x) in K12_PARTS.items()},
+                            "cbs_mega_k12_", mc._SIGNATURES)
+        for label, (_edit, exact) in K12_PARTS.items():
+            builds[label] = (libs[label], exact)
+    if args.old is not None:
+        builds["old, as it is"] = (variant_libs(
+            args.old, {"as it is": None}, "cbs_mega_old_k12_",
+            {"cbs_perm": mc._SIGNATURES["cbs_perm"]})["as it is"], True)
+    calls = {}
+    for label, (lib, exact) in builds.items():
+        for case, a in cases.items():
+            call, out = perm_call(lib, a, dev)
+            call()
+            torch.cuda.synchronize()
+            if exact and not torch.equal(
+                    out.view(torch.int32),
+                    mc.perm_stats_plain(**a).view(torch.int32)):
+                raise SystemExit(f"cbs_kernel_variants: {label} differs "
+                                 f"from the plain version on {case}")
+            calls[label, case] = call
+    times: dict = {k: {c: [] for c in cases} for k in builds}
+    for label in list(builds) + list(reversed(builds)):
+        for case in cases:
+            times[label][case].append(cuda_ms(calls[label, case],
+                                              args.reps))
+    grid = mc.perm_grid(dev)
+    for label, (_lib, exact) in builds.items():
+        print(json.dumps({"build": label, "exact": exact,
+                          "K12_ms": times[label]}), flush=True)
+    print(json.dumps({"committed_layouts": {
+        c: mc.perm_layout(a["x"].shape[1], int(a["mask"].sum()) * a["P"],
+                          grid) for c, a in cases.items()}}), flush=True)
+    print(gpu_line(), flush=True)
+    return 0
 
 
 def old_calls(lib, walk: dict, edge: dict, dev: torch.device):
@@ -347,6 +518,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--no-committed", action="store_true",
                     help="time only --old and its edits")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--k12", action="store_true",
+                    help="time K12 (with --parts, K12_PARTS too) instead")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -354,28 +527,44 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    walk, edge = panel_like(dev, args.seed)
+    if args.k12:
+        return time_k12(args, dev)
+    walk, edge, many = panel_like(dev, args.seed)
+
+    def both(make, exact):
+        """(K7, K8, K7 with every row walking, results of all, exact)."""
+        k7, k8, res = make(walk)
+        k7m, k8m, resm = make(many)
+        k8m()         # resm() reads the edge results of its own calls too
+        return k7, k8, k7m, lambda: (*res(), *resm()), exact
+
     builds: dict = {}
     if not args.no_committed:
-        builds["committed"] = (*committed_calls(walk, edge, dev), True)
+        builds["committed"] = both(
+            lambda w: committed_calls(w, edge, dev), True)
     if args.parts:
-        for label, (edit, exact) in PARTS.items():
-            lib = variant_lib(cuda_lib.CSRC_DIR / "cbs_mega.cu", label, edit,
-                              "cbs_mega_part_", mc._SIGNATURES)
-            builds[label] = (*committed_calls(walk, edge, dev, lib), exact)
+        libs = variant_libs(cuda_lib.CSRC_DIR / "cbs_mega.cu",
+                            {k: e for k, (e, _x) in PARTS.items()},
+                            "cbs_mega_part_", mc._SIGNATURES)
+        for label, (_edit, exact) in PARTS.items():
+            builds[label] = both(
+                lambda w, lib=libs[label]: committed_calls(w, edge, dev, lib),
+                exact)
     if args.old is not None:
-        for label, (edit, exact) in OLD_VARIANTS.items():
-            if edit is not None and not args.old_parts:
-                continue
-            lib = variant_lib(args.old, label, edit, "cbs_mega_old_",
-                              OLD_SIGNATURES)
-            builds[f"old, {label}"] = (*old_calls(lib, walk, edge, dev),
-                                       exact)
+        olds = {k: v for k, v in OLD_VARIANTS.items()
+                if v[0] is None or args.old_parts}
+        libs = variant_libs(args.old, {k: e for k, (e, _x) in olds.items()},
+                            "cbs_mega_old_", OLD_SIGNATURES)
+        for label, (_edit, exact) in olds.items():
+            builds[f"old, {label}"] = both(
+                lambda w, lib=libs[label]: old_calls(lib, w, edge, dev),
+                exact)
     ref = None
     work: dict = {}
-    for label, (k7, k8, results, exact) in builds.items():
+    for label, (k7, k8, k7m, results, exact) in builds.items():
         k7()
         k8()
+        k7m()
         torch.cuda.synchronize()
         got = [t.clone() for t in results()]
         # the chunks each walking row and active lane took: a build that
@@ -388,15 +577,17 @@ def main(argv: list[str] | None = None) -> int:
                 raise SystemExit(f"cbs_kernel_variants: {label} differs from "
                                  f"the first exact build")
     order = list(builds) + list(reversed(builds))
-    times: dict = {k: {"K7": [], "K8": []} for k in builds}
+    times: dict = {k: {"K7": [], "K8": [], "K7m": []} for k in builds}
     for label in order:
-        k7, k8 = builds[label][:2]
+        k7, k8, k7m = builds[label][:3]
         times[label]["K7"].append(cuda_ms(k7, args.reps))
         times[label]["K8"].append(cuda_ms(k8, args.reps))
-    for label, (_k7, _k8, _res, exact) in builds.items():
+        times[label]["K7m"].append(cuda_ms(k7m, args.reps))
+    for label, (*_calls, exact) in builds.items():
         print(json.dumps({"build": label, "exact": exact,
                           "K7_ms": times[label]["K7"],
                           "K8_ms": times[label]["K8"],
+                          "K7_32_walking_ms": times[label]["K7m"],
                           "K7_chunks": work[label][0],
                           "K8_chunks": work[label][1]}), flush=True)
     print(gpu_line(), flush=True)

@@ -10,9 +10,11 @@ Phases, one JSON line each; any failure exits non-zero:
              spills (-Xptxas -v), the instructions of one interior run of
              B4's lag loop in its SASS (cuobjdump), the FP64 instructions
              of one erfc and of one series term of K11 (and of the
-             term's earlier form, built beside it from BEFORE_TERM_CU) and
-             the
-             card's name and power limit;
+             term's earlier form, built beside it from BEFORE_TERM_CU),
+             K12's groups, buffers and cipher calls a position at each
+             bucket width beside its earlier design's (the card's rule
+             must equal cbs_mega_cuda.perm_layout, and K7's and K8's
+             layouts theirs), and the card's name and power limit;
   2. B1      the prefix-scan kernel at chr1 length (248,956,422 positions,
              tracks made by numpy from --seed) against its plain torch
              version on the card: int32 equality, both times, and the
@@ -67,7 +69,10 @@ Phases, one JSON line each; any failure exits non-zero:
              debug mode (its synchronising calls); then bench.py's CBS
              workload through the frontier engine on cuda (seconds,
              launches, profile) and with the five kernels' plain versions
-             on the same CUDA tensors (equal segments);
+             on the same CUDA tensors (equal segments); and K12's census
+             of the panel's and bench.py's frontier runs: its calls by
+             width, rows under the mask and P, the launches with a row
+             under the mask, and its device time summed (torch.profiler);
   7b. cbs-mega
              the whole-recursion engine on the same coverage: run_cbs on
              cuda takes it (engine "mega"), its seconds, B4, K7 and K8
@@ -85,7 +90,8 @@ Phases, one JSON line each; any failure exits non-zero:
              first level with a walk and first with an edge test, on the
              panel and on bench.py's CBS workload (flags, chunk counts
              and edge counts equal, chunk 0's statistics and subset sums
-             bit for bit, both times, the bound); bench.py's CBS
+             bit for bit, both times, the bound; K7's beside its times
+             after its redesign, BEFORE_K7_MS); bench.py's CBS
              workload (24 contigs x 16,384 bins) through run_cbs on
              cuda: the engine "mega", the best of 3 seconds with their
              reads and launches, segments equal to its warm run and to a
@@ -106,7 +112,9 @@ Phases, one JSON line each; any failure exits non-zero:
              with a B4 sub-block and live grid points: 32 rows of
              19,000-32,768 bins at 32,768, b their statistic), and the
              earlier designs' times of K10 and K11 (BEFORE_STATS) beside
-             this run's;
+             this run's, and K9's and K12's before their redesign
+             (BEFORE_K9_K12), with K12's layout on each captured call
+             beside its earlier one;
   8. e2e-germline
              Germline-WGS through the CLI entry point on the trio's proband
              BAM with --device cuda and again with --device cpu: identical
@@ -572,11 +580,58 @@ def phase_build() -> dict:
     layouts = {name: {1 << k: cbs_mega_cuda.layout(1 << k, edge)
                       for k in range(10, 17)}
                for name, edge in (("walk", False), ("edge", True))}
+    for k in range(3, 17):
+        for edge in (False, True):
+            if cbs_mega_cuda.device_layout(1 << k, edge) \
+                    != cbs_mega_cuda.layout(1 << k, edge):
+                fail(f"K7/K8's layout at {1 << k} differs from its mirror")
     erfc = erfc_sass()
     return {"phase": "build", "seconds": secs, "native_seconds": native_s,
             "ptxas": ptxas_report(), "b4_interior_run": sass,
             "k11_erfc": erfc, "k11_series_term": term_sass(erfc),
-            "k7_k8_layouts": layouts, "gpu": gpu_line()}
+            "k7_k8_layouts": layouts, "k12_layouts": k12_layouts(),
+            "gpu": gpu_line()}
+
+
+def k12_before_layout(npad: int) -> dict:
+    """K12's layout before its redesign: K7's groups of the width
+    whatever the launch's items, two buffers only where K7's slice of
+    them had room (else the scatter drew each key again)."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    lay = mc.layout(npad, False)
+    slice_ = (mc._BUDGET // lay["groups"]) & ~15
+    two = npad < mc.SLAB_TIER and mc._double_bytes(npad) <= slice_
+    return {"groups": lay["groups"],
+            "buffers": "shared, two buffers" if two else lay["buffers"],
+            "draws_a_position": 1 if two else 2}
+
+
+def k12_layouts() -> dict:
+    """K12's groups a block, buffers and cipher calls a position at each
+    bucket width for one row under the mask (P 768 and 512) and for 1,024
+    rows at P 768, on this card's grid, beside the earlier one; the card's own
+    rule (cbs_perm_layout) must equal the mirror (perm_layout)."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    grid = mc.perm_grid(torch.device("cuda", torch.cuda.current_device()))
+    out = {"grid": grid}
+    for k in range(3, 17):
+        npad = 1 << k
+        row = {}
+        for items in (768, 512, 1024 * 768):
+            mirror = mc.perm_layout(npad, items, grid)
+            card = mc.device_perm_layout(npad, items, grid)
+            if any(card[key] != mirror[key] for key in card):
+                fail(f"K12's layout at {npad}, {items} items: {card} on the "
+                     f"card, {mirror} in the mirror")
+            row[str(items)] = [mirror["groups"], mirror["buffers"],
+                               mirror["draws_a_position"]]
+        before = k12_before_layout(npad)
+        row["before"] = [before["groups"], before["buffers"],
+                         before["draws_a_position"]]
+        out[str(npad)] = row
+    return out
 
 
 def phase_b1(seed: int, dev: torch.device) -> dict:
@@ -1388,6 +1443,48 @@ def frontier_bench(cov: dict, dev: torch.device) -> dict:
             "profiled_cuda": traced["profile"]}
 
 
+def k12_census(run) -> dict:
+    """K12 over one frontier run, run(): its calls by (width, rows under
+    the mask, P), the launches, how many had a row under the mask (each
+    mask read on the host before its call), and the kernel's device time
+    summed from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    orig = mc.perm_stats
+    calls: list = []
+
+    def counted(*args, **kw):
+        calls.append((int(args[0].shape[1]), int(args[4].sum()),
+                      int(args[6])))
+        return orig(*args, **kw)
+
+    launches0 = mc.LAUNCHES["perm"]
+    mc.perm_stats = counted
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        mc.perm_stats = orig
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA
+              and "perm_kernel" in ev.key]
+    shapes: dict = {}
+    for npad, rows, P in calls:
+        key = f"{npad}x{rows}x{P}"
+        shapes[key] = shapes.get(key, 0) + 1
+    return {"calls": len(calls), "launches": mc.LAUNCHES["perm"] - launches0,
+            "with_a_masked_row": sum(rows > 0 for _n, rows, _p in calls),
+            "device_ms": sum(ev.self_device_time_total for ev in events)
+            / 1e3,
+            "kernels_profiled": sum(ev.count for ev in events),
+            "by_width_rows_P": shapes}
+
+
 def phase_cbs(workdir: Path, dev: torch.device) -> dict:
     """The frontier engine on the panel's tumor ratio coverage, on CUDA
     tensors and on CPU tensors; then on bench.py's CBS workload."""
@@ -1424,8 +1521,14 @@ def phase_cbs(workdir: Path, dev: torch.device) -> dict:
         fail("the profiled frontier run gave other segments")
     _lens, syncs = count_syncs(
         lambda: cbs_device.run_cbs_device(cov, device=dev))
-    bench = frontier_bench(bench_cbs_coverage(), dev)
+    bench_cov = bench_cbs_coverage()
+    bench = frontier_bench(bench_cov, dev)
+    census = {"panel": k12_census(
+                  lambda: cbs_device.run_cbs_device(cov, device=dev)),
+              "bench_cbs": k12_census(
+                  lambda: cbs_device.run_cbs_device(bench_cov, device=dev))}
     return {"phase": "CBS", "bins": {c: len(v) for c, v in cov.items()},
+            "k12": census,
             "segments": {c: len(v) for c, v in out["cuda"]["lengths"].items()},
             "lengths_equal": True,
             "n_levels": len(out["cuda"]["levels"]),
@@ -1744,6 +1847,12 @@ HOST_LOOPS_PANEL = {"cuda_s": 0.490, "syncs": 41, "cuda_syncs": 45,
               "kernel_launches": 28630, "busy_share": 0.137}
 
 
+# K7 after its redesign (NVIDIA H100 80GB HBM3, 700.00 W, PERF.md section
+# 6), printed beside this run's: K12 shares its permutation, cumsum and
+# statistic code
+BEFORE_K7_MS = {"panel": 0.1577, "bench_cbs": 0.0376}
+
+
 def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
     """The whole-recursion engine on the panel's tumor ratio coverage:
     through run_cbs on cuda (the engine it picks, its seconds, B4, K7 and
@@ -1854,6 +1963,10 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
                 "n_levels", "cuda_s", "cpu_s", "arc_scan_launches",
                 "cuda_syncs", "profiled_cuda")},
             "K7": k7, "K8": k8, **bench_cases, "bench_cbs": bench,
+            "K7_now_vs_PR13_ms": {
+                "panel": [k7["ms"], BEFORE_K7_MS["panel"]],
+                "bench_cbs": [bench_cases["K7_bench"].get("ms"),
+                              BEFORE_K7_MS["bench_cbs"]]},
             "b4_tiers": tiers}
 
 
@@ -2018,9 +2131,12 @@ def k12_case(args) -> dict:
               for r in rows)
     res = kernel_case("K12", mc.perm_stats, mc.perm_stats_plain, args,
                       4 * npad * len(rows) + 4 * S * P, ops, reps=5)
+    lay = mc.perm_layout(npad, len(rows) * P, mc.perm_grid(x.device))
     return {"rows": S, "npad": npad, "P": P, "masked": len(rows),
             "n": [n_h[r] for r in rows], "hybrid": [hyb_h[r] for r in rows],
-            **res}
+            "layout": {k: lay[k] for k in ("groups", "buffers",
+                                           "draws_a_position", "staged")},
+            "layout_before": k12_before_layout(npad), **res}
 
 
 # K10 and K11 before their redesign for the whole card (a block a row, a
@@ -2030,6 +2146,15 @@ def k12_case(args) -> dict:
 BEFORE_STATS = {"K10_ms": {"1024": 0.0077, "2048": 0.0110, "4096": 0.0151,
                          "8192": 0.0211, "16384": 0.0547, "32768": 0.0825},
               "K11_ms": 0.1694}
+# K9 and K12 before their redesign (a block a row; K7's groups of the
+# width; NVIDIA H100 80GB HBM3, 700.00 W, PERF.md section 6), printed
+# beside this run's times: K9 by tier width of the panel's first call
+# there, K12 on the frontier's first level with a chunk and on bench.py's
+# first continuation chunk
+BEFORE_K9_K12 = {"K9_ms": {"1024": 0.0048, "2048": 0.0053, "4096": 0.0061,
+                           "8192": 0.0073, "16384": 0.0101,
+                           "32768": 0.0155},
+                 "K12_ms": {"level": 0.0498, "chunk": 0.1106}}
 
 
 def live_level(dev: torch.device, seed: int = 15, npad: int = 32_768):
@@ -2105,6 +2230,10 @@ def phase_cbs_stats(workdir: Path, dev: torch.device, erfc: dict,
             "K12": k12, "K9_top": k9[top], "K10_top": k10[top],
             "live_level": {"K10": live10, "K11": live11},
             "now_vs_before_ms": {
+                "K9": {w: [k9[w]["ms"], BEFORE_K9_K12["K9_ms"].get(w)]
+                       for w in k9},
+                "K12": {k: [v["ms"], BEFORE_K9_K12["K12_ms"][k]]
+                        for k, v in k12.items()},
                 "K10": {w: [k10[w]["ms"], BEFORE_STATS["K10_ms"].get(w)]
                         for w in k10},
                 "K11": [k11["ms"], BEFORE_STATS["K11_ms"]]}}

@@ -629,3 +629,93 @@ def test_edge_lanes_must_split_into_rows():
         mc.edge_counts(torch.zeros((3, 1024)), *([torch.ones(3)] * 5),
                        torch.tensor([0, 1]), *([torch.zeros(2)] * 3),
                        torch.tensor(1.0), 512)
+
+
+# --- C5: the tail probability's precision ----------------------------------
+
+C5_ALPHA = 0.01
+C5_NPERM = 10_000
+
+
+def _c5_rows(seed, R):
+    """R hybrid rows (b f32, n) whose float64 walk limit (alpha - p1)
+    n_perm lies within 1e-3 of an integer: n uniform in (200, 65,536)
+    (ROADMAP's C5 sample), the limit's integer part j uniform in [1, 99]
+    and its offset u uniform in [-1e-3, 1e-3], all from the seed, and b
+    solved for p1(b) = alpha - (j + u) / n_perm with canvas_tpu's tail in
+    float64 (jax's x64 mode), then rounded to f32 as the engines' ostat1
+    is.  Only such rows can take another limit from canvas_tpu's float32
+    tail, and they are rare at random, so the test makes them rather than
+    drawing thousands of rows at 30 ms a row.  Returns (b, n, canvas_tpu's p1 of
+    b in float64)."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(201, 65_536, R)
+    target = rng.integers(1, 100, R) + rng.uniform(-1e-3, 1e-3, R)
+    logp = np.log(C5_ALPHA - target / C5_NPERM)
+    with jax.enable_x64(True):
+        tail = jax.jit(jmega._tail_p_batch_dev, static_argnums=(2, 3))
+
+        def f(b):
+            return np.log(np.asarray(tail(jnp.asarray(b), jnp.asarray(n),
+                                          25, 100))) - logp
+        # regula falsi (Illinois) on ln p1(b), decreasing in b on [2, 8]
+        lo, hi = np.full(R, 2.0), np.full(R, 8.0)
+        flo, fhi = f(lo), f(hi)
+        assert (flo > 0).all() and (fhi < 0).all()
+        for _ in range(40):
+            b = (lo * fhi - hi * flo) / (fhi - flo)
+            fb = f(b)
+            left = fb > 0
+            lo, flo = np.where(left, b, lo), np.where(left, fb, flo)
+            hi, fhi = np.where(left, hi, b), np.where(left, fhi, fb)
+            flo = np.where(~left, flo / 2, flo)
+            fhi = np.where(left, fhi / 2, fhi)
+            if np.abs(fb).max() < 1e-11:
+                break
+        b32 = b.astype(np.float32)
+        p64 = np.asarray(tail(jnp.asarray(b32.astype(np.float64)),
+                              jnp.asarray(n), 25, 100))
+    return b32, n, p64
+
+
+def _port_tail(b32, n):
+    """The port's _tail_p_batch_dev on CPU tensors (float64, K11's plain
+    version), as both of its engines call it with b = ostat1."""
+    return cbs_device._tail_p_batch_dev(
+        torch.as_tensor(b32.astype(np.float64)), torch.as_tensor(n), 25,
+        100).numpy()
+
+
+def test_tail_precision_changes_walk_limits_c5():
+    """C5: the port's engines take the OU tail probability p1 in float64
+    (K11, rounded to f32 by the whole-recursion engine), canvas_tpu's in
+    float32.  On rows whose walk limit int((alpha - p1) n_perm) lies near
+    an integer: tail_ok = p1 <= alpha is equal on every row; the limits
+    differ on some rows, and on each of those canvas_tpu's float32 p1 is
+    the further of the two from its own tail in float64, while the port's
+    limit is the one that float64 tail gives on every row."""
+    b32, n, p64 = _c5_rows(16, 24)
+    alpha_t = torch.full((), C5_ALPHA, dtype=torch.float32)
+
+    def limits_port(p1):            # ops/cbs_mega.py: p1 rounded to f32
+        p1 = torch.tensor(p1).float()
+        return (p1 <= alpha_t).numpy(), \
+            ((alpha_t - p1) * C5_NPERM).to(torch.int32).numpy()
+
+    p_port = _port_tail(b32, n)
+    ok_port, lim_port = limits_port(p_port)
+    p_jax = np.asarray(jax.jit(jmega._tail_p_batch_dev, static_argnums=(
+        2, 3))(jnp.asarray(b32), jnp.asarray(n.astype(np.int32)), 25, 100))
+    assert p_jax.dtype == np.float32
+    alpha_j = jnp.asarray(C5_ALPHA, jnp.float32)
+    ok_jax = np.asarray(jnp.asarray(p_jax) <= alpha_j)
+    lim_jax = np.asarray(((alpha_j - jnp.asarray(p_jax)) * C5_NPERM)
+                         .astype(jnp.int32))
+    assert ok_port.all() and np.array_equal(ok_port, ok_jax)
+    differ = lim_port != lim_jax
+    assert differ.any()
+    far_jax = np.abs(p_jax.astype(np.float64) - p64)
+    far_port = np.abs(p_port.astype(np.float32).astype(np.float64) - p64)
+    assert (far_jax[differ] > far_port[differ]).all()
+    assert np.array_equal(lim_port, limits_port(p64)[1])
+    assert (np.abs(lim_port - lim_jax) <= 1).all()

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from canvas_tpu.ops import cbs_device as jdev
+from canvas_tpu_torch.ops import arc_scan_cuda
 from canvas_tpu_torch.ops import cbs_device as tdev
 from canvas_tpu_torch.ops import cbs_mega_cuda as mc
 from canvas_tpu_torch.ops import cbs_stats_cuda as st
@@ -484,3 +485,183 @@ def test_statistics_wrappers_raise_on_other_devices():
     with pytest.raises(ValueError, match="device"):
         mc.perm_stats(cs, n.long(), tss, keys, flags, flags, 512, AL0, 25,
                       200)
+
+
+# --- what K9's tiles and K12's groups on the card rest on -------------------
+
+def _k9_as_the_kernel(cs, n, npad, al0, order):
+    """arc_scan_inputs_plain's outputs computed as K9's blocks do: each
+    tile of st.K9_TILE positions takes its first-index argmin and argmax
+    over the row's real positions in it and its 256-position chunks'
+    maxima and minima; the tiles' extrema are merged in the given order of
+    tiles (the order they finish in) keeping the smaller index among equal
+    values; then the seed, the split, lag_hi and psd2 from the merged
+    extrema and the chunk-distance bounds."""
+    B = cs.shape[0]
+    T = min(npad, st.K9_TILE)
+    tiles = st.arc_tiles(npad)
+    C = min(st.BCHUNK, npad)
+    nchunk = npad // C
+    blk, _sub, nblk, _nsub = arc_scan_cuda.geometry(npad)
+    inf = float("inf")
+    seed = torch.empty(B, dtype=torch.float32)
+    lag_hi = torch.empty(B, dtype=torch.int32)
+    ti0 = torch.empty(B, dtype=torch.int32)
+    tj0 = torch.empty(B, dtype=torch.int32)
+    psd2 = torch.empty((B, nblk), dtype=torch.float32)
+    for b in range(B):
+        nv = min(max(int(n[b]), 0), npad)
+        ext = []
+        for k in range(tiles):
+            seg = cs[b, k * T:(k + 1) * T]
+            real = seg[:max(0, min(T, nv - k * T))]
+            if len(real):
+                ext.append((float(real.min()), k * T + int(real.argmin()),
+                            float(real.max()), k * T + int(real.argmax())))
+            else:
+                ext.append((inf, 1 << 31, -inf, 1 << 31))
+        vmin, imin, vmax, imax = inf, 1 << 31, -inf, 1 << 31
+        for k in order[b]:
+            a, ia, c, ic = ext[k]
+            if a < vmin or (a == vmin and ia < imin):
+                vmin, imin = a, ia
+            if c > vmax or (c == vmax and ic < imax):
+                vmax, imax = c, ic
+        imin = 0 if imin == 1 << 31 else imin
+        imax = 0 if imax == 1 << 31 else imax
+        psdiff = cs[b, imax] - cs[b, imin]
+        nf = torch.tensor(float(n[b]), dtype=torch.float32)
+        rjs = torch.tensor(float(max(abs(imax - imin), 1)),
+                           dtype=torch.float32)
+        seed[b] = nf / (rjs * (nf - rjs)) * psdiff * psdiff \
+            if psdiff > 0 else 0.0
+        lag_hi[b] = min(int(n[b]) - al0, int(n[b]) - 1)
+        ti0[b], tj0[b] = min(imin, imax) + 1, max(imin, imax) + 1
+        chunks = cs[b].reshape(nchunk, C)
+        M, m = chunks.amax(dim=1), chunks.amin(dim=1)
+        by_db = torch.stack([torch.maximum(M[db:] - m[:nchunk - db],
+                                           M[:nchunk - db] - m[db:]).amax()
+                             for db in range(nchunk)])
+        for k in range(nblk):
+            lo = max(k * blk // C - 1, 0)
+            hi = min((k * blk + blk - 1) // C + 1, nchunk - 1)
+            d = torch.minimum(psdiff, by_db[lo:hi + 1].amax())
+            psd2[b, k] = d * d
+    return seed, lag_hi, psd2, ti0, tj0
+
+
+def k9_tie_rows(seed, npad):
+    """Integer random-walk cumsum rows f32 [6, npad] whose equal extrema
+    lie in different tiles of K9 and on a tile's first and last position,
+    with n not a multiple of the tile: (0) the maximum planted on every
+    tile edge (last position of a tile, first of the next) and once inside
+    tile 0, the minimum in every tile's middle and once inside tile 0; (1)
+    the maximum on the edges after odd tiles and the minimum on those
+    after even ones, so the first index of each lies on a tile's edge (in
+    a row of one tile, two equal maxima and minima inside it); (2) larger
+    and smaller values past n; (3) a constant row; rows of n = 1 and 0."""
+    rng = np.random.default_rng(seed)
+    T = min(npad, st.K9_TILE)
+    tiles = npad // T
+    cs = np.zeros((6, npad), np.float32)
+    n = np.array([npad - 1, npad - 3, max(2, npad - T // 2 - 3), npad, 1, 0],
+                 np.int64)
+    walks = np.cumsum(rng.integers(-3, 4, (3, npad)), axis=1)
+    for r in range(3):
+        w = walks[r].astype(np.float32)
+        top, low = w.max() + 5, w.min() - 5
+        if r == 0:
+            for k in range(1, tiles):
+                w[k * T - 1] = w[k * T] = top
+                w[k * T + T // 2] = low
+            w[T // 3], w[T // 5] = top, low
+        elif r == 1 and tiles > 1:
+            for k in range(1, tiles):
+                w[k * T - 1] = w[k * T] = top if k % 2 else low
+        elif r == 1:
+            w[T // 3] = w[T // 2] = top
+            w[T // 5] = w[T // 4] = low
+        cs[r] = w
+    cs[2, n[2]:] = cs[2].max() + 7
+    cs[2, n[2] + 1::2] = cs[2].min() - 7
+    cs[3] = 3.0
+    cs[4, 0] = -2.0
+    cs[4, 1:] = 9.0
+    return cs, n
+
+
+@pytest.mark.parametrize("npad", [512, 4096, 32768, 65536])
+def test_k9_tiles_and_last_tile_merge_equal_plain(npad):
+    """K9's split of a row over tiles of 8,192 positions, each tile's
+    first-index extrema and chunk extrema, and the merge by the row's last
+    tile to finish (in any order of the tiles: forwards, backwards and
+    shuffled) give arc_scan_inputs_plain's outputs, psd2 included
+    (block_d2_bound), bit for bit, on rows whose extrema tie across
+    tiles."""
+    cs, n = k9_tie_rows(npad, npad)
+    cst, nt = torch.as_tensor(cs), torch.as_tensor(n)
+    want = st.arc_scan_inputs_plain(cst, nt, npad, AL0)
+    tiles = st.arc_tiles(npad)
+    assert tiles == max(1, npad // 8192)
+    rng = np.random.default_rng(npad)
+    for order in (list(range(tiles)), list(range(tiles))[::-1],
+                  list(rng.permutation(tiles))):
+        got = _k9_as_the_kernel(cst, n, npad, AL0, [order] * len(n))
+        for a, b in zip(got, want):
+            assert bits_equal(a, b)
+    if tiles > 1:
+        # row 1's first maximum is tile 0's last position, its first
+        # minimum tile 1's last, each tied with the next tile's first
+        T = st.K9_TILE
+        assert (int(want[3][1]), int(want[4][1])) == (T, 2 * T)
+
+
+def bits_equal(a, b):
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+PERM_WIDTHS = [1 << k for k in range(3, 17)]
+
+
+@pytest.mark.parametrize("grid", [132, 66, 1])
+def test_k12_group_rule(grid):
+    """The mirror of K12's group rule (cbs_mega_cuda.perm_layout), at every
+    bucket width from 8 to 65,536 and 1 x 512 to 1,024 x 768 items: never
+    more groups than K7's layout of the width allows, every slice within
+    K12's shared memory and at least what its buffers take, two buffers
+    (the draws kept, one cipher call a position) wherever the slice holds
+    them and always where they take the block's share in one round, the
+    share in the fewest rounds its cap allows and by the fewest groups
+    that take it in those rounds."""
+    for npad in PERM_WIDTHS:
+        cap7 = mc.layout(npad, False)["groups"]
+        kd = 0 if npad >= mc.SLAB_TIER else min(
+            cap7, mc._PERM_BUDGET // mc._double_bytes(npad))
+        for rows in (1, 2, 33, 1024):
+            for P in (512, 768):
+                items = rows * P
+                lay = mc.perm_layout(npad, items, grid)
+                k = lay["groups"]
+                assert 1 <= k <= cap7
+                assert k * lay["bytes"] <= mc._PERM_BUDGET
+                assert lay["bytes"] % 16 == 0
+                two = npad < mc.SLAB_TIER \
+                    and lay["double_bytes"] <= lay["bytes"]
+                assert (lay["buffers"] == "shared, two buffers") == two
+                assert lay["draws_a_position"] == (1 if two else 2)
+                assert lay["staged"] == (two and npad >= mc.WIDE_ROW)
+                share = -(-items // grid)
+                if npad >= mc.SLAB_TIER:
+                    assert lay["buffers"] == "device-memory slab"
+                elif not two:
+                    assert mc.layout(npad, False)["bytes"] <= lay["bytes"]
+                if kd >= 1 and share <= kd:
+                    assert two and k == share
+                wide = kd >= 1 and (share <= kd
+                                    or npad >= mc.WIDE_ROW)
+                cap = kd if wide else cap7
+                rounds = -(-share // cap)
+                assert lay["rounds"] == rounds == -(-share // k)
+                assert k == 1 or -(-share // (k - 1)) > rounds

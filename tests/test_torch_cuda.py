@@ -1302,6 +1302,190 @@ def test_perm_kernel_full_arcs_without_a_bound(dev):
     assert _bits_equal(mc.perm_stats(**args), mc.perm_stats_plain(**args))
 
 
+@pytest.mark.parametrize("npad", [4096, 8192])
+@pytest.mark.parametrize("rows", [1, 2, 33, 1024])
+@pytest.mark.parametrize("P", [768, 512])
+def test_perm_kernel_across_its_group_rule(dev, npad, rows, P):
+    """K12 with 1, 2, 33 and 1,024 masked rows at the frontier's widths
+    4,096 and 8,192, P 768 and 512: launches whose items step K12's group
+    rule (groups a block, two buffers or one) across its range; the
+    layout the card chose is the Python mirror's, one launch a call, the
+    statistics bit for bit against the plain version."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    S = min(mc.MAX_ROWS, rows + 2)
+    inp = _perm_rows(dev, npad, npad + rows + P, S)
+    mask = torch.zeros(S, dtype=torch.bool, device=dev)
+    mask[:rows] = True
+    inp["mask"] = mask
+    grid = mc.perm_grid(dev)
+    items = rows * P
+    assert mc.device_perm_layout(npad, items, grid) == {
+        k: v for k, v in mc.perm_layout(npad, items, grid).items()
+        if k in ("groups", "buffers", "bytes", "double_bytes")}
+    before = mc.LAUNCHES["perm"]
+    got = mc.perm_stats(**inp, P=P, al0=2, kmax=25, max_len=200)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["perm"] == before + 1
+    want = mc.perm_stats_plain(**inp, P=P, al0=2, kmax=25, max_len=200)
+    assert _bits_equal(got, want), _differ(got, want)
+    assert bool((got[rows:] == 0).all()) and bool((got[:rows] > 0).all())
+
+
+def test_perm_kernel_without_a_masked_row(dev):
+    """A K12 launch with no row under its mask writes zeros over its
+    output (which starts as whatever torch.empty held) and nothing else."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    inp = _perm_rows(dev, 4096, 9, 8)
+    inp["mask"] = torch.zeros_like(inp["mask"])
+    before = mc.LAUNCHES["perm"]
+    got = [mc.perm_stats(**inp, P=768, al0=2, kmax=25, max_len=200)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["perm"] == before + 2
+    for g in got:
+        assert g.shape == (8, 768) and bool((g == 0).all())
+
+
+def test_perm_kernel_ten_launches_back_to_back(dev):
+    """Ten K12 launches in a row on one stream, alternating widths, masks
+    and chunk sizes, each bit for bit against its plain version."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    cases = []
+    for i in range(10):
+        npad = (1024, 4096, 8192)[i % 3]
+        inp = _perm_rows(dev, npad, 100 + i, 5)
+        cases.append(dict(inp, P=(768, 512)[i % 2], al0=2, kmax=25,
+                          max_len=200))
+    got = [mc.perm_stats(**c) for c in cases]
+    torch.cuda.synchronize()
+    for g, c in zip(got, cases):
+        want = mc.perm_stats_plain(**c)
+        assert _bits_equal(g, want), _differ(g, want)
+
+
+def _k9_tie_rows(npad, seed):
+    """K9's inputs whose extrema tie across its tiles: integer random-walk
+    cumsum rows with the maximum planted on the last position of every
+    odd tile and the first of the next, the minimum likewise after the
+    even ones (in a row of one tile, twice inside it), at n = 1, 2, a
+    tile's width - 1, + 1 and itself, and npad (those that fit), and
+    values past n that would win if they counted."""
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    rng = np.random.default_rng(seed)
+    T = min(npad, st.K9_TILE)
+    tiles = npad // T
+    lens = sorted({L for L in (1, 2, T - 1, T, T + 1, npad - 1, npad)
+                   if 1 <= L <= npad})
+    cs = np.zeros((len(lens), npad), np.float32)
+    for r, L in enumerate(lens):
+        w = np.cumsum(rng.integers(-3, 4, npad)).astype(np.float32)
+        top, low = w[:L].max() + 5, w[:L].min() - 5
+        if tiles > 1:
+            for k in range(1, tiles):
+                w[k * T - 1] = w[k * T] = top if k % 2 else low
+        elif npad >= 8:
+            w[T // 3] = w[T // 2] = top
+            w[T // 5] = w[T // 4] = low
+        w[L:] = np.where(np.arange(npad - L) % 2, top + 9, low - 9)
+        cs[r] = w
+    return cs, np.asarray(lens, np.int64)
+
+
+@pytest.mark.parametrize("npad", [8, 64, 512] + [1 << k for k in
+                                                 range(10, 17)])
+def test_arc_inputs_kernel_ties_across_tiles(dev, npad):
+    """K9 at the frontier's buckets 8, 64, 512 and every whole-recursion
+    tier, its rows split over tiles of 8,192 positions, on rows whose equal
+    extrema lie in different tiles and on a tile's first and last
+    position, n = 1, 2, the tile's width - 1, + 1 and itself, and npad:
+    one launch, every output bit for bit against the plain version."""
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    cs, n = _k9_tie_rows(npad, npad + 1)
+    csd, nd = torch.as_tensor(cs, device=dev), torch.as_tensor(n, device=dev)
+    before = st.LAUNCHES["arc_inputs"]
+    got = st.arc_inputs(csd, nd, npad, 2)
+    want = (*st.arc_scan_inputs_plain(csd, nd, npad, 2), nd.to(torch.int32))
+    torch.cuda.synchronize()
+    assert st.LAUNCHES["arc_inputs"] == before + 1
+    for name, a, b in zip(("seed", "lag_hi", "psd2", "ti0", "tj0", "n32"),
+                          got, want):
+        assert _bits_equal(a, b), (name, _differ(a, b))
+
+
+def test_arc_inputs_kernel_ten_calls_back_to_back(dev):
+    """Ten K9 calls in a row at widths of 4 and 8 tiles and one, each bit
+    for bit against its plain version: the row counters the last tile
+    leaves zero serve the next call."""
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    cases = []
+    for i in range(10):
+        npad = (32768, 65536, 4096)[i % 3]
+        cs, n = _k9_tie_rows(npad, 50 + i)
+        cases.append((torch.as_tensor(cs, device=dev),
+                      torch.as_tensor(n, device=dev), npad))
+    got = [st.arc_inputs(cs, n, npad, 2) for cs, n, npad in cases]
+    torch.cuda.synchronize()
+    for g, (cs, n, npad) in zip(got, cases):
+        want = (*st.arc_scan_inputs_plain(cs, n, npad, 2),
+                n.to(torch.int32))
+        for a, b in zip(g, want):
+            assert _bits_equal(a, b), _differ(a, b)
+    state = st._STATE[dev if dev.index is not None else
+                      torch.device("cuda", torch.cuda.current_device())]
+    assert int(state["k9_count"].abs().sum()) == 0
+
+
+def test_k9_and_k12_make_no_synchronising_call(dev):
+    """One K9 call (a row of 8 tiles) and one K12 call under CUDA's sync
+    debug mode set to "error", after a first call has built the kernels
+    and made their state."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    cs, n = _k9_tie_rows(32768, 3)
+    csd, nd = torch.as_tensor(cs, device=dev), torch.as_tensor(n, device=dev)
+    inp = _perm_rows(dev, 4096, 4, 6)
+    args = dict(inp, P=768, al0=2, kmax=25, max_len=200)
+    st.arc_inputs(csd, nd, 32768, 2)
+    mc.perm_stats(**args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        k9 = st.arc_inputs(csd, nd, 32768, 2)
+        k12 = mc.perm_stats(**args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = (*st.arc_scan_inputs_plain(csd, nd, 32768, 2), nd.to(torch.int32))
+    assert all(_bits_equal(a, b) for a, b in zip(k9, want))
+    assert _bits_equal(k12, mc.perm_stats_plain(**args))
+
+
+def test_layout_mirrors_equal_the_source(dev):
+    """cbs_mega_cuda's Python mirrors of K7's and K8's layouts and of K12's
+    group rule equal what csrc/cbs_mega.cu computes, at every width from
+    8 to 65,536 and item counts from 1 to 1,024 x 768 over this card's
+    grid and others."""
+    from canvas_tpu_torch.ops import cbs_mega_cuda as mc
+
+    grids = (mc.perm_grid(dev), 66, 1)
+    keys = ("groups", "buffers", "bytes", "double_bytes")
+    for k in range(3, 17):
+        npad = 1 << k
+        for edge in (False, True):
+            assert mc.device_layout(npad, edge) == mc.layout(npad, edge)
+        for items in (1, 512, 768, 2 * 768, 33 * 512, 1024 * 768):
+            for grid in grids:
+                mirror = mc.perm_layout(npad, items, grid)
+                assert mc.device_perm_layout(npad, items, grid) == {
+                    key: mirror[key] for key in keys}, (npad, items, grid)
+
+
 def test_statistics_wrappers_raise_on_bad_inputs(dev):
     """K9-K12's wrappers on the card raise on tensors of other types,
     and on devices other than cuda and cpu."""
