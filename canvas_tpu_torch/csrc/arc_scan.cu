@@ -105,6 +105,14 @@ __device__ __forceinline__ float w_of(int L, int n) {
   return __fdiv_rn(nf, __fmul_rn(Lf, __fsub_rn(nf, Lf)));
 }
 
+// Whether segment b sits this launch out: the whole-recursion engine's run
+// has ended (live, when given, is 0), or b is outside the launch's mask
+// (when given).  Every thread block of the segment returns at once.
+__device__ __forceinline__ bool skip_row(const long long* live,
+                                         const bool* mask, int b) {
+  return (live && !*live) || (mask && !mask[b]);
+}
+
 // (in_range, w_bound * psd2) of lag block k.
 __device__ __forceinline__ bool block_admitted(int k, int blk, int n,
                                                int lag_hi, int al0,
@@ -133,9 +141,11 @@ __global__ void __launch_bounds__(kThreads) arc_scan_blocks(
     const int32_t* __restrict__ laghi_arr, const float* __restrict__ seed,
     const float* __restrict__ psd2, int* __restrict__ scratch,
     int* __restrict__ floors, int npad, int al0, int blk, int sub, int nblk,
-    int nsub) {
+    int nsub, int ld, const bool* __restrict__ mask,
+    const long long* __restrict__ live) {
   const int tile = blockIdx.x;
   const int b = blockIdx.y;
+  if (skip_row(live, mask, b)) return;
   const int k = blockIdx.z / kSplit;
   const int part = blockIdx.z % kSplit;
   const int q_lo = part * nsub / kSplit;
@@ -167,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) arc_scan_blocks(
   __shared__ __align__(16) float s_cs[kTile + kPartLags + kRun];
   __shared__ __align__(16) float s_w[kPartLags];
   __shared__ int s_max[kMaxSub];
-  const float* row = cs + int64_t(b) * npad;
+  const float* row = cs + int64_t(b) * ld;
   const int tid = threadIdx.x;
   for (int j = tid; j < kTile + n_lags + kRun; j += kThreads) {
     const int g = i0 + l0 + j;
@@ -276,11 +286,13 @@ __global__ void __launch_bounds__(kThreads) arc_scan_replay(
     const float* __restrict__ seed, const float* __restrict__ psd2,
     const int* __restrict__ scratch, float* __restrict__ best_out,
     int32_t* __restrict__ bl0_out, int al0, int blk, int sub, int nblk,
-    int nsub) {
+    int nsub, const bool* __restrict__ mask,
+    const long long* __restrict__ live) {
   __shared__ float s_gate[kThreads];
   __shared__ float s_m[kThreads];
   __shared__ int s_q[kThreads];
   const int b = blockIdx.x;
+  if (skip_row(live, mask, b)) return;
   const int tid = threadIdx.x;
   const int n = n_arr[b];
   const int lag_hi = laghi_arr[b];
@@ -331,11 +343,20 @@ __global__ void __launch_bounds__(kThreads) arc_scan_replay(
 
 }  // namespace
 
+// B4.  cs f32 rows of ld floats (the first npad used), n, lag_hi int32,
+// seed f32 [n_seg], psd2 f32 [n_seg, nblk]; scratch int32 [n_seg, nblk,
+// 17]; outputs best f32 and bl0 int32 [n_seg].  mask (bool [n_seg]) and
+// live (int64 scalar) may be null: a segment outside the mask, or every
+// segment where live is 0, returns at once and writes nothing.
 extern "C" int arc_scan(const void* cs, const void* n, const void* lag_hi,
                         const void* seed, const void* psd2, void* scratch,
                         void* best, void* bl0, int n_seg, int npad, int al0,
+                        int ld, const void* mask, const void* live,
                         void* stream) {
   if (n_seg <= 0) return 0;
+  if (ld < npad) return static_cast<int>(cudaErrorInvalidValue);
+  const bool* m = static_cast<const bool*>(mask);
+  const long long* lv = static_cast<const long long*>(live);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blk = npad < kBlk ? npad : kBlk;
   const int sub = blk < kSub ? blk : kSub;
@@ -361,11 +382,11 @@ extern "C" int arc_scan(const void* cs, const void* n, const void* lag_hi,
       static_cast<const float*>(cs), static_cast<const int32_t*>(n),
       static_cast<const int32_t*>(lag_hi), static_cast<const float*>(seed),
       static_cast<const float*>(psd2), sc, sc + n_max, npad, al0, blk, sub,
-      nblk, nsub);
+      nblk, nsub, ld, m, lv);
   arc_scan_replay<<<unsigned(n_seg), kThreads, 0, s>>>(
       static_cast<const int32_t*>(n), static_cast<const int32_t*>(lag_hi),
       static_cast<const float*>(seed), static_cast<const float*>(psd2), sc,
       static_cast<float*>(best), static_cast<int32_t*>(bl0), al0, blk, sub,
-      nblk, nsub);
+      nblk, nsub, m, lv);
   return static_cast<int>(cudaGetLastError());
 }

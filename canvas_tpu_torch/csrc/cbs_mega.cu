@@ -741,6 +741,7 @@ struct WalkArgs {
   bool* accepted;
   i64* chunks;
   float* first_stats;      // [W, kP] or null
+  const i64* live;         // the engine's live flag, or null
   int W, Tmax, n_sbdry, n_perm, al0, kmax, n_min;
 };
 
@@ -787,6 +788,7 @@ __device__ bool walk_update(const WalkArgs& a, int r, int it, bool write) {
 }
 
 __global__ void __launch_bounds__(kThreads, 1) walk_kernel(WalkArgs a) {
+  if (a.live && !*a.live) return;    // every block: no barrier is met
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Fixed f = carve_fixed(smem_raw);
   unsigned char* slices = smem_raw + kFixedBytes;
@@ -1007,6 +1009,7 @@ struct EdgeArgs {
   i64* count;
   i64* cnt;
   float* first_sums;       // [L, kP] or null
+  const i64* live;         // the engine's live flag, or null
   int L, R, Tmax, n_perm;
 };
 
@@ -1048,6 +1051,7 @@ __device__ bool edge_update(const EdgeArgs& a, int l, int cur, int c0,
 }
 
 __global__ void __launch_bounds__(kThreads, 1) edge_kernel(EdgeArgs a) {
+  if (a.live && !*a.live) return;    // every block: no barrier is met
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Fixed f = carve_fixed(smem_raw);
   unsigned char* slices = smem_raw + kFixedBytes;
@@ -1294,14 +1298,25 @@ __global__ void keys_kernel(const i64* key0, const i64* c, const i64* lo,
   }
 }
 
+// A cooperative launch through cudaLaunchKernelExC with the cooperative
+// launch attribute, which a CUDA graph's stream capture keeps on the
+// kernel node (the grid barriers need it on every replay).
 int launch_cooperative(const void* kernel, int grid, void** args,
                        cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaLaunchCooperativeKernel(kernel, dim3(unsigned(grid)),
-                                    dim3(kThreads), args, size_t(kSmemBytes),
-                                    stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(grid));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = size_t(kSmemBytes);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1348,7 +1363,8 @@ extern "C" int cbs_layout(int npad, int edge, int* out) {
 
 // K7.  state: int64 [2, 2, W] scratch; pstats: f32 [2, W, 512] scratch;
 // slab: [grid, Tmax] 32-bit words when Tmax >= 65,536; first_stats may be
-// null.
+// null; live (int64 scalar, may be null): every block returns at once
+// where it is 0.
 extern "C" int cbs_walk(const void* x, const void* n, const void* tss,
                         const void* key0, const void* seg_c,
                         const void* seg_lo, const void* walking,
@@ -1357,7 +1373,7 @@ extern "C" int cbs_walk(const void* x, const void* n, const void* tss,
                         void* pstats, void* slab, void* accepted,
                         void* chunks, void* first_stats, int W, int Tmax,
                         int n_sbdry, int n_perm, int al0, int kmax, int n_min,
-                        int grid, void* stream) {
+                        int grid, const void* live, void* stream) {
   if (W <= 0) return 0;
   if (W > kMaxRows || n_sbdry <= 0 || grid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1379,6 +1395,7 @@ extern "C" int cbs_walk(const void* x, const void* n, const void* tss,
   a.accepted = static_cast<bool*>(accepted);
   a.chunks = static_cast<i64*>(chunks);
   a.first_stats = static_cast<float*>(first_stats);
+  a.live = static_cast<const i64*>(live);
   a.W = W;
   a.Tmax = Tmax;
   a.n_sbdry = n_sbdry;
@@ -1392,7 +1409,7 @@ extern "C" int cbs_walk(const void* x, const void* n, const void* tss,
 }
 
 // K8.  state: int64 [2, L] scratch; sums: f32 [2, 4, L, 512] scratch; slab as
-// for K7; first_sums may be null.  Lane l's key derives from row l % R.
+// for K7; first_sums and live as for K7.  Lane l's key derives from row l % R.
 extern "C" int cbs_edge(const void* xw, const void* wn, const void* m1,
                         const void* xbar, const void* ostat,
                         const void* active, const void* key0,
@@ -1400,7 +1417,7 @@ extern "C" int cbs_edge(const void* xw, const void* wn, const void* m1,
                         const void* seg_n, const void* limit, void* state,
                         void* sums, void* slab, void* count, void* cnt,
                         void* first_sums, int L, int R, int Tmax, int n_perm,
-                        int grid, void* stream) {
+                        int grid, const void* live, void* stream) {
   if (L <= 0) return 0;
   if (L > kMaxRows || R <= 0 || grid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1422,6 +1439,7 @@ extern "C" int cbs_edge(const void* xw, const void* wn, const void* m1,
   a.count = static_cast<i64*>(count);
   a.cnt = static_cast<i64*>(cnt);
   a.first_sums = static_cast<float*>(first_sums);
+  a.live = static_cast<const i64*>(live);
   a.L = L;
   a.R = R;
   a.Tmax = Tmax;

@@ -77,6 +77,13 @@
 // also call.  So K9 and K10 equal their plain versions bit for bit on any
 // device, and K11 on the card.
 //
+// For the whole-recursion engine (ops/cbs_mega.py) K9 and K10 take a tier's
+// row mask and read rows of the level's [W, Tmax] cumsum at its stride,
+// and K9-K11 the engine's live flag: a row outside the mask, or every row
+// where live is 0, returns at once, before any barrier or counter, and
+// writes nothing.  K11 is launched with the cooperative launch attribute
+// (cudaLaunchKernelExC), which a CUDA graph's capture keeps.
+//
 // K9's and K10's row counters, K10's keys and K11's two counters live in
 // device memory that the wrapper zeroes once a device; each launch leaves
 // them zero (K9 and K10: a row's last block), so calls on one stream reuse
@@ -135,6 +142,15 @@ __device__ __forceinline__ i64 row_n(const void* n, int n64, int b) {
              : i64(static_cast<const int32_t*>(n)[b]);
 }
 
+// Whether row b sits this launch out: the whole-recursion engine's run has
+// ended (live, when given, is 0), or the row is outside the launch's mask
+// (when given).  Every block of the row returns at once, before any
+// barrier or counter.
+__device__ __forceinline__ bool skip_row(const i64* live, const bool* mask,
+                                         int b) {
+  return (live && !*live) || (mask && !mask[b]);
+}
+
 // ---------------------------------------------------------------------------
 // K9
 // ---------------------------------------------------------------------------
@@ -170,9 +186,9 @@ struct TileExt {
 // the chunk-distance bounds, psd2, the seed, lag_hi, ti0, tj0 and n32.
 __global__ void __launch_bounds__(kRowThreads) arc_inputs_kernel(
     const float* __restrict__ cs, const void* n, int n64, int npad, int al0,
-    int tiles, TileExt* ext, float2* chunk, unsigned* count, float* seed,
-    int32_t* lag_hi, int32_t* ti0, int32_t* tj0, int32_t* n32,
-    float* psd2) {
+    int tiles, int ld, const bool* mask, const i64* live, TileExt* ext,
+    float2* chunk, unsigned* count, float* seed, int32_t* lag_hi,
+    int32_t* ti0, int32_t* tj0, int32_t* n32, float* psd2) {
   __shared__ float s_v[2][kRowWarps];
   __shared__ int s_i[2][kRowWarps];
   __shared__ float s_M[kBChunk], s_m[kBChunk], s_db[kBChunk];
@@ -180,8 +196,9 @@ __global__ void __launch_bounds__(kRowThreads) arc_inputs_kernel(
   __shared__ TileExt s_ext;
   __shared__ bool s_last;
   const int b = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  if (skip_row(live, mask, b)) return;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const float* row = cs + size_t(b) * npad;
+  const float* row = cs + size_t(b) * ld;
   const i64 nb = row_n(n, n64, b);
   const int nv = nb < 0 ? 0 : (nb > npad ? npad : int(nb));
   const int T = npad < kTile ? npad : kTile;
@@ -379,14 +396,16 @@ __global__ void __launch_bounds__(kRefineThreads) refine_kernel(
     const float* __restrict__ cs, const void* n, int n64,
     const float* tss, const int32_t* lag_hi, const float* best_in,
     const int32_t* bl0, const int32_t* ti0, const int32_t* tj0, int npad,
-    int al0, int tiles, unsigned long long* key, unsigned* count, float* t2,
-    int32_t* ti, int32_t* tj) {
+    int al0, int tiles, int ld, const bool* mask, const i64* live,
+    unsigned long long* key, unsigned* count, float* t2, int32_t* ti,
+    int32_t* tj) {
   __shared__ float s_w[kPTbl];
   __shared__ float s_c[kRefineTile + kPTbl];   // cs[i0 + bl0, ...)
   __shared__ unsigned long long s_key[kRefineWarps];
   const int b = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  if (skip_row(live, mask, b)) return;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const float* row = cs + size_t(b) * npad;
+  const float* row = cs + size_t(b) * ld;
   const i64 nb = row_n(n, n64, b);
   const float nf = __ll2float_rn(nb);
   if (tile == 0 && t == 0) {
@@ -609,9 +628,10 @@ __global__ void tail_table_kernel(double2* tbl) {
 __global__ void __launch_bounds__(kTailThreads, 4) tail_kernel(
     const double* b_in, const void* n, int n64, int kmax, int n_grid, int R,
     const double2* __restrict__ tbl, double* xs, int32_t* live,
-    double* part, unsigned* nlive, double* p) {
+    double* part, unsigned* nlive, double* p, const i64* run_live) {
   __shared__ double s_sum[kMaxGrid / 32];
   __shared__ int s_item;
+  if (run_live && !*run_live) return;    // every block: no barrier is met
   cg::grid_group grid = cg::this_grid();
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int points = R * n_grid;
@@ -705,14 +725,17 @@ extern "C" int cbs_arc_inputs(const void* cs, const void* n, int n64,
                               void* ext, void* chunk, void* count,
                               void* seed, void* lag_hi, void* ti0, void* tj0,
                               void* n32, void* psd2, int B, int npad, int al0,
+                              int ld, const void* mask, const void* live,
                               void* stream) {
   if (B <= 0) return 0;
-  if (npad < 1 || npad > 65536 || (npad & (npad - 1)))
+  if (npad < 1 || npad > 65536 || (npad & (npad - 1)) || ld < npad ||
+      ld % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = npad > kTile ? npad / kTile : 1;
   arc_inputs_kernel<<<unsigned(B) * unsigned(tiles), kRowThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cs), n, n64, npad, al0, tiles,
+      static_cast<const float*>(cs), n, n64, npad, al0, tiles, ld,
+      static_cast<const bool*>(mask), static_cast<const i64*>(live),
       static_cast<TileExt*>(ext), static_cast<float2*>(chunk),
       static_cast<unsigned*>(count), static_cast<float*>(seed),
       static_cast<int32_t*>(lag_hi), static_cast<int32_t*>(ti0),
@@ -729,9 +752,10 @@ extern "C" int cbs_refine(const void* cs, const void* n, int n64,
                           const void* best, const void* bl0, const void* ti0,
                           const void* tj0, void* key, void* count, void* t2,
                           void* ti, void* tj, int B, int npad, int al0,
+                          int ld, const void* mask, const void* live,
                           void* stream) {
   if (B <= 0) return 0;
-  if (npad < 1 || unsigned(npad) > kPosMask)
+  if (npad < 1 || unsigned(npad) > kPosMask || ld < npad)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (npad + kRefineTile - 1) / kRefineTile;
   refine_kernel<<<unsigned(B) * unsigned(tiles), kRefineThreads, 0,
@@ -739,7 +763,8 @@ extern "C" int cbs_refine(const void* cs, const void* n, int n64,
       static_cast<const float*>(cs), n, n64, static_cast<const float*>(tss),
       static_cast<const int32_t*>(lag_hi), static_cast<const float*>(best),
       static_cast<const int32_t*>(bl0), static_cast<const int32_t*>(ti0),
-      static_cast<const int32_t*>(tj0), npad, al0, tiles,
+      static_cast<const int32_t*>(tj0), npad, al0, tiles, ld,
+      static_cast<const bool*>(mask), static_cast<const i64*>(live),
       static_cast<unsigned long long*>(key), static_cast<unsigned*>(count),
       static_cast<float*>(t2), static_cast<int32_t*>(ti),
       static_cast<int32_t*>(tj));
@@ -776,16 +801,26 @@ extern "C" int cbs_tail_grid(int* grid) {
 extern "C" int cbs_tail_p(const void* b, const void* n, int n64,
                           const void* tbl, void* xs, void* live, void* part,
                           void* nlive, void* p, int R, int kmax, int n_grid,
-                          int grid, void* stream) {
+                          int grid, const void* run_live, void* stream) {
   if (R <= 0) return 0;
   if (n_grid < 1 || n_grid > kMaxGrid || grid <= 0 ||
       static_cast<long long>(R) * n_grid * kItems > 0x7FFFFFFFll)
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&b, &n, &n64, &kmax, &n_grid, &R, &tbl, &xs, &live, &part,
-                  &nlive, &p};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(tail_kernel), dim3(unsigned(grid)),
-      dim3(kTailThreads), args, 0, static_cast<cudaStream_t>(stream));
+                  &nlive, &p, &run_live};
+  // the cooperative launch attribute, which a CUDA graph's stream capture
+  // keeps on the kernel node (the grid barriers need it on every replay)
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(grid));
+  cfg.blockDim = dim3(kTailThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelExC(
+      &cfg, reinterpret_cast<const void*>(tail_kernel), args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,7 +18,10 @@ first lag of the last sub-block that did (-1 when the seed was never
 beaten).  cbs_device.tmax_batch recovers (i, j) inside that sub-block.
 
 On CUDA tensors `arc_scan` launches csrc/arc_scan.cu; on CPU tensors it
-runs `arc_scan_plain`.  The plain version forms every term as w * (d * d)
+runs `arc_scan_plain` (with a row mask, on the rows under it).  The
+whole-recursion engine passes its tier's row mask, the first npad columns
+of its [W, Tmax] cumsum (rows at their stride) and its live flag: a row
+outside the mask, or every row where live is 0, returns at once.  The plain version forms every term as w * (d * d)
 with correctly rounded f32 operations.  The kernel factors w out of the
 maximum over positions: fl(d * d) is monotone in |d| and fl(w * x) in x
 for w > 0, so max_i fl(w * fl(d_i * d_i)) = fl(w * fl(D * D)) with
@@ -47,8 +50,8 @@ MAX_SUB = PBLK // PTBL
 LAUNCHES = {"arc_scan": 0}
 
 _SIGNATURES = {
-    "arc_scan": [ctypes.c_void_p] * 8
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "arc_scan": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p] * 3,
 }
 
 
@@ -130,9 +133,15 @@ def arc_scan_plain(cs, n, lag_hi, seed, psd2, al0: int,
     return best, bl0
 
 
-def arc_scan(cs, n, lag_hi, seed, psd2, al0: int):
+def arc_scan(cs, n, lag_hi, seed, psd2, al0: int, mask=None, live=None):
     """B4: (best f32 [B], bl0 int32 [B]) for cs f32 [B, npad], n and lag_hi
-    int32 [B], seed f32 [B], psd2 f32 [B, nblk]; npad a power of two."""
+    int32 [B], seed f32 [B], psd2 f32 [B, nblk]; npad a power of two.  cs
+    may be the first npad columns of wider rows (a view whose rows are
+    contiguous).  With mask (bool [B]) only the rows under it are scanned:
+    the others' best and bl0 are left unset (on the card, their blocks
+    return at once).  live (an int64 scalar on the card, may be None): where
+    it is 0 every block returns at once and nothing is written; on CPU
+    tensors it is not read."""
     if cs.dim() != 2:
         raise ValueError(f"cs must be [B, npad], got {tuple(cs.shape)}")
     B, npad = cs.shape
@@ -145,7 +154,15 @@ def arc_scan(cs, n, lag_hi, seed, psd2, al0: int):
         raise ValueError(f"psd2 must be [{B}, {nblk}], got "
                          f"{tuple(psd2.shape)}")
     if cs.device.type == "cpu":
-        return arc_scan_plain(cs, n, lag_hi, seed, psd2, al0)
+        if mask is None:
+            return arc_scan_plain(cs, n, lag_hi, seed, psd2, al0)
+        best = torch.zeros(B, dtype=torch.float32)
+        bl0 = torch.full((B,), -1, dtype=torch.int32)
+        rows = torch.nonzero(mask)[:, 0]
+        if len(rows):
+            best[rows], bl0[rows] = arc_scan_plain(
+                cs[rows], n[rows], lag_hi[rows], seed[rows], psd2[rows], al0)
+        return best, bl0
     if cs.device.type != "cuda":
         raise ValueError(f"unsupported device {cs.device}")
     # grid limits: segments, and 4 thread blocks a lag block (kSplit)
@@ -153,11 +170,15 @@ def arc_scan(cs, n, lag_hi, seed, psd2, al0: int):
         raise ValueError(f"at most 65535 segments and 16,383 lag blocks per "
                          f"launch, got {B} and {nblk}")
     dev = cs.device
-    cuda_lib.require_cuda_tensor("cs", cs, torch.float32)
+    ld = cuda_lib.require_cuda_rows("cs", cs, torch.float32)
     for name, x, dt in (("n", n, torch.int32), ("lag_hi", lag_hi, torch.int32),
                         ("seed", seed, torch.float32),
                         ("psd2", psd2, torch.float32)):
         cuda_lib.require_cuda_tensor(name, x, dt, dev)
+    if mask is not None:
+        cuda_lib.require_cuda_tensor("mask", mask, torch.bool, dev)
+    if live is not None:
+        cuda_lib.require_cuda_tensor("live", live, torch.int64, dev)
     lib = cuda_lib.load("arc_scan", _SIGNATURES)
     # the kernel's sub-block maxima [B, nblk, MAX_SUB] and floors [B, nblk]
     scratch = torch.empty(B * nblk * (MAX_SUB + 1), dtype=torch.int32,
@@ -168,7 +189,7 @@ def arc_scan(cs, n, lag_hi, seed, psd2, al0: int):
         dev, lib.arc_scan,
         cs.data_ptr(), n.data_ptr(), lag_hi.data_ptr(), seed.data_ptr(),
         psd2.data_ptr(), scratch.data_ptr(), best.data_ptr(), bl0.data_ptr(),
-        B, npad, al0)
+        B, npad, al0, ld, cuda_lib.ptr(mask), cuda_lib.ptr(live))
     cuda_lib.check(status, "arc_scan")
     LAUNCHES["arc_scan"] += 1
     return best, bl0

@@ -97,25 +97,32 @@ def _cumsum(x):
     return torch.cumsum(x.double(), dim=-1).float()
 
 
-def tmax_batch(cs, n, tss, npad, al0):
+def tmax_batch(cs, n, tss, npad, al0, mask=None, out=None, live=None):
     """Batched TMaxO: (t^2 f32, ti, tj int32) per row of the cumsum
     cs f32 [B, npad] with n int32 or int64 [B]: B4's inputs (K9), the B4
     arc scan for the max, then its refine over the winning 32-lag
     sub-block (K10); on the card four launches (B4 is two) and no read,
     on CPU tensors their plain versions.  Only exact float ties can pick
-    another (ti, tj) than the host's cbs.tmax_o."""
+    another (ti, tj) than the host's cbs.tmax_o.
+
+    cs may be the first npad columns of wider rows.  With mask (bool [B])
+    only the rows under it are scanned, and with out (t2, ti, tj) their
+    results go into those tensors, the other rows' entries untouched; on
+    the card the other rows' blocks, and every block where live (an int64
+    scalar) is 0, return at once."""
     seed, lag_hi, psd2, ti0, tj0, n32 = cbs_stats_cuda.arc_inputs(
-        cs, n, npad, al0)
-    best, bl0 = arc_scan_cuda.arc_scan(cs, n32, lag_hi, seed, psd2, al0)
+        cs, n, npad, al0, mask=mask, live=live)
+    best, bl0 = arc_scan_cuda.arc_scan(cs, n32, lag_hi, seed, psd2, al0,
+                                       mask=mask, live=live)
     return cbs_stats_cuda.refine(cs, n, tss, lag_hi, best, bl0, ti0, tj0,
-                                 npad, al0)
+                                 npad, al0, mask=mask, out=out, live=live)
 
 
-def _tail_p_batch_dev(b, n, kmax, n_grid):
+def _tail_p_batch_dev(b, n, kmax, n_grid, live=None):
     """TailProbability.TailP for a [Bp] batch (hybrid delta = (kmax+1)/n),
     in the dtype of b: kernel K11 on the card (b float64), its plain
-    version on CPU tensors."""
-    return cbs_stats_cuda.tail_p(b, n, kmax, n_grid)
+    version on CPU tensors; live as for cbs_stats_cuda.tail_p."""
+    return cbs_stats_cuda.tail_p(b, n, kmax, n_grid, live=live)
 
 
 def _level(contigs, cidx, lo, n, keys, alpha, npad, P, al0, kmax, n_min,

@@ -20,7 +20,8 @@ Design:
   * Each level analyses the first W pending slots (a stable compaction):
     window gather and centring, the arc scan through kernel B4 at the
     smallest power-of-two tier width (1,024 to Tmax) that holds each
-    segment, rows outside a tier zeroed, and the OU tail probability.
+    segment, each tier's rows under its row mask, and the OU tail
+    probability.
   * The sequential-stopping boundary walk (ChangePoint.cs:206-246) runs
     vectorised over a permutation chunk: with ``csum`` the running count of
     permuted statistics at or above the observed one, the first index where
@@ -43,15 +44,30 @@ Design:
     versions loop over the rows one at a time.  A row's chunk c draws
     from its own key and counter, so the results do not depend on which
     rows share an iteration.
-  * One read from the device a level: at its start, one small integer
-    tensor with the control values (any pending slot, overflow, any row
-    in each tier) and the segment table with the run's counters, so the
-    read that ends the loop carries the final table.  Each read is
-    counted in SYNCS; nothing else in the engine reads from the device,
-    and nothing copies to it after the set-up.
+  * The level body's glue is kernels K13-K16 (ops/cbs_level_cuda.py): the
+    compaction, gathers, centring, cumsum and tier masks; the decision
+    rules; the edge tests' set-up; the table update.  The table lives in
+    one device buffer with its control words (nseg, overflow, live, the
+    level count, the tally), updated in place; every kernel of a level
+    returns at once where live is 0, so a level after the run's end
+    changes nothing, and a tier without a row costs its kernels an early
+    return (K9, B4 and K10 take the tier's row mask; K10 writes its rows'
+    t2, ti, tj in place).
+  * On the card one level is captured in a CUDA graph, once per shape
+    (each device keeps the engine of its last run's shape), and replayed in batches of 4, 8, 16, ... levels up to _MAX_LEVELS,
+    with one read from the device after each batch: the table and its
+    control words, so the read that finds live 0 carries the final table.
+    A recursion of up to 4 levels (the enrichment panel's and bench.py's
+    CBS workload's) is one replay batch and one read.  Nothing else in the
+    engine reads from the device, and nothing copies to it after the
+    set-up.  On CPU tensors the same level runs eagerly through the plain
+    versions, with a read after every level.  A failed capture or launch
+    raises; nothing runs the level another way instead.
   * Sums and cumulative sums accumulate in float64 and round once to f32,
     and the tail probability runs in float64, so a CUDA run and a CPU run
-    see the same statistics.
+    see the same statistics wherever the order of a float64 sum changes
+    no bit of its f32 result (csrc/cbs_level.cu's note on exactness; held
+    on every level of the panel and of bench.py's CBS workload).
 
 Documented deviations from the host path, as for the frontier engine
 (Monte-Carlo-level): threefry permutations instead of the numpy stream,
@@ -74,47 +90,54 @@ test_tail_precision_changes_walk_limits_c5 shows it.
 
 from __future__ import annotations
 
+import threading
+import time
+from contextlib import nullcontext
+
 import numpy as np
 import torch
 
 from canvas_tpu_torch.config import resolve_device
+from canvas_tpu_torch.ops import arc_scan_cuda, cbs_level_cuda, cbs_mega_cuda
 from canvas_tpu_torch.ops import cbs as _cbs
-from canvas_tpu_torch.ops import cbs_mega_cuda
-from canvas_tpu_torch.ops.cbs_device import (
-    _cumsum, _gather_center, _tail_p_batch_dev, tmax_batch)
-from canvas_tpu_torch.ops.cbs_mega_cuda import _fsum
+from canvas_tpu_torch.ops import cbs_stats_cuda
+from canvas_tpu_torch.ops.cbs_device import _tail_p_batch_dev, tmax_batch
+from canvas_tpu_torch.ops.cbs_level_cuda import (CTL, LEVEL, LIVE, NSEG,
+                                                 OVERFLOW, TALLY)
 
 _MAX_LEVELS = 128      # iteration bound (depth x frontier/W chunks)
 _MAX_BINS = 65536      # the longest contig the table's tiers hold
 _MAX_CONTIGS = 192
 _MIN_SLOTS = 64        # the table holds max(64, 4 x contigs) slots
+_FIRST_BATCH = 4       # levels replayed before the first read
 
 # reads of control values and results from the device, one per copy
 SYNCS = {"cbs_mega": 0}
+# levels captured in a CUDA graph, and replays of them (each engine keeps
+# its capture's seconds, nodes and kernel launches a level)
+GRAPHS = {"captures": 0, "replays": 0}
 
 
-def _read(*parts: torch.Tensor) -> list[int]:
-    """The parts (scalars or vectors) as one int64 tensor, copied to the
-    host in one read."""
+def _read(tab: torch.Tensor) -> list[int]:
+    """The table and its control words, copied to the host in one read."""
     SYNCS["cbs_mega"] += 1
-    return torch.cat([p.reshape(-1).to(torch.int64) for p in parts]).tolist()
-
-
-def _stable_order(flags: torch.Tensor) -> torch.Tensor:
-    """Indices with the True entries first, each part in index order."""
-    return torch.argsort((~flags).to(torch.int32), stable=True)
+    return tab.tolist()
 
 
 def _tiers(Tmax: int) -> list[int]:
     """Ascending width ladder (powers of two down to 1024): the [P, w]
     permutation sort and the arc scan both scale with the width, so every
     segment runs at the smallest tier that holds it."""
-    out = {Tmax}
-    w = Tmax // 2
-    while w >= 1024:
-        out.add(w)
-        w //= 2
-    return sorted(out)
+    return cbs_level_cuda.tier_widths(Tmax)
+
+
+def _batches(max_levels: int):
+    """Levels a replay batch: 4, 8, 16, ... up to max_levels in all."""
+    size, done = _FIRST_BATCH, 0
+    while done < max_levels:
+        yield min(size, max_levels - done)
+        done += size
+        size *= 2
 
 
 # ---------------------------------------------------------------------------
@@ -124,215 +147,228 @@ def _tiers(Tmax: int) -> list[int]:
 def _edge_tests(x, n, i1, i2, test_both, key0, seg_c, seg_lo, alpha,
                 n_perm, Tmax):
     """(keep1, keep2, edge chunks) for rows whose split needs its edges
-    validated; the chunks as a device scalar.  Row r's key is
-    fold_in(fold_in(fold_in(key0, seg_c[r]), seg_lo[r]), n[r]).
-
-    Lane layout [2W]: edge 1 of rows 0..W-1, then edge 2.  Edge 1 tests
-    the split at i1 inside x[0:i2] (n1 = i1); edge 2 tests the split at
-    i2 inside x[i1:n] (n1 = i2 - i1).  TPermP statistics are
-    shift-invariant, so the parent's centred windows serve: edge 1 is x
-    masked to i2, edge 2 is x shifted left by i1.  The lanes' chunk loops
-    are kernel K8 (cbs_mega_cuda.edge_counts)."""
-    W = x.shape[0]
-    dev = x.device
-    wn = torch.cat([i2, n - i1])
-    n1 = torch.cat([i1, i2 - i1])
-    mask = torch.cat([test_both, test_both])
-
-    pos = torch.arange(Tmax, device=dev)[None, :]
-    x2 = torch.nn.functional.pad(x, (0, Tmax))
-    xe2 = x2.gather(1, torch.clamp(i1, 0, Tmax)[:, None] + pos)
-    xw = torch.where(pos < wn[:, None], torch.cat([x, xe2]), 0.0)
-
-    n2 = wn - n1
-    wnf = wn.to(torch.float32)
-    xsum1 = _fsum(torch.where(pos < n1[:, None], xw, 0.0))
-    xsum = _fsum(xw)
-    xbar = xsum / torch.clamp(wnf, min=1.0)
-    tss = _fsum(xw * xw) - wnf * xbar * xbar
-    m1 = torch.minimum(n1, n2)
-    m1f = torch.clamp(m1, min=1).to(torch.float32)
-    mean_small = torch.where(n1 <= n2, xsum1 / torch.clamp(n1, min=1),
-                             (xsum - xsum1) / torch.clamp(n2, min=1))
-    ostat = 0.99999 * (mean_small - xbar).abs()
-    tstat = ostat * ostat * m1f * wnf / torch.clamp(wnf - m1f, min=1.0)
-    tstat = tstat / (torch.clamp(tss - tstat, min=1e-30)
-                     / torch.clamp(wnf - 2.0, min=1.0))
-    degen = (n1 <= 1) | (n2 <= 1)
-    quick0 = (tstat > 25.0) & (m1 >= 10)
-    limit = alpha * n_perm
-
-    active = mask & ~degen & ~quick0
-    count, cnt = cbs_mega_cuda.edge_counts(xw, wn, m1, xbar, ostat, active,
-                                           key0, seg_c, seg_lo, n, limit,
-                                           n_perm)
-    p = count.to(torch.float32) / n_perm
-    keep = torch.where(degen, False, torch.where(quick0, True, p <= alpha))
-    return keep[:W], keep[W:], cnt.sum()
+    validated, as a level runs them (K15 around K8), on their own: the
+    lanes (cbs_level_cuda.edge_lanes_plain), the lanes' chunk loops
+    (kernel K8, cbs_mega_cuda.edge_counts; row r's key is
+    fold_in(fold_in(fold_in(key0, seg_c[r]), seg_lo[r]), n[r])), and each
+    lane's keep flag (edge_keep_plain, keep1 and keep2 of the tested
+    rows)."""
+    lanes = cbs_level_cuda.edge_lanes_plain(x, n, i1, i2, test_both, alpha,
+                                            n_perm, Tmax)
+    count, cnt = cbs_mega_cuda.edge_counts(
+        lanes["xw"], lanes["wn"], lanes["m1"], lanes["xbar"],
+        lanes["ostat_e"], lanes["active"], key0, seg_c, seg_lo, n,
+        lanes["limit"], n_perm)
+    keep = cbs_level_cuda.edge_keep_plain(
+        count, cnt, lanes["degen"], lanes["quick0"], test_both, i1, i2, n,
+        alpha, n_perm)
+    return keep["keep1"], keep["keep2"], keep["echunks"]
 
 
 # ---------------------------------------------------------------------------
 # The recursion
 # ---------------------------------------------------------------------------
 
-def _exclusive_cumsum(v):
-    return torch.cumsum(v, dim=0) - v
+def _launch_dicts() -> tuple[dict, ...]:
+    return (arc_scan_cuda.LAUNCHES, cbs_stats_cuda.LAUNCHES,
+            cbs_mega_cuda.LAUNCHES, cbs_level_cuda.LAUNCHES)
 
 
-def _drop_set(table, idx, val):
-    """table with table[idx] = val where idx < len(table); writes at
-    idx >= len(table) are dropped (they go to an extra slot cut off)."""
-    S = table.shape[0]
-    ext = torch.cat([table, table[:1]])
-    ext[torch.where(idx < S, idx, S)] = val
-    return ext[:S]
+class _Engine:
+    """One shape's device buffers: the inputs, the segment table with its
+    control words (cbs_level_cuda's layout), the level's tensors, and on
+    the card the captured level."""
 
+    def __init__(self, dev, C, Tmax, S, W, n_sbdry, al0, kmax, n_min,
+                 n_grid, n_perm, max_levels):
+        self.shape = (C, Tmax, S, W, n_sbdry, al0, kmax, n_min, n_grid,
+                      n_perm, max_levels)
+        self.dev, self.C, self.Tmax, self.S, self.W = dev, C, Tmax, S, W
+        self.al0, self.kmax, self.n_min = al0, kmax, n_min
+        self.n_grid, self.n_perm, self.max_levels = n_grid, n_perm, max_levels
+        self.tiers = _tiers(Tmax)
+        self.contigs = torch.zeros((C, Tmax), dtype=torch.float32, device=dev)
+        self.sbdry = torch.zeros(n_sbdry, dtype=torch.int64, device=dev)
+        self.key0 = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.alpha = torch.zeros((), dtype=torch.float32, device=dev)
+        self.tab = torch.zeros(3 * S + CTL, dtype=torch.int64, device=dev)
+        self.pending0 = torch.zeros(S, dtype=torch.bool, device=dev)
+        self.live = self.tab[3 * S + LIVE]
+        self.lv = cbs_level_cuda.level_buffers(W, Tmax, len(self.tiers), dev)
+        self.graph = None
+        self.launches = None          # per dict of _launch_dicts: a level's
+        self.nodes = None             # the captured level's, by type
+        self.capture_s = None
+        self.lock = threading.Lock()
 
-def _mega_recurse(contigs, n_c, sbdry, key0, alpha, *, S, Tmax, al0, kmax,
-                  n_min, n_grid, n_perm, counts):
-    """The full CBS recursion on contigs' device.  Returns (seg_c, seg_lo,
-    seg_hi, nseg, overflow) on the host; `counts` gains the levels, walk
-    and edge chunks, walks accepted and rejected.  One read a level, at
-    its start: the control values and the table with its counters."""
-    dev = contigs.device
-    C = contigs.shape[0]
-    tiers = _tiers(Tmax)
-    slot = torch.arange(S, device=dev)
-    seg_c0 = torch.where(slot < C, slot, -1)
-    seg_lo0 = torch.zeros(S, dtype=torch.int64, device=dev)
-    seg_hi0 = torch.nn.functional.pad(n_c, (0, S - C))
-    pending0 = (slot < C) & (seg_hi0 > 0)
-    nseg = torch.full((), C, dtype=torch.int64, device=dev)
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    # walks accepted and rejected, walk and edge chunks
-    tally = torch.zeros(4, dtype=torch.int64, device=dev)
-    big = torch.finfo(torch.float32).max
-    pos = torch.arange(Tmax, device=dev)[None, :]
-
-    def table(ctrl):
-        """(seg_c, seg_lo, seg_hi, nseg, overflow, tally) of a read."""
-        t = ctrl[-(3 * S + 6):]
-        return (t[:S], t[S:2 * S], t[2 * S:3 * S], t[3 * S],
-                bool(t[3 * S + 1]), t[3 * S + 2:])
-
-    W = min(S, max(32, S // 2))   # frontier rows analysed an iteration
-    level = 0
-    while level < _MAX_LEVELS:
-        # compact: only the first W pending rows analyse this iteration;
-        # pending rows beyond W stay pending for the next one
-        fsel = _stable_order(pending0)[:W]
-        seg_c, seg_lo, seg_hi = seg_c0[fsel], seg_lo0[fsel], seg_hi0[fsel]
-        pending = pending0[fsel]
-        n = seg_hi - seg_lo
-        contig = torch.clamp(seg_c, min=0)
-        x, tss = _gather_center(contigs, contig, seg_lo, n, Tmax)
-        # constant-window check (host: cur.max() != cur.min())
-        valid = pos < n[:, None]
-        wmax = torch.where(valid, x, -big).amax(dim=1)
-        wmin = torch.where(valid, x, big).amin(dim=1)
-        analyzable = pending & (n >= 2 * al0) & (wmax > wmin)
-        n_eff = torch.where(analyzable, n, 2)
-        in_tiers = [analyzable & (n_eff <= w) & (n_eff > (tiers[t - 1]
-                                                         if t else 0))
-                    for t, w in enumerate(tiers)]
-        ctrl = _read(pending0.any(),
-                     torch.stack([it.any() for it in in_tiers]),
-                     seg_c0, seg_lo0, seg_hi0, nseg, overflow, tally)
-        out = table(ctrl)
-        if not ctrl[0] or out[4]:
-            break
-        x = torch.where(analyzable[:, None], x, 0.0)
-        tss = torch.where(analyzable, tss, 0.0)
-        cs = _cumsum(x)
-
-        # tiered arc scan: each segment at the smallest width that holds
-        # it; rows outside a tier are zeroed, so B4 skips all their blocks
-        t2 = torch.zeros(W, dtype=torch.float32, device=dev)
-        ti = torch.ones(W, dtype=torch.int64, device=dev)
-        tj = torch.full((W,), 2, dtype=torch.int64, device=dev)
-        for t, w in enumerate(tiers):
-            if not ctrl[1 + t]:
-                continue
-            in_tier = in_tiers[t]
-            r0, r1, r2 = tmax_batch(
-                torch.where(in_tier[:, None], cs[:, :w], 0.0),
-                torch.where(in_tier, n_eff, 2),
-                torch.where(in_tier, tss, 0.0), w, al0)
-            t2 = torch.where(in_tier, r0, t2)
-            ti = torch.where(in_tier, r1.to(torch.int64), ti)
-            tj = torch.where(in_tier, r2.to(torch.int64), tj)
-        ostat1 = torch.sqrt(torch.clamp(t2, min=0.0))
-        ostat = 0.99999 * t2
-        p1 = _tail_p_batch_dev(ostat1.double(), n_eff, kmax,
-                               n_grid).float()
-
-        larc = torch.minimum(tj - ti, n - tj + ti)
-        considered = analyzable & (ostat1 > 0.1)
-        trivial = considered & (ostat1 >= 7.0) & (larc >= 10)
-        hybrid = n > n_min
-        tail_ok = torch.where(hybrid, p1 <= alpha, True)
-        needs = considered & ~trivial & tail_ok
-        # host: int((alpha - p1) * n_perm) for hybrid, int(alpha * n_perm)
-        # otherwise (f32, truncated toward zero; only walking rows use it)
-        nrejc = torch.where(
-            hybrid, ((alpha - p1) * n_perm).to(torch.int32),
-            (alpha * float(n_perm)).to(torch.int32)).to(torch.int64)
-
+    def level(self) -> None:
+        """One level of the recursion: K13, the tiers' K9, B4 and K10
+        (each under its row mask), K14, K11, K14, K7, K15, K8, K15, K16."""
+        lv, tab, S, live = self.lv, self.tab, self.S, self.live
+        cl = cbs_level_cuda
+        cl.prologue(self.contigs, tab, self.pending0, lv, self.al0)
+        for t, w in enumerate(self.tiers):
+            tmax_batch(lv["cs"][:, :w], lv["n_eff"], lv["tss"], w, self.al0,
+                       mask=lv["in_tier"][t],
+                       out=(lv["t2"], lv["ti"], lv["tj"]), live=live)
+        cl.decide_prep(tab, S, lv, self.alpha)
+        p1 = _tail_p_batch_dev(lv["b"], lv["n_eff"], self.kmax, self.n_grid,
+                               live=live)
+        cl.decide(tab, S, lv, p1, self.alpha, self.n_perm, self.n_min)
         # --- sequential-stopping permutation walks (kernel K7); a walking
         # row is analysable, so its n_eff is its n and its key the chain
         # of (contig, lo, n) ---
         walked, wchunks = cbs_mega_cuda.walk(
-            x, n_eff, tss, key0, contig, seg_lo, needs, hybrid, ostat,
-            nrejc, sbdry, n_perm, al0, kmax, n_min)
-        accepted = trivial | walked
+            lv["x"], lv["n_eff"], lv["tss"], self.key0, lv["contig"],
+            lv["seg_lo"], lv["needs"], lv["hybrid"], lv["ostat"],
+            lv["nrejc"], self.sbdry, self.n_perm, self.al0, self.kmax,
+            self.n_min, live=live)
+        # --- split-location edge tests (K15, kernel K8, K15) ---
+        cl.edge_setup(tab, S, lv, walked, self.alpha, self.n_perm)
+        count, cnt = cbs_mega_cuda.edge_counts(
+            lv["xw"], lv["wn"], lv["m1"], lv["xbar"], lv["ostat_e"],
+            lv["active"], self.key0, lv["contig"], lv["seg_lo"], lv["n"],
+            lv["limit"], self.n_perm, live=live)
+        cl.edge_keep(tab, S, lv, count, cnt, self.alpha, self.n_perm)
+        # --- segment-table update (K16) ---
+        cl.table_update(tab, self.pending0, lv, walked, wchunks,
+                        self.max_levels)
 
-        # --- split-location edge tests (kernel K8) ---
-        at_end = tj >= n          # i2 == n: keep split 1 untested
-        at_start = ti <= 0        # i1 == 0: keep split 2 untested
-        test_both = accepted & ~at_end & ~at_start
-        keep1t, keep2t, echunks = _edge_tests(
-            x, n, ti, tj, test_both, key0, contig, seg_lo, alpha, n_perm,
-            Tmax)
-        keep1 = torch.where(test_both, keep1t, at_end & ~at_start)
-        keep2 = torch.where(test_both, keep2t, at_start & ~at_end)
-        split1 = accepted & keep1
-        split2 = accepted & keep2 & (tj < n)
-        tally = tally + torch.stack([(walked & needs).sum(),
-                                     (needs & ~walked).sum(),
-                                     wchunks.sum(), echunks])
+    def capture(self) -> None:
+        """Capture one level in a CUDA graph.  A dead level (live 0) first
+        runs every wrapper's set-up eagerly (libraries, launch grids, the
+        per-device state), its kernels returning at once; the capture
+        launches nothing, so its launch counts move to the graph's
+        (self.launches) and each replay adds them.  The capture makes no
+        copy and no host read (either would make it raise); the wrappers'
+        scratch and outputs come from the graph's private memory pool,
+        allocated once here and kept for every replay, so a replay
+        allocates nothing.  chip_smoke.py holds the launches that replays
+        add against the kernels a trace of the run shows on the card."""
+        t0 = time.perf_counter()
+        self.tab.zero_()
+        self.level()
+        before = [dict(d) for d in _launch_dicts()]
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            self.level()
+        self.launches = []
+        for d, b in zip(_launch_dicts(), before):
+            self.launches.append({k: d[k] - b[k] for k in d})
+            d.update(b)
+        self.nodes = cbs_level_cuda.graph_nodes(graph)
+        # K7, K8 and K11 run grid-wide barriers: their nodes must keep the
+        # cooperative launch
+        if self.nodes["cooperative"] != 3:
+            raise RuntimeError(f"the captured CBS level has "
+                               f"{self.nodes['cooperative']} cooperative "
+                               f"kernel nodes, not K7's, K8's and K11's")
+        graph.instantiate()
+        torch.cuda.synchronize(self.dev)
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+        GRAPHS["captures"] += 1
 
-        # --- segment-table update ---
-        nsplits = split1.to(torch.int64) + split2.to(torch.int64)
-        has_child = nsplits > 0
-        first_cut = torch.where(split1, ti, tj)
-        second_cut = torch.where(split1 & split2, tj, n)
-        extra = torch.where(has_child, 1 + (nsplits == 2).to(torch.int64), 0)
-        base = nseg + _exclusive_cumsum(extra)
-        idx_a = torch.where(extra >= 1, base, S)
-        idx_b = torch.where(extra == 2, base + 1, S)
-        # parents first, then the appended children (slots >= nseg)
-        seg_hi0 = seg_hi0.clone()
-        seg_hi0[fsel] = torch.where(has_child, seg_lo + first_cut, seg_hi)
-        pending0 = pending0.clone()
-        pending0[fsel] = pending & analyzable & has_child
-        for idx, lo_cut, hi_cut in ((idx_a, first_cut, second_cut),
-                                    (idx_b, second_cut, n)):
-            seg_c0 = _drop_set(seg_c0, idx, seg_c)
-            seg_lo0 = _drop_set(seg_lo0, idx, seg_lo + lo_cut)
-            seg_hi0 = _drop_set(seg_hi0, idx, seg_lo + hi_cut)
-            pending0 = _drop_set(pending0, idx, torch.ones_like(pending))
-        nseg = nseg + extra.sum()
-        overflow = overflow | (nseg > S)
-        level += 1
-    else:                     # the level bound ended the loop
-        out = table(_read(seg_c0, seg_lo0, seg_hi0, nseg, overflow, tally))
-    seg_c, seg_lo, seg_hi, nseg, over, tally = out
+    def launches_a_level(self) -> dict:
+        """The captured level's kernel launches by the wrappers' LAUNCHES
+        names (K14 and K15 count two each)."""
+        return {k: v for d in self.launches for k, v in d.items() if v}
+
+    def replay(self) -> None:
+        self.graph.replay()
+        GRAPHS["replays"] += 1
+        for d, add in zip(_launch_dicts(), self.launches):
+            for k, v in add.items():
+                d[k] += v
+
+    def start(self, mat, n_c, sbdry, key0, alpha: float) -> None:
+        """The run's set-up: the inputs copied to the device (four copies)
+        and the table's first state, a slot a contig."""
+        S, C = self.S, self.C
+        self.contigs.copy_(torch.as_tensor(mat))
+        self.sbdry.copy_(torch.as_tensor(sbdry))
+        self.key0.copy_(torch.as_tensor(key0))
+        self.alpha.fill_(alpha)
+        slot = torch.arange(S, device=self.dev)
+        self.tab.zero_()
+        self.tab[:S].copy_(torch.where(slot < C, slot, -1))
+        seg_hi0 = self.tab[2 * S:3 * S]
+        seg_hi0[:C].copy_(torch.as_tensor(n_c))
+        self.pending0.copy_((slot < C) & (seg_hi0 > 0))
+        self.tab[3 * S + NSEG].fill_(C)
+        self.live.copy_(self.pending0.any())
+
+    def run(self, mat, n_c, sbdry, key0, alpha: float,
+            graph: bool) -> list[int]:
+        """The recursion over the contig matrix mat [C, Tmax] with lengths
+        n_c: the set-up (four copies to the device), then levels until a
+        read finds live 0.  Returns that read: the table and its control
+        words."""
+        on_card = self.dev.type == "cuda"
+        S = self.S
+        with self.lock, (torch.cuda.device(self.dev) if on_card
+                         else nullcontext()):
+            if graph and self.graph is None:
+                self.capture()
+            self.start(mat, n_c, sbdry, key0, alpha)
+            sizes = _batches(self.max_levels) if on_card \
+                else [1] * self.max_levels
+            for size in sizes:
+                for _ in range(size):
+                    if graph:
+                        self.replay()
+                    else:
+                        self.level()
+                out = _read(self.tab)
+                if not out[3 * S + LIVE]:
+                    break
+            return out
+
+
+_ENGINES: dict = {}
+_ENGINES_LOCK = threading.Lock()
+
+
+def _engine(dev, *shape) -> _Engine:
+    """The device's engine, made anew (and on the card captured anew)
+    when the shape differs from the last run's: one engine a device, so
+    one shape's buffers and graph stay on the card between runs (PERF.md
+    section 5 gives their size at the largest shape)."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _ENGINES_LOCK:
+        eng = _ENGINES.get(dev)
+        if eng is None or eng.shape != shape:
+            _ENGINES.pop(dev, None)       # the old shape's buffers go
+            eng = _ENGINES[dev] = _Engine(dev, *shape)
+        return eng
+
+
+def _mega_recurse(mat, n_c, sbdry, key0, alpha, *, device, S, Tmax, al0,
+                  kmax, n_min, n_grid, n_perm, counts, graph=True):
+    """The full CBS recursion on `device` over the contig matrix mat f32
+    [C, Tmax] (numpy) with lengths n_c.  Returns (seg_c, seg_lo, seg_hi,
+    nseg, overflow) on the host; `counts` gains the levels, walk and edge
+    chunks, walks accepted and rejected, from the device's tally.  On the
+    card the levels are replays of the captured level, a read after each
+    batch; graph=False runs them eagerly (tests and chip_smoke.py call
+    run_cbs_mega with this function so bound, to compare the two and to
+    see each level's kernel inputs)."""
+    C = mat.shape[0]
+    W = min(S, max(32, S // 2))   # frontier rows analysed an iteration
+    on_card = device.type == "cuda"
+    eng = _engine(device, C, Tmax, S, W, len(sbdry), al0, kmax, n_min,
+                  n_grid, n_perm, _MAX_LEVELS)
+    out = eng.run(mat, n_c, sbdry, key0, alpha, graph and on_card)
+    ctl = out[3 * S:]
+    level = ctl[LEVEL]
     counts["levels"] += level
     for k, v in zip(("walks_accepted", "walks_rejected", "walk_chunks",
-                     "edge_chunks"), tally):
+                     "edge_chunks"), ctl[TALLY:]):
         counts[k] += v
-    return (np.asarray(seg_c), np.asarray(seg_lo), np.asarray(seg_hi), nseg,
-            over or level >= _MAX_LEVELS)
+    return (np.asarray(out[:S]), np.asarray(out[S:2 * S]),
+            np.asarray(out[2 * S:3 * S]), ctl[NSEG],
+            bool(ctl[OVERFLOW]) or level >= _MAX_LEVELS)
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +401,8 @@ def run_cbs_mega(
     than the table holds, or the level bound reached); the caller then
     runs the frontier engine.  With `counts` given, it gains the run's
     levels, walk chunks, edge-test chunks and walks accepted and rejected.
-    Asking for a missing card raises."""
+    Asking for a missing card raises.  On the card the levels are replays
+    of a captured level."""
     device = resolve_device(device)
     names = list(coverage_by_contig)
     rows = [np.asarray(coverage_by_contig[k], np.float64) for k in names]
@@ -398,11 +435,7 @@ def run_cbs_mega(
     run_counts = {"levels": 0, "walk_chunks": 0, "edge_chunks": 0,
                   "walks_accepted": 0, "walks_rejected": 0}
     seg_c, seg_lo, seg_hi, nseg, overflow = _mega_recurse(
-        torch.as_tensor(mat, device=device),
-        torch.as_tensor(n_c, device=device),
-        torch.as_tensor(np.asarray(sbdry, np.int64), device=device),
-        torch.as_tensor(key0, device=device),
-        torch.full((), alpha, dtype=torch.float32, device=device),
+        mat, n_c, np.asarray(sbdry, np.int64), key0, alpha, device=device,
         S=S, Tmax=Tmax, al0=min_width, kmax=kmax,
         n_min=n_min if p_method == "hybrid" else (1 << 30),
         n_grid=100, n_perm=n_perm, counts=run_counts)

@@ -42,8 +42,10 @@ versions read their loop tests from the tensors (on the card, a read
 each); the kernels keep every loop on the card.
 
 On CUDA tensors the wrappers launch csrc/cbs_mega.cu, one launch a call
-(K12: one a call of up to MAX_ROWS rows), and the launch counts go to
-LAUNCHES; on CPU tensors they run the plain
+(K12: one a call of up to MAX_ROWS rows; K7 and K8 cooperative, with the
+launch attribute a CUDA graph's capture keeps, and the whole-recursion
+engine's live flag, every block returning at once where it is 0), and
+the launch counts go to LAUNCHES; on CPU tensors they run the plain
 versions.  The kernels derive every key on the card; the plain versions
 run the same fold_in chains through ops/threefry.py (seg_keys,
 edge_keys), so both take the level key and the rows' (contig, start,
@@ -75,8 +77,8 @@ LAUNCHES = {"walk": 0, "edge": 0, "perm": 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cbs_walk": [_P] * 17 + [_I] * 8 + [_P],
-    "cbs_edge": [_P] * 17 + [_I] * 5 + [_P],
+    "cbs_walk": [_P] * 17 + [_I] * 8 + [_P] * 2,
+    "cbs_edge": [_P] * 17 + [_I] * 5 + [_P] * 2,
     "cbs_threefry": [_P] * 2 + [_I, ctypes.c_longlong, _I] + [_P] * 3
     + [_P],
     "cbs_keys": [_P] * 4 + [_I] * 3 + [_P] * 2 + [_P],
@@ -355,7 +357,8 @@ def _check_sizes(W: int, Tmax: int) -> None:
 
 
 def walk(x, n, tss, key0, seg_c, seg_lo, walking, hybrid, ostat, nrejc,
-         sbdry, n_perm: int, al0: int, kmax: int, n_min: int, stats=None):
+         sbdry, n_perm: int, al0: int, kmax: int, n_min: int, stats=None,
+         live=None):
     """K7: (accepted bool [W], chunks int64 [W]) of the boundary walks of
     the rows of x f32 [W, Tmax] (centred values, zero past n) with n int64,
     tss f32, the level's threefry key key0 int64 [2] and each row's contig
@@ -363,7 +366,9 @@ def walk(x, n, tss, key0, seg_c, seg_lo, walking, hybrid, ostat, nrejc,
     seg_lo, n)), walking and hybrid bool, ostat f32, nrejc int64 [W] and
     the boundary sbdry int64; Tmax a power of two in [1024, 65536] and
     n <= Tmax.  With `stats` (f32 [W, P_CHUNK]), each walking row's row of
-    it takes its chunk 0's statistics."""
+    it takes its chunk 0's statistics.  live (an int64 scalar on the card,
+    may be None): where it is 0 every block returns at once and nothing is
+    written; on CPU tensors it is not read."""
     if x.dim() != 2:
         raise ValueError(f"x must be [W, Tmax], got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -386,6 +391,8 @@ def walk(x, n, tss, key0, seg_c, seg_lo, walking, hybrid, ostat, nrejc,
               ("sbdry", sbdry, torch.int64, (sbdry.shape[0],))]
     if stats is not None:
         checks.append(("stats", stats, torch.float32, (W, P_CHUNK)))
+    if live is not None:
+        checks.append(("live", live, torch.int64, ()))
     _check(checks)
     _check_sizes(W, Tmax)
     dev = x.device
@@ -407,14 +414,14 @@ def walk(x, n, tss, key0, seg_c, seg_lo, walking, hybrid, ostat, nrejc,
         slab.data_ptr(), accepted.data_ptr(), chunks.data_ptr(),
         stats.data_ptr() if stats is not None else None,
         W, Tmax, sbdry.shape[0], n_perm, al0, kmax, min(n_min, 1 << 30),
-        grid)
+        grid, cuda_lib.ptr(live))
     cuda_lib.check(status, "cbs_walk")
     LAUNCHES["walk"] += 1
     return accepted, chunks
 
 
 def edge_counts(xw, wn, m1, xbar, ostat, active, key0, seg_c, seg_lo,
-                seg_n, limit, n_perm: int, sums=None):
+                seg_n, limit, n_perm: int, sums=None, live=None):
     """K8: (count int64 [L], cnt int64 [L]) of the edge tests of the
     lanes of xw f32 [L, Tmax] (window values, zero past wn) with wn and
     m1 int64, xbar and ostat f32, active bool, the level's threefry key
@@ -423,7 +430,7 @@ def edge_counts(xw, wn, m1, xbar, ostat, active, key0, seg_c, seg_lo,
     of row l % R, under edge_keys) and limit an f32 scalar tensor
     (alpha * n_perm); Tmax a power of two in [1024, 65536] and wn <= Tmax.
     With `sums` (f32 [L, P_CHUNK]), each active lane's row of it takes its
-    chunk 0's subset sums."""
+    chunk 0's subset sums.  live as for walk."""
     if xw.dim() != 2:
         raise ValueError(f"xw must be [L, Tmax], got {tuple(xw.shape)}")
     if xw.device.type == "cpu":
@@ -447,6 +454,8 @@ def edge_counts(xw, wn, m1, xbar, ostat, active, key0, seg_c, seg_lo,
               ("limit", limit, torch.float32, ())]
     if sums is not None:
         checks.append(("sums", sums, torch.float32, (L, P_CHUNK)))
+    if live is not None:
+        checks.append(("live", live, torch.int64, ()))
     _check(checks)
     _check_sizes(L, Tmax)
     dev = xw.device
@@ -468,7 +477,7 @@ def edge_counts(xw, wn, m1, xbar, ostat, active, key0, seg_c, seg_lo,
         limit.data_ptr(), state.data_ptr(), psums.data_ptr(),
         slab.data_ptr(), count.data_ptr(), cnt.data_ptr(),
         sums.data_ptr() if sums is not None else None,
-        L, R, Tmax, n_perm, grid)
+        L, R, Tmax, n_perm, grid, cuda_lib.ptr(live))
     cuda_lib.check(status, "cbs_edge")
     LAUNCHES["edge"] += 1
     return count, cnt

@@ -17,7 +17,12 @@ versions.
 
 On CUDA tensors the wrappers launch csrc/cbs_stats.cu, one launch a call,
 and count it in LAUNCHES; on CPU tensors they run the plain versions; any
-other device raises.  K9 and K10 spread a row over thread blocks (K9:
+other device raises.  For the whole-recursion engine's tiers, K9 and K10
+take a row mask (the rows outside it return at once and are not
+written; K10 writes the rows under it into the level's t2, ti, tj) and
+read the cumsum's first npad columns of wider rows at their stride; K9,
+K10 and K11 take the engine's live flag, every block returning at once
+where it is 0.  K9 and K10 spread a row over thread blocks (K9:
 tiles of K9_TILE positions), the row's last block to finish writing its
 result; K11 is one cooperative launch whose blocks share the live grid
 points' series.  Each CUDA device keeps their counters (K9's and K10's a
@@ -73,11 +78,11 @@ _STATE_LOCK = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cbs_arc_inputs": [_P, _P, _I] + [_P] * 9 + [_I] * 3 + [_P],
-    "cbs_refine": [_P, _P, _I] + [_P] * 11 + [_I] * 3 + [_P],
+    "cbs_arc_inputs": [_P, _P, _I] + [_P] * 9 + [_I] * 4 + [_P] * 3,
+    "cbs_refine": [_P, _P, _I] + [_P] * 11 + [_I] * 4 + [_P] * 3,
     "cbs_tail_table": [_P, _P],
     "cbs_tail_grid": [_P],
-    "cbs_tail_p": [_P, _P, _I] + [_P] * 6 + [_I] * 4 + [_P],
+    "cbs_tail_p": [_P, _P, _I] + [_P] * 6 + [_I] * 4 + [_P] * 2,
     "cbs_series_term": [_P, _P, _P, _I, _P],
     "cbs_erfc": [_P, _P, _I, _P],
 }
@@ -296,13 +301,31 @@ def _check_vec(name, x, dtype, B, dev) -> None:
         raise ValueError(f"{name} must be [{B}], got {list(x.shape)}")
 
 
-def _check_cs(cs, npad) -> tuple[int, torch.device]:
+def _check_cs(cs, npad) -> tuple[int, torch.device, int]:
+    """(rows, device, row stride) of cs [B, npad], whose rows may be the
+    first npad columns of wider ones."""
     if cs.dim() != 2 or cs.shape[1] != npad:
         raise ValueError(f"cs must be [B, {npad}], got {tuple(cs.shape)}")
     if npad < 1 or npad & (npad - 1):
         raise ValueError(f"npad must be a power of two, got {npad}")
-    cuda_lib.require_cuda_tensor("cs", cs, torch.float32)
-    return cs.shape[0], cs.device
+    ld = cuda_lib.require_cuda_rows("cs", cs, torch.float32)
+    return cs.shape[0], cs.device, ld
+
+
+def _check_gate(mask, live, B, dev) -> None:
+    """Raise unless mask (bool [B]) and live (an int64 scalar) are None or
+    on dev."""
+    if mask is not None:
+        _check_vec("mask", mask, torch.bool, B, dev)
+    if live is not None:
+        cuda_lib.require_cuda_tensor("live", live, torch.int64, dev)
+        if live.dim() != 0:
+            raise ValueError("live must be a scalar")
+
+
+def _masked_rows(mask, B: int):
+    """The rows under mask on the CPU (every row where mask is None)."""
+    return slice(None) if mask is None else torch.nonzero(mask)[:, 0]
 
 
 def arc_tiles(npad: int) -> int:
@@ -311,20 +334,38 @@ def arc_tiles(npad: int) -> int:
     return max(1, npad // K9_TILE)
 
 
-def arc_inputs(cs, n, npad: int, al0: int):
+def arc_inputs(cs, n, npad: int, al0: int, mask=None, live=None):
     """K9, and n as int32 beside its outputs for B4: (seed f32, lag_hi
     int32, psd2 f32 [B, nblk], ti0, tj0, n32 int32) for the cumsum cs f32
     [B, npad] (npad a power of two up to 65,536; on the card 16-byte
-    aligned) and n int32 or int64 [B]."""
+    aligned; its rows may be the first npad columns of wider rows, a
+    multiple of 4 floats apart) and n int32 or int64 [B].  With mask (bool
+    [B]) only the rows under it are computed, the others' outputs left
+    unset (on the card their blocks return at once); live (an int64 scalar
+    on the card, may be None): where it is 0 every block returns at once.
+    On CPU tensors live is not read."""
     if _device_of(cs, "arc_scan_inputs") == "cpu":
-        return (*arc_scan_inputs_plain(cs, n, npad, al0),
-                n.to(torch.int32))
-    B, dev = _check_cs(cs, npad)
+        if mask is None:
+            return (*arc_scan_inputs_plain(cs, n, npad, al0),
+                    n.to(torch.int32))
+        B = cs.shape[0]
+        nblk = arc_scan_cuda.geometry(npad)[2]
+        out = (torch.zeros(B), torch.full((B,), -1, dtype=torch.int32),
+               torch.zeros((B, nblk)), torch.ones(B, dtype=torch.int32),
+               torch.ones(B, dtype=torch.int32), n.to(torch.int32))
+        rows = _masked_rows(mask, B)
+        if len(rows):
+            for o, v in zip(out, arc_scan_inputs_plain(cs[rows], n[rows],
+                                                       npad, al0)):
+                o[rows] = v
+        return out
+    B, dev, ld = _check_cs(cs, npad)
     n64 = _check_rows("n", n, B, dev)
+    _check_gate(mask, live, B, dev)
     if npad > 65536:
         raise ValueError(f"npad must be at most 65536, got {npad}")
-    if cs.data_ptr() % 16:
-        raise ValueError("cs must be 16-byte aligned")
+    if cs.data_ptr() % 16 or ld % 4:
+        raise ValueError("cs must be 16-byte aligned, its rows too")
     nblk = arc_scan_cuda.geometry(npad)[2]
     seed = torch.empty(B, dtype=torch.float32, device=dev)
     lag_hi, ti0, tj0, n32 = (torch.empty(B, dtype=torch.int32, device=dev)
@@ -337,7 +378,7 @@ def arc_inputs(cs, n, npad: int, al0: int):
         state["k9_ext"].data_ptr(), state["k9_chunk"].data_ptr(),
         state["k9_count"].data_ptr(), seed.data_ptr(), lag_hi.data_ptr(),
         ti0.data_ptr(), tj0.data_ptr(), n32.data_ptr(), psd2.data_ptr(), B,
-        npad, al0)
+        npad, al0, ld, cuda_lib.ptr(mask), cuda_lib.ptr(live))
     cuda_lib.check(status, "cbs_arc_inputs")
     LAUNCHES["arc_inputs"] += 1
     return seed, lag_hi, psd2, ti0, tj0, n32
@@ -373,6 +414,11 @@ def _device_state(dev: torch.device, rows: int) -> dict:
             state = _STATE[dev] = {"table": table, "grid": grid.value,
                                    "rows": 0}
         if state["rows"] < rows:
+            # a captured CUDA graph may hold the smaller buffers: they are
+            # kept, never freed for reuse
+            state.setdefault("retired", []).append(
+                [state.get(k) for k in ("count", "key", "k9_count",
+                                        "k9_ext", "k9_chunk")])
             cap = max(_MIN_ROWS, 1 << (rows - 1).bit_length())
             state["count"] = torch.zeros(cap, dtype=torch.int32, device=dev)
             state["key"] = torch.zeros(cap, dtype=torch.int64, device=dev)
@@ -387,14 +433,29 @@ def _device_state(dev: torch.device, rows: int) -> dict:
         return state
 
 
-def refine(cs, n, tss, lag_hi, best, bl0, ti0, tj0, npad: int, al0: int):
+def refine(cs, n, tss, lag_hi, best, bl0, ti0, tj0, npad: int, al0: int,
+           mask=None, out=None, live=None):
     """K10: (t^2 f32, ti, tj int32) [B] of the rows of cs f32 [B, npad]
-    with n int32 or int64, tss f32, K9's lag_hi, ti0, tj0 and B4's best
-    f32 and bl0 int32."""
+    (rows as for arc_inputs) with n int32 or int64, tss f32, K9's lag_hi,
+    ti0, tj0 and B4's best f32 and bl0 int32.  With mask (bool [B]) only
+    the rows under it are computed, and with out (t2, ti, tj) the results
+    go into those tensors, the other rows' entries untouched; live as for
+    arc_inputs."""
     if _device_of(cs, "refine") == "cpu":
-        return refine_plain(cs, n, tss, lag_hi, best, bl0, ti0, tj0, npad,
-                            al0)
-    B, dev = _check_cs(cs, npad)
+        if mask is None and out is None:
+            return refine_plain(cs, n, tss, lag_hi, best, bl0, ti0, tj0,
+                                npad, al0)
+        B = cs.shape[0]
+        out = out or (torch.zeros(B), torch.ones(B, dtype=torch.int32),
+                      torch.full((B,), 2, dtype=torch.int32))
+        rows = _masked_rows(mask, B)
+        if len(out[0][rows]):
+            args = [a[rows] for a in (cs, n, tss, lag_hi, best, bl0, ti0,
+                                      tj0)]
+            for o, v in zip(out, refine_plain(*args, npad, al0)):
+                o[rows] = v
+        return out
+    B, dev, ld = _check_cs(cs, npad)
     n64 = _check_rows("n", n, B, dev)
     for name, x, dt in (("tss", tss, torch.float32),
                         ("lag_hi", lag_hi, torch.int32),
@@ -402,9 +463,15 @@ def refine(cs, n, tss, lag_hi, best, bl0, ti0, tj0, npad: int, al0: int):
                         ("bl0", bl0, torch.int32),
                         ("ti0", ti0, torch.int32), ("tj0", tj0, torch.int32)):
         _check_vec(name, x, dt, B, dev)
-    t2 = torch.empty(B, dtype=torch.float32, device=dev)
-    ti = torch.empty(B, dtype=torch.int32, device=dev)
-    tj = torch.empty(B, dtype=torch.int32, device=dev)
+    _check_gate(mask, live, B, dev)
+    if out is None:
+        out = (torch.empty(B, dtype=torch.float32, device=dev),
+               torch.empty(B, dtype=torch.int32, device=dev),
+               torch.empty(B, dtype=torch.int32, device=dev))
+    for name, x, dt in zip(("t2", "ti", "tj"), out,
+                           (torch.float32, torch.int32, torch.int32)):
+        _check_vec(name, x, dt, B, dev)
+    t2, ti, tj = out
     state = _device_state(dev, B)
     lib = cuda_lib.load("cbs_stats", _SIGNATURES)
     status = cuda_lib.launch(
@@ -412,15 +479,18 @@ def refine(cs, n, tss, lag_hi, best, bl0, ti0, tj0, npad: int, al0: int):
         tss.data_ptr(), lag_hi.data_ptr(), best.data_ptr(), bl0.data_ptr(),
         ti0.data_ptr(), tj0.data_ptr(), state["key"].data_ptr(),
         state["count"].data_ptr(), t2.data_ptr(), ti.data_ptr(),
-        tj.data_ptr(), B, npad, al0)
+        tj.data_ptr(), B, npad, al0, ld, cuda_lib.ptr(mask),
+        cuda_lib.ptr(live))
     cuda_lib.check(status, "cbs_refine")
     LAUNCHES["refine"] += 1
     return t2, ti, tj
 
 
-def tail_p(b, n, kmax: int, n_grid: int):
+def tail_p(b, n, kmax: int, n_grid: int, live=None):
     """K11: the tail probabilities float64 [R] of b float64 [R] at n int32
-    or int64 [R] bins over n_grid <= MAX_GRID grid points."""
+    or int64 [R] bins over n_grid <= MAX_GRID grid points.  live (an int64
+    scalar on the card, may be None): where it is 0 every block returns at
+    once and nothing is written; on CPU tensors it is not read."""
     if _device_of(b, "tail_p") == "cpu":
         return tail_p_plain(b, n, kmax, n_grid)
     if b.dim() != 1:
@@ -430,18 +500,19 @@ def tail_p(b, n, kmax: int, n_grid: int):
     R, dev = b.shape[0], b.device
     cuda_lib.require_cuda_tensor("b", b, torch.float64)
     n64 = _check_rows("n", n, R, dev)
+    _check_gate(None, live, R, dev)
     p = torch.empty(R, dtype=torch.float64, device=dev)
     xs = torch.empty(R * n_grid, dtype=torch.float64, device=dev)
-    live = torch.empty(R * n_grid, dtype=torch.int32, device=dev)
+    points = torch.empty(R * n_grid, dtype=torch.int32, device=dev)
     part = torch.empty(R * n_grid * _NU_PARTS, dtype=torch.float64,
                        device=dev)
     state = _device_state(dev, 1)
     lib = cuda_lib.load("cbs_stats", _SIGNATURES)
     status = cuda_lib.launch(dev, lib.cbs_tail_p, b.data_ptr(), n.data_ptr(),
                              n64, state["table"].data_ptr(), xs.data_ptr(),
-                             live.data_ptr(), part.data_ptr(),
+                             points.data_ptr(), part.data_ptr(),
                              state["count"].data_ptr(), p.data_ptr(), R,
-                             kmax, n_grid, state["grid"])
+                             kmax, n_grid, state["grid"], cuda_lib.ptr(live))
     cuda_lib.check(status, "cbs_tail_p")
     LAUNCHES["tail_p"] += 1
     return p

@@ -116,3 +116,28 @@ def require_cuda_tensor(name: str, x: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_cuda_rows(name: str, x: torch.Tensor, dtype: torch.dtype,
+                      device: torch.device | None = None) -> int:
+    """Raise unless x is a 2-D CUDA tensor of the given dtype whose rows
+    are contiguous and do not overlap (the first columns of wider rows
+    pass); returns the row stride in elements."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+    if device is not None and x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"{name} must be 2-D, got {tuple(x.shape)}")
+    ld = x.stride(0) if x.shape[0] > 1 else x.shape[1]
+    if (x.shape[1] > 1 and x.stride(1) != 1) or ld < x.shape[1]:
+        raise ValueError(f"{name} must have contiguous rows")
+    return ld
+
+
+def ptr(x: torch.Tensor | None):
+    """The data pointer of x, or None (a null pointer) for None."""
+    return None if x is None else x.data_ptr()
+

@@ -55,17 +55,21 @@ Phases, one JSON line each; any failure exits non-zero:
              through the CLI entry point on a synthetic panel (3 contigs,
              30 Mbp, 400 bp targets every 500 bp, CN 1/3/0/4 events of
              0.8-1.6 Mb on a diploid normal) with --device cuda
-             (whole-recursion CBS engine, kernels K9, B4, K10, K11, K7
-             and K8) and again with --device cpu (host CBS engine):
-             identical VCFs, K7, K8 and K11 launched at least once a
-             level and K9 and K10 once, every planted event called with
+             (whole-recursion CBS engine, kernels K9, B4, K10, K11, K7,
+             K8 and K13-K16) under torch.profiler and again with --device
+             cpu (host CBS engine): identical VCFs, K7, K8, K11 and
+             K13-K16 launched at least once a level and K9 and K10 once,
+             each CBS kernel's runs on the card in the trace equal to the
+             launches counted (wrappers and graph replays; the kernels
+             line takes the traced runs), every planted event called with
              its copy number, the stage times of both runs;
   7. CBS     the frontier engine on the tumor's ratio coverage of that
              panel, on CUDA tensors (K9, B4, K10, K11 and K12, each
              launched, counted from 0 for the run) and on CPU tensors
              (their plain versions): equal segments and the per-level
              profile; then one more CUDA run under torch.profiler (device
-             busy time and kernel launches) and one under CUDA's sync
+             busy time and kernel launches, each kernel's runs on the card
+             equal to its counted launches) and one under CUDA's sync
              debug mode (its synchronising calls); then bench.py's CBS
              workload through the frontier engine on cuda (seconds,
              launches, profile) and with the five kernels' plain versions
@@ -74,35 +78,49 @@ Phases, one JSON line each; any failure exits non-zero:
              width, rows under the mask and P, the launches with a row
              under the mask, and its device time summed (torch.profiler);
   7b. cbs-mega
-             the whole-recursion engine on the same coverage: run_cbs on
-             cuda takes it (engine "mega"), its seconds, B4, K7 and K8
-             launches (K7 and K8 once a level), reads from the card
-             (cbs_mega.SYNCS, at most one a level and one more) and
-             synchronising calls (those reads and the four set-up copies,
-             none else); the same engine on CPU tensors with equal
-             segments; one more CUDA run under torch.profiler; the
-             frontier's figures from phase CBS and the engine's with
-             host-driven loops (HOST_LOOPS_PANEL) beside them; the
-             launches by stage (tmax_batch is K9, B4 and K10, the tail
-             probability K11), none in the segment keys (K7 and K8
-             derive their keys on the card); K7 and K8 against their
+             the whole-recursion engine on the same coverage, its level
+             captured once in a CUDA graph outside the timed run (the
+             capture's seconds, the level's graph nodes: kernels, memsets,
+             cooperative kernels): run_cbs on cuda takes it (engine
+             "mega"); one run's wall, levels, graph replays, reads from
+             the card (cbs_mega.SYNCS, at most 2) and synchronising calls
+             (those reads and the four set-up copies, none else), the
+             captured level's kernel nodes equal to its counted launches
+             (K9, B4 and K10 under each tier's row mask, K11, K7, K8,
+             K13-K16) and B4's second kernel a tier; the same engine on
+             CPU tensors with equal segments and counts (levels, walk and
+             edge chunks, walks accepted and rejected); one more CUDA run
+             under torch.profiler (each kernel's runs on the card equal to
+             its counted launches, at least one) and one for its host
+             calls (the CUDA runtime calls by name); the frontier's
+             figures from phase CBS and the level-loop engine's (LEVEL_LOOP_ENGINE)
+             beside them; K13-K16 against their plain versions on every
+             level of eager runs on the panel and on bench.py's CBS
+             workload (bit for bit), each timed on its first level beside
+             its plain version, with its bound; K7 and K8 against their
              plain versions on the card on the inputs of the engine's
              first level with a walk and first with an edge test, on the
              panel and on bench.py's CBS workload (flags, chunk counts
              and edge counts equal, chunk 0's statistics and subset sums
              bit for bit, both times, the bound; K7's beside its times
-             after its redesign, BEFORE_K7_MS); bench.py's CBS
-             workload (24 contigs x 16,384 bins) through run_cbs on
-             cuda: the engine "mega", the best of 3 seconds with their
-             reads and launches, segments equal to its warm run and to a
-             run with K7 and K8's plain versions; then B4 against its
-             plain version at every tier
-             width the engine uses (1,024 to 65,536, 32 rows of which
-             three lie in the tier, the rest zeroed);
+             after its redesign, BEFORE_K7_MS); bench.py's CBS workload
+             (24 contigs x 16,384 bins) through run_cbs on cuda: the same
+             figures, the best of 3 seconds with their reads, replays and
+             launches, segments equal to its first run, to the engine on
+             CPU tensors (counts too) and to an eager run with K7 and
+             K8's plain versions; then B4 against its
+             plain version at every tier width the engine uses (1,024 to
+             65,536, 32 rows of which three lie under the tier's mask, the
+             others zeroed and returning at once); last, the engine at its
+             largest shape (192 contigs of 65,536 bins, a table of 1,024
+             slots, 512 rows a level): the card's memory it holds between
+             runs (cudaMemGetInfo and the caching allocator), its capture
+             and a replayed run's wall;
   7c. cbs-stats
              K9, K10 and K11 against their plain versions on the card on
-             the inputs of the whole-recursion engine's first level at
-             each tier width of the panel (K11: its first level), and K12
+             the inputs of the whole-recursion engine's first level (an
+             eager run) with a row in each tier of the panel, K9 and K10
+             under the tier's row mask (K11: its first level), and K12
              on the frontier engine's first level with a permutation chunk
              and its first continuation chunk (the panel's, else bench.py's
              workload's): bit for bit, both times, the bound and its
@@ -230,6 +248,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -263,15 +282,28 @@ PLANS = {
 TYPES = {"father": "Father", "mother": "Mother", "proband": "Proband"}
 
 KERNEL_SOURCES = ("prefix_scan", "viterbi", "arc_scan", "cbs_mega",
-                  "cbs_stats")
+                  "cbs_stats", "cbs_level")
 # the decode's kernels, by their launch counts' names: B2, K5, B3, K6
 DECODE_KERNELS = ("chunk_matrix", "chunk_scan", "forward_backtrack",
                   "chunk_chase")
 # the CBS engines' kernels, by their launch counts' names: the whole-
-# recursion engine's K9, B4, K10, K11, K7 and K8; the frontier engine's
-# K9, B4, K10, K11 and K12
-MEGA_KERNELS = ("arc_inputs", "arc_scan", "refine", "tail_p", "walk", "edge")
+# recursion engine's K9, B4, K10, K11, K7, K8 and K13-K16; the frontier
+# engine's K9, B4, K10, K11 and K12
+MEGA_KERNELS = ("arc_inputs", "arc_scan", "refine", "tail_p", "walk", "edge",
+                "prologue", "decide", "edge_setup", "table")
 FRONTIER_KERNELS = ("arc_inputs", "arc_scan", "refine", "tail_p", "perm")
+# the CBS kernels' launch counts' names, each with the kernel functions
+# the card runs for one counted launch (B4's second kernel, arc_scan_replay,
+# is left out: the captured level's graph nodes account for it)
+KERNEL_FUNCTIONS = {"arc_inputs": ("arc_inputs_kernel",),
+                    "arc_scan": ("arc_scan_blocks",),
+                    "refine": ("refine_kernel",), "tail_p": ("tail_kernel",),
+                    "walk": ("walk_kernel",), "edge": ("edge_kernel",),
+                    "perm": ("perm_kernel",),
+                    "prologue": ("prologue_kernel",),
+                    "decide": ("decide_kernel",),
+                    "edge_setup": ("edge_setup_kernel", "edge_keep_kernel"),
+                    "table": ("table_kernel",)}
 
 # NVIDIA H100 SXM peaks (data sheet, 700 W): device memory, and f32 outside
 # the tensor cores.  The f32 peak counts an FMA as two operations; the
@@ -1024,13 +1056,13 @@ def same_vcf(a: Path, b: Path) -> None:
 
 
 def all_launch_counts() -> list[dict]:
-    from canvas_tpu_torch.ops import (arc_scan_cuda, cbs_mega_cuda,
-                                      cbs_stats_cuda, prefix_cuda,
-                                      viterbi_cuda)
+    from canvas_tpu_torch.ops import (arc_scan_cuda, cbs_level_cuda,
+                                      cbs_mega_cuda, cbs_stats_cuda,
+                                      prefix_cuda, viterbi_cuda)
 
     return [prefix_cuda.LAUNCHES, viterbi_cuda.LAUNCHES,
             arc_scan_cuda.LAUNCHES, cbs_mega_cuda.LAUNCHES,
-            cbs_stats_cuda.LAUNCHES]
+            cbs_stats_cuda.LAUNCHES, cbs_level_cuda.LAUNCHES]
 
 
 def reset_launches() -> None:
@@ -1122,21 +1154,26 @@ def b4_inputs(seed: int, B: int, npad: int, length: int | None,
             torch.as_tensor(tss, device=dev))
 
 
-def b4_case(cs, n, npad: int, al0: int = 2) -> dict:
+def b4_case(cs, n, npad: int, al0: int = 2, mask=None) -> dict:
     """B4 on the card against its plain version on the card for the rows
-    cs f32 [B, npad] of lengths n: best bit for bit and bl0 equal (else
-    the smoke fails), the blocks and pair terms of the plain walk, both
-    times and the bound.  Returns the numbers and the kernel's inputs."""
+    cs f32 [B, npad] of lengths n (with mask, the rows under it; the
+    kernel's other rows return at once): best bit for bit and bl0 equal
+    (else the smoke fails), the blocks and pair terms of the plain walk,
+    both times and the bound.  Returns the numbers and the kernel's
+    inputs."""
     from canvas_tpu_torch.ops import arc_scan_cuda as ac
     from canvas_tpu_torch.ops import cbs_device as cd
 
     B = cs.shape[0]
     seed_v, lag_hi, psd2, _ti0, _tj0 = cd.arc_scan_inputs(cs, n, npad, al0)
     args = (cs, n.to(torch.int32), lag_hi, seed_v, psd2, al0)
-    best_k, bl0_k = ac.arc_scan(*args)
+    rows = slice(None) if mask is None else torch.nonzero(mask)[:, 0]
+    plain_args = (*(a[rows] for a in args[:5]), al0)
+    best_k, bl0_k = ac.arc_scan(*args, mask=mask)
+    best_k, bl0_k = best_k[rows], bl0_k[rows]
     torch.cuda.synchronize()
     walk: dict = {"blocks": 0, "terms": 0}
-    best_p, bl0_p = ac.arc_scan_plain(*args, count=walk)
+    best_p, bl0_p = ac.arc_scan_plain(*plain_args, count=walk)
     torch.cuda.synchronize()
     bits_equal = torch.equal(best_k.view(torch.int32),
                              best_p.view(torch.int32))
@@ -1148,11 +1185,13 @@ def b4_case(cs, n, npad: int, al0: int = 2) -> dict:
     # the walk's pair terms, each a subtraction and a maximum of |d|
     # (w is factored out of the maximum over positions, once a lag);
     # cs, psd2 and the four [B] vectors read once
-    b4_bound, b4_by = bound(4 * (cs.numel() + psd2.numel() + 4 * B),
+    Bm = best_p.shape[0]
+    b4_bound, b4_by = bound(4 * (Bm * npad + Bm * psd2.shape[1] + 4 * Bm),
                             2 * walk["terms"])
-    ms = cuda_ms(lambda: ac.arc_scan(*args), reps=20, queued=True)
-    plain_ms = cuda_ms(lambda: ac.arc_scan_plain(*args), reps=2)
-    return {"segments": B, "npad": npad, "blocks": psd2.numel(),
+    ms = cuda_ms(lambda: ac.arc_scan(*args, mask=mask), reps=20, queued=True)
+    plain_ms = cuda_ms(lambda: ac.arc_scan_plain(*plain_args), reps=2)
+    return {"segments": B, "masked": Bm, "npad": npad,
+            "blocks": Bm * psd2.shape[1],
             "blocks_visited": walk["blocks"],
             "hits": int((bl0_k >= 0).sum()), "equal": True,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1279,6 +1318,14 @@ def check_enrichment_calls(vcf: Path, plan: dict) -> list[dict]:
 
 
 def phase_e2e_enrichment(seed: int, workdir: Path) -> tuple[dict, dict]:
+    """Tumor-normal-enrichment through the CLI on cuda and on cpu: equal
+    VCF bodies, the planted events called, the whole-recursion CBS engine
+    on cuda.  The CUDA run is traced (torch.profiler, the card's activity
+    only): its CBS kernels' launches are the runs the trace shows on the
+    card, which must equal the launches the wrappers and the engine's
+    graph replays counted."""
+    from torch.profiler import ProfilerActivity, profile
+
     from canvas_tpu_torch.ops import cbs
     from canvas_tpu_torch.pipeline import cli
 
@@ -1297,14 +1344,20 @@ def phase_e2e_enrichment(seed: int, workdir: Path) -> tuple[dict, dict]:
     runs = {}
     for dev in ("cuda", "cpu"):
         out = workdir / f"enr_{dev}"
-        if dev == "cuda":
-            reset_launches()
-        t0 = time.perf_counter()
-        rc = cli.main([*args, "-o", str(out), "--device", dev])
+        tracer = profile(activities=[ProfilerActivity.CUDA]) \
+            if dev == "cuda" else nullcontext()
         if dev == "cuda":
             torch.cuda.synchronize()
-            launches = read_launches()
-        wall = time.perf_counter() - t0
+            reset_launches()
+        with tracer:
+            t0 = time.perf_counter()
+            rc = cli.main([*args, "-o", str(out), "--device", dev])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = read_launches()
+            wall = time.perf_counter() - t0
+        if dev == "cuda":
+            traced = kernel_runs(tracer.key_averages())
         if rc != 0:
             fail(f"Tumor-normal-enrichment on {dev} exited {rc}")
         prof = json.loads((out / "tumor_profile.json").read_text())
@@ -1321,6 +1374,8 @@ def phase_e2e_enrichment(seed: int, workdir: Path) -> tuple[dict, dict]:
         fail(f"the CPU run did not take the host CBS engine: "
              f"{runs['cpu']['cbs']}")
     n_levels = runs["cuda"]["cbs"]["frontier_levels"]
+    traced_equals_counted(traced, launches, MEGA_KERNELS,
+                          "Tumor-normal-enrichment on cuda")
     if launches["arc_scan"] < 1:
         fail(f"B4 launched {launches['arc_scan']} times over {n_levels} "
              f"levels of the whole-recursion engine")
@@ -1332,6 +1387,10 @@ def phase_e2e_enrichment(seed: int, workdir: Path) -> tuple[dict, dict]:
     if min(launches["arc_inputs"], launches["refine"]) < 1:
         fail(f"K9 and K10 launched {launches['arc_inputs']} and "
              f"{launches['refine']} times in the whole-recursion engine")
+    level = {k: launches[k] for k in ("prologue", "decide", "edge_setup",
+                                      "table")}
+    if min(level.values()) < max(n_levels, 1):
+        fail(f"K13-K16 launched {level} times over {n_levels} levels")
     body_cuda = vcf_body(workdir / "enr_cuda" / "tumor_CNV.vcf.gz")
     body_cpu = vcf_body(workdir / "enr_cpu" / "tumor_CNV.vcf.gz")
     if body_cuda != body_cpu:
@@ -1345,7 +1404,7 @@ def phase_e2e_enrichment(seed: int, workdir: Path) -> tuple[dict, dict]:
             "contigs": len(ENR_CONTIGS), "targets": panel["targets"],
             "rate": ENR_RATE, "generate_s": gen_s,
             "cbs_boundary_s": boundary_s, "vcf_cuda_equals_cpu": True,
-            "launches": launches,
+            "launches": launches, "traced_launches": traced,
             "mega_levels": n_levels, "events": calls,
             "cuda": runs["cuda"], "cpu": runs["cpu"]}, panel
 
@@ -1362,6 +1421,23 @@ def panel_coverage(workdir: Path) -> dict:
         workdir / "enr_cuda" / "Checkpoints" / "CanvasClean_tumor.cleaned.gz",
         contigs)
     return coverage_by_contig(bins)
+
+
+def eager_mega(cov: dict, dev: torch.device, **kw):
+    """run_cbs_mega over cov on the card with its levels run eagerly, each
+    wrapper called from Python (the engine's _mega_recurse bound with
+    graph=False for the call): the recorders below see every level's
+    inputs, and plain versions that read from the card can stand in."""
+    import functools
+
+    from canvas_tpu_torch.ops import cbs_mega
+
+    orig = cbs_mega._mega_recurse
+    cbs_mega._mega_recurse = functools.partial(orig, graph=False)
+    try:
+        return cbs_mega.run_cbs_mega(cov, device=dev, **kw)
+    finally:
+        cbs_mega._mega_recurse = orig
 
 
 def count_syncs(fn):
@@ -1386,11 +1462,14 @@ def frontier_plain(run):
     from canvas_tpu_torch.ops import arc_scan_cuda, cbs_mega_cuda
     from canvas_tpu_torch.ops import cbs_stats_cuda as st
 
-    swaps = [(st, "arc_inputs", lambda cs, n, npad, al0: (
+    # the frontier passes no row mask, output or live flag (None each)
+    swaps = [(st, "arc_inputs", lambda cs, n, npad, al0, **_none: (
                  *st.arc_scan_inputs_plain(cs, n, npad, al0),
                  n.to(torch.int32))),
-             (arc_scan_cuda, "arc_scan", arc_scan_cuda.arc_scan_plain),
-             (st, "refine", st.refine_plain), (st, "tail_p", st.tail_p_plain),
+             (arc_scan_cuda, "arc_scan",
+              lambda *a, **_none: arc_scan_cuda.arc_scan_plain(*a)),
+             (st, "refine", lambda *a, **_none: st.refine_plain(*a)),
+             (st, "tail_p", lambda *a, **_none: st.tail_p_plain(*a)),
              (cbs_mega_cuda, "perm_stats", cbs_mega_cuda.perm_stats_plain)]
     orig = [getattr(mod, name) for mod, name, _fn in swaps]
     for mod, name, fn in swaps:
@@ -1519,6 +1598,9 @@ def phase_cbs(workdir: Path, dev: torch.device) -> dict:
     if traced["lengths"] != {c: v.tolist()
                              for c, v in out["cuda"]["lengths"].items()}:
         fail("the profiled frontier run gave other segments")
+    traced_equals_counted(traced["traced_launches"],
+                          traced["counted_launches"], FRONTIER_KERNELS,
+                          "the frontier engine on the panel")
     _lens, syncs = count_syncs(
         lambda: cbs_device.run_cbs_device(cov, device=dev))
     bench_cov = bench_cbs_coverage()
@@ -1541,22 +1623,57 @@ def phase_cbs(workdir: Path, dev: torch.device) -> dict:
             "profiled_cuda": traced["profile"], "bench_cbs": bench}
 
 
+def kernel_runs(stats) -> dict:
+    """The CBS kernels the card ran in a trace (torch.profiler's
+    key_averages), counted by their launch counts' names
+    (KERNEL_FUNCTIONS): one for each run of a kernel function, whether a
+    wrapper or a CUDA graph's replay launched it."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    pats = {k: re.compile(r"(^|[\s:])(" + "|".join(fns) + r")\(")
+            for k, fns in KERNEL_FUNCTIONS.items()}
+    out = dict.fromkeys(KERNEL_FUNCTIONS, 0)
+    for ev in stats:
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        for k, pat in pats.items():
+            if pat.search(ev.key):
+                out[k] += ev.count
+    return out
+
+
+def traced_equals_counted(traced: dict, counted: dict, names, what: str):
+    """Fail unless, for each launch count in names, the kernels the trace
+    shows on the card equal the launches the wrappers and replays counted,
+    and at least one ran."""
+    bad = {k: (traced[k], counted[k]) for k in names
+           if traced[k] != counted[k] or traced[k] < 1}
+    if bad:
+        fail(f"{what}: kernels on the card (traced) against launches "
+             f"counted, by kernel: {bad}")
+
+
 def trace_cbs(run) -> dict:
     """One more CBS run, run(), on CUDA tensors under torch.profiler (the
     card's activity only; host operators are not recorded, which keeps the
     trace's processing short): its wall seconds, the device time of its
     kernels and copies (the events on the card, summed: its busy time on
     one stream), B4's part of it, its kernel launches (the CUDA runtime's
-    launch calls) and the kernels the card ran."""
+    launch calls), the kernels the card ran, and the CBS kernels' runs on
+    the card (kernel_runs) beside the launches counted in that run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         lens = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counted = read_launches()
     stats = prof.key_averages()
     trace_s = time.perf_counter() - t0
     device_us = b4_us = 0.0
@@ -1573,86 +1690,105 @@ def trace_cbs(run) -> dict:
                    if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                  "cudaLaunchKernelExC",
                                  "cudaLaunchCooperativeKernel"))
+    graph_launches = sum(ev.count for ev in stats
+                         if ev.key in ("cudaGraphLaunch", "cuGraphLaunch"))
     kernels = sum(n for _us, k, n in top
                   if not k.startswith(("Memcpy", "Memset")))
     top.sort(reverse=True)
     return {"lengths": {c: v.tolist() for c, v in lens.items()},
+            "traced_launches": kernel_runs(stats),
+            "counted_launches": {k: counted[k] for k in KERNEL_FUNCTIONS},
             "profile": {
                 "wall_s": wall, "with_processing_s": trace_s,
                 "device_busy_s": device_us / 1e6,
                 "busy_share": device_us / 1e6 / wall,
                 "b4_device_s": b4_us / 1e6,
                 "b4_share_of_busy": b4_us / device_us if device_us else None,
-                "kernel_launches": launches, "device_kernels": kernels,
+                "kernel_launches": launches,
+                "graph_launches": graph_launches, "device_kernels": kernels,
                 "top_device": [{"name": k[:80], "ms": us / 1e3, "count": n}
                                for us, k, n in top[:8]]}}
 
 
-# the fold_in chains of the rows' keys: the plain versions of K7 and K8 run
-# them (through cbs_mega_cuda.seg_keys), the kernels derive the keys on the
-# card, so on cuda the stage launches nothing
-SEG_KEYS_STAGE = "segment keys (fold_in x3, plain versions only)"
-
-
-def mega_launch_stages(run) -> dict:
-    """Kernel launches (the CUDA runtime's launch calls) of run(), a
-    whole-recursion engine run on the card, by the engine's stage: each
-    stage's function is wrapped in a profiler range for that run only, and
-    a launch counts for the range it falls in (the rest: gathers, tiers,
-    the reads, the table update)."""
+def mega_host_calls(run) -> dict:
+    """The CUDA runtime and driver calls the host made during run(), a
+    whole-recursion engine run on the card, by name (torch.profiler's
+    CPU-side events of the cuda* and cu* API): graph launches, kernel
+    launches, copies, memsets, synchronisations."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
-    from canvas_tpu_torch.ops import cbs_mega, cbs_mega_cuda
-
-    stages = {"tmax_batch (K9, B4, K10)": (cbs_mega, "tmax_batch"),
-              "tail probability (K11)": (cbs_mega, "_tail_p_batch_dev"),
-              SEG_KEYS_STAGE: (cbs_mega_cuda, "seg_keys"),
-              "walks (K7)": (cbs_mega_cuda, "walk"),
-              "edge tests (setup, K8)": (cbs_mega, "_edge_tests")}
-    orig = {name: getattr(mod, attr) for name, (mod, attr) in stages.items()}
-
-    def ranged(name):
-        def call(*a, **kw):
-            with record_function(f"stage {name}"):
-                return orig[name](*a, **kw)
-        return call
-
-    for name, (mod, attr) in stages.items():
-        setattr(mod, attr, ranged(name))
-    try:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-    finally:
-        for name, (mod, attr) in stages.items():
-            setattr(mod, attr, orig[name])
-    launch_names = ("cudaLaunchKernel", "cuLaunchKernel",
-                    "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel")
-    ranges, launches = [], []
-    for ev in prof.events():
-        if ev.name.startswith("stage ") and ev.device_type == DeviceType.CPU:
-            ranges.append((ev.time_range.start, ev.time_range.end,
-                           ev.name[6:]))
-        elif ev.name in launch_names:
-            launches.append(ev.time_range.start)
-    out = {name: 0 for name in stages}
-    out["other"] = 0
-    for t in launches:
-        hit = [name for a, b, name in ranges if a <= t <= b]
-        out[hit[0] if hit else "other"] += 1
-    if out[SEG_KEYS_STAGE]:
-        fail(f"the segment keys made {out[SEG_KEYS_STAGE]} launches on the "
-             f"card")
-    return {"total": len(launches), "by_stage": out}
+    calls: dict = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CPU and ev.key.startswith("cu") \
+                and not ev.key.startswith("cudaGetDevice"):
+            calls[ev.key] = calls.get(ev.key, 0) + ev.count
+    return {"total": sum(calls.values()), "by_call": calls}
+
+
+def engine_figures(cov: dict, dev: torch.device) -> dict:
+    """The whole-recursion engine over cov on the card, its level already
+    captured (a warm run first): the capture's seconds and the captured
+    level's nodes and kernel launches, then one run's wall, levels,
+    replays, reads and kernel launches, and its synchronising calls
+    (CUDA's sync debug mode)."""
+    from canvas_tpu_torch.ops import cbs, cbs_mega
+
+    cbs.run_cbs(cov, device=dev)
+    if cbs.last_engine() != "mega":
+        fail(f"run_cbs on cuda took the {cbs.last_engine()} engine")
+    eng = next(reversed(cbs_mega._ENGINES.values()))
+    reset_launches()
+    s0 = cbs_mega.SYNCS["cbs_mega"]
+    r0 = cbs_mega.GRAPHS["replays"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (lens, wall), hidden = count_syncs(
+        lambda: (cbs.run_cbs(cov, device=dev), time.perf_counter() - t0))
+    return {"lens": lens, "wall_s": wall,
+            "levels": cbs._LAST_ENGINE["levels"],
+            "replays": cbs_mega.GRAPHS["replays"] - r0,
+            "reads": cbs_mega.SYNCS["cbs_mega"] - s0,
+            "synchronising_calls": hidden,
+            "launches": {k: v for k, v in read_launches().items()
+                         if k in MEGA_KERNELS},
+            "capture_s": eng.capture_s, "graph_nodes": eng.nodes,
+            "launches_a_level": eng.launches_a_level(),
+            "tiers": len(eng.tiers)}
+
+
+def check_engine_figures(fig: dict, traced: dict, what: str) -> None:
+    """At most 2 reads a run, nothing else synchronising besides the four
+    set-up copies, a replay for every level; the captured level's kernel
+    nodes are its counted launches and B4's second kernel a tier; in the
+    traced run (trace_cbs) every kernel of the level ran on the card, as
+    many times as its launches were counted."""
+    if fig["reads"] > 2:
+        fail(f"{what}: {fig['reads']} reads from the card in a run")
+    if fig["synchronising_calls"] != fig["reads"] + 4:
+        fail(f"{what}: {fig['synchronising_calls']} synchronising calls for "
+             f"{fig['reads']} reads and 4 set-up copies")
+    if not fig["replays"] >= fig["levels"] >= 1:
+        fail(f"{what}: {fig['replays']} replays for {fig['levels']} levels")
+    nodes = sum(fig["launches_a_level"].values()) + fig["tiers"]
+    if fig["graph_nodes"]["kernels"] != nodes:
+        fail(f"{what}: the captured level has "
+             f"{fig['graph_nodes']['kernels']} kernel nodes, not its "
+             f"{nodes} counted launches and B4's second kernels")
+    traced_equals_counted(traced["traced_launches"],
+                          traced["counted_launches"], MEGA_KERNELS, what)
 
 
 def capture_kernel_inputs(run) -> dict:
     """The arguments (cloned) of the first K7 call with a walking row and
-    of the first K8 call with an active lane during run(), caught by
-    wrapping the two entry points for that run only."""
+    of the first K8 call with an active lane during run() (an eager
+    engine run), caught by wrapping the two entry points for that run
+    only; the engine's live flag is not kept."""
     from canvas_tpu_torch.ops import cbs_mega_cuda as mc
 
     got: dict = {}
@@ -1772,6 +1908,180 @@ def k8_case(args) -> dict:
             "bound_share": k_bound / ms}
 
 
+LEVEL_WRAPPERS = ("prologue", "decide_prep", "decide", "edge_setup",
+                  "edge_keep", "table_update")
+
+
+def _clone(a):
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, dict):
+        return {k: v.clone() for k, v in a.items()}
+    return a
+
+
+def record_levels(run) -> dict:
+    """The arguments (cloned) of every call of K13-K16's wrappers during
+    run(), an eager whole-recursion engine run on the card, by wrapper."""
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
+
+    recs: dict = {k: [] for k in LEVEL_WRAPPERS}
+    orig = {k: getattr(cl, k) for k in LEVEL_WRAPPERS}
+
+    def recorder(name):
+        def call(*args):
+            recs[name].append([_clone(a) for a in args])
+            return orig[name](*args)
+        return call
+
+    for k in LEVEL_WRAPPERS:
+        setattr(cl, k, recorder(k))
+    try:
+        run()
+    finally:
+        for k in LEVEL_WRAPPERS:
+            setattr(cl, k, orig[k])
+    return recs
+
+
+def _bits_or_fail(name: str, got: dict, want: dict, level: int) -> None:
+    for k, v in want.items():
+        if not bits_equal(got[k], v):
+            err = float((got[k].double() - v.double()).abs().max()) \
+                if got[k].numel() else 0.0
+            fail(f"{name} differs from its plain version on level {level}: "
+                 f"{k}, max |diff| {err}")
+
+
+def timed_pair(kernel, plain, n_bytes: float, ops: float, reps: int,
+               f64: bool = False) -> dict:
+    """kernel() and plain() timed on the card (CUDA events; the kernel's
+    launches queued behind a sleep), the bound from n_bytes and ops (f32
+    operations, or with f64 FP64 ones) and its share."""
+    t_bytes = n_bytes / HBM_BPS * 1e3
+    t_ops = ops * FLOPS_PER_OP / (F64_OPS if f64 else F32_OPS) * 1e3
+    b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                  else (t_ops, "operations"))
+    ms = cuda_ms(kernel, reps=reps, queued=True)
+    plain_ms = cuda_ms(plain, reps=2)
+    return {"equal": True, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bytes": n_bytes,
+            "operations": ops, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / ms}
+
+
+def level_kernel_cases(cov: dict, dev: torch.device) -> dict:
+    """K13-K16 against their plain versions on the card on every level of
+    an eager engine run over cov (each wrapper's recorded inputs; bit for
+    bit, else the smoke fails), each timed on the first level's inputs
+    beside its plain version, with its bound: K13 the gathered values and
+    the x and cumsum rows it writes (bytes) against its float64 operations
+    (five a position); K14 and K15 both launches of a level; K16 on a fresh
+    copy of the table each launch."""
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
+
+    recs = record_levels(lambda: eager_mega(cov, dev))
+    levels = len(recs["prologue"])
+    if levels < 1 or any(len(v) != levels for v in recs.values()):
+        fail(f"K13-K16's wrappers called {[len(v) for v in recs.values()]} "
+             f"times")
+    for i, (contigs, tab, pending0, lv, al0) in enumerate(recs["prologue"]):
+        cl.prologue(contigs, tab, pending0, lv, al0)
+        _bits_or_fail("K13", lv, cl.prologue_plain(
+            contigs, tab, pending0, lv["x"].shape[0], al0), i)
+    for i, (tab, S, lv, alpha) in enumerate(recs["decide_prep"]):
+        cl.decide_prep(tab, S, lv, alpha)
+        _bits_or_fail("K14", lv, {"b": cl.decide_prep_plain(lv["t2"])}, i)
+    for i, (tab, S, lv, p1, alpha, n_perm, n_min) in \
+            enumerate(recs["decide"]):
+        cl.decide(tab, S, lv, p1, alpha, n_perm, n_min)
+        _bits_or_fail("K14", lv, cl.decide_plain(
+            lv["t2"], lv["ti"], lv["tj"], lv["n"], lv["analyzable"], p1,
+            alpha, n_perm, n_min), i)
+    active = 0
+    for i, (tab, S, lv, walked, alpha, n_perm) in \
+            enumerate(recs["edge_setup"]):
+        cl.edge_setup(tab, S, lv, walked, alpha, n_perm)
+        _bits_or_fail("K15", lv, cl.edge_setup_plain(
+            lv["x"], lv["n"], lv["ti"], lv["tj"], lv["trivial"], walked,
+            alpha, n_perm, lv["x"].shape[1]), i)
+        active += int(lv["active"].sum())
+    for i, (tab, S, lv, count, cnt, alpha, n_perm) in \
+            enumerate(recs["edge_keep"]):
+        cl.edge_keep(tab, S, lv, count, cnt, alpha, n_perm)
+        _bits_or_fail("K15", lv, cl.edge_keep_plain(
+            count, cnt, lv["degen"], lv["quick0"], lv["test_both"], lv["ti"],
+            lv["tj"], lv["n"], alpha, n_perm), i)
+    for i, (tab, pending0, lv, walked, wchunks, max_levels) in \
+            enumerate(recs["table_update"]):
+        want = cl.table_update_plain(tab, pending0, lv, walked, wchunks,
+                                     max_levels)
+        cl.table_update(tab, pending0, lv, walked, wchunks, max_levels)
+        torch.cuda.synchronize()
+        if not (torch.equal(tab, want[0]) and torch.equal(pending0, want[1])):
+            fail(f"K16 differs from its plain version on level {i}")
+    torch.cuda.synchronize()
+
+    # the first level's inputs, as recorded (the checks above wrote into
+    # the recorded outputs the same values)
+    contigs, tab, pending0, lv, al0 = recs["prologue"][0]
+    W, Tmax = lv["x"].shape
+    S = pending0.shape[0]
+    gathered = int(torch.clamp(lv["n"], min=0).sum())
+    k13 = timed_pair(
+        lambda: cl.prologue(contigs, tab, pending0, lv, al0),
+        lambda: cl.prologue_plain(contigs, tab, pending0, W, al0),
+        4 * gathered + 8 * W * Tmax + 8 * 3 * S + S + 60 * W,
+        5 * W * Tmax, reps=20, f64=True)
+    tab14, _S, lv14, alpha = recs["decide_prep"][0]
+    _t, _S, _lv, p1, _a, n_perm, n_min = recs["decide"][0]
+
+    def k14():
+        cl.decide_prep(tab14, S, lv14, alpha)
+        cl.decide(tab14, S, lv14, p1, alpha, n_perm, n_min)
+
+    def k14_plain():
+        cl.decide_prep_plain(lv14["t2"])
+        cl.decide_plain(lv14["t2"], lv14["ti"], lv14["tj"], lv14["n"],
+                        lv14["analyzable"], p1, alpha, n_perm, n_min)
+
+    k14r = timed_pair(k14, k14_plain, 60 * W, 20 * W, reps=20)
+    tab15, _S, lv15, walked, alpha, n_perm = recs["edge_setup"][0]
+    _t, _S, lvk, count, cnt, _a, _n = recs["edge_keep"][0]
+    # each row's x read once up to max(tj, n); the lanes' windows written
+    span = int(torch.clamp(torch.maximum(lv15["tj"].long(), lv15["n"]),
+                           min=0, max=Tmax).sum())
+
+    def k15():
+        cl.edge_setup(tab15, S, lv15, walked, alpha, n_perm)
+        cl.edge_keep(tab15, S, lvk, count, cnt, alpha, n_perm)
+
+    def k15_plain():
+        cl.edge_setup_plain(lv15["x"], lv15["n"], lv15["ti"], lv15["tj"],
+                            lv15["trivial"], walked, alpha, n_perm, Tmax)
+        cl.edge_keep_plain(count, cnt, lvk["degen"], lvk["quick0"],
+                           lvk["test_both"], lvk["ti"], lvk["tj"], lvk["n"],
+                           alpha, n_perm)
+
+    k15r = timed_pair(k15, k15_plain, 4 * span + 8 * W * Tmax + 100 * W,
+                      4 * 2 * W * Tmax, reps=20, f64=True)
+    tab16, p16, lv16, walked, wchunks, max_levels = recs["table_update"][0]
+    fresh = [(tab16.clone(), p16.clone()) for _ in range(64)]
+    turn = iter(range(10 ** 9))
+
+    def k16():
+        t, p = fresh[next(turn) % len(fresh)]
+        cl.table_update(t, p, lv16, walked, wchunks, max_levels)
+
+    k16r = timed_pair(
+        k16, lambda: cl.table_update_plain(tab16, p16, lv16, walked,
+                                           wchunks, max_levels),
+        2 * (8 * (3 * S + cl.CTL) + S) + 60 * W, 10 * S, reps=20)
+    return {"levels": levels, "rows": W, "Tmax": Tmax, "slots": S,
+            "active_lanes": active, "K13": {"gathered": gathered, **k13},
+            "K14": k14r, "K15": {"x_read": span, **k15r}, "K16": k16r}
+
+
 def bench_cbs_coverage() -> dict:
     """bench.py's CBS workload (bench_cbs): 24 contigs of 16,384 bins of
     N(0, 1) from default_rng(1), +1.5 on [T/4, T/3) and -1.2 on
@@ -1787,44 +2097,81 @@ def bench_cbs_coverage() -> dict:
     return cov
 
 
-def mega_runs(cov: dict, dev: torch.device) -> dict:
-    """run_cbs on cuda over cov: once warm (it must take the
-    whole-recursion engine), then the best of 3 with each run's reads,
-    kernel launches and segments (equal to the warm run's), one run under
-    torch.profiler, and one with K7 and K8's plain versions on the same
-    CUDA tensors (equal segments)."""
-    from canvas_tpu_torch.ops import cbs, cbs_mega
+def swapped_plain_k7_k8(run):
+    """run() with K7 and K8 replaced by their plain versions (which take
+    no live flag and read their loop tests from the card)."""
     from canvas_tpu_torch.ops import cbs_mega_cuda as mc
 
-    warm = cbs.run_cbs(cov, device=dev)
-    if cbs.last_engine() != "mega":
-        fail(f"run_cbs on cuda took the {cbs.last_engine()} engine")
+    orig = mc.walk, mc.edge_counts
+    mc.walk = lambda *a, live=None, **kw: mc.walk_plain(*a, **kw)
+    mc.edge_counts = lambda *a, live=None, **kw: mc.edge_counts_plain(*a,
+                                                                      **kw)
+    try:
+        return run()
+    finally:
+        mc.walk, mc.edge_counts = orig
+
+
+def cuda_equals_cpu(cov: dict, dev: torch.device, lens: dict,
+                    what: str) -> dict:
+    """The whole-recursion engine over cov on CPU tensors: its segments
+    equal to lens (the CUDA run's), and its counts (levels, walk and edge
+    chunks, walks accepted and rejected) equal to a CUDA run's; returns
+    the CPU run's seconds and counts."""
+    from canvas_tpu_torch.ops import cbs_mega
+
+    counts: dict = {}
+    t0 = time.perf_counter()
+    lens_cpu = cbs_mega.run_cbs_mega(cov, device="cpu", counts=counts)
+    cpu_s = time.perf_counter() - t0
+    for c in cov:
+        if not np.array_equal(lens[c], lens_cpu[c]):
+            fail(f"{what}: whole-recursion segments on {c} differ between "
+                 f"CUDA and CPU tensors: {lens[c].tolist()} vs "
+                 f"{lens_cpu[c].tolist()}")
+    counts_cuda: dict = {}
+    cbs_mega.run_cbs_mega(cov, device=dev, counts=counts_cuda)
+    if counts_cuda != counts:
+        fail(f"{what}: counts on the card {counts_cuda}, on the CPU {counts}")
+    return {"cpu_s": cpu_s, "counts": counts}
+
+
+def mega_runs(cov: dict, dev: torch.device) -> dict:
+    """run_cbs on cuda over cov: the engine's figures (engine_figures,
+    checked), then the best of 3 runs with each run's reads, replays and
+    kernel launches and segments (equal to the first run's), the engine
+    on CPU tensors (equal segments and counts), one run under
+    torch.profiler, its host calls, and one eager run with K7 and K8's
+    plain versions on the same CUDA tensors (equal segments)."""
+    from canvas_tpu_torch.ops import cbs, cbs_mega
+
+    fig = engine_figures(cov, dev)
+    warm = fig.pop("lens")
     runs = []
     for _ in range(3):
         reset_launches()
         s0 = cbs_mega.SYNCS["cbs_mega"]
+        r0 = cbs_mega.GRAPHS["replays"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lens = cbs.run_cbs(cov, device=dev)
         torch.cuda.synchronize()
         runs.append({"seconds": time.perf_counter() - t0,
                      "syncs": cbs_mega.SYNCS["cbs_mega"] - s0,
+                     "replays": cbs_mega.GRAPHS["replays"] - r0,
                      "launches": {k: v for k, v in read_launches().items()
                                   if k in MEGA_KERNELS},
                      "levels": cbs._LAST_ENGINE["levels"]})
         for c in cov:
             if not np.array_equal(lens[c], warm[c]):
                 fail(f"run_cbs gave other segments on {c} than its warm run")
+    cpu = cuda_equals_cpu(cov, dev, warm, "bench.py's CBS workload")
     traced = trace_cbs(lambda: cbs_mega.run_cbs_mega(cov, device=dev))
-    stages = mega_launch_stages(lambda: cbs_mega.run_cbs_mega(cov, device=dev))
-    orig = mc.walk, mc.edge_counts
-    mc.walk, mc.edge_counts = mc.walk_plain, mc.edge_counts_plain
-    try:
-        t0 = time.perf_counter()
-        plain = cbs_mega.run_cbs_mega(cov, device=dev)
-        plain_s = time.perf_counter() - t0
-    finally:
-        mc.walk, mc.edge_counts = orig
+    check_engine_figures(fig, traced, "bench.py's CBS workload")
+    host = mega_host_calls(lambda: cbs_mega.run_cbs_mega(cov, device=dev))
+    t0 = time.perf_counter()
+    plain = swapped_plain_k7_k8(lambda: eager_mega(cov, dev))
+    plain_s = time.perf_counter() - t0
     for c in cov:
         if not np.array_equal(plain[c], warm[c]):
             fail(f"segments on {c} differ between K7/K8 and their plain "
@@ -1835,16 +2182,22 @@ def mega_runs(cov: dict, dev: torch.device) -> dict:
             "best_of_3_s": best["seconds"],
             "seconds": [r["seconds"] for r in runs],
             "syncs": best["syncs"], "levels": best["levels"],
-            "launches": best["launches"], "plain_kernels_s": plain_s,
+            "replays": best["replays"], "launches": best["launches"],
+            "engine": fig, "cpu_s": cpu["cpu_s"], "counts": cpu["counts"],
+            "lengths_equal_cpu": True, "plain_kernels_s": plain_s,
             "equal_to_plain_kernels": True,
-            "profiled_cuda": traced["profile"], "launch_stages": stages}
+            "profiled_cuda": traced["profile"],
+            "traced_launches": traced["traced_launches"], "host_calls": host}
 
 
-# The whole-recursion engine on the panel when Python drove its walk and
-# edge-test loops, a read from the card a loop test (PERF.md section 5,
-# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's figures
-HOST_LOOPS_PANEL = {"cuda_s": 0.490, "syncs": 41, "cuda_syncs": 45,
-              "kernel_launches": 28630, "busy_share": 0.137}
+# The earlier whole-recursion engine, each level driven from Python with
+# a read from the card a level (PERF.md section 5, measured on one NVIDIA
+# H100 80GB HBM3, 700.00 W), printed beside this run's figures
+LEVEL_LOOP_ENGINE = {"panel": {"wall_s": 0.0443, "kernel_launches": 1517,
+                               "reads": 5, "synchronising_calls": 9,
+                               "busy_share": 0.115},
+                     "bench_cbs": {"wall_s": 0.0304, "kernel_launches": 1507,
+                                   "reads": 5, "busy_share": 0.195}}
 
 
 # K7 after its redesign (NVIDIA H100 80GB HBM3, 700.00 W, PERF.md section
@@ -1853,64 +2206,93 @@ HOST_LOOPS_PANEL = {"cuda_s": 0.490, "syncs": 41, "cuda_syncs": 45,
 BEFORE_K7_MS = {"panel": 0.1577, "bench_cbs": 0.0376}
 
 
-def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
-    """The whole-recursion engine on the panel's tumor ratio coverage:
-    through run_cbs on cuda (the engine it picks, its seconds, B4, K7 and
-    K8 launches, reads from the card and synchronising calls: at most
-    one read a level and one more, and no synchronising call besides
-    those reads and the set-up copies), on CPU tensors (equal lengths),
-    once under torch.profiler; beside phase CBS's frontier figures and
-    the engine's with host-driven loops; then K7 and K8 against their
-    plain versions on the inputs of the first level with a walk and the
-    first with an edge test (panel, else bench.py's CBS workload),
-    bench.py's CBS workload through the engine, and B4 at every tier
-    width the engine uses, 32 rows with three in the tier."""
-    from canvas_tpu_torch.ops import arc_scan_cuda, cbs, cbs_mega
+def largest_engine(dev: torch.device) -> dict:
+    """The whole-recursion engine at its largest shape: 192 contigs of
+    65,536 bins of N(0, 1) from default_rng(3) (a table of 1,024 slots,
+    512 rows a level, tiers 1,024 to 65,536).  The card's memory the
+    engine holds between runs, its buffers and its graph (the free memory
+    cudaMemGetInfo reports before the first run and after it, and the
+    caching allocator's reserved and allocated bytes), then what stays
+    once the engine is dropped (the wrappers' per-device scratch); the
+    capture's seconds and a replayed run's wall and levels."""
+    from canvas_tpu_torch.ops import cbs_mega
 
-    cov = panel_coverage(workdir)
-    reset_launches()
-    s0 = cbs_mega.SYNCS["cbs_mega"]
-    t0 = time.perf_counter()
-    (lens, cuda_s), hidden = count_syncs(
-        lambda: (cbs.run_cbs(cov, device=dev), time.perf_counter() - t0))
-    launches = {k: v for k, v in read_launches().items()
-                if k in MEGA_KERNELS}
-    syncs = cbs_mega.SYNCS["cbs_mega"] - s0
-    engine, levels = cbs.last_engine(), cbs._LAST_ENGINE["levels"]
-    if engine != "mega":
-        fail(f"run_cbs on cuda took the {engine} engine on the panel")
-    if launches["arc_scan"] < 1:
-        fail("B4 did not launch in the whole-recursion engine's run")
-    if launches["walk"] != levels or launches["edge"] != levels:
-        fail(f"K7 and K8 launched {launches} times in {levels} levels")
-    if syncs > levels + 1:
-        fail(f"{syncs} reads from the card in {levels} levels")
-    # the four set-up copies of run_cbs_mega (coverage, lengths, boundary,
-    # key) besides the reads: any other would be a read in a loop
-    if hidden != syncs + 4:
-        fail(f"{hidden} synchronising calls for {syncs} reads and 4 set-up "
-             f"copies")
+    C, T = 192, 1 << 16
+    rng = np.random.default_rng(3)
+    cov = {f"chr{c}": rng.normal(0.0, 1.0, size=T) for c in range(C)}
+
+    def memory():
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        return {"free": torch.cuda.mem_get_info(dev)[0],
+                "reserved": torch.cuda.memory_reserved(dev),
+                "allocated": torch.cuda.memory_allocated(dev)}
+
+    cbs_mega._ENGINES.clear()
+    before = memory()
+    first = cbs_mega.run_cbs_mega(cov, device=dev)
+    held = memory()
+    eng = cbs_mega._ENGINES[dev]
+    shape = {"slots": eng.S, "rows": eng.W, "Tmax": eng.Tmax,
+             "tiers": len(eng.tiers)}
     counts: dict = {}
     t0 = time.perf_counter()
-    lens_cpu = cbs_mega.run_cbs_mega(cov, device="cpu", counts=counts)
-    cpu_s = time.perf_counter() - t0
+    lens = cbs_mega.run_cbs_mega(cov, device=dev, counts=counts)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    if first is None or lens is None:
+        fail("the whole-recursion engine overflowed its table at its "
+             "largest shape")
     for c in cov:
-        if not np.array_equal(lens[c], lens_cpu[c]):
-            fail(f"whole-recursion segments on {c} differ between CUDA and "
-                 f"CPU tensors: {lens[c].tolist()} vs {lens_cpu[c].tolist()}")
+        if not np.array_equal(lens[c], first[c]):
+            fail(f"the largest shape's second run gave other segments on {c}")
+    capture_s = eng.capture_s
+    del eng
+    cbs_mega._ENGINES.clear()
+    after = memory()
+    return {"contigs": C, "bins": T, **shape,
+            "engine_bytes": before["free"] - held["free"],
+            "reserved_bytes": held["reserved"] - before["reserved"],
+            "allocated_bytes": held["allocated"] - before["allocated"],
+            "kept_after_drop_bytes": before["free"] - after["free"],
+            "capture_s": capture_s, "wall_s": wall,
+            "levels": counts["levels"],
+            "segments": sum(len(v) for v in lens.values())}
+
+
+def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
+    """The whole-recursion engine on the panel's tumor ratio coverage:
+    through run_cbs on cuda (engine_figures: the capture's seconds and
+    the level's graph nodes, a run's wall, levels, replays, reads, kernel
+    launches and synchronising calls, checked), on CPU tensors (equal
+    lengths and levels), once under torch.profiler and once for its host
+    calls; beside phase CBS's frontier figures and the level-loop engine's; then K13-K16
+    against their plain versions on every level of the panel's and
+    bench.py's CBS workload's runs (level_kernel_cases), K7 and K8 on the
+    inputs of the first level with a walk and the first with an edge test
+    (panel, else bench.py's workload), bench.py's workload through the
+    engine (mega_runs), and B4 at every tier width the engine uses, 32
+    rows of which three lie under the tier's mask."""
+    from canvas_tpu_torch.ops import cbs_mega
+
+    cov = panel_coverage(workdir)
+    fig = engine_figures(cov, dev)
+    lens, levels = fig.pop("lens"), fig["levels"]
+    cpu = cuda_equals_cpu(cov, dev, lens, "panel")
+    counts, cpu_s = cpu["counts"], cpu["cpu_s"]
+    if counts["levels"] != levels:
+        fail(f"{levels} levels on the card, {counts['levels']} on the CPU")
     traced = trace_cbs(lambda: cbs_mega.run_cbs_mega(cov, device=dev))
     if traced["lengths"] != {c: v.tolist() for c, v in lens.items()}:
         fail("the profiled whole-recursion run gave other segments")
-    stages = mega_launch_stages(
-        lambda: cbs_mega.run_cbs_mega(cov, device=dev))
-    if counts["levels"] != levels:
-        fail(f"{levels} levels on the card, {counts['levels']} on the CPU")
+    check_engine_figures(fig, traced, "panel")
+    host = mega_host_calls(lambda: cbs_mega.run_cbs_mega(cov, device=dev))
     bench_cov = bench_cbs_coverage()
-    captured = capture_kernel_inputs(
-        lambda: cbs_mega.run_cbs_mega(cov, device=dev))
+    level_cases = {"panel": level_kernel_cases(cov, dev),
+                   "bench_cbs": level_kernel_cases(bench_cov, dev)}
+    captured = capture_kernel_inputs(lambda: eager_mega(cov, dev))
     source = {k: "panel" for k in captured}
-    bench_in = capture_kernel_inputs(
-        lambda: cbs_mega.run_cbs_mega(bench_cov, device=dev))
+    bench_in = capture_kernel_inputs(lambda: eager_mega(bench_cov, dev))
     for k, v in bench_in.items():
         if k not in captured:
             captured[k], source[k] = v, "bench_cbs"
@@ -1940,6 +2322,7 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
         npad = 1 << k
         cs = np.zeros((32, npad), np.float32)
         n = np.full(32, 2, np.int64)
+        mask = np.zeros(32, bool)
         for r in (0, 7, 31):
             L = int(rng.integers(npad // 2 + 1, npad + 1))
             x = rng.normal(0, 1, L)
@@ -1947,35 +2330,46 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
             x -= x.mean()
             cs[r, :L] = np.cumsum(x)
             n[r] = L
+            mask[r] = True
         tiers.append(b4_case(torch.as_tensor(cs, device=dev),
-                             torch.as_tensor(n, device=dev), npad))
+                             torch.as_tensor(n, device=dev), npad,
+                             mask=torch.as_tensor(mask, device=dev)))
     torch.cuda.empty_cache()
-    return {"phase": "cbs-mega", "engine": engine,
+    largest = largest_engine(dev)
+    panel = level_cases["panel"]
+    return {"phase": "cbs-mega", "engine": "mega",
             "bins": {c: len(v) for c, v in cov.items()},
             "segments": {c: len(v) for c, v in lens.items()},
             "lengths_equal": True, "levels": levels, "counts": counts,
-            "cuda_s": cuda_s, "cpu_s": cpu_s, "launches": launches,
-            "arc_scan_launches": launches["arc_scan"],
-            "syncs": syncs, "cuda_syncs": hidden,
-            "profiled_cuda": traced["profile"], "launch_stages": stages,
-            "host_driven_loops": HOST_LOOPS_PANEL,
+            "cuda_s": fig["wall_s"], "cpu_s": cpu_s, "engine_figures": fig,
+            "launches": fig["launches"],
+            "arc_scan_launches": fig["launches"]["arc_scan"],
+            "syncs": fig["reads"], "cuda_syncs": fig["synchronising_calls"],
+            "profiled_cuda": traced["profile"],
+            "traced_launches": traced["traced_launches"],
+            "host_calls": host, "level_loop_engine": LEVEL_LOOP_ENGINE,
             "frontier": {k: frontier[k] for k in (
                 "n_levels", "cuda_s", "cpu_s", "arc_scan_launches",
                 "cuda_syncs", "profiled_cuda")},
+            "level_kernels": level_cases,
+            "K13": panel["K13"], "K14": panel["K14"], "K15": panel["K15"],
+            "K16": panel["K16"],
             "K7": k7, "K8": k8, **bench_cases, "bench_cbs": bench,
             "K7_now_vs_PR13_ms": {
                 "panel": [k7["ms"], BEFORE_K7_MS["panel"]],
                 "bench_cbs": [bench_cases["K7_bench"].get("ms"),
                               BEFORE_K7_MS["bench_cbs"]]},
-            "b4_tiers": tiers}
+            "b4_tiers": tiers, "largest_shape": largest}
 
 
 def capture_stats_inputs(mega_run, frontier_run) -> dict:
     """The arguments (cloned) of K9's and K10's first call at each tier
-    width and of K11's first call during mega_run(), and of K12's first
-    call from a frontier level with a row under its mask ("level") and its
-    first continuation chunk ("chunk") during frontier_run(), caught by
-    wrapping the entry points for those runs only."""
+    width with a row under the tier's mask and of K11's first call during
+    mega_run() (an eager engine run; each as (args, keywords), the live
+    flag left out), and of K12's first call from a frontier level with a
+    row under its mask ("level") and its first continuation chunk
+    ("chunk") during frontier_run(), caught by wrapping the entry points
+    for those runs only."""
     from canvas_tpu_torch.ops import cbs_mega_cuda as mc
     from canvas_tpu_torch.ops import cbs_stats_cuda as st
 
@@ -1986,17 +2380,26 @@ def capture_stats_inputs(mega_run, frontier_run) -> dict:
     def clone(args):
         return [a.clone() if torch.is_tensor(a) else a for a in args]
 
-    def arc_inputs(*args):
-        got["arc_inputs"].setdefault(args[2], clone(args))      # npad
-        return orig["arc_inputs"](*args)
+    def masked(kw) -> bool:
+        return kw.get("mask") is None or bool(kw["mask"].any())
 
-    def refine(*args):
-        got["refine"].setdefault(args[8], clone(args))          # npad
-        return orig["refine"](*args)
+    def keywords(kw) -> dict:
+        return {k: (tuple(clone(v)) if isinstance(v, tuple) else clone([v])[0])
+                for k, v in kw.items() if k != "live"}
 
-    def tail_p(*args):
+    def arc_inputs(*args, **kw):
+        if masked(kw):                                          # npad
+            got["arc_inputs"].setdefault(args[2], (clone(args), keywords(kw)))
+        return orig["arc_inputs"](*args, **kw)
+
+    def refine(*args, **kw):
+        if masked(kw):
+            got["refine"].setdefault(args[8], (clone(args), keywords(kw)))
+        return orig["refine"](*args, **kw)
+
+    def tail_p(*args, **kw):
         got.setdefault("tail_p", clone(args))
-        return orig["tail_p"](*args)
+        return orig["tail_p"](*args, **kw)
 
     def perm_stats(*args):
         key = "level" if sys._getframe(1).f_code.co_name == "_level" \
@@ -2051,43 +2454,79 @@ def kernel_case(name, kernel, plain, args, n_bytes, ops, reps,
             "bound_share": b_ms / ms}
 
 
-def k9_case(args) -> dict:
-    """K9 on one captured call: the cumsum read once and the outputs
-    written once; per position two comparisons and a chunk maximum and
-    minimum, and per chunk pair a subtraction and a maximum."""
+def _rows_of(mask, B: int, dev):
+    return (torch.arange(B, device=dev) if mask is None
+            else torch.nonzero(mask)[:, 0])
+
+
+def k9_case(rec) -> dict:
+    """K9 on one captured call (under its tier's row mask: the rows under
+    it compared, bit for bit, with the plain version on those rows): the
+    rows' cumsums read once and their outputs written once; per position
+    two comparisons and a chunk maximum and minimum, and per chunk pair a
+    subtraction and a maximum."""
     from canvas_tpu_torch.ops import cbs_stats_cuda as st
 
-    cs, n, npad, _al0 = args
+    args, kw = rec
+    cs, n, npad, al0 = args
+    mask = kw.get("mask")
     B = cs.shape[0]
+    rows = _rows_of(mask, B, cs.device)
+    R = len(rows)
     nblk = max(npad // 512, 1)
     nchunk = npad // min(256, npad)
-    res = kernel_case(
-        "K9", st.arc_inputs,
-        lambda *a: (*st.arc_scan_inputs_plain(*a), a[1].to(torch.int32)),
-        args, 4 * cs.numel() + n.element_size() * B + 20 * B
-        + 4 * B * nblk, B * (4 * npad + 2 * nchunk * nchunk), reps=20)
-    return {"rows": B, "npad": npad, **res}
+    got = [o[rows] for o in st.arc_inputs(cs, n, npad, al0, mask=mask)]
+    want = (*st.arc_scan_inputs_plain(cs[rows], n[rows], npad, al0),
+            n[rows].to(torch.int32))
+    torch.cuda.synchronize()
+    if not all(bits_equal(a, b) for a, b in zip(got, want)):
+        fail(f"K9 differs from its plain version at {B} x {npad}")
+    res = timed_pair(
+        lambda: st.arc_inputs(cs, n, npad, al0, mask=mask),
+        lambda: st.arc_scan_inputs_plain(cs[rows], n[rows], npad, al0),
+        4 * R * npad + n.element_size() * R + 20 * R + 4 * R * nblk,
+        R * (4 * npad + 2 * nchunk * nchunk), reps=20)
+    return {"rows": B, "masked": R, "npad": npad, **res}
 
 
-def k10_case(args) -> dict:
-    """K10 on one captured call: per pair of a row with a sub-block
+def k10_case(rec) -> dict:
+    """K10 on one captured call, under its tier's row mask and into the
+    level's t2, ti, tj: per pair of a masked row with a sub-block
     (positions i, lags bl0 + k inside [al0, lag_hi] with i + lag <= n - 1)
     a subtraction, two multiplications, a comparison and a selection; the
-    cumsums of those rows and the [B] vectors read once."""
+    cumsums of those rows and the [B] vectors read once.  The masked rows
+    bit for bit equal to the plain version on them, the others
+    untouched."""
     from canvas_tpu_torch.ops import cbs_stats_cuda as st
 
+    args, kw = rec
     cs, n, _tss, lag_hi, _best, bl0, _ti0, _tj0, npad, al0 = args
+    mask, out = kw.get("mask"), kw.get("out")
     B = cs.shape[0]
+    rows = _rows_of(mask, B, cs.device)
     sub = min(32, npad)
-    hits = [r for r, b0 in enumerate(bl0.tolist()) if b0 >= 0]
     n_h, lh_h, b0_h = n.tolist(), lag_hi.tolist(), bl0.tolist()
+    hits = [r for r in rows.tolist() if b0_h[r] >= 0]
     pairs = sum(max(0, n_h[r] - lag) for r in hits
                 for lag in range(max(b0_h[r], al0),
                                  min(b0_h[r] + sub - 1, lh_h[r]) + 1))
-    res = kernel_case("K10", st.refine, st.refine_plain, args,
-                      4 * npad * len(hits) + 40 * B, 5 * pairs, reps=20)
-    return {"rows": B, "npad": npad, "rows_with_a_sub_block": len(hits),
-            "pairs": pairs, **res}
+    before = [o.clone() for o in out] if out is not None else None
+    dest = [o.clone() for o in out] if out is not None else None
+    got = st.refine(*args, mask=mask, out=dest)
+    want = st.refine_plain(*[a[rows] for a in args[:8]], npad, al0)
+    torch.cuda.synchronize()
+    ok = all(bits_equal(a[rows], b) for a, b in zip(got, want))
+    if before is not None and mask is not None:
+        ok = ok and all(bits_equal(a[~mask], b[~mask])
+                        for a, b in zip(got, before))
+    if not ok:
+        fail(f"K10 differs from its plain version at {B} x {npad}")
+    res = timed_pair(
+        lambda: st.refine(*args, mask=mask, out=dest),
+        lambda: st.refine_plain(*[a[rows] for a in args[:8]], npad, al0),
+        4 * npad * len(hits) + 40 * len(rows), 5 * pairs, reps=20)
+    return {"rows": B, "masked": len(rows), "npad": npad,
+            "rows_with_a_sub_block": len(hits), "pairs": pairs, **res}
 
 
 def k11_case(args, erfc: dict, term: dict) -> dict:
@@ -2197,11 +2636,11 @@ def phase_cbs_stats(workdir: Path, dev: torch.device, erfc: dict,
     against its plain version on the card; then K10 and K11 on a fully
     live level (live_level), and the earlier designs' times beside this
     run's."""
-    from canvas_tpu_torch.ops import cbs_device, cbs_mega
+    from canvas_tpu_torch.ops import cbs_device
 
     cov = panel_coverage(workdir)
     got = capture_stats_inputs(
-        lambda: cbs_mega.run_cbs_mega(cov, device=dev),
+        lambda: eager_mega(cov, dev),
         lambda: cbs_device.run_cbs_device(cov, device=dev))
     source = {k: "panel" for k in ("level", "chunk") if k in got}
     if len(source) < 2:
@@ -2220,7 +2659,7 @@ def phase_cbs_stats(workdir: Path, dev: torch.device, erfc: dict,
            for k in ("level", "chunk") if k in got}
     k11 = k11_case(got["tail_p"], erfc, term)
     refine_args, tail_args = live_level(dev)
-    live10 = k10_case(refine_args)
+    live10 = k10_case((refine_args, {}))
     live11 = k11_case(tail_args, erfc, term)
     if live10["rows_with_a_sub_block"] != 32 or live11["rows_live"] != 32:
         fail(f"the live level has {live10['rows_with_a_sub_block']} rows "
@@ -3061,21 +3500,29 @@ def main() -> int:
         {"name": "arc_scan", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/arc_scan.cu",
          "replaces": "canvas_tpu/ops/cbs_device.py:200",
-         "launches": enr["launches"]["arc_scan"],
+         "launches": enr["traced_launches"]["arc_scan"],
          **_timing(top), "max_abs_err": max(sh["max_abs_err"]
                                             for sh in b4["shapes"])},
         *[{"name": name, "route": "cuda",
            "source": "canvas_tpu_torch/csrc/cbs_mega.cu",
            "replaces": f"canvas_tpu/ops/cbs_mega.py:{line}",
-           "launches": enr["launches"][name], **_timing(mega[key])}
+           "launches": enr["traced_launches"][name], **_timing(mega[key])}
           for name, line, key in (("walk", 419, "K7"), ("edge", 217, "K8"))],
         *[{"name": name, "route": "cuda",
            "source": "canvas_tpu_torch/csrc/cbs_stats.cu",
            "replaces": f"canvas_tpu/ops/cbs_device.py:{line}",
-           "launches": enr["launches"][name], **_timing(res)}
+           "launches": enr["traced_launches"][name], **_timing(res)}
           for name, line, res in (("arc_inputs", 382, stats["K9_top"]),
                                   ("refine", 421, stats["K10_top"]),
                                   ("tail_p", 497, stats["K11"]))],
+        *[{"name": name, "route": "cuda",
+           "source": "canvas_tpu_torch/csrc/cbs_level.cu",
+           "replaces": f"canvas_tpu/ops/cbs_mega.py:{line}",
+           "launches": enr["traced_launches"][name], **_timing(mega[key])}
+          for name, line, key in (("prologue", 335, "K13"),
+                                  ("decide", 399, "K14"),
+                                  ("edge_setup", 174, "K15"),
+                                  ("table", 468, "K16"))],
         {"name": "perm_stats", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/cbs_mega.cu",
          "replaces": "canvas_tpu/ops/cbs_device.py:661",

@@ -130,8 +130,8 @@ def b4(seed: int, dev: torch.device) -> None:
                 cuda_lib.check(lib.arc_scan(
                     cs.data_ptr(), n.data_ptr(), lag_hi.data_ptr(),
                     seed_v.data_ptr(), psd2.data_ptr(), scratch.data_ptr(),
-                    best.data_ptr(), bl0.data_ptr(), B, npad, 2,
-                    cuda_lib.current_stream(dev)), label)
+                    best.data_ptr(), bl0.data_ptr(), B, npad, 2, npad,
+                    None, None, cuda_lib.current_stream(dev)), label)
             run()
             torch.cuda.synchronize()
             runs[label] = (run, torch.equal(best.view(torch.int32),

@@ -1,0 +1,405 @@
+"""The whole-recursion CBS engine's level body on the CPU: the plain
+versions of kernels K13-K16 (ops/cbs_level_cuda.py) against the torch glue
+they replaced in ops/cbs_mega.py's level loop, on every level of engine
+runs at small sizes from a numpy seed; the table after the run's end, the
+table's overflow, and the replay schedule.
+
+The replaced glue is kept here as it was (_old_level), level body and
+edge-test set-up, and driven from each recorded table: every value it
+computed must equal the plain versions' bit for bit."""
+
+import numpy as np
+import pytest
+import torch
+
+from canvas_tpu_torch.ops import cbs as _cbs
+from canvas_tpu_torch.ops import cbs_level_cuda as cl
+from canvas_tpu_torch.ops import cbs_mega as tmega
+from canvas_tpu_torch.ops import cbs_mega_cuda
+from canvas_tpu_torch.ops.cbs_device import (_cumsum, _gather_center,
+                                             _tail_p_batch_dev, tmax_batch)
+
+torch.set_num_threads(1)
+
+N_PERM = 500
+AL0, KMAX, N_MIN, N_GRID = 2, 25, 200, 100
+
+
+def _old_edge_tests(x, n, i1, i2, test_both, key0, seg_c, seg_lo, alpha,
+                    n_perm, Tmax):
+    """ops/cbs_mega.py's _edge_tests as it was before K15."""
+    W = x.shape[0]
+    dev = x.device
+    wn = torch.cat([i2, n - i1])
+    n1 = torch.cat([i1, i2 - i1])
+    mask = torch.cat([test_both, test_both])
+    pos = torch.arange(Tmax, device=dev)[None, :]
+    x2 = torch.nn.functional.pad(x, (0, Tmax))
+    xe2 = x2.gather(1, torch.clamp(i1, 0, Tmax)[:, None] + pos)
+    xw = torch.where(pos < wn[:, None], torch.cat([x, xe2]), 0.0)
+    n2 = wn - n1
+    wnf = wn.to(torch.float32)
+
+    def fsum(v):
+        return v.double().sum(dim=-1).float()
+
+    xsum1 = fsum(torch.where(pos < n1[:, None], xw, 0.0))
+    xsum = fsum(xw)
+    xbar = xsum / torch.clamp(wnf, min=1.0)
+    tss = fsum(xw * xw) - wnf * xbar * xbar
+    m1 = torch.minimum(n1, n2)
+    m1f = torch.clamp(m1, min=1).to(torch.float32)
+    mean_small = torch.where(n1 <= n2, xsum1 / torch.clamp(n1, min=1),
+                             (xsum - xsum1) / torch.clamp(n2, min=1))
+    ostat = 0.99999 * (mean_small - xbar).abs()
+    tstat = ostat * ostat * m1f * wnf / torch.clamp(wnf - m1f, min=1.0)
+    tstat = tstat / (torch.clamp(tss - tstat, min=1e-30)
+                     / torch.clamp(wnf - 2.0, min=1.0))
+    degen = (n1 <= 1) | (n2 <= 1)
+    quick0 = (tstat > 25.0) & (m1 >= 10)
+    limit = alpha * n_perm
+    active = mask & ~degen & ~quick0
+    count, cnt = cbs_mega_cuda.edge_counts(xw, wn, m1, xbar, ostat, active,
+                                           key0, seg_c, seg_lo, n, limit,
+                                           n_perm)
+    p = count.to(torch.float32) / n_perm
+    keep = torch.where(degen, False, torch.where(quick0, True, p <= alpha))
+    lanes = {"xw": xw, "wn": wn, "m1": m1, "xbar": xbar, "ostat_e": ostat,
+             "degen": degen, "quick0": quick0, "active": active,
+             "limit": limit}
+    return keep[:W], keep[W:], cnt.sum(), lanes, (count, cnt)
+
+
+def _old_level(contigs, seg_c0, seg_lo0, seg_hi0, pending0, nseg, overflow,
+               tally, key0, sbdry, alpha, S, W, Tmax):
+    """One level of ops/cbs_mega.py's _mega_recurse as it was before
+    K13-K16 (its read and the loop left out): every value it computed, and
+    the table after it."""
+    dev = contigs.device
+    tiers = tmega._tiers(Tmax)
+    big = torch.finfo(torch.float32).max
+    pos = torch.arange(Tmax, device=dev)[None, :]
+    fsel = torch.argsort((~pending0).to(torch.int32), stable=True)[:W]
+    seg_c, seg_lo, seg_hi = seg_c0[fsel], seg_lo0[fsel], seg_hi0[fsel]
+    pending = pending0[fsel]
+    n = seg_hi - seg_lo
+    contig = torch.clamp(seg_c, min=0)
+    x, tss = _gather_center(contigs, contig, seg_lo, n, Tmax)
+    valid = pos < n[:, None]
+    wmax = torch.where(valid, x, -big).amax(dim=1)
+    wmin = torch.where(valid, x, big).amin(dim=1)
+    analyzable = pending & (n >= 2 * AL0) & (wmax > wmin)
+    n_eff = torch.where(analyzable, n, 2)
+    in_tiers = [analyzable & (n_eff <= w) & (n_eff > (tiers[t - 1]
+                                                     if t else 0))
+                for t, w in enumerate(tiers)]
+    x = torch.where(analyzable[:, None], x, 0.0)
+    tss = torch.where(analyzable, tss, 0.0)
+    cs = _cumsum(x)
+    t2 = torch.zeros(W, dtype=torch.float32, device=dev)
+    ti = torch.ones(W, dtype=torch.int64, device=dev)
+    tj = torch.full((W,), 2, dtype=torch.int64, device=dev)
+    for t, w in enumerate(tiers):
+        if not bool(in_tiers[t].any()):
+            continue
+        in_tier = in_tiers[t]
+        r0, r1, r2 = tmax_batch(
+            torch.where(in_tier[:, None], cs[:, :w], 0.0),
+            torch.where(in_tier, n_eff, 2),
+            torch.where(in_tier, tss, 0.0), w, AL0)
+        t2 = torch.where(in_tier, r0, t2)
+        ti = torch.where(in_tier, r1.to(torch.int64), ti)
+        tj = torch.where(in_tier, r2.to(torch.int64), tj)
+    ostat1 = torch.sqrt(torch.clamp(t2, min=0.0))
+    ostat = 0.99999 * t2
+    b = ostat1.double()
+    p1 = _tail_p_batch_dev(b, n_eff, KMAX, N_GRID).float()
+    larc = torch.minimum(tj - ti, n - tj + ti)
+    considered = analyzable & (ostat1 > 0.1)
+    trivial = considered & (ostat1 >= 7.0) & (larc >= 10)
+    hybrid = n > N_MIN
+    tail_ok = torch.where(hybrid, p1 <= alpha, True)
+    needs = considered & ~trivial & tail_ok
+    nrejc = torch.where(
+        hybrid, ((alpha - p1) * N_PERM).to(torch.int32),
+        (alpha * float(N_PERM)).to(torch.int32)).to(torch.int64)
+    walked, wchunks = cbs_mega_cuda.walk(
+        x, n_eff, tss, key0, contig, seg_lo, needs, hybrid, ostat, nrejc,
+        sbdry, N_PERM, AL0, KMAX, N_MIN)
+    accepted = trivial | walked
+    at_end = tj >= n
+    at_start = ti <= 0
+    test_both = accepted & ~at_end & ~at_start
+    keep1t, keep2t, echunks, lanes, k8 = _old_edge_tests(
+        x, n, ti, tj, test_both, key0, contig, seg_lo, alpha, N_PERM, Tmax)
+    keep1 = torch.where(test_both, keep1t, at_end & ~at_start)
+    keep2 = torch.where(test_both, keep2t, at_start & ~at_end)
+    split1 = accepted & keep1
+    split2 = accepted & keep2 & (tj < n)
+    tally = tally + torch.stack([(walked & needs).sum(),
+                                 (needs & ~walked).sum(),
+                                 wchunks.sum(), echunks])
+    nsplits = split1.to(torch.int64) + split2.to(torch.int64)
+    has_child = nsplits > 0
+    first_cut = torch.where(split1, ti, tj)
+    second_cut = torch.where(split1 & split2, tj, n)
+    extra = torch.where(has_child, 1 + (nsplits == 2).to(torch.int64), 0)
+    base = nseg + torch.cumsum(extra, dim=0) - extra
+    idx_a = torch.where(extra >= 1, base, S)
+    idx_b = torch.where(extra == 2, base + 1, S)
+    seg_hi0 = seg_hi0.clone()
+    seg_hi0[fsel] = torch.where(has_child, seg_lo + first_cut, seg_hi)
+    pending0 = pending0.clone()
+    pending0[fsel] = pending & analyzable & has_child
+    for idx, lo_cut, hi_cut in ((idx_a, first_cut, second_cut),
+                                (idx_b, second_cut, n)):
+        seg_c0 = cl._drop_set(seg_c0, idx, seg_c)
+        seg_lo0 = cl._drop_set(seg_lo0, idx, seg_lo + lo_cut)
+        seg_hi0 = cl._drop_set(seg_hi0, idx, seg_lo + hi_cut)
+        pending0 = cl._drop_set(pending0, idx, torch.ones_like(pending))
+    nseg = nseg + extra.sum()
+    overflow = overflow | (nseg > S)
+    return {"K13": {"fsel": fsel, "contig": contig, "seg_lo": seg_lo,
+                    "n": n, "pending": pending, "analyzable": analyzable,
+                    "n_eff": n_eff, "x": x, "tss": tss, "cs": cs,
+                    "in_tier": torch.stack(in_tiers)},
+            "tiers": {"t2": t2, "ti": ti, "tj": tj},
+            "K14": {"b": b, "ostat": ostat, "hybrid": hybrid,
+                    "needs": needs, "trivial": trivial, "nrejc": nrejc},
+            "K7": (walked, wchunks),
+            "K15": {**lanes, "accepted": accepted, "test_both": test_both},
+            "K8": k8,
+            "K15 keep": {"keep1": keep1, "keep2": keep2,
+                         "echunks": echunks},
+            "K16": {"seg_c0": seg_c0, "seg_lo0": seg_lo0,
+                    "seg_hi0": seg_hi0, "pending0": pending0, "nseg": nseg,
+                    "overflow": overflow, "tally": tally}}
+
+
+def _new_level(contigs, tab, pending0, key0, sbdry, alpha, S, W, Tmax):
+    """The same level through the plain versions of K13-K16 and the
+    tier-masked K9, B4 and K10 (CPU tensors): every value, and the table
+    after it."""
+    lv = cl.prologue_plain(contigs, tab, pending0, W, AL0)
+    out = {"K13": dict(lv)}
+    t2, ti, tj = lv["t2"].clone(), lv["ti"].clone(), lv["tj"].clone()
+    for t, w in enumerate(cl.tier_widths(Tmax)):
+        tmax_batch(lv["cs"][:, :w], lv["n_eff"], lv["tss"], w, AL0,
+                   mask=lv["in_tier"][t], out=(t2, ti, tj))
+    out["tiers"] = {"t2": t2, "ti": ti, "tj": tj}
+    b = cl.decide_prep_plain(t2)
+    p1 = _tail_p_batch_dev(b, lv["n_eff"], KMAX, N_GRID)
+    dec = cl.decide_plain(t2, ti, tj, lv["n"], lv["analyzable"], p1, alpha,
+                          N_PERM, N_MIN)
+    out["K14"] = {"b": b, **dec}
+    walked, wchunks = cbs_mega_cuda.walk(
+        lv["x"], lv["n_eff"], lv["tss"], key0, lv["contig"], lv["seg_lo"],
+        dec["needs"], dec["hybrid"], dec["ostat"], dec["nrejc"], sbdry,
+        N_PERM, AL0, KMAX, N_MIN)
+    out["K7"] = (walked, wchunks)
+    setup = cl.edge_setup_plain(lv["x"], lv["n"], ti, tj, dec["trivial"],
+                                walked, alpha, N_PERM, Tmax)
+    out["K15"] = setup
+    count, cnt = cbs_mega_cuda.edge_counts(
+        setup["xw"], setup["wn"], setup["m1"], setup["xbar"],
+        setup["ostat_e"], setup["active"], key0, lv["contig"], lv["seg_lo"],
+        lv["n"], setup["limit"], N_PERM)
+    out["K8"] = (count, cnt)
+    keep = cl.edge_keep_plain(count, cnt, setup["degen"], setup["quick0"],
+                              setup["test_both"], ti, tj, lv["n"], alpha,
+                              N_PERM)
+    out["K15 keep"] = keep
+    rows = {**lv, "ti": ti, "tj": tj, **dec, **setup, **keep}
+    new_tab, new_pending = cl.table_update_plain(tab, pending0, rows, walked,
+                                                 wchunks, tmega._MAX_LEVELS)
+    ctl = new_tab[3 * S:]
+    out["K16"] = {"seg_c0": new_tab[:S], "seg_lo0": new_tab[S:2 * S],
+                  "seg_hi0": new_tab[2 * S:3 * S], "pending0": new_pending,
+                  "nseg": ctl[cl.NSEG], "overflow": ctl[cl.OVERFLOW] != 0,
+                  "tally": ctl[cl.TALLY:]}
+    out["ctl"] = ctl
+    return out
+
+
+def _bits(a, b) -> bool:
+    if torch.is_tensor(a) and a.dtype in (torch.float32, torch.float64):
+        w = torch.int32 if a.dtype == torch.float32 else torch.int64
+        return b.dtype == a.dtype and torch.equal(a.view(w), b.view(w))
+    return torch.equal(torch.as_tensor(a).long(), torch.as_tensor(b).long())
+
+
+def _coverage(which: str) -> dict:
+    rng = np.random.default_rng(21 if which == "steps" else 22)
+    if which == "steps":
+        # three contigs at Tmax 2,048: strong, weak and interior steps
+        cov = {}
+        for c, (n, events) in enumerate((
+                (1800, ((300, 700, 3.0), (1200, 1260, -4.0))),
+                (1400, ((500, 560, 0.7),)),
+                (1000, ((350, 650, 0.35), (900, 1000, 2.5))))):
+            r = rng.normal(0, 1, n)
+            for s, e, d in events:
+                r[s:e] += d
+            cov[f"chr{c}"] = r
+        return cov
+    # two short contigs and a flat one (never analysed)
+    cov = {"a": rng.normal(0, 1, 700), "b": rng.normal(0, 1, 300),
+           "flat": np.full(500, 2.0)}
+    cov["a"][100:400] += 2.0
+    cov["b"][150:160] -= 6.0
+    return cov
+
+
+@pytest.fixture(scope="module", params=["steps", "short"])
+def levels(request):
+    """Each level of an engine run on CPU tensors: its table before and
+    after, from K13's and K16's wrappers; and the run's inputs."""
+    cov = _coverage(request.param)
+    recs, tables = [], []
+    orig_pro, orig_tab = cl.prologue, cl.table_update
+
+    def prologue(contigs, tab, pending0, lv, al0):
+        recs.append((contigs.clone(), tab.clone(), pending0.clone()))
+        return orig_pro(contigs, tab, pending0, lv, al0)
+
+    def table_update(tab, pending0, lv, walked, wchunks, max_levels):
+        orig_tab(tab, pending0, lv, walked, wchunks, max_levels)
+        tables.append((tab.clone(), pending0.clone()))
+
+    cl.prologue, cl.table_update = prologue, table_update
+    key0 = torch.tensor([0, 0])
+    try:
+        counts: dict = {}
+        tmega.run_cbs_mega(cov, n_perm=N_PERM, device="cpu", counts=counts)
+    finally:
+        cl.prologue, cl.table_update = orig_pro, orig_tab
+    sbdry = torch.as_tensor(np.asarray(_cbs.compute_boundary(
+        N_PERM, _cbs.DEFAULT_ALPHA, _cbs.DEFAULT_ETA), np.int64))
+    alpha = torch.tensor(_cbs.DEFAULT_ALPHA, dtype=torch.float32)
+    assert len(recs) == len(tables) == counts["levels"] >= 2
+    out = []
+    for (contigs, tab, pending0), after in zip(recs, tables):
+        S = pending0.shape[0]
+        Tmax = contigs.shape[1]
+        W = min(S, max(32, S // 2))
+        ctl = tab[3 * S:]
+        old = _old_level(contigs, tab[:S], tab[S:2 * S], tab[2 * S:3 * S],
+                         pending0, ctl[cl.NSEG], ctl[cl.OVERFLOW] != 0,
+                         ctl[cl.TALLY:], key0, sbdry, alpha, S, W, Tmax)
+        new = _new_level(contigs, tab, pending0, key0, sbdry, alpha, S, W,
+                         Tmax)
+        out.append((old, new, after, S))
+    return out
+
+
+@pytest.mark.parametrize("part", ["K13", "tiers", "K14", "K7", "K15", "K8",
+                                  "K15 keep", "K16"])
+def test_plain_versions_equal_replaced_glue(levels, part):
+    """Each plain version (and the tier-masked K9, B4, K10; K7 and K8 on
+    their inputs) computes what the replaced glue computed, bit for bit,
+    on every level of the run."""
+    for old, new, _after, _S in levels:
+        o, n = old[part], new[part]
+        if isinstance(o, dict):
+            for k, v in o.items():
+                assert _bits(v, n[k]), (part, k)
+        else:
+            for a, b in zip(o, n):
+                assert _bits(a, b), part
+
+
+def test_engine_tables_follow_the_glue(levels):
+    """The engine's table after each level is the replaced glue's, with
+    the level count and live: the next level's, or 0 after the last."""
+    for i, (old, new, (tab, pending0), S) in enumerate(levels):
+        assert torch.equal(tab, torch.cat([new["K16"]["seg_c0"],
+                                           new["K16"]["seg_lo0"],
+                                           new["K16"]["seg_hi0"],
+                                           new["ctl"]]))
+        assert torch.equal(pending0, old["K16"]["pending0"])
+        assert int(tab[3 * S + cl.LEVEL]) == i + 1
+        last = i == len(levels) - 1
+        assert int(tab[3 * S + cl.LIVE]) == (0 if last else 1)
+    assert not bool(levels[-1][2][1].any())     # the last level: no pending
+
+
+def test_level_after_the_end_changes_nothing():
+    """After a run live is 0: another level (every plain version behind
+    its wrapper) leaves the table, its control words and the pending
+    flags as they are."""
+    counts: dict = {}
+    tmega.run_cbs_mega(_coverage("short"), n_perm=N_PERM, device="cpu",
+                       counts=counts)
+    eng = next(reversed(tmega._ENGINES.values()))
+    tab, pend = eng.tab.clone(), eng.pending0.clone()
+    assert int(tab[3 * eng.S + cl.LIVE]) == 0
+    assert int(tab[3 * eng.S + cl.LEVEL]) == counts["levels"]
+    eng.level()
+    assert torch.equal(eng.tab, tab) and torch.equal(eng.pending0, pend)
+
+
+def test_one_engine_a_device():
+    """A device keeps one engine: a run at the same shape reuses it (its
+    buffers and, on the card, its graph), a run at another shape (here
+    another Tmax) replaces it, and the segments stay the same."""
+    cpu = torch.device("cpu")
+    first = tmega.run_cbs_mega(_coverage("short"), n_perm=N_PERM,
+                               device="cpu")
+    eng = tmega._ENGINES[cpu]
+    tmega.run_cbs_mega(_coverage("short"), n_perm=N_PERM, device="cpu")
+    assert tmega._ENGINES[cpu] is eng
+    tmega.run_cbs_mega(_coverage("steps"), n_perm=N_PERM, device="cpu")
+    assert list(tmega._ENGINES) == [cpu]
+    assert tmega._ENGINES[cpu] is not eng
+    assert tmega._ENGINES[cpu].Tmax == 2048 and eng.Tmax == 1024
+    again = tmega.run_cbs_mega(_coverage("short"), n_perm=N_PERM,
+                               device="cpu")
+    assert tmega._ENGINES[cpu].Tmax == 1024
+    for k in first:
+        np.testing.assert_array_equal(first[k], again[k])
+
+
+def test_table_overflow_drops_appends_and_ends_the_run():
+    """K16's plain version: children past the table's S slots are
+    dropped, nseg counts them all, overflow is set and live cleared."""
+    S, W = 8, 4
+    tab = torch.zeros(3 * S + cl.CTL, dtype=torch.int64)
+    tab[:S] = torch.tensor([0, 1, 2, 3, 4, 5, 6, -1])
+    tab[2 * S:3 * S] = torch.tensor([100] * 7 + [0])
+    ctl = tab[3 * S:]
+    ctl[cl.NSEG], ctl[cl.LIVE] = 7, 1
+    pending0 = torch.tensor([True] * 4 + [False] * 4)
+    lv = {"fsel": torch.arange(W), "contig": torch.arange(W),
+          "seg_lo": torch.zeros(W, dtype=torch.int64),
+          "n": torch.full((W,), 100), "pending": torch.ones(W, dtype=bool),
+          "analyzable": torch.ones(W, dtype=bool),
+          "accepted": torch.tensor([True, True, False, True]),
+          "keep1": torch.ones(W, dtype=bool),
+          "keep2": torch.ones(W, dtype=bool),
+          "ti": torch.full((W,), 30, dtype=torch.int32),
+          "tj": torch.full((W,), 60, dtype=torch.int32),
+          "needs": torch.zeros(W, dtype=bool),
+          "echunks": torch.tensor(0)}
+    new_tab, new_pending = cl.table_update_plain(
+        tab, pending0, lv, torch.zeros(W, dtype=bool),
+        torch.zeros(W, dtype=torch.int64), 128)
+    c = new_tab[3 * S:]
+    assert int(c[cl.NSEG]) == 7 + 6 and int(c[cl.OVERFLOW]) == 1
+    assert int(c[cl.LIVE]) == 0 and int(c[cl.LEVEL]) == 1
+    assert int(new_tab[7]) == 0 and int(new_tab[2 * S + 7]) == 60
+    assert new_pending.tolist() == [True, True, False, True, False, False,
+                                    False, True]
+    assert new_tab[2 * S:2 * S + 4].tolist() == [30, 30, 100, 30]
+
+
+@pytest.mark.parametrize("max_levels,want", [
+    (128, [4, 8, 16, 32, 64, 4]), (1, [1]), (20, [4, 8, 8])])
+def test_replay_batches(max_levels, want):
+    assert list(tmega._batches(max_levels)) == want
+
+
+def test_missing_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="is_available"):
+        tmega.run_cbs_mega({"chr1": np.zeros(100)}, device="cuda")

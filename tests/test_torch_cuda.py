@@ -541,19 +541,21 @@ def test_arc_scan_kernel_at_every_mega_tier(dev, npad):
 
 
 def test_mega_engine_on_card_equals_cpu(dev):
-    """The whole-recursion engine on CUDA tensors (B4, K7, K8) and on CPU
-    tensors (their plain versions): equal segments, walks and edge tests
-    on both, one launch of K7 and of K8 a level, and at most one read
-    from the card a level and one more: under CUDA's sync debug mode the
-    run's synchronising calls are its SYNCS reads and its four set-up
-    copies, so no walk or edge loop reads."""
+    """The whole-recursion engine on CUDA tensors (its kernels, the level
+    replayed from a CUDA graph) and on CPU tensors (their plain versions):
+    equal segments, walks and edge tests on both, one launch of K7 and of
+    K8 a replayed level, and at most 2 reads from the card a run: under
+    CUDA's sync debug mode the run's synchronising calls are its SYNCS
+    reads and its four set-up copies, so nothing in a level reads."""
     import warnings
 
     from canvas_tpu_torch.ops import arc_scan_cuda, cbs_mega, cbs_mega_cuda
 
     cov = _cbs_panel()
     counts = {"cuda": {}, "cpu": {}}
+    cbs_mega.run_cbs_mega(cov, n_perm=1000, device=dev)    # the capture
     before = arc_scan_cuda.LAUNCHES["arc_scan"]
+    r0 = cbs_mega.GRAPHS["replays"]
     k_before = dict(cbs_mega_cuda.LAUNCHES)
     s0 = cbs_mega.SYNCS["cbs_mega"]
     torch.cuda.synchronize()
@@ -567,6 +569,7 @@ def test_mega_engine_on_card_equals_cpu(dev):
         torch.cuda.set_sync_debug_mode("default")
     syncs = cbs_mega.SYNCS["cbs_mega"] - s0
     launches = arc_scan_cuda.LAUNCHES["arc_scan"] - before
+    replays = cbs_mega.GRAPHS["replays"] - r0
     want = cbs_mega.run_cbs_mega(cov, n_perm=1000, device="cpu",
                                  counts=counts["cpu"])
     for k in cov:
@@ -575,10 +578,11 @@ def test_mega_engine_on_card_equals_cpu(dev):
     assert counts["cuda"] == counts["cpu"]
     assert counts["cuda"]["walk_chunks"] >= 1
     levels = counts["cuda"]["levels"]
-    assert launches >= levels - 1 >= 1
+    assert replays >= levels >= 2
+    assert launches == replays * len(cbs_mega._tiers(4096))
     for k in ("walk", "edge"):
-        assert cbs_mega_cuda.LAUNCHES[k] - k_before[k] == levels
-    assert syncs <= levels + 1
+        assert cbs_mega_cuda.LAUNCHES[k] - k_before[k] == replays
+    assert syncs <= 2
     hidden = [str(w.message) for w in caught
               if "synchronizing" in str(w.message)]
     assert len(hidden) == syncs + 4, (syncs, hidden[:3])
@@ -1552,9 +1556,10 @@ def test_frontier_level_reads_nothing_before_its_output(dev):
 
 
 def test_engines_launch_the_statistics_kernels(dev):
-    """On the card the whole-recursion engine takes K9, B4 and K10 for
-    every non-empty tier and K11 once a level; the frontier engine the
-    same for every bucket, and K12 for its permutation chunks."""
+    """On the card the whole-recursion engine's replayed level takes K9,
+    B4 and K10 for every tier (a tier without a row returns at once) and
+    K11 once; the frontier engine the same for every bucket, and K12 for
+    its permutation chunks."""
     from canvas_tpu_torch.ops import (arc_scan_cuda, cbs_device, cbs_mega,
                                       cbs_mega_cuda, cbs_stats_cuda)
 
@@ -1571,10 +1576,14 @@ def test_engines_launch_the_statistics_kernels(dev):
 
     cov = _cbs_panel()
     counts: dict = {}
+    cbs_mega.run_cbs_mega(cov, n_perm=1000, device=dev)    # the capture
+    r0 = cbs_mega.GRAPHS["replays"]
     _lens, d = counted(lambda: cbs_mega.run_cbs_mega(
         cov, n_perm=1000, device=dev, counts=counts))
-    assert d["arc_inputs"] == d["refine"] == d["arc_scan"] >= 1
-    assert d["tail_p"] == counts["levels"] and d["perm"] == 0
+    replays = cbs_mega.GRAPHS["replays"] - r0
+    assert d["arc_inputs"] == d["refine"] == d["arc_scan"] \
+        == replays * len(cbs_mega._tiers(4096))
+    assert d["tail_p"] == replays >= counts["levels"] and d["perm"] == 0
     levels: list = []
     _lens, d = counted(lambda: cbs_device.run_cbs_device(
         cov, n_perm=1000, device=dev, levels=levels))
@@ -1876,3 +1885,205 @@ def test_statistics_kernels_keep_their_state_per_card(dev):
     for d, state in zip(cards, states):
         assert all(state[k].device == d for k in ("table", "count", "key"))
     assert torch.cuda.current_device() == 0
+
+
+# --- the whole-recursion engine's level body (K13-K16) and its graph ------
+
+def _bench_cbs(B=24, T=16 * 1024):
+    """bench.py's CBS workload: B contigs of T bins of N(0, 1) from
+    default_rng(1), +1.5 on [T/4, T/3) and -1.2 on [T/2, T/2 + 600)."""
+    rng = np.random.default_rng(1)
+    cov = {}
+    for b in range(B):
+        c = rng.normal(0.0, 1.0, size=T)
+        c[T // 4: T // 3] += 1.5
+        c[T // 2: T // 2 + 600] -= 1.2
+        cov[f"chr{b}"] = c
+    return cov
+
+
+_LEVEL_WRAPPERS = ("prologue", "decide_prep", "decide", "edge_setup",
+                   "edge_keep", "table_update")
+
+
+def _run_mega(cov, dev, graph=True, **kw):
+    """run_cbs_mega over cov on dev; graph=False runs its levels eagerly
+    (the engine's _mega_recurse bound with graph=False for the call)."""
+    import functools
+
+    from canvas_tpu_torch.ops import cbs_mega
+
+    orig = cbs_mega._mega_recurse
+    if not graph:
+        cbs_mega._mega_recurse = functools.partial(orig, graph=False)
+    try:
+        return cbs_mega.run_cbs_mega(cov, device=dev, **kw)
+    finally:
+        cbs_mega._mega_recurse = orig
+
+
+def _clone(a):
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, dict):
+        return {k: v.clone() for k, v in a.items()}
+    return a
+
+
+def _level_records(cov, dev, **kw):
+    """The arguments (cloned) of every call of K13-K16's wrappers during
+    an eager run of the whole-recursion engine on the card, by wrapper."""
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
+
+    recs = {k: [] for k in _LEVEL_WRAPPERS}
+    orig = {k: getattr(cl, k) for k in _LEVEL_WRAPPERS}
+
+    def recorder(name):
+        def call(*args):
+            recs[name].append([_clone(a) for a in args])
+            return orig[name](*args)
+        return call
+
+    for k in _LEVEL_WRAPPERS:
+        setattr(cl, k, recorder(k))
+    try:
+        _run_mega(cov, dev, graph=False, **kw)
+    finally:
+        for k in _LEVEL_WRAPPERS:
+            setattr(cl, k, orig[k])
+    return recs
+
+
+def _assert_bits(got: dict, want: dict, what: str):
+    for k, v in want.items():
+        assert _bits_equal(got[k], v), f"{what}: {k}"
+
+
+@pytest.mark.parametrize("which", ["panel", "bench"])
+def test_level_kernels_match_plain(dev, which):
+    """K13-K16 on every level of an eager engine run on the card (the
+    card tests' panel, bench.py's CBS workload), each on its recorded
+    inputs, bit for bit equal to its plain version on the same inputs."""
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
+
+    cov = _cbs_panel() if which == "panel" else _bench_cbs()
+    recs = _level_records(cov, dev, n_perm=1000)
+    assert all(len(v) >= 2 for v in recs.values()), \
+        {k: len(v) for k, v in recs.items()}
+    for contigs, tab, pending0, lv, al0 in recs["prologue"]:
+        W = lv["x"].shape[0]
+        cl.prologue(contigs, tab, pending0, lv, al0)
+        _assert_bits(lv, cl.prologue_plain(contigs, tab, pending0, W, al0),
+                     "K13")
+    for tab, S, lv, alpha in recs["decide_prep"]:
+        cl.decide_prep(tab, S, lv, alpha)
+        assert _bits_equal(lv["b"], cl.decide_prep_plain(lv["t2"]))
+    for tab, S, lv, p1, alpha, n_perm, n_min in recs["decide"]:
+        cl.decide(tab, S, lv, p1, alpha, n_perm, n_min)
+        _assert_bits(lv, cl.decide_plain(lv["t2"], lv["ti"], lv["tj"],
+                                         lv["n"], lv["analyzable"], p1,
+                                         alpha, n_perm, n_min), "K14")
+    for tab, S, lv, walked, alpha, n_perm in recs["edge_setup"]:
+        cl.edge_setup(tab, S, lv, walked, alpha, n_perm)
+        _assert_bits(lv, cl.edge_setup_plain(
+            lv["x"], lv["n"], lv["ti"], lv["tj"], lv["trivial"], walked,
+            alpha, n_perm, lv["x"].shape[1]), "K15")
+    for tab, S, lv, count, cnt, alpha, n_perm in recs["edge_keep"]:
+        cl.edge_keep(tab, S, lv, count, cnt, alpha, n_perm)
+        _assert_bits(lv, cl.edge_keep_plain(
+            count, cnt, lv["degen"], lv["quick0"], lv["test_both"], lv["ti"],
+            lv["tj"], lv["n"], alpha, n_perm), "K15 keep")
+    for tab, pending0, lv, walked, wchunks, max_levels in \
+            recs["table_update"]:
+        want = cl.table_update_plain(tab, pending0, lv, walked, wchunks,
+                                     max_levels)
+        cl.table_update(tab, pending0, lv, walked, wchunks, max_levels)
+        assert torch.equal(tab, want[0]) and torch.equal(pending0, want[1])
+    torch.cuda.synchronize()
+
+
+def test_tier_masked_tmax_equals_copied_tier(dev):
+    """K9, B4 and K10 under a tier's row mask, reading the [W, Tmax]
+    cumsum at its row stride and writing t2, ti, tj in place: the rows in
+    the tier equal the call on the tier's zeroed copy (the engine's
+    earlier form), the other rows are untouched; on every level of the
+    card tests' panel and at every tier."""
+    from canvas_tpu_torch.ops import cbs_device
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
+
+    recs = _level_records(_cbs_panel(), dev, n_perm=1000)
+    live = torch.ones((), dtype=torch.int64, device=dev)
+    tiers_hit = set()
+    for contigs, tab, pending0, lv, al0 in recs["prologue"]:
+        cl.prologue(contigs, tab, pending0, lv, al0)
+        Tmax = lv["x"].shape[1]
+        for t, w in enumerate(cl.tier_widths(Tmax)):
+            in_tier = lv["in_tier"][t]
+            want = cbs_device.tmax_batch(
+                torch.where(in_tier[:, None], lv["cs"][:, :w], 0.0),
+                torch.where(in_tier, lv["n_eff"], 2),
+                torch.where(in_tier, lv["tss"], 0.0), w, al0)
+            init = [torch.full_like(lv["t2"], -7.0),
+                    torch.full_like(lv["ti"], -7),
+                    torch.full_like(lv["tj"], -7)]
+            out = [v.clone() for v in init]
+            cbs_device.tmax_batch(lv["cs"][:, :w], lv["n_eff"], lv["tss"], w,
+                                  al0, mask=in_tier, out=out, live=live)
+            for got, ref, before in zip(out, want, init):
+                assert _bits_equal(got[in_tier], ref[in_tier])
+                assert _bits_equal(got[~in_tier], before[~in_tier])
+            if bool(in_tier.any()):
+                tiers_hit.add(w)
+    assert len(tiers_hit) >= 2
+
+
+@pytest.mark.parametrize("which", ["panel", "bench"])
+def test_graph_replay_equals_eager(dev, which):
+    """The engine's captured level replayed in batches gives the same
+    segments, counts and final table (the device buffer, control words
+    included) as the same levels run eagerly; at most 2 reads a run, and
+    the level count from the device's tally."""
+    from canvas_tpu_torch.ops import cbs_mega
+
+    cov = _cbs_panel() if which == "panel" else _bench_cbs()
+    runs = {}
+    cbs_mega.run_cbs_mega(cov, n_perm=1000, device=dev)    # the capture
+    c0 = cbs_mega.GRAPHS["captures"]
+    for graph in (True, False, True):
+        counts: dict = {}
+        s0 = cbs_mega.SYNCS["cbs_mega"]
+        r0 = cbs_mega.GRAPHS["replays"]
+        lens = _run_mega(cov, dev, graph=graph, n_perm=1000, counts=counts)
+        eng = next(reversed(cbs_mega._ENGINES.values()))
+        runs.setdefault(graph, []).append(
+            (lens, counts, eng.tab.clone(), eng.pending0.clone(),
+             cbs_mega.SYNCS["cbs_mega"] - s0,
+             cbs_mega.GRAPHS["replays"] - r0))
+    assert cbs_mega.GRAPHS["captures"] == c0      # one capture a shape
+    (g_lens, g_counts, g_tab, g_pend, g_reads, g_replays) = runs[True][1]
+    (e_lens, e_counts, e_tab, e_pend, e_reads, e_replays) = runs[False][0]
+    for k in cov:
+        np.testing.assert_array_equal(g_lens[k], e_lens[k])
+    assert g_counts == e_counts
+    assert torch.equal(g_tab, e_tab) and torch.equal(g_pend, e_pend)
+    assert g_reads == e_reads <= 2 and e_replays == 0
+    assert g_replays >= g_counts["levels"] >= 2
+    assert runs[True][0][1] == g_counts
+
+
+def test_level_after_the_end_changes_nothing(dev):
+    """After a run, live is 0: replays of the captured level and an eager
+    level leave the table, its control words and the pending flags as
+    they are."""
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
+    from canvas_tpu_torch.ops import cbs_mega
+
+    cbs_mega.run_cbs_mega(_cbs_panel(), n_perm=1000, device=dev)
+    eng = next(reversed(cbs_mega._ENGINES.values()))
+    tab, pend = eng.tab.clone(), eng.pending0.clone()
+    assert int(tab[3 * eng.S + cl.LIVE]) == 0
+    for _ in range(3):
+        eng.replay()
+    eng.level()
+    torch.cuda.synchronize()
+    assert torch.equal(eng.tab, tab) and torch.equal(eng.pending0, pend)
