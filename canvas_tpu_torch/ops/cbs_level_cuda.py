@@ -28,15 +28,21 @@ level count and the tally (walks accepted and rejected, walk chunks, edge
 chunks); the pending flags are bool [S].  Every kernel of a level returns
 at once where live is 0, so a level after the run's end changes nothing.
 
-On CUDA tensors the wrappers launch csrc/cbs_level.cu, one launch a call,
-counted in LAUNCHES, and write into the caller's tensors; on CPU tensors
-they read live (a host read) and, where it is set, run the plain version
-and copy its results into them.  The plain versions are the torch code
+On CUDA tensors the wrappers launch csrc/cbs_level.cu (K13 two launches
+a call, its slot selection and its tiles; the others one), counted in
+LAUNCHES, and write into the caller's tensors; on CPU tensors they read
+live (a host read) and, where it is set, run the plain version and copy
+its results into them.  K13 and K15 spread each row (lane) over tiles of
+tile_layout's width, a block a tile (K13: a thread block cluster a row;
+K15: its tiles' sums in level_buffers' k15_part, added by the lane's
+last tile, counted in k15_count).  The plain versions are the torch code
 these kernels replace in ops/cbs_mega.py, each a function of the level's
-inputs returning new tensors; edge_keep divides by a 0-dim tensor, so its
-p is IEEE division on every device (torch's CUDA division by a Python
-scalar multiplies by the reciprocal).  The kernels repeat them operation
-for operation (csrc/cbs_level.cu's note on exactness).
+inputs returning new tensors; edge_keep divides by a 0-dim tensor, so
+its p is IEEE division on every device (torch's CUDA division by a
+Python scalar multiplies by the reciprocal).  The kernels repeat them
+operation for operation but for the order of their float64 sums: a fixed
+order over the tiles (csrc/cbs_level.cu's note on exactness), equal to
+torch's result where the sums are exact.
 """
 
 from __future__ import annotations
@@ -55,16 +61,26 @@ CTL = 8
 MAX_SLOTS = 1024       # K13's compaction and K16: the table in one block
 MIN_TIER = 1024        # tier t is MIN_TIER << t wide
 
-# launches of the kernels, counted by the wrappers (K14 and K15: two a
-# level each)
+# K13's and K15's tiles (csrc/cbs_level.cu's tile_width): at most
+# MAX_TILES a row (a thread block cluster), the widest power of two from
+# MIN_TILE to min(MAX_TILE, Tmax) whose launch keeps at least
+# TARGET_BLOCKS blocks (twice the H100's 132 SMs)
+TILE_THREADS = 128
+MIN_TILE, MAX_TILE, MAX_TILES = 128, 4096, 16
+TARGET_BLOCKS = 264
+
+# launches of the kernels, counted by the wrappers (K13: two a level, its
+# slot selection and its tiles; K14 and K15: two a level each)
 LAUNCHES = {"prologue": 0, "decide": 0, "edge_setup": 0, "table": 0}
+PROLOGUE_LAUNCHES = 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "cbs_prologue": [_P] * 17 + [_I] * 5 + [_P],
+    "cbs_level_layout": [_I, _I, _P],
     "cbs_decide": [_P] * 14 + [ctypes.c_longlong] + [_I] * 3 + [_P],
-    "cbs_edge_setup": [_P] * 19 + [_I] * 3 + [_P],
+    "cbs_edge_setup": [_P] * 21 + [_I] * 3 + [_P],
     "cbs_edge_keep": [_P] * 13 + [_I] * 2 + [_P],
     "cbs_table": [_P] * 17 + [_I] * 3 + [_P],
     "cbs_graph_nodes": [_P, _P],
@@ -85,18 +101,47 @@ _LANES = {"wn": _L, "m1": _L, "xbar": _F, "ostat_e": _F, "degen": _B,
           "quick0": _B, "active": _B}
 _OTHER = {"x": _F, "cs": _F, "xw": _F, "in_tier": _B, "limit": _F,
           "echunks": _L}
+# K15's scratch: its tiles' sums and its lanes' arrival counters (zero,
+# and left zero by every launch)
+_SCRATCH = {"k15_part": _D, "k15_count": _N}
+K15_PARTS = 3
+
+
+def tile_layout(rows: int, Tmax: int) -> tuple[int, int]:
+    """(tile width, tiles a row) of a K13 or K15 launch over `rows` rows
+    of Tmax positions, csrc/cbs_level.cu's tile_width."""
+    w = MIN_TILE
+    while w < MAX_TILE and Tmax // w > MAX_TILES:
+        w *= 2
+    while (2 * w <= min(MAX_TILE, Tmax)
+           and rows * (Tmax // (2 * w)) >= TARGET_BLOCKS):
+        w *= 2
+    return w, Tmax // w
+
+
+def prologue_layout(W: int, Tmax: int) -> tuple[int, int]:
+    """K13's tiles: (width, tiles a row) of its W rows."""
+    return tile_layout(W, Tmax)
+
+
+def edge_layout(W: int, Tmax: int) -> tuple[int, int]:
+    """K15's tiles: (width, tiles a lane) of its 2 W lanes."""
+    return tile_layout(2 * W, Tmax)
 
 
 def _shape(name: str, W: int, Tmax: int, tiers: int) -> tuple:
+    if name == "k15_part":
+        return (2 * W * edge_layout(W, Tmax)[1] * K15_PARTS,)
     return {"x": (W, Tmax), "cs": (W, Tmax), "xw": (2 * W, Tmax),
             "in_tier": (tiers, W), "limit": (), "echunks": ()}.get(
-        name, (2 * W,) if name in _LANES else (W,))
+        name, (2 * W,) if name in _LANES or name == "k15_count" else (W,))
 
 
 def level_buffers(W: int, Tmax: int, tiers: int, dev) -> dict:
-    """The level's tensors that K13-K16 write, by name, zeroed."""
+    """The level's tensors that K13-K16 write, and K15's scratch, by name,
+    zeroed."""
     return {k: torch.zeros(_shape(k, W, Tmax, tiers), dtype=dt, device=dev)
-            for k, dt in {**_ROWS, **_LANES, **_OTHER}.items()}
+            for k, dt in {**_ROWS, **_LANES, **_OTHER, **_SCRATCH}.items()}
 
 
 def tier_widths(Tmax: int) -> list[int]:
@@ -116,7 +161,11 @@ def _stable_order(flags: torch.Tensor) -> torch.Tensor:
 
 def prologue_plain(contigs, tab, pending0, W: int, al0: int) -> dict:
     """Plain version of K13 on the table tab and pending0 (S slots) and
-    the contig matrix contigs f32 [C, Tmax]."""
+    the contig matrix contigs f32 [C, Tmax].  Its float64 sums (the row
+    sums, the sum of squares, the cumsum) are torch's reductions and scan;
+    the kernel adds them in its tile order (prologue_layout's tiles, each
+    tile's own order, the tiles in tile order, the cumsum carried from tile
+    to tile), the same result wherever the sums are exact."""
     S = pending0.shape[0]
     Tmax = contigs.shape[1]
     dev = contigs.device
@@ -183,7 +232,10 @@ def edge_lanes_plain(x, n, i1, i2, test_both, alpha, n_perm: int,
     edge 2.  Edge 1 tests the split at i1 inside x[0:i2] (n1 = i1); edge 2
     tests the split at i2 inside x[i1:n] (n1 = i2 - i1).  TPermP
     statistics are shift-invariant, so the parent's centred windows serve:
-    edge 1 is x masked to i2, edge 2 is x shifted left by i1."""
+    edge 1 is x masked to i2, edge 2 is x shifted left by i1.  Its float64
+    sums are torch's reductions; K15 adds each lane's in its tile order
+    (edge_layout's tiles, summed by the lane's last tile in tile order),
+    the same result wherever the sums are exact."""
     dev = x.device
     wn = torch.cat([i2, n - i1])
     n1 = torch.cat([i1, i2 - i1])
@@ -336,7 +388,7 @@ def _check_table(tab, pending0) -> int:
 
 
 def _check_level(lv: dict, names, W: int, Tmax: int, tiers: int) -> None:
-    dtypes = {**_ROWS, **_LANES, **_OTHER}
+    dtypes = {**_ROWS, **_LANES, **_OTHER, **_SCRATCH}
     _check([(k, lv[k], dtypes[k], _shape(k, W, Tmax, tiers)) for k in names])
 
 
@@ -358,15 +410,17 @@ def prologue(contigs, tab, pending0, lv: dict, al0: int) -> None:
     _check([("contigs", contigs, _F, (contigs.shape[0], Tmax)),
             ("tab", tab, _L, (3 * S + CTL,))])
     _check_level(lv, _PROLOGUE_OUT, W, Tmax, tiers)
-    if W > S or Tmax % MIN_TIER or Tmax & (Tmax - 1):
+    if (W > S or Tmax % MIN_TIER or Tmax & (Tmax - 1)
+            or prologue_layout(W, Tmax)[1] > MAX_TILES):
         raise ValueError(f"W {W} must be at most S {S}, Tmax {Tmax} a power "
-                         f"of two >= {MIN_TIER}")
+                         f"of two >= {MIN_TIER} of at most {MAX_TILES} "
+                         f"tiles")
     status = cuda_lib.launch(
         contigs.device, _lib().cbs_prologue, contigs.data_ptr(),
         tab.data_ptr(), pending0.data_ptr(),
         *(lv[k].data_ptr() for k in _PROLOGUE_OUT), S, W, Tmax, al0, tiers)
     cuda_lib.check(status, "cbs_prologue")
-    LAUNCHES["prologue"] += 1
+    LAUNCHES["prologue"] += PROLOGUE_LAUNCHES
 
 
 def _decide(tab, S, lv, p1, alpha, n_perm, n_min, phase) -> None:
@@ -425,17 +479,19 @@ def edge_setup(tab, S: int, lv: dict, walked, alpha, n_perm: int) -> None:
                                       lv["trivial"], walked, alpha, n_perm,
                                       Tmax))
         return
-    if 2 * W > MAX_SLOTS:
-        raise ValueError(f"at most {MAX_SLOTS // 2} rows, got {W}")
+    if 2 * W > MAX_SLOTS or edge_layout(W, Tmax)[1] > MAX_TILES:
+        raise ValueError(f"at most {MAX_SLOTS // 2} rows of at most "
+                         f"{MAX_TILES} tiles, got {W} rows of {Tmax}")
     _check([("tab", tab, _L, (3 * S + CTL,)), ("alpha", alpha, _F, ()),
             ("walked", walked, _B, (W,))])
-    _check_level(lv, ("x", "n", "ti", "tj", "trivial") + _SETUP_OUT, W, Tmax,
-                 0)
+    _check_level(lv, ("x", "n", "ti", "tj", "trivial") + _SETUP_OUT
+                 + tuple(_SCRATCH), W, Tmax, 0)
     status = cuda_lib.launch(
         tab.device, _lib().cbs_edge_setup, tab[3 * S:].data_ptr(),
         *(lv[k].data_ptr() for k in ("x", "n", "ti", "tj", "trivial")),
         walked.data_ptr(), alpha.data_ptr(),
-        *(lv[k].data_ptr() for k in _SETUP_OUT), W, Tmax, n_perm)
+        *(lv[k].data_ptr() for k in _SETUP_OUT + tuple(_SCRATCH)), W, Tmax,
+        n_perm)
     cuda_lib.check(status, "cbs_edge_setup")
     LAUNCHES["edge_setup"] += 1
 
@@ -494,6 +550,16 @@ def table_update(tab, pending0, lv: dict, walked, wchunks,
         wchunks.data_ptr(), lv["echunks"].data_ptr(), S, W, max_levels)
     cuda_lib.check(status, "cbs_table")
     LAUNCHES["table"] += 1
+
+
+def device_layout(rows: int, Tmax: int) -> tuple[int, int]:
+    """(tile width, tiles a row) as csrc/cbs_level.cu's tile_width gives
+    them for a launch over `rows` rows of Tmax positions (tile_layout is
+    its mirror)."""
+    out = (ctypes.c_int * 2)()
+    cuda_lib.check(_lib().cbs_level_layout(rows, Tmax, out),
+                   "cbs_level_layout")
+    return out[0], out[1]
 
 
 def graph_nodes(graph: torch.cuda.CUDAGraph) -> dict:

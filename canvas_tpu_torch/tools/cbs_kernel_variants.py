@@ -1,10 +1,13 @@
 """Time kernels K7 (walks) and K8 (edge tests) of csrc/cbs_mega.cu on one
 CUDA card, beside another build of the source: an earlier design, or the
 same source with a part taken out to see what the rest costs; with --k12,
-kernel K12 (the frontier's permutation chunks) the same way.
+kernel K12 (the frontier's permutation chunks) the same way; with --k13
+and --k15, kernels K13 (the CBS level's prologue) and K15 (the edge
+tests' set-up) of csrc/cbs_level.cu.
 
     python3 -m canvas_tpu_torch.tools.cbs_kernel_variants \\
         [--old PATH [--old-parts]] [--no-committed] [--reps N] [--k12]
+        [--k13] [--k15]
 
 The inputs are made from a seed, shaped like the first walking and
 edge-testing levels of chip_smoke.py's panel (Tumor-normal-enrichment,
@@ -30,19 +33,29 @@ exact ones must give the committed statistics); with --old PATH, the K12
 of a cbs_mega.cu with the same cbs_perm entry point (an earlier commit's)
 as it is.
 
---old PATH takes a cbs_mega.cu whose entry points take one threefry key a
-row (the design that gives a whole block to each permutation and draws K7's
-keys twice), for example one written by `git show
-<commit>:canvas_tpu_torch/csrc/cbs_mega.cu`.  It is built as it is and,
-with --old-parts, with each edit of OLD_VARIANTS, under its own name in
-canvas_tpu_torch/_build/variants/, and handed the keys that the committed
-kernels derive on the card (ops/cbs_mega_cuda.seg_keys and edge_keys), so
-every exact build must give the committed kernels' flags, counts and
-statistics.  The builds are compiled in parallel.  Every build is timed
-twice, in the order committed, builds, builds reversed, committed, with
-CUDA events (a sleep kernel holds the stream while the calls are
-queued).  Prints one JSON line a build and
-kernel, and last the card's name and power limit.
+--k13 and --k15 time K13 and K15 on the first level of three inputs,
+recorded from an eager engine run on the card (the wrappers' arguments):
+one shaped like chip_smoke.py's panel (three contigs of 19,921, 19,941
+and 19,923 bins of N(0, 1) with steps, from the seed; Tmax 32,768, W
+32), bench.py's CBS workload (24 x 16,384 bins, W 64) and the engine's
+largest shape (192 x 65,536 bins, W 512).  Each build must give its
+plain version's outputs bit for bit.  The builds: the committed source
+and, with --old PATH, an earlier cbs_level.cu (a block a row or lane;
+its K15 takes no scratch), as it is.
+
+--old PATH takes, without --k13 or --k15, a cbs_mega.cu whose entry
+points take one threefry key a row (the design that gives a whole block
+to each permutation and draws K7's keys twice), for example one written
+by `git show <commit>:canvas_tpu_torch/csrc/cbs_mega.cu`.  It is built as
+it is and, with --old-parts, with each edit of OLD_VARIANTS, under its
+own name in canvas_tpu_torch/_build/variants/, and handed the keys that
+the committed kernels derive on the card (ops/cbs_mega_cuda.seg_keys and
+edge_keys), so every exact build must give the committed kernels' flags,
+counts and statistics.  The builds are compiled in parallel.  Every
+build is timed twice, in the order committed, builds, builds reversed,
+committed, with CUDA events (a sleep kernel holds the stream while the
+calls are queued).  Prints one JSON line a build and kernel, and last
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -60,6 +73,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from canvas_tpu_torch.ops import cbs_level_cuda as cl
 from canvas_tpu_torch.ops import cbs_mega_cuda as mc
 from canvas_tpu_torch.ops import cuda_lib
 
@@ -415,6 +429,166 @@ def time_k12(args, dev: torch.device) -> int:
     return 0
 
 
+LEVEL_CASES = ("panel", "bench_cbs", "largest")
+# the earlier design's K15 set-up entry point, which takes no scratch
+OLD_EDGE_SETUP = [_P] * 19 + [_I] * 3 + [_P]
+
+
+def level_coverage(case: str, seed: int) -> dict:
+    """The engine's input for a LEVEL_CASES case (module docstring)."""
+    if case == "panel":
+        rng = np.random.default_rng(seed)
+        cov = {}
+        for c, n in enumerate((19921, 19941, 19923)):
+            v = rng.normal(0.0, 1.0, n)
+            v[n // 5:n // 4] += 1.0
+            v[n // 2:n // 2 + 3000] -= 0.8
+            cov[f"chr{c + 1}"] = v
+        return cov
+    if case == "bench_cbs":
+        rng = np.random.default_rng(1)
+        T = 16 * 1024
+        cov = {}
+        for b in range(24):
+            c = rng.normal(0.0, 1.0, size=T)
+            c[T // 4: T // 3] += 1.5
+            c[T // 2: T // 2 + 600] -= 1.2
+            cov[f"chr{b}"] = c
+        return cov
+    rng = np.random.default_rng(3)
+    return {f"chr{c}": rng.normal(0.0, 1.0, size=1 << 16)
+            for c in range(192)}
+
+
+def first_level_inputs(cov: dict, dev: torch.device) -> dict:
+    """The arguments (cloned) of the first call of K13's and K15's
+    wrappers in an eager engine run over cov on the card."""
+    import functools
+
+    from canvas_tpu_torch.ops import cbs_mega
+
+    got: dict = {}
+    orig = {"prologue": cl.prologue, "edge_setup": cl.edge_setup}
+
+    def recorder(name):
+        def call(*args):
+            got.setdefault(name, [a.clone() if torch.is_tensor(a) else
+                                  {k: v.clone() for k, v in a.items()}
+                                  if isinstance(a, dict) else a
+                                  for a in args])
+            return orig[name](*args)
+        return call
+
+    run = cbs_mega._mega_recurse
+    cbs_mega._mega_recurse = functools.partial(run, graph=False)
+    cl.prologue, cl.edge_setup = recorder("prologue"), recorder("edge_setup")
+    try:
+        cbs_mega.run_cbs_mega(cov, device=dev)
+    finally:
+        cbs_mega._mega_recurse = run
+        cl.prologue, cl.edge_setup = orig["prologue"], orig["edge_setup"]
+    return got
+
+
+def on_level_lib(lib, fn):
+    """fn() with the wrappers calling `lib`, a build of cbs_level.cu."""
+    committed = cuda_lib.load("cbs_level", cl._SIGNATURES)
+    cuda_lib._LIBS["cbs_level"] = lib
+    try:
+        return fn()
+    finally:
+        cuda_lib._LIBS["cbs_level"] = committed
+
+
+def level_calls(kernel: str, inputs: dict, lib, old: bool,
+                dev: torch.device):
+    """(call, outputs, plain outputs) of K13 or K15 on a case's recorded
+    inputs, into a copy of the level's tensors: through its wrapper on
+    `lib`, a build of cbs_level.cu; K15 of an old build through its entry
+    point, which takes no scratch."""
+    if kernel == "K13":
+        contigs, tab, pending0, lv, al0 = inputs["prologue"]
+        W = lv["x"].shape[0]
+        want = cl.prologue_plain(contigs, tab, pending0, W, al0)
+        out = {k: v.clone() for k, v in lv.items()}
+        return (lambda: on_level_lib(lib, lambda: cl.prologue(
+            contigs, tab, pending0, out, al0)), out, want)
+    tab, S, lv, walked, alpha, n_perm = inputs["edge_setup"]
+    want = cl.edge_setup_plain(lv["x"], lv["n"], lv["ti"], lv["tj"],
+                               lv["trivial"], walked, alpha, n_perm,
+                               lv["x"].shape[1])
+    out = {k: v.clone() for k, v in lv.items()}
+    if old:
+        def call():
+            cuda_lib.check(cuda_lib.launch(
+                dev, lib.cbs_edge_setup, tab[3 * S:].data_ptr(),
+                *(out[k].data_ptr() for k in ("x", "n", "ti", "tj",
+                                               "trivial")),
+                walked.data_ptr(), alpha.data_ptr(),
+                *(out[k].data_ptr() for k in cl._SETUP_OUT),
+                lv["x"].shape[0], lv["x"].shape[1], n_perm),
+                "cbs_edge_setup")
+        return call, out, want
+    return (lambda: on_level_lib(lib, lambda: cl.edge_setup(
+        tab, S, out, walked, alpha, n_perm)), out, want)
+
+
+def time_level(args, dev: torch.device) -> int:
+    """--k13 / --k15: the committed K13 and K15 and, with --old, an
+    earlier cbs_level.cu's, on each LEVEL_CASES case's first level,
+    checked bit for bit against their plain versions, timed in turns
+    (committed, old, old, committed)."""
+    kernels = [k for k, on in (("K13", args.k13), ("K15", args.k15)) if on]
+    builds = {"committed": cuda_lib.load("cbs_level", cl._SIGNATURES)}
+    if args.old is not None:
+        builds["old, as it is"] = variant_libs(
+            args.old, {"as it is": None}, "cbs_level_old_",
+            {"cbs_prologue": cl._SIGNATURES["cbs_prologue"],
+             "cbs_edge_setup": OLD_EDGE_SETUP})["as it is"]
+    inputs = {c: first_level_inputs(level_coverage(c, args.seed), dev)
+              for c in LEVEL_CASES}
+    calls = {}
+    for label, lib in builds.items():
+        for kernel in kernels:
+            for case in LEVEL_CASES:
+                call, out, want = level_calls(kernel, inputs[case], lib,
+                                              label != "committed", dev)
+                call()
+                torch.cuda.synchronize()
+                bad = [k for k, v in want.items() if not (
+                    torch.equal(out[k].view(torch.int32),
+                                v.view(torch.int32))
+                    if v.dtype == torch.float32 else torch.equal(out[k], v))]
+                if bad:
+                    raise SystemExit(f"cbs_kernel_variants: {label} differs "
+                                     f"from {kernel}'s plain version on "
+                                     f"{case}: {bad}")
+                calls[label, kernel, case] = call
+    times: dict = {key: [] for key in calls}
+    for label in list(builds) + list(reversed(builds)):
+        for (lb, kernel, case), call in calls.items():
+            if lb == label:
+                times[lb, kernel, case].append(cuda_ms(call, args.reps))
+    for label in builds:
+        print(json.dumps({"build": label, "exact": True, **{
+            f"{kernel}_ms": {case: times[label, kernel, case]
+                             for case in LEVEL_CASES}
+            for kernel in kernels}}), flush=True)
+    shapes = {}
+    for c in LEVEL_CASES:
+        contigs, tab, pending0, lv, al0 = inputs[c]["prologue"]
+        W, Tmax = lv["x"].shape
+        S = pending0.shape[0]
+        n = tab[2 * S:3 * S] - tab[S:2 * S]
+        shapes[c] = {"rows": W, "Tmax": Tmax,
+                     "gathered": int(torch.clamp(n[:W], min=0).sum()),
+                     "K13_tiles": cl.prologue_layout(W, Tmax),
+                     "K15_tiles": cl.edge_layout(W, Tmax)}
+    print(json.dumps({"cases": shapes}), flush=True)
+    print(gpu_line(), flush=True)
+    return 0
+
+
 def old_calls(lib, walk: dict, edge: dict, dev: torch.device):
     """(K7 call, K8 call, results) of a one-key-a-row library, handed the
     keys the committed kernels derive; results() returns (accepted,
@@ -509,7 +683,8 @@ def gpu_line() -> str:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", type=Path, default=None,
-                    help="a cbs_mega.cu that takes one key a row")
+                    help="a cbs_mega.cu that takes one key a row (with "
+                         "--k13 or --k15, an earlier cbs_level.cu)")
     ap.add_argument("--old-parts", action="store_true",
                     help="also time --old with each part taken out")
     ap.add_argument("--parts", action="store_true",
@@ -520,6 +695,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--k12", action="store_true",
                     help="time K12 (with --parts, K12_PARTS too) instead")
+    ap.add_argument("--k13", action="store_true",
+                    help="time K13 instead")
+    ap.add_argument("--k15", action="store_true",
+                    help="time K15 instead")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -529,6 +708,8 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.set_device(dev)
     if args.k12:
         return time_k12(args, dev)
+    if args.k13 or args.k15:
+        return time_level(args, dev)
     walk, edge, many = panel_like(dev, args.seed)
 
     def both(make, exact):

@@ -115,7 +115,15 @@ Phases, one JSON line each; any failure exits non-zero:
              largest shape (192 contigs of 65,536 bins, a table of 1,024
              slots, 512 rows a level): the card's memory it holds between
              runs (cudaMemGetInfo and the caching allocator), its capture
-             and a replayed run's wall;
+             and a replayed run's wall, one more replayed run under
+             torch.profiler (each kernel's device time, the busy share,
+             each kernel's runs equal to its counted launches), and
+             K13-K16 against their plain versions on every level of an
+             eager run there too, timed on its first; K13's and K15's
+             times beside their earlier design's (BEFORE_K13_K15); and
+             a report that fails nothing: the rows on which K13 and K15
+             differ from their plain versions where the values'
+             exponents span 40 bits (wide_exponent_rows);
   7c. cbs-stats
              K9, K10 and K11 against their plain versions on the card on
              the inputs of the whole-recursion engine's first level (an
@@ -244,6 +252,7 @@ from __future__ import annotations
 import argparse
 import gzip
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -300,7 +309,8 @@ KERNEL_FUNCTIONS = {"arc_inputs": ("arc_inputs_kernel",),
                     "refine": ("refine_kernel",), "tail_p": ("tail_kernel",),
                     "walk": ("walk_kernel",), "edge": ("edge_kernel",),
                     "perm": ("perm_kernel",),
-                    "prologue": ("prologue_kernel",),
+                    "prologue": ("prologue_rows_kernel",
+                                 "prologue_tile_kernel"),
                     "decide": ("decide_kernel",),
                     "edge_setup": ("edge_setup_kernel", "edge_keep_kernel"),
                     "table": ("table_kernel",)}
@@ -1695,6 +1705,12 @@ def trace_cbs(run) -> dict:
     kernels = sum(n for _us, k, n in top
                   if not k.startswith(("Memcpy", "Memset")))
     top.sort(reverse=True)
+    by_kernel: dict = {}
+    for us, k, n in top:
+        name = re.search(r"(\w+)\(", k)
+        name = name.group(1) if name else k[:40]
+        ms, count = by_kernel.get(name, (0.0, 0))
+        by_kernel[name] = (ms + us / 1e3, count + n)
     return {"lengths": {c: v.tolist() for c, v in lens.items()},
             "traced_launches": kernel_runs(stats),
             "counted_launches": {k: counted[k] for k in KERNEL_FUNCTIONS},
@@ -1707,7 +1723,9 @@ def trace_cbs(run) -> dict:
                 "kernel_launches": launches,
                 "graph_launches": graph_launches, "device_kernels": kernels,
                 "top_device": [{"name": k[:80], "ms": us / 1e3, "count": n}
-                               for us, k, n in top[:8]]}}
+                               for us, k, n in top[:8]],
+                "device_ms_by_kernel": {k: {"ms": ms, "count": n} for k, (
+                    ms, n) in by_kernel.items()}}}
 
 
 def mega_host_calls(run) -> dict:
@@ -1981,41 +1999,62 @@ def level_kernel_cases(cov: dict, dev: torch.device) -> dict:
     from canvas_tpu_torch.ops import cbs_level_cuda as cl
 
     recs = record_levels(lambda: eager_mega(cov, dev))
-    levels = len(recs["prologue"])
-    if levels < 1 or any(len(v) != levels for v in recs.values()):
+    n_calls = len(recs["prologue"])
+    if n_calls < 1 or any(len(v) != n_calls for v in recs.values()):
         fail(f"K13-K16's wrappers called {[len(v) for v in recs.values()]} "
              f"times")
+    # a replay batch runs on after the level that ends the run: those
+    # levels are dead (live 0), and every kernel must leave them as they
+    # are
+    dead = [int(tab[3 * pending0.shape[0] + cl.LIVE]) == 0
+            for _c, tab, pending0, _lv, _a in recs["prologue"]]
+    levels = dead.index(True) if True in dead else n_calls
+    if levels < 1 or not all(dead[levels:]):
+        fail(f"K13-K16's recorded levels, dead or live: {dead}")
+
+    def check(name, i, lv, want, run):
+        if dead[i]:
+            before = {k: v.clone() for k, v in lv.items()}
+            run()
+            torch.cuda.synchronize()
+            if any(not torch.equal(before[k], v) for k, v in lv.items()):
+                fail(f"{name} wrote on level {i}, after the run's end")
+        else:
+            run()
+            _bits_or_fail(name, lv, want(), i)
+
     for i, (contigs, tab, pending0, lv, al0) in enumerate(recs["prologue"]):
-        cl.prologue(contigs, tab, pending0, lv, al0)
-        _bits_or_fail("K13", lv, cl.prologue_plain(
-            contigs, tab, pending0, lv["x"].shape[0], al0), i)
+        check("K13", i, lv, lambda: cl.prologue_plain(
+            contigs, tab, pending0, lv["x"].shape[0], al0),
+            lambda: cl.prologue(contigs, tab, pending0, lv, al0))
     for i, (tab, S, lv, alpha) in enumerate(recs["decide_prep"]):
-        cl.decide_prep(tab, S, lv, alpha)
-        _bits_or_fail("K14", lv, {"b": cl.decide_prep_plain(lv["t2"])}, i)
+        check("K14", i, lv, lambda: {"b": cl.decide_prep_plain(lv["t2"])},
+              lambda: cl.decide_prep(tab, S, lv, alpha))
     for i, (tab, S, lv, p1, alpha, n_perm, n_min) in \
             enumerate(recs["decide"]):
-        cl.decide(tab, S, lv, p1, alpha, n_perm, n_min)
-        _bits_or_fail("K14", lv, cl.decide_plain(
+        check("K14", i, lv, lambda: cl.decide_plain(
             lv["t2"], lv["ti"], lv["tj"], lv["n"], lv["analyzable"], p1,
-            alpha, n_perm, n_min), i)
+            alpha, n_perm, n_min),
+            lambda: cl.decide(tab, S, lv, p1, alpha, n_perm, n_min))
     active = 0
     for i, (tab, S, lv, walked, alpha, n_perm) in \
             enumerate(recs["edge_setup"]):
-        cl.edge_setup(tab, S, lv, walked, alpha, n_perm)
-        _bits_or_fail("K15", lv, cl.edge_setup_plain(
+        check("K15", i, lv, lambda: cl.edge_setup_plain(
             lv["x"], lv["n"], lv["ti"], lv["tj"], lv["trivial"], walked,
-            alpha, n_perm, lv["x"].shape[1]), i)
-        active += int(lv["active"].sum())
+            alpha, n_perm, lv["x"].shape[1]),
+            lambda: cl.edge_setup(tab, S, lv, walked, alpha, n_perm))
+        active += int(lv["active"].sum()) if not dead[i] else 0
     for i, (tab, S, lv, count, cnt, alpha, n_perm) in \
             enumerate(recs["edge_keep"]):
-        cl.edge_keep(tab, S, lv, count, cnt, alpha, n_perm)
-        _bits_or_fail("K15", lv, cl.edge_keep_plain(
+        check("K15", i, lv, lambda: cl.edge_keep_plain(
             count, cnt, lv["degen"], lv["quick0"], lv["test_both"], lv["ti"],
-            lv["tj"], lv["n"], alpha, n_perm), i)
+            lv["tj"], lv["n"], alpha, n_perm),
+            lambda: cl.edge_keep(tab, S, lv, count, cnt, alpha, n_perm))
     for i, (tab, pending0, lv, walked, wchunks, max_levels) in \
             enumerate(recs["table_update"]):
-        want = cl.table_update_plain(tab, pending0, lv, walked, wchunks,
-                                     max_levels)
+        want = (tab.clone(), pending0.clone()) if dead[i] else \
+            cl.table_update_plain(tab, pending0, lv, walked, wchunks,
+                                  max_levels)
         cl.table_update(tab, pending0, lv, walked, wchunks, max_levels)
         torch.cuda.synchronize()
         if not (torch.equal(tab, want[0]) and torch.equal(pending0, want[1])):
@@ -2077,7 +2116,10 @@ def level_kernel_cases(cov: dict, dev: torch.device) -> dict:
         k16, lambda: cl.table_update_plain(tab16, p16, lv16, walked,
                                            wchunks, max_levels),
         2 * (8 * (3 * S + cl.CTL) + S) + 60 * W, 10 * S, reps=20)
-    return {"levels": levels, "rows": W, "Tmax": Tmax, "slots": S,
+    return {"levels": levels, "dead_levels": n_calls - levels, "rows": W,
+            "Tmax": Tmax, "slots": S, "tiles": {
+                "K13": cl.prologue_layout(W, Tmax),
+                "K15": cl.edge_layout(W, Tmax)},
             "active_lanes": active, "K13": {"gathered": gathered, **k13},
             "K14": k14r, "K15": {"x_read": span, **k15r}, "K16": k16r}
 
@@ -2206,20 +2248,94 @@ LEVEL_LOOP_ENGINE = {"panel": {"wall_s": 0.0443, "kernel_launches": 1517,
 BEFORE_K7_MS = {"panel": 0.1577, "bench_cbs": 0.0376}
 
 
-def largest_engine(dev: torch.device) -> dict:
-    """The whole-recursion engine at its largest shape: 192 contigs of
-    65,536 bins of N(0, 1) from default_rng(3) (a table of 1,024 slots,
-    512 rows a level, tiers 1,024 to 65,536).  The card's memory the
-    engine holds between runs, its buffers and its graph (the free memory
-    cudaMemGetInfo reports before the first run and after it, and the
-    caching allocator's reserved and allocated bytes), then what stays
-    once the engine is dropped (the wrappers' per-device scratch); the
-    capture's seconds and a replayed run's wall and levels."""
-    from canvas_tpu_torch.ops import cbs_mega
+# K13 and K15 in their earlier design, a block a row (lane), on the first
+# level of each input (NVIDIA H100 80GB HBM3, 700.00 W, PERF.md section 6),
+# printed beside this run's; the largest shape's were not timed
+BEFORE_K13_K15 = {"K13": {"panel": 0.0308, "bench_cbs": 0.0187},
+                  "K15": {"panel": 0.0122, "bench_cbs": 0.0104}}
 
+
+def wide_exponent_rows(dev: torch.device, W: int = 64,
+                       Tmax: int = 16384) -> dict:
+    """A report, not a check: K13 and K15 beside their plain versions on
+    seeded rows whose values' exponents span 40 bits, more than the
+    29 - log2(n) bits that keep a float64 sum of n f32 values exact, so
+    that the sums' order can show.  W rows of 4,000 to Tmax values
+    sign x 2^U(-20, 20) in a table of 2 W slots, all pending; K15 on the
+    rows' splits at n / 3 and 2 n / 3, every row accepted.  The rows
+    whose tss or cumsum differ (K13), and the lanes whose xbar, ostat,
+    degen, quick0 or active differ (K15)."""
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
+
+    rng = np.random.default_rng(11)
+    S = 2 * W
+    n = rng.integers(4000, Tmax + 1, W)
+    vals = (rng.choice([-1.0, 1.0], (W, Tmax))
+            * np.exp2(rng.uniform(-20, 20, (W, Tmax)))).astype(np.float32)
+    tab = torch.zeros(3 * S + cl.CTL, dtype=torch.int64)
+    tab[:W] = torch.arange(W)
+    tab[W:S] = -1
+    tab[2 * S:2 * S + W] = torch.as_tensor(n)
+    tab[3 * S + cl.LIVE] = 1
+    pending0 = torch.arange(S) < W
+    contigs = torch.as_tensor(vals, device=dev)
+    tab, pending0 = tab.to(dev), pending0.to(dev)
+    lv = cl.level_buffers(W, Tmax, len(cl.tier_widths(Tmax)), dev)
+    cl.prologue(contigs, tab, pending0, lv, 2)
+    want = cl.prologue_plain(contigs, tab, pending0, W, 2)
+    rows_tss = int((lv["tss"].view(torch.int32)
+                    != want["tss"].view(torch.int32)).sum())
+    rows_cs = int((lv["cs"].view(torch.int32)
+                   != want["cs"].view(torch.int32)).any(dim=1).sum())
+    rows_x = int((lv["x"].view(torch.int32)
+                  != want["x"].view(torch.int32)).any(dim=1).sum())
+    nt = torch.as_tensor(n, device=dev)
+    lv["ti"].copy_((nt // 3).to(torch.int32))
+    lv["tj"].copy_((2 * nt // 3).to(torch.int32))
+    lv["trivial"].fill_(True)
+    walked = torch.zeros(W, dtype=torch.bool, device=dev)
+    alpha = torch.tensor(0.01, dtype=torch.float32, device=dev)
+    cl.edge_setup(tab, S, lv, walked, alpha, 1000)
+    want15 = cl.edge_setup_plain(lv["x"], lv["n"], lv["ti"], lv["tj"],
+                                 lv["trivial"], walked, alpha, 1000, Tmax)
+    lanes = torch.zeros(2 * W, dtype=torch.bool, device=dev)
+    for k in ("xbar", "ostat_e", "degen", "quick0", "active"):
+        a, b = lv[k], want15[k]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        lanes |= a != b
+    torch.cuda.synchronize()
+    return {"rows": W, "Tmax": Tmax, "exponent_span_bits": 40,
+            "exact_span_bits": [29 - float(np.log2(Tmax)),
+                                29 - float(np.log2(4000))],
+            "K13_rows_x_differ": rows_x, "K13_rows_tss_differ": rows_tss,
+            "K13_rows_cs_differ": rows_cs,
+            "K15_lanes": 2 * W, "K15_lanes_differ": int(lanes.sum()),
+            "K15_xw_equal": bits_equal(lv["xw"], want15["xw"])}
+
+
+def largest_coverage() -> dict:
+    """The whole-recursion engine's largest shape: 192 contigs of 65,536
+    bins of N(0, 1) from default_rng(3) (a table of 1,024 slots, 512 rows
+    a level, tiers 1,024 to 65,536)."""
     C, T = 192, 1 << 16
     rng = np.random.default_rng(3)
-    cov = {f"chr{c}": rng.normal(0.0, 1.0, size=T) for c in range(C)}
+    return {f"chr{c}": rng.normal(0.0, 1.0, size=T) for c in range(C)}
+
+
+def largest_engine(dev: torch.device, cov: dict) -> dict:
+    """The whole-recursion engine at its largest shape (largest_coverage).
+    The card's memory the engine holds between runs, its buffers and its
+    graph (the free memory cudaMemGetInfo reports before the first run and
+    after it, and the caching allocator's reserved and allocated bytes),
+    then what stays once the engine is dropped (the wrappers' per-device
+    scratch); the capture's seconds, a replayed run's wall and levels, and
+    one more replayed run under torch.profiler (trace_cbs: each kernel's
+    device time, the card's busy share; every kernel of the level traced
+    as often as its launches were counted)."""
+    from canvas_tpu_torch.ops import cbs_mega
+
+    C, T = len(cov), len(next(iter(cov.values())))
 
     def memory():
         torch.cuda.synchronize(dev)
@@ -2246,6 +2362,10 @@ def largest_engine(dev: torch.device) -> dict:
     for c in cov:
         if not np.array_equal(lens[c], first[c]):
             fail(f"the largest shape's second run gave other segments on {c}")
+    traced = trace_cbs(lambda: cbs_mega.run_cbs_mega(cov, device=dev))
+    traced_equals_counted(traced["traced_launches"],
+                          traced["counted_launches"], MEGA_KERNELS,
+                          "the largest shape")
     capture_s = eng.capture_s
     del eng
     cbs_mega._ENGINES.clear()
@@ -2257,7 +2377,9 @@ def largest_engine(dev: torch.device) -> dict:
             "kept_after_drop_bytes": before["free"] - after["free"],
             "capture_s": capture_s, "wall_s": wall,
             "levels": counts["levels"],
-            "segments": sum(len(v) for v in lens.values())}
+            "segments": sum(len(v) for v in lens.values()),
+            "profiled_cuda": traced["profile"],
+            "traced_launches": traced["traced_launches"]}
 
 
 def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
@@ -2271,8 +2393,10 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
     bench.py's CBS workload's runs (level_kernel_cases), K7 and K8 on the
     inputs of the first level with a walk and the first with an edge test
     (panel, else bench.py's workload), bench.py's workload through the
-    engine (mega_runs), and B4 at every tier width the engine uses, 32
-    rows of which three lie under the tier's mask."""
+    engine (mega_runs), B4 at every tier width the engine uses, 32
+    rows of which three lie under the tier's mask, the engine at its
+    largest shape (largest_engine, traced) with K13-K16 on its levels, and
+    the wide-exponent report (wide_exponent_rows)."""
     from canvas_tpu_torch.ops import cbs_mega
 
     cov = panel_coverage(workdir)
@@ -2335,7 +2459,12 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
                              torch.as_tensor(n, device=dev), npad,
                              mask=torch.as_tensor(mask, device=dev)))
     torch.cuda.empty_cache()
-    largest = largest_engine(dev)
+    big = largest_coverage()
+    largest = largest_engine(dev, big)
+    level_cases["largest"] = level_kernel_cases(big, dev)
+    del big
+    torch.cuda.empty_cache()
+    spread = wide_exponent_rows(dev)
     panel = level_cases["panel"]
     return {"phase": "cbs-mega", "engine": "mega",
             "bins": {c: len(v) for c, v in cov.items()},
@@ -2355,6 +2484,11 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
             "K13": panel["K13"], "K14": panel["K14"], "K15": panel["K15"],
             "K16": panel["K16"],
             "K7": k7, "K8": k8, **bench_cases, "bench_cbs": bench,
+            "K13_K15_now_vs_before_ms": {
+                f"{k}_{w}": [level_cases[w][k]["ms"],
+                             BEFORE_K13_K15[k].get(w)]
+                for k in ("K13", "K15") for w in level_cases},
+            "K13_K15_wide_exponents": spread,
             "K7_now_vs_PR13_ms": {
                 "panel": [k7["ms"], BEFORE_K7_MS["panel"]],
                 "bench_cbs": [bench_cases["K7_bench"].get("ms"),

@@ -218,6 +218,7 @@ def _new_level(contigs, tab, pending0, key0, sbdry, alpha, S, W, Tmax):
                   "nseg": ctl[cl.NSEG], "overflow": ctl[cl.OVERFLOW] != 0,
                   "tally": ctl[cl.TALLY:]}
     out["ctl"] = ctl
+    out["inputs"] = (contigs, tab, pending0)
     return out
 
 
@@ -403,3 +404,287 @@ def test_missing_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="is_available"):
         tmega.run_cbs_mega({"chr1": np.zeros(100)}, device="cuda")
+
+
+# --- K13's and K15's tile order (csrc/cbs_level.cu), emulated in float64 ---
+
+_WARPS = cl.TILE_THREADS // 32
+
+
+def _butterfly(v):
+    """A warp's butterfly sum over the last axis (32 lanes: lane l adds
+    lane l ^ 16, then l ^ 8, ...), lane 0's value."""
+    for h in (16, 8, 4, 2, 1):
+        v = v[..., :h] + v[..., h:2 * h]
+    return v[..., 0]
+
+
+def _in_order(v):
+    """((v[0] + v[1]) + v[2]) + ... over the last axis."""
+    s = v[..., 0]
+    for i in range(1, v.shape[-1]):
+        s = s + v[..., i]
+    return s
+
+
+def _tile_sums(v, tile):
+    """A kernel block's float64 sum of each tile of v [R, Tmax] float64:
+    thread t adds its positions t, t + 128, ... of the tile in order from
+    0.0, then each warp's butterfly, then the warps in order: [R, tiles]."""
+    R, T = v.shape
+    per = tile // cl.TILE_THREADS
+    v = v.reshape(R, T // tile, per, cl.TILE_THREADS)
+    s = torch.zeros(v.shape[:2] + (cl.TILE_THREADS,), dtype=torch.float64)
+    for i in range(per):
+        s = s + v[:, :, i, :]
+    return _in_order(_butterfly(s.reshape(R, T // tile, _WARPS, 32)))
+
+
+def _running(v):
+    """[r_1, ..., r_n] with r_1 = v[0], r_i = r_(i-1) + v[i - 1] over the
+    last axis: each index's in-order sum of the entries before it (r_0,
+    where there is none, left 0)."""
+    out = torch.zeros_like(v)
+    for i in range(1, v.shape[-1]):
+        out[..., i] = v[..., 0] if i == 1 else out[..., i - 1] + v[..., i - 1]
+    return out
+
+
+def _runs(u, tile):
+    """K13's tile kernel on u [R, Tmax] float64 at tile width `tile`:
+    thread t a run of per consecutive positions of each tile, [R, tiles,
+    warps, 32, per]; the runs' running sums (a list over the run), the
+    warps' Hillis-Steele scans of the run sums, and each tile's centred
+    sum (the warps' scan totals in order) and sum of squares (each run's
+    in order, the warp's butterfly, the warps in order), [R, tiles]
+    each."""
+    R, T = u.shape
+    tiles, per = T // tile, tile // cl.TILE_THREADS
+    runs = u.reshape(R, tiles, _WARPS, 32, per)
+    acc = [runs[..., 0]]
+    sq = runs[..., 0] * runs[..., 0]
+    for i in range(1, per):
+        acc.append(acc[-1] + runs[..., i])
+        sq = sq + runs[..., i] * runs[..., i]
+    inc = acc[-1]
+    for o in (1, 2, 4, 8, 16):
+        nxt = inc.clone()
+        nxt[..., o:] = inc[..., o:] + inc[..., :-o]
+        inc = nxt
+    return acc, inc, _in_order(inc[..., 31]), _in_order(_butterfly(sq))
+
+
+def _tile_cumsum(u, tile):
+    """K13's cumsum of u [R, Tmax] float64 at tile width `tile`: a run's
+    running sum after what comes before the run, the carry into tile k
+    (the earlier tiles' centred sums in order), then the earlier warps'
+    scan totals in order, then the earlier lanes' scan, each term only
+    where there is one; f32 [R, Tmax]."""
+    R, T = u.shape
+    tiles = T // tile
+    acc, inc, carry_sums, _sq = _runs(u, tile)
+    k = torch.arange(tiles)[None, :, None, None]
+    w = torch.arange(_WARPS)[None, None, :, None]
+    lane = torch.arange(32)[None, None, None, :]
+    pre = _running(carry_sums)[:, :, None, None]
+    has = k > 0
+    wo = _running(inc[..., 31])[..., None]
+    pre = torch.where(w > 0, torch.where(has, pre + wo, wo), pre)
+    has = has | (w > 0)
+    ex = torch.nn.functional.pad(inc, (1, 0))[..., :32]
+    pre = torch.where(lane > 0, torch.where(has, pre + ex, ex), pre)
+    has = has | (lane > 0)
+    out = torch.stack([torch.where(has, pre + a, a) for a in acc], dim=-1)
+    return out.float().reshape(R, T)
+
+
+def _k13_tiled(contigs, tab, pending0, W, al0):
+    """K13's x, tss, cs, analyzable, n_eff and tier flags in its tile
+    order at prologue_layout's width: the gathered values' tile sums added
+    in tile order for the mean, analyzable from their extrema, the centred
+    values' runs, the row's tss from its tiles' sums of squares in tile
+    order, the cumsum."""
+    S = pending0.shape[0]
+    Tmax = contigs.shape[1]
+    tile, _tiles = cl.prologue_layout(W, Tmax)
+    fsel = torch.argsort((~pending0).to(torch.int32), stable=True)[:W]
+    lo, n = tab[S:2 * S][fsel], tab[2 * S:3 * S][fsel] - tab[S:2 * S][fsel]
+    contig = torch.clamp(tab[:S][fsel], min=0)
+    pend = pending0[fsel]
+    pos = torch.arange(Tmax)[None, :]
+    valid = pos < torch.clamp(n, 0, Tmax)[:, None]
+    ext = torch.nn.functional.pad(contigs, (0, Tmax))
+    raw = torch.where(valid, ext[contig[:, None], lo[:, None] + pos], 0.0)
+    mean = (_in_order(_tile_sums(raw.double(), tile))
+            / torch.clamp(n, min=1)).float()
+    u = torch.where(valid, raw - mean[:, None], 0.0)
+    sq = _runs(u.double(), tile)[3]
+    # analyzable from the gathered values' extrema: the centred
+    # extrema are fl(max - mean) and fl(min - mean); a NaN or an infinity
+    # makes the row not analyzable
+    big = torch.finfo(torch.float32).max
+    bad = (~torch.isfinite(raw) & valid).any(dim=1)
+    fin = valid & torch.isfinite(raw)
+    rmax = torch.where(fin, raw, -big).amax(dim=1)
+    rmin = torch.where(fin, raw, big).amin(dim=1)
+    an = pend & (n >= 2 * al0) & ~bad & (
+        torch.clamp(rmax - mean, min=-big) > torch.clamp(rmin - mean, max=big))
+    n_eff = torch.where(an, n, 2)
+    tiers = cl.tier_widths(Tmax)
+    in_tier = torch.stack([an & (n_eff <= w) & (n_eff > (tiers[t - 1]
+                                                          if t else 0))
+                           for t, w in enumerate(tiers)])
+    x = torch.where(an[:, None], u, 0.0)
+    cs = torch.where(an[:, None], _tile_cumsum(u.double(), tile), 0.0)
+    tss = torch.where(an, _in_order(sq).float(), 0.0)
+    return {"x": x, "tss": tss, "cs": cs, "analyzable": an, "n_eff": n_eff,
+            "in_tier": in_tier}
+
+
+def _edge_stats(wn, n1, xsum1, xsum, q):
+    """edge_lanes_plain's statistics from the lanes' f32 sums."""
+    n2 = wn - n1
+    wnf = wn.to(torch.float32)
+    xbar = xsum / torch.clamp(wnf, min=1.0)
+    tss = q - wnf * xbar * xbar
+    m1 = torch.minimum(n1, n2)
+    m1f = torch.clamp(m1, min=1).to(torch.float32)
+    mean_small = torch.where(n1 <= n2, xsum1 / torch.clamp(n1, min=1),
+                             (xsum - xsum1) / torch.clamp(n2, min=1))
+    ostat = 0.99999 * (mean_small - xbar).abs()
+    tstat = ostat * ostat * m1f * wnf / torch.clamp(wnf - m1f, min=1.0)
+    tstat = tstat / (torch.clamp(tss - tstat, min=1e-30)
+                     / torch.clamp(wnf - 2.0, min=1.0))
+    degen = (n1 <= 1) | (n2 <= 1)
+    return {"xbar": xbar, "ostat_e": ostat, "degen": degen,
+            "quick0": (tstat > 25.0) & (m1 >= 10), "m1": m1}
+
+
+def _k15_tiled(x, n, ti, tj, order):
+    """K15's lanes in its tile order at edge_layout's width: each (lane,
+    tile) block's sums s1, s and q of the f32 squares, stored with an
+    arrival count; the block that finds the lane's count at tiles - 1
+    adds the lane's tile sums in tile order and leaves the count zero.
+    Blocks arrive in `order` (a permutation of the tiles)."""
+    W, Tmax = x.shape
+    tile, tiles = cl.edge_layout(W, Tmax)
+    ti, tj = ti.long(), tj.long()
+    wn = torch.cat([tj, n - ti])
+    n1 = torch.cat([ti, tj - ti])
+    off = torch.cat([torch.zeros_like(ti), torch.clamp(ti, 0, Tmax)])
+    pos = torch.arange(Tmax)[None, :]
+    xx = torch.cat([x, x])
+    at = off[:, None] + pos
+    xw = torch.where((pos < wn[:, None]) & (at < Tmax),
+                     xx.gather(1, torch.clamp(at, max=Tmax - 1)), 0.0)
+    d = xw.double()
+    parts = torch.stack([
+        _tile_sums(torch.where(pos < n1[:, None], d, 0.0), tile),
+        _tile_sums(d, tile), _tile_sums((xw * xw).double(), tile)])
+    L = 2 * W
+    count = torch.zeros(L, dtype=torch.int64)
+    done = torch.zeros(L, dtype=torch.bool)
+    store = torch.full((3, L, tiles), float("nan"), dtype=torch.float64)
+    sums = torch.zeros(3, L, dtype=torch.float64)
+    for k in order:
+        store[:, :, k] = parts[:, :, k]
+        last = count == tiles - 1
+        count = torch.where(last, 0, count + 1)
+        if bool(last.any()):
+            sums[:, last] = _in_order(store[:, last, :])
+            done |= last
+    assert bool(done.all()) and not bool(count.any())
+    f = sums.float()
+    return {"xw": xw, "wn": wn, **_edge_stats(wn, n1, f[0], f[1], f[2])}
+
+
+def _bits_dict(got: dict, want: dict, what):
+    for k, v in got.items():
+        assert _bits(v, want[k]), (what, k)
+
+
+def test_k13_tile_order_equals_plain_on_levels(levels):
+    """K13's tile order, emulated in float64 at prologue_layout's tiles,
+    gives prologue_plain's x, tss, cs, analyzable, n_eff and tier flags
+    bit for bit on every level of the run."""
+    for _old, new, _after, _S in levels:
+        W = new["K13"]["x"].shape[0]
+        contigs, tab, pending0 = new["inputs"]
+        _bits_dict(_k13_tiled(contigs, tab, pending0, W, AL0), new["K13"],
+                   "K13")
+
+
+@pytest.mark.parametrize("Tmax,W", [(4096, 32), (2048, 64), (1024, 32)])
+def test_k13_tile_order_equals_plain_at_tile_edges(Tmax, W):
+    """The same on seeded rows whose length sits at a tile edge, one above
+    and one below it, one of them with an infinity, beside constant, NaN,
+    short and non-pending rows."""
+    tile, tiles = cl.prologue_layout(W, Tmax)
+    rng = np.random.default_rng(Tmax + W)
+    lens = []
+    for k in range(1, tiles + 1):
+        lens += [k * tile - 1, k * tile, k * tile + 1]
+    lens = [m for m in lens if 2 * AL0 <= m <= Tmax][:W - 4]
+    S = 2 * W
+    C = len(lens) + 4
+    contigs = rng.normal(0, 1, (C, Tmax)).astype(np.float32)
+    n = lens + [900, 600, 2 * AL0 - 1, 700]    # constant, NaN, short, -
+    lo = [int(rng.integers(0, Tmax - m + 1)) for m in n]
+    contigs[-4, :] = 2.5                       # constant
+    contigs[-3, lo[-3] + 5] = np.nan           # a NaN in the window
+    contigs[0, lo[0] + 3] = np.inf             # an infinity
+    tab = torch.zeros(3 * S + cl.CTL, dtype=torch.int64)
+    pending0 = torch.zeros(S, dtype=torch.bool)
+    for s, (m, start) in enumerate(zip(n, lo)):
+        tab[s], tab[S + s], tab[2 * S + s] = s, start, start + m
+        pending0[s] = s != len(n) - 1          # the last slot not pending
+    tab[len(n):S] = -1
+    c = torch.as_tensor(contigs)
+    got = _k13_tiled(c, tab, pending0, W, AL0)
+    _bits_dict(got, cl.prologue_plain(c, tab, pending0, W, AL0), (Tmax, W))
+    assert int(got["analyzable"].sum()) == len(lens) - 1
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k15_tile_order_equals_plain_on_levels(levels, seed):
+    """K15's tile split and last-tile merge, emulated in float64 at
+    edge_layout's tiles with the tiles arriving in seeded orders (the
+    first in tile order, then reversed, then shuffled), gives
+    edge_setup_plain's windows and statistics bit for bit on every level
+    of the run, and leaves every arrival counter zero."""
+    rng = np.random.default_rng(seed)
+    for _old, new, _after, _S in levels:
+        lv = new["K13"]
+        W, Tmax = lv["x"].shape
+        tiles = cl.edge_layout(W, Tmax)[1]
+        order = [list(range(tiles)), list(reversed(range(tiles))),
+                 list(rng.permutation(tiles))][seed]
+        ti, tj = new["tiers"]["ti"], new["tiers"]["tj"]
+        got = _k15_tiled(lv["x"], lv["n"], ti, tj, order)
+        _bits_dict(got, new["K15"], order)
+
+
+@pytest.mark.parametrize("Tmax", [1024 << k for k in range(7)])
+def test_tile_layouts_cover_rows_and_fill_the_card(Tmax):
+    """prologue_layout and edge_layout at every W from 1 to 512: powers
+    of two from 128 to min(4,096, Tmax) whose tiles cover each row once,
+    at most 16 a row (a thread block cluster), and a grid of at least the
+    H100's 132 SMs wherever the level has that many tiles at the
+    narrowest such width; the widest such tile short of twice that
+    grid."""
+    narrowest = max(128, Tmax // cl.MAX_TILES)
+    for W in range(1, 513):
+        for rows, (tile, tiles) in ((W, cl.prologue_layout(W, Tmax)),
+                                    (2 * W, cl.edge_layout(W, Tmax))):
+            assert tile & (tile - 1) == 0
+            assert narrowest <= tile <= min(4096, Tmax)
+            assert tiles * tile == Tmax and tiles <= cl.MAX_TILES
+            covered = (np.arange(tiles)[:, None] * tile
+                       + np.arange(tile)[None, :]).ravel()
+            assert np.array_equal(np.sort(covered), np.arange(Tmax))
+            if rows * (Tmax // narrowest) >= 132:
+                assert rows * tiles >= 132, (rows, Tmax)
+            if tile > narrowest:
+                assert rows * tiles >= cl.TARGET_BLOCKS
+            if 2 * tile <= min(4096, Tmax):
+                assert rows * (tiles // 2) < cl.TARGET_BLOCKS

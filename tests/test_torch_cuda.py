@@ -1490,6 +1490,88 @@ def test_layout_mirrors_equal_the_source(dev):
                     key: mirror[key] for key in keys}, (npad, items, grid)
 
 
+def test_level_tile_layout_mirrors_the_source(dev):
+    """cbs_level_cuda.tile_layout, the Python mirror of K13's and K15's
+    tile rule, equals csrc/cbs_level.cu's tile_width at every Tmax from
+    1,024 to 65,536 and every row count from 1 to 1,024."""
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
+
+    for k in range(10, 17):
+        for rows in range(1, 1025):
+            assert cl.device_layout(rows, 1 << k) == \
+                cl.tile_layout(rows, 1 << k), (rows, 1 << k)
+
+
+def _edge_table(Tmax, W, dev, seed=0):
+    """A level's inputs whose rows' lengths sit at K13's tile edges, one
+    below and one above them (the first with an infinity), beside a
+    constant row, a row with a NaN, a short row and a slot not pending;
+    the level's buffers."""
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
+
+    tile, tiles = cl.prologue_layout(W, Tmax)
+    rng = np.random.default_rng(seed)
+    lens = [m for k in range(1, tiles + 1)
+            for m in (k * tile - 1, k * tile, k * tile + 1) if m <= Tmax]
+    lens = (lens + list(rng.integers(4, Tmax + 1, W)))[:W - 4]
+    n = lens + [900, 600, 3, 700]
+    S = 2 * W
+    lo = [int(rng.integers(0, Tmax - m + 1)) for m in n]
+    contigs = rng.normal(0, 1, (len(n), Tmax)).astype(np.float32)
+    contigs[-4, :] = 2.5
+    contigs[-3, lo[-3] + 5] = np.nan
+    contigs[0, lo[0] + 3] = -np.inf
+    tab = torch.zeros(3 * S + cl.CTL, dtype=torch.int64)
+    pending0 = torch.zeros(S, dtype=torch.bool)
+    for s, (m, start) in enumerate(zip(n, lo)):
+        tab[s], tab[S + s], tab[2 * S + s] = s, start, start + m
+        pending0[s] = s != len(n) - 1
+    tab[len(n):S] = -1
+    tab[3 * S + cl.LIVE] = 1
+    lv = cl.level_buffers(W, Tmax, len(cl.tier_widths(Tmax)), dev)
+    return (torch.as_tensor(contigs, device=dev), tab.to(dev),
+            pending0.to(dev), lv)
+
+
+@pytest.mark.parametrize("Tmax,W", [(1024, 32), (4096, 32), (32768, 64),
+                                    (65536, 512)])
+def test_k13_k15_tiles_match_plain_at_tile_edges(dev, Tmax, W):
+    """K13 and K15 on rows whose lengths, and splits, sit at their tiles'
+    edges (one below, one above), beside a constant row and rows with a
+    NaN and an infinity, which are not analyzable, bit for bit equal to
+    their plain versions, three calls in a row; K15's arrival counters
+    left zero."""
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
+
+    contigs, tab, pending0, lv = _edge_table(Tmax, W, dev, seed=Tmax + W)
+    S = pending0.shape[0]
+    for _ in range(3):
+        cl.prologue(contigs, tab, pending0, lv, 2)
+        _assert_bits(lv, cl.prologue_plain(contigs, tab, pending0, W, 2),
+                     "K13")
+    assert int(lv["analyzable"].sum()) == W - 5
+    tile = cl.edge_layout(W, Tmax)[0]
+    rng = np.random.default_rng(W)
+    n = lv["n"].cpu().numpy()
+    ti = np.array([min(max(1, tile * (r % 3) + r % 3 - 1), int(m) - 1)
+                   for r, m in enumerate(n)])
+    tj = np.array([min(int(m) - 1 if r % 2 else tile + 1, int(m))
+                   for r, m in enumerate(n)])
+    tj = np.maximum(tj, ti + 1)
+    lv["ti"].copy_(torch.as_tensor(ti, dtype=torch.int32))
+    lv["tj"].copy_(torch.as_tensor(tj, dtype=torch.int32))
+    lv["trivial"].copy_(torch.as_tensor(rng.random(W) < 0.5))
+    walked = torch.as_tensor(rng.random(W) < 0.5, device=dev)
+    alpha = torch.tensor(0.01, dtype=torch.float32, device=dev)
+    for _ in range(3):
+        cl.edge_setup(tab, S, lv, walked, alpha, 1000)
+        _assert_bits(lv, cl.edge_setup_plain(
+            lv["x"], lv["n"], lv["ti"], lv["tj"], lv["trivial"], walked,
+            alpha, 1000, Tmax), "K15")
+        torch.cuda.synchronize()
+        assert not bool(lv["k15_count"].any())
+
+
 def test_statistics_wrappers_raise_on_bad_inputs(dev):
     """K9-K12's wrappers on the card raise on tensors of other types,
     and on devices other than cuda and cpu."""
