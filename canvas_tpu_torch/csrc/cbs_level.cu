@@ -25,25 +25,25 @@
 //       cumsum carried in from the earlier tiles' centred sums, and tile
 //       0 the row's tss.  Tiles of rows without work, or not
 //       analyzable, write zeros.
-//   K14 (decide_kernel) :397-413, in two launches: before K11, b = the
-//       statistic's square root in float64 (K11's input); after it, ostat,
-//       hybrid, trivial, needs and the walk limit nrejc from K11's
-//       float64 p1 rounded to f32.
-//   K15 (edge_setup_kernel, edge_keep_kernel) the edge tests' set-up,
-//       _edge_tests :174-215 and :286-290 with the call's preamble and
-//       epilogue :449-467.  Before K8, a block a (lane, tile) of the 2W
-//       lanes at tile_width(2 W, Tmax): the tile of the lane's shifted
-//       window xw and its float64 sums; the lane's last tile to arrive
-//       adds them in tile order and computes accepted and test_both of
-//       its row, tstat, degen, quick0 and active; after K8, one block:
-//       each lane's keep flag and the rows' keep1 and keep2, and the
-//       level's edge chunks.
-//   K16 (table_kernel) the table update :468-500, one block holding the
-//       whole table of S <= 1,024 slots: split1 and split2, the exclusive
-//       cumsum of the rows' children, the parents' new ends, the appends
-//       (beyond S dropped), nseg, overflow, the run's tally, the level
-//       count, and live: some slot pending, no overflow and the level
-//       count under the engine's bound.
+//   K14 (decision rules) :397-413: canvas_tpu computes them in the
+//       program of the tail probability they wrap, and so does the port:
+//       K11's launch carries them (csrc/cbs_stats.cu, tail_decide_kernel).
+//   K15 (edge_setup_kernel, and keep_table_kernel's first part) the edge
+//       tests' set-up, _edge_tests :174-215 and :286-290 with the call's
+//       preamble and epilogue :449-467.  Before K8, a block a (lane, tile)
+//       of the 2W lanes at tile_width(2 W, Tmax): the tile of the lane's
+//       shifted window xw and its float64 sums; the lane's last tile to
+//       arrive adds them in tile order and computes accepted and test_both
+//       of its row, tstat, degen, quick0 and active.  After K8 each lane's
+//       keep flag and the rows' keep1 and keep2, and the level's edge
+//       chunks, in the launch of K16.
+//   K16 (keep_table_kernel) the table update :468-500, in one block with
+//       K15's keep flags (the lanes' flags in its shared memory, 2W <=
+//       1,024), holding the whole table of S <= 1,024 slots: split1 and
+//       split2, the exclusive cumsum of the rows' children, the parents'
+//       new ends, the appends (beyond S dropped), nseg, overflow, the run's
+//       tally, the level count, and live: some slot pending, no overflow
+//       and the level count under the engine's bound.
 //
 // Every kernel, and every other kernel of the level, returns at once when
 // live is false, so a level after the run's end changes nothing; the host
@@ -79,8 +79,10 @@
 // tiles' three sums, which its last tile to arrive (an atomic counter)
 // adds; clusters of a lane's tiles were slower at the largest shape,
 // where a cluster of 16 holds its SMs until its last block finishes.
-// K14, K15's keep and K16 touch a few kilobytes: a launch's latency is
-// theirs.
+// K15's keep and K16 touch a few kilobytes: a kernel node's latency is
+// theirs, so they share one launch, and K14's rules (a few bytes a row)
+// ride in K11's, as canvas_tpu's XLA program fuses them; a launch of
+// their own would cost each a node's latency.
 //
 // Exactness.  The plain versions (ops/cbs_level_cuda.py) are the torch
 // code the kernels replace.  Every f32 and float64 operation here is the
@@ -562,60 +564,6 @@ __global__ void __launch_bounds__(kThreads) prologue_rows_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K14
-// ---------------------------------------------------------------------------
-
-struct DecideArgs {
-  const i64* ctl;
-  const float* t2;
-  const int32_t* ti;
-  const int32_t* tj;
-  const i64* n;
-  const bool* analyzable;
-  const double* p1;        // K11's, [W]
-  const float* alpha;      // scalar
-  double* b;               // phase 0: K11's input
-  float* ostat;            // phase 1 from here
-  bool* hybrid;
-  bool* needs;
-  bool* trivial;
-  i64* nrejc;
-  i64 n_min;
-  int W, n_perm, phase;
-};
-
-__device__ __forceinline__ float ostat1_of(float t2) {
-  return __fsqrt_rn(clamp_min(t2, 0.0f));
-}
-
-__global__ void decide_kernel(DecideArgs a) {
-  if (dead(a.ctl)) return;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= a.W) return;
-  const float t2 = a.t2[r];
-  const float os1 = ostat1_of(t2);
-  if (a.phase == 0) {
-    a.b[r] = double(os1);
-    return;
-  }
-  const float p1 = __double2float_rn(a.p1[r]);
-  const float alpha = *a.alpha;
-  const i64 ti = a.ti[r], tj = a.tj[r], n = a.n[r];
-  const i64 larc = tj - ti < n - tj + ti ? tj - ti : n - tj + ti;
-  const bool considered = a.analyzable[r] && os1 > 0.1f;
-  const bool trivial = considered && os1 >= 7.0f && larc >= 10;
-  const bool hybrid = n > a.n_min;
-  const bool tail_ok = hybrid ? p1 <= alpha : true;
-  const float np = float(a.n_perm);
-  a.ostat[r] = __fmul_rn(t2, 0.99999f);
-  a.hybrid[r] = hybrid;
-  a.trivial[r] = trivial;
-  a.needs[r] = considered && !trivial && tail_ok;
-  a.nrejc[r] = hybrid ? i64(__float2int_rz(__fmul_rn(__fsub_rn(alpha, p1), np)))
-                      : i64(__float2int_rz(__fmul_rn(alpha, np)));
-}
-
-// ---------------------------------------------------------------------------
 // K15
 // ---------------------------------------------------------------------------
 
@@ -780,51 +728,18 @@ __global__ void __launch_bounds__(kTileThreads) edge_setup_kernel(
   edge_stats(a, l, s1, s, q);
 }
 
-struct EdgeKeepArgs {
-  const i64* ctl;
-  const i64* count;        // K8's, [2W]
-  const i64* cnt;
-  const bool* degen;
-  const bool* quick0;
-  const bool* test_both;
-  const int32_t* ti;
-  const int32_t* tj;
-  const i64* n;
-  const float* alpha;
-  bool* keep1;             // [W]
-  bool* keep2;
-  i64* echunks;            // scalar
-  int W, n_perm;
-};
-
-__global__ void __launch_bounds__(kThreads) edge_keep_kernel(EdgeKeepArgs a) {
-  __shared__ bool s_keep[kThreads];
-  __shared__ i64 s_i[kWarps];
-  if (dead(a.ctl)) return;
-  const int t = threadIdx.x, L = 2 * a.W;
-  i64 c = 0;
-  if (t < L) {
-    const float p = __fdiv_rn(__ll2float_rn(a.count[t]), float(a.n_perm));
-    s_keep[t] = a.degen[t] ? false : (a.quick0[t] ? true : p <= *a.alpha);
-    c = a.cnt[t];
-  }
-  c = block_sum_i64(c, s_i);      // ends with a barrier
-  if (t < a.W) {
-    const bool at_end = a.tj[t] >= a.n[t], at_start = a.ti[t] <= 0;
-    const bool tb = a.test_both[t];
-    a.keep1[t] = tb ? s_keep[t] : at_end && !at_start;
-    a.keep2[t] = tb ? s_keep[a.W + t] : at_start && !at_end;
-  }
-  if (t == 0) *a.echunks = c;
-}
-
 // ---------------------------------------------------------------------------
-// K16
+// K15's keep flags and K16, one block
 // ---------------------------------------------------------------------------
 
-struct TableArgs {
+struct KeepTableArgs {
   i64* tab;                // seg_c, seg_lo, seg_hi [S] each, then ctl
   bool* pending0;          // [S]
+  const i64* count;        // K8's, [2W]
+  const i64* cnt;
+  const bool* degen;       // K15's, [2W]
+  const bool* quick0;
+  const float* alpha;      // scalar
   const i64* fsel;         // [W] the level's rows from here
   const i64* contig;
   const i64* seg_lo;
@@ -832,34 +747,56 @@ struct TableArgs {
   const bool* pending;
   const bool* analyzable;
   const bool* accepted;
-  const bool* keep1;
-  const bool* keep2;
+  const bool* test_both;
   const int32_t* ti;
   const int32_t* tj;
   const bool* needs;
   const bool* walked;      // K7's
   const i64* wchunks;      // K7's
-  const i64* echunks;      // K15's
-  int S, W, max_levels;
+  bool* keep1;             // [W] outputs, for the checks
+  bool* keep2;
+  i64* echunks;            // scalar
+  int S, W, n_perm, max_levels;
 };
 
-__global__ void __launch_bounds__(kThreads) table_kernel(TableArgs a) {
+// K15 after K8: each lane's keep flag (into shared memory), the rows'
+// keep1 and keep2 and the level's edge chunks (written out too); then, one
+// barrier later, K16 from them: split1 and split2, the children's slots by
+// a block scan, the parents' new ends, the appends, nseg, overflow, the
+// tally, the level count and live.
+__global__ void __launch_bounds__(kThreads) keep_table_kernel(
+    KeepTableArgs a) {
+  __shared__ bool s_keep[kThreads];
   __shared__ int s_scan[kWarps + 1];
   __shared__ i64 s_i[kWarps];
   i64* ctl = a.tab + 3 * a.S;
   if (dead(ctl)) return;
-  const int t = threadIdx.x, S = a.S;
+  const int t = threadIdx.x, S = a.S, L = 2 * a.W;
+  i64 c = 0;
+  if (t < L) {
+    const float p = __fdiv_rn(__ll2float_rn(a.count[t]), float(a.n_perm));
+    s_keep[t] = a.degen[t] ? false : (a.quick0[t] ? true : p <= *a.alpha);
+    c = a.cnt[t];
+  }
+  const i64 echunks = block_sum_i64(c, s_i);      // ends with a barrier
+  if (t == 0) *a.echunks = echunks;
   const bool row = t < a.W;
   bool split1 = false, split2 = false;
   i64 lo = 0, n = 0, first_cut = 0, second_cut = 0;
   int extra = 0;
   if (row) {
-    const bool acc = a.accepted[t];
     const i64 ti = a.ti[t], tj = a.tj[t];
     n = a.n[t];
     lo = a.seg_lo[t];
-    split1 = acc && a.keep1[t];
-    split2 = acc && a.keep2[t] && tj < n;
+    const bool at_end = tj >= n, at_start = ti <= 0;
+    const bool tb = a.test_both[t];
+    const bool keep1 = tb ? s_keep[t] : at_end && !at_start;
+    const bool keep2 = tb ? s_keep[a.W + t] : at_start && !at_end;
+    a.keep1[t] = keep1;
+    a.keep2[t] = keep2;
+    const bool acc = a.accepted[t];
+    split1 = acc && keep1;
+    split2 = acc && keep2 && tj < n;
     first_cut = split1 ? ti : tj;
     second_cut = split1 && split2 ? tj : n;
     const int nsplits = int(split1) + int(split2);
@@ -878,15 +815,15 @@ __global__ void __launch_bounds__(kThreads) table_kernel(TableArgs a) {
   // then the children, at the cursor; beyond the table they are dropped
   if (extra >= 1) {
     const i64 at = nseg + before;
-    const i64 c = a.contig[t];
+    const i64 sc = a.contig[t];
     if (at < S) {
-      a.tab[at] = c;
+      a.tab[at] = sc;
       a.tab[S + at] = lo + first_cut;
       a.tab[2 * S + at] = lo + second_cut;
       a.pending0[at] = true;
     }
     if (extra == 2 && at + 1 < S) {
-      a.tab[at + 1] = c;
+      a.tab[at + 1] = sc;
       a.tab[S + at + 1] = lo + second_cut;
       a.tab[2 * S + at + 1] = lo + n;
       a.pending0[at + 1] = true;
@@ -909,7 +846,7 @@ __global__ void __launch_bounds__(kThreads) table_kernel(TableArgs a) {
     ctl[kTally] += acc_n;
     ctl[kTally + 1] += rej_n;
     ctl[kTally + 2] += wch;
-    ctl[kTally + 3] += *a.echunks;
+    ctl[kTally + 3] += echunks;
     ctl[kLive] = any && !over && level < a.max_levels;
   }
 }
@@ -996,41 +933,6 @@ extern "C" int cbs_prologue(const void* contigs, const void* tab,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K14.  phase 0: b float64 [W] from t2; phase 1: ostat f32, hybrid,
-// needs, trivial bool and nrejc int64 [W] from t2, ti, tj (int32), n,
-// analyzable, K11's p1 float64 and alpha (f32 scalar).
-extern "C" int cbs_decide(const void* ctl, const void* t2, const void* ti,
-                          const void* tj, const void* n,
-                          const void* analyzable, const void* p1,
-                          const void* alpha, void* b, void* ostat,
-                          void* hybrid, void* needs, void* trivial,
-                          void* nrejc, long long n_min, int W, int n_perm,
-                          int phase, void* stream) {
-  if (W <= 0) return 0;
-  DecideArgs a;
-  a.ctl = static_cast<const i64*>(ctl);
-  a.t2 = static_cast<const float*>(t2);
-  a.ti = static_cast<const int32_t*>(ti);
-  a.tj = static_cast<const int32_t*>(tj);
-  a.n = static_cast<const i64*>(n);
-  a.analyzable = static_cast<const bool*>(analyzable);
-  a.p1 = static_cast<const double*>(p1);
-  a.alpha = static_cast<const float*>(alpha);
-  a.b = static_cast<double*>(b);
-  a.ostat = static_cast<float*>(ostat);
-  a.hybrid = static_cast<bool*>(hybrid);
-  a.needs = static_cast<bool*>(needs);
-  a.trivial = static_cast<bool*>(trivial);
-  a.nrejc = static_cast<i64*>(nrejc);
-  a.n_min = n_min;
-  a.W = W;
-  a.n_perm = n_perm;
-  a.phase = phase;
-  decide_kernel<<<unsigned((W + 255) / 256), 256, 0,
-                  static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // K15, before K8.  x f32 [W, Tmax], n int64, ti and tj int32, trivial and
 // walked bool [W], alpha f32 scalar; outputs xw f32 [2W, Tmax], wn and m1
 // int64, xbar and ostat f32, degen, quick0 and active bool [2W], accepted
@@ -1082,55 +984,34 @@ extern "C" int cbs_edge_setup(const void* ctl, const void* x, const void* n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K15, after K8.  count and cnt int64 [2W] (K8's), degen and quick0 bool
-// [2W], test_both bool, ti and tj int32, n int64 [W], alpha f32 scalar;
-// outputs keep1 and keep2 bool [W], echunks int64 scalar.
-extern "C" int cbs_edge_keep(const void* ctl, const void* count,
-                             const void* cnt, const void* degen,
-                             const void* quick0, const void* test_both,
-                             const void* ti, const void* tj, const void* n,
-                             const void* alpha, void* keep1, void* keep2,
-                             void* echunks, int W, int n_perm, void* stream) {
-  if (W <= 0) return 0;
-  if (2 * W > kThreads) return static_cast<int>(cudaErrorInvalidValue);
-  EdgeKeepArgs a;
-  a.ctl = static_cast<const i64*>(ctl);
+// K15 after K8 and K16, one launch.  tab int64 [3 S + 8] and pending0
+// bool [S], updated in place; K8's count and cnt int64 [2W], K15's degen
+// and quick0 bool [2W], alpha f32 scalar; the level's rows [W]: fsel,
+// contig, seg_lo, n int64, pending, analyzable, accepted, test_both bool,
+// ti, tj int32, needs, walked bool, wchunks int64; outputs keep1 and keep2
+// bool [W] and echunks int64 scalar.  2 W <= 1,024, W <= S <= 1,024.
+extern "C" int cbs_keep_table(void* tab, void* pending0, const void* count,
+                              const void* cnt, const void* degen,
+                              const void* quick0, const void* alpha,
+                              const void* fsel, const void* contig,
+                              const void* seg_lo, const void* n,
+                              const void* pending, const void* analyzable,
+                              const void* accepted, const void* test_both,
+                              const void* ti, const void* tj,
+                              const void* needs, const void* walked,
+                              const void* wchunks, void* keep1, void* keep2,
+                              void* echunks, int S, int W, int n_perm,
+                              int max_levels, void* stream) {
+  if (W <= 0 || 2 * W > kThreads || W > S || S > kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  KeepTableArgs a;
+  a.tab = static_cast<i64*>(tab);
+  a.pending0 = static_cast<bool*>(pending0);
   a.count = static_cast<const i64*>(count);
   a.cnt = static_cast<const i64*>(cnt);
   a.degen = static_cast<const bool*>(degen);
   a.quick0 = static_cast<const bool*>(quick0);
-  a.test_both = static_cast<const bool*>(test_both);
-  a.ti = static_cast<const int32_t*>(ti);
-  a.tj = static_cast<const int32_t*>(tj);
-  a.n = static_cast<const i64*>(n);
   a.alpha = static_cast<const float*>(alpha);
-  a.keep1 = static_cast<bool*>(keep1);
-  a.keep2 = static_cast<bool*>(keep2);
-  a.echunks = static_cast<i64*>(echunks);
-  a.W = W;
-  a.n_perm = n_perm;
-  edge_keep_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K16.  tab int64 [3 S + 8] and pending0 bool [S], updated in place; the
-// level's rows [W]: fsel, contig, seg_lo, n int64, pending, analyzable,
-// accepted, keep1, keep2 bool, ti, tj int32, needs, walked bool, wchunks
-// int64; echunks int64 scalar.  S <= 1,024.
-extern "C" int cbs_table(void* tab, void* pending0, const void* fsel,
-                         const void* contig, const void* seg_lo,
-                         const void* n, const void* pending,
-                         const void* analyzable, const void* accepted,
-                         const void* keep1, const void* keep2,
-                         const void* ti, const void* tj, const void* needs,
-                         const void* walked, const void* wchunks,
-                         const void* echunks, int S, int W, int max_levels,
-                         void* stream) {
-  if (S > kThreads || W > S || W <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  TableArgs a;
-  a.tab = static_cast<i64*>(tab);
-  a.pending0 = static_cast<bool*>(pending0);
   a.fsel = static_cast<const i64*>(fsel);
   a.contig = static_cast<const i64*>(contig);
   a.seg_lo = static_cast<const i64*>(seg_lo);
@@ -1138,18 +1019,21 @@ extern "C" int cbs_table(void* tab, void* pending0, const void* fsel,
   a.pending = static_cast<const bool*>(pending);
   a.analyzable = static_cast<const bool*>(analyzable);
   a.accepted = static_cast<const bool*>(accepted);
-  a.keep1 = static_cast<const bool*>(keep1);
-  a.keep2 = static_cast<const bool*>(keep2);
+  a.test_both = static_cast<const bool*>(test_both);
   a.ti = static_cast<const int32_t*>(ti);
   a.tj = static_cast<const int32_t*>(tj);
   a.needs = static_cast<const bool*>(needs);
   a.walked = static_cast<const bool*>(walked);
   a.wchunks = static_cast<const i64*>(wchunks);
-  a.echunks = static_cast<const i64*>(echunks);
+  a.keep1 = static_cast<bool*>(keep1);
+  a.keep2 = static_cast<bool*>(keep2);
+  a.echunks = static_cast<i64*>(echunks);
   a.S = S;
   a.W = W;
+  a.n_perm = n_perm;
   a.max_levels = max_levels;
-  table_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  keep_table_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 

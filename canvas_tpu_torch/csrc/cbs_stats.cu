@@ -84,6 +84,18 @@
 // writes nothing.  K11 is launched with the cooperative launch attribute
 // (cudaLaunchKernelExC), which a CUDA graph's capture keeps.
 //
+// The engine's level also runs K14, its decision rules (canvas_tpu/ops/
+// cbs_mega.py:398-413, which wraps the tail probability in the same XLA
+// program), inside K11's launch: tail_decide_kernel is K11's body with
+// each row's b = sqrt(max(t2, 0)) taken from the level's f32 t2 in phase
+// 1 (grid point 0 writing it out), and in phase 3 the thread that writes
+// a row's p applies the rules to it: ostat, hybrid, trivial, needs and the
+// walk limit nrejc from p rounded once to f32 (C5), with the f32
+// operations of cbs_level_cuda.decide_plain, correctly rounded, in its
+// order.  Launches of their own around K11 would each cost a kernel
+// node's latency for 60 bytes a row.  Each kernel's grid comes from its
+// own occupancy (cbs_tail_grid).
+//
 // K9's and K10's row counters, K10's keys and K11's two counters live in
 // device memory that the wrapper zeroes once a device; each launch leaves
 // them zero (K9 and K10: a row's last block), so calls on one stream reuse
@@ -610,6 +622,72 @@ __global__ void tail_table_kernel(double2* tbl) {
   }
 }
 
+// K14, the whole-recursion engine's decision rules, which its level runs
+// inside K11's launch (tail_decide_kernel): its inputs, the level's rows
+// [R], and its outputs.  n is the rows' length (K11's is n_eff).
+struct Decide {
+  const float* t2;         // K10's statistic: b = sqrt(max(t2, 0))
+  const int32_t* ti;
+  const int32_t* tj;
+  const i64* n;
+  const bool* analyzable;
+  const float* alpha;      // scalar
+  double* b;               // K11's input, written for the checks
+  float* ostat;
+  bool* hybrid;
+  bool* needs;
+  bool* trivial;
+  i64* nrejc;
+  i64 n_min;
+  int n_perm;
+};
+
+// torch.clamp(v, min=lo): NaN stays NaN
+__device__ __forceinline__ float clamp_min_f32(float v, float lo) {
+  return v < lo ? lo : v;
+}
+
+// The statistic's square root, ostat1 of the rules; its float64 value is
+// K11's b.
+__device__ __forceinline__ float ostat1_of(float t2) {
+  return __fsqrt_rn(clamp_min_f32(t2, 0.0f));
+}
+
+// Row r's b: K11's input b_in, or (kDecide) derived from the level's t2.
+template <bool kDecide>
+__device__ __forceinline__ double row_b(const double* b_in, const Decide& d,
+                                        int r) {
+  if constexpr (kDecide) {
+    return double(ostat1_of(d.t2[r]));
+  } else {
+    return b_in[r];
+  }
+}
+
+// K14's rules for row r from its tail probability p (float64, rounded
+// once to f32: C5), in f32 with correctly rounded operations, as
+// cbs_level_cuda.decide_plain computes them.
+__device__ __forceinline__ void decide_row(const Decide& d, int r, double p) {
+  const float t2 = d.t2[r];
+  const float os1 = ostat1_of(t2);
+  const float p1 = __double2float_rn(p);
+  const float alpha = *d.alpha;
+  const i64 ti = d.ti[r], tj = d.tj[r], n = d.n[r];
+  const i64 larc = tj - ti < n - tj + ti ? tj - ti : n - tj + ti;
+  const bool considered = d.analyzable[r] && os1 > 0.1f;
+  const bool trivial = considered && os1 >= 7.0f && larc >= 10;
+  const bool hybrid = n > d.n_min;
+  const bool tail_ok = hybrid ? p1 <= alpha : true;
+  const float np = float(d.n_perm);
+  d.ostat[r] = __fmul_rn(t2, 0.99999f);
+  d.hybrid[r] = hybrid;
+  d.trivial[r] = trivial;
+  d.needs[r] = considered && !trivial && tail_ok;
+  d.nrejc[r] = hybrid
+      ? i64(__float2int_rz(__fmul_rn(__fsub_rn(alpha, p1), np)))
+      : i64(__float2int_rz(__fmul_rn(alpha, np)));
+}
+
 // One cooperative launch, every block resident, in three phases split by
 // grid barriers:
 //   1. a thread a grid point (R x n_grid of them): x into xs, and the live
@@ -624,11 +702,16 @@ __global__ void tail_table_kernel(double2* tbl) {
 //   3. a block a row: a thread a grid point, its nu from its partial sums
 //      (or exp(-0.583 x) where dead) and its term, and the grid's tree.
 // nlive[0], the live points' count, and nlive[1], the items taken, are
-// zero at the call and left zero.
-__global__ void __launch_bounds__(kTailThreads, 4) tail_kernel(
+// zero at the call and left zero.  With kDecide (the whole-recursion
+// engine's level) the launch carries K14: phase 1 takes each row's b from
+// the level's t2, grid point 0 writing it to d.b, and in phase 3 the
+// thread that writes p[row] applies the rules to the row (decide_row).
+template <bool kDecide>
+__device__ __forceinline__ void tail_body(
     const double* b_in, const void* n, int n64, int kmax, int n_grid, int R,
     const double2* __restrict__ tbl, double* xs, int32_t* live,
-    double* part, unsigned* nlive, double* p, const i64* run_live) {
+    double* part, unsigned* nlive, double* p, const i64* run_live,
+    const Decide& d) {
   __shared__ double s_sum[kMaxGrid / 32];
   __shared__ int s_item;
   if (run_live && !*run_live) return;    // every block: no barrier is met
@@ -638,7 +721,11 @@ __global__ void __launch_bounds__(kTailThreads, 4) tail_kernel(
   for (int i = blockIdx.x * kTailThreads + t; i < points;
        i += gridDim.x * kTailThreads) {
     const int row = i / n_grid;
-    const double x = grid_point(b_in[row], double(row_n(n, n64, row)), kmax,
+    const double b = row_b<kDecide>(b_in, d, row);
+    if constexpr (kDecide) {
+      if (i == row * n_grid) d.b[row] = b;
+    }
+    const double x = grid_point(b, double(row_n(n, n64, row)), kmax,
                                 n_grid, i - row * n_grid).x;
     xs[i] = x;
     if (x > 0.01) live[atomicAdd(nlive, 1u)] = i;
@@ -671,7 +758,7 @@ __global__ void __launch_bounds__(kTailThreads, 4) tail_kernel(
   grid.sync();
   if (blockIdx.x == 0 && t == 0) nlive[0] = nlive[1] = 0;  // all read them
   for (int row = blockIdx.x; row < R; row += gridDim.x) {
-    const double b = b_in[row];
+    const double b = row_b<kDecide>(b_in, d, row);
     double term = 0.0;
     if (t < n_grid) {
       const int i = row * n_grid + t;
@@ -693,10 +780,32 @@ __global__ void __launch_bounds__(kTailThreads, 4) tail_kernel(
                                    __dadd_rn(s_sum[2], s_sum[3]));
       const double bcube = __dmul_rn(__dmul_rn(b, b), b);
       const double ex = exp(__ddiv_rn(__dmul_rn(-b, b), 2.0));
-      p[row] = __dmul_rn(__dmul_rn(__dmul_rn(kTailConst, bcube), ex), out);
+      const double pr =
+          __dmul_rn(__dmul_rn(__dmul_rn(kTailConst, bcube), ex), out);
+      p[row] = pr;
+      if constexpr (kDecide) decide_row(d, row, pr);
     }
     __syncthreads();
   }
+}
+
+// K11 (the frontier engine's, and tests'): b_in given.
+__global__ void __launch_bounds__(kTailThreads, 4) tail_kernel(
+    const double* b_in, const void* n, int n64, int kmax, int n_grid, int R,
+    const double2* __restrict__ tbl, double* xs, int32_t* live,
+    double* part, unsigned* nlive, double* p, const i64* run_live) {
+  tail_body<false>(b_in, n, n64, kmax, n_grid, R, tbl, xs, live, part, nlive,
+                   p, run_live, Decide{});
+}
+
+// K11 carrying K14 (the whole-recursion engine's level).
+__global__ void __launch_bounds__(kTailThreads, 4) tail_decide_kernel(
+    const void* n, int n64, int kmax, int n_grid, int R,
+    const double2* __restrict__ tbl, double* xs, int32_t* live,
+    double* part, unsigned* nlive, double* p, const i64* run_live,
+    Decide d) {
+  tail_body<true>(nullptr, n, n64, kmax, n_grid, R, tbl, xs, live, part,
+                  nlive, p, run_live, d);
 }
 
 // Series term i % 8,192 + 1 of nu(x[i]) as K11 computes it, for tests and
@@ -780,36 +889,35 @@ extern "C" int cbs_tail_table(void* tbl, void* stream) {
 }
 
 // K11's blocks on the current device, for a cooperative launch: its SMs
-// times the blocks the occupancy calculator lets each hold, into *grid.
-extern "C" int cbs_tail_grid(int* grid) {
+// times the blocks the occupancy calculator lets each hold, into *grid;
+// decide = 1 for the variant that carries K14 (each variant its own).
+extern "C" int cbs_tail_grid(int decide, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, tail_kernel, kTailThreads, 0);
+    err = decide ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &per_sm, tail_decide_kernel, kTailThreads, 0)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &per_sm, tail_kernel, kTailThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   *grid = sms * per_sm;
   return per_sm > 0 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
-// K11.  b float64 [R], n int64 or int32 [R]; output p float64 [R];
-// n_grid <= 128; grid from cbs_tail_grid.  tbl: the series table;
-// scratch xs float64 [R n_grid], live int32 [R n_grid], part float64
-// [R n_grid, 40]; nlive (u32 [2]) is zero and is left zero.
-extern "C" int cbs_tail_p(const void* b, const void* n, int n64,
-                          const void* tbl, void* xs, void* live, void* part,
-                          void* nlive, void* p, int R, int kmax, int n_grid,
-                          int grid, const void* run_live, void* stream) {
-  if (R <= 0) return 0;
-  if (n_grid < 1 || n_grid > kMaxGrid || grid <= 0 ||
-      static_cast<long long>(R) * n_grid * kItems > 0x7FFFFFFFll)
-    return static_cast<int>(cudaErrorInvalidValue);
-  void* args[] = {&b, &n, &n64, &kmax, &n_grid, &R, &tbl, &xs, &live, &part,
-                  &nlive, &p, &run_live};
-  // the cooperative launch attribute, which a CUDA graph's stream capture
-  // keeps on the kernel node (the grid barriers need it on every replay)
+namespace {
+
+int tail_args_invalid(int R, int n_grid, int grid) {
+  return n_grid < 1 || n_grid > kMaxGrid || grid <= 0 ||
+         static_cast<long long>(R) * n_grid * kItems > 0x7FFFFFFFll;
+}
+
+// A launch of `kernel` on grid blocks with the cooperative launch
+// attribute, which a CUDA graph's stream capture keeps on the kernel node
+// (the grid barriers need it on every replay).
+int launch_cooperative(const void* kernel, int grid, void** args,
+                       void* stream) {
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeCooperative;
   attr.val.cooperative = 1;
@@ -819,10 +927,68 @@ extern "C" int cbs_tail_p(const void* b, const void* n, int n64,
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelExC(
-      &cfg, reinterpret_cast<const void*>(tail_kernel), args);
+  cudaError_t err = cudaLaunchKernelExC(&cfg, kernel, args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K11.  b float64 [R], n int64 or int32 [R]; output p float64 [R];
+// n_grid <= 128; grid from cbs_tail_grid(0).  tbl: the series table;
+// scratch xs float64 [R n_grid], live int32 [R n_grid], part float64
+// [R n_grid, 40]; nlive (u32 [2]) is zero and is left zero.
+extern "C" int cbs_tail_p(const void* b, const void* n, int n64,
+                          const void* tbl, void* xs, void* live, void* part,
+                          void* nlive, void* p, int R, int kmax, int n_grid,
+                          int grid, const void* run_live, void* stream) {
+  if (R <= 0) return 0;
+  if (tail_args_invalid(R, n_grid, grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&b, &n, &n64, &kmax, &n_grid, &R, &tbl, &xs, &live, &part,
+                  &nlive, &p, &run_live};
+  return launch_cooperative(reinterpret_cast<const void*>(tail_kernel), grid,
+                            args, stream);
+}
+
+// K11 carrying K14, for the whole-recursion engine's level: K11 as
+// cbs_tail_p with b from t2 f32 [R] (written to b float64) and n_eff int64
+// (n64 = 1) or int32 [R]; then K14's outputs ostat f32, hybrid, needs,
+// trivial bool and nrejc int64 [R] from t2, ti, tj int32, n int64,
+// analyzable bool [R], alpha (f32 scalar), n_min and n_perm.  grid from
+// cbs_tail_grid(1).
+extern "C" int cbs_tail_decide(const void* n_eff, int n64, const void* tbl,
+                               void* xs, void* live, void* part, void* nlive,
+                               void* p, const void* t2, const void* ti,
+                               const void* tj, const void* n,
+                               const void* analyzable, const void* alpha,
+                               void* b, void* ostat, void* hybrid,
+                               void* needs, void* trivial, void* nrejc,
+                               long long n_min, int n_perm, int R, int kmax,
+                               int n_grid, int grid, const void* run_live,
+                               void* stream) {
+  if (R <= 0) return 0;
+  if (tail_args_invalid(R, n_grid, grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Decide d;
+  d.t2 = static_cast<const float*>(t2);
+  d.ti = static_cast<const int32_t*>(ti);
+  d.tj = static_cast<const int32_t*>(tj);
+  d.n = static_cast<const i64*>(n);
+  d.analyzable = static_cast<const bool*>(analyzable);
+  d.alpha = static_cast<const float*>(alpha);
+  d.b = static_cast<double*>(b);
+  d.ostat = static_cast<float*>(ostat);
+  d.hybrid = static_cast<bool*>(hybrid);
+  d.needs = static_cast<bool*>(needs);
+  d.trivial = static_cast<bool*>(trivial);
+  d.nrejc = static_cast<i64*>(nrejc);
+  d.n_min = n_min;
+  d.n_perm = n_perm;
+  void* args[] = {&n_eff, &n64, &kmax, &n_grid, &R, &tbl, &xs, &live, &part,
+                  &nlive, &p, &run_live, &d};
+  return launch_cooperative(reinterpret_cast<const void*>(tail_decide_kernel),
+                            grid, args, stream);
 }
 
 // Series term i % 8,192 + 1 of nu(x[i]) for x float64 [count], from the

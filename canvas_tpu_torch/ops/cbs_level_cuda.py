@@ -8,19 +8,20 @@ torch versions.
                tier's row mask, the rows that cannot be analysed zeroed,
                the float64 cumsum rounded to f32, and the level's t2, ti,
                tj at a row-in-no-tier's (0, 1, 2).
-  decide_prep  (K14, before K11): b = sqrt(max(t2, 0)) in float64, the
-               tail probability's input.
-  decide       (K14, after K11): ostat, hybrid, trivial, needs and the walk
-               limit nrejc from K11's float64 p1, rounded to f32 (C5).
+  tail_decide  (K11 carrying K14): b = sqrt(max(t2, 0)) in float64, its
+               tail probability p1 (K11, csrc/cbs_stats.cu), and from p1,
+               rounded to f32 (C5), ostat, hybrid, trivial, needs and the
+               walk limit nrejc, in one cooperative launch.
   edge_setup   (K15, before K8): accepted and test_both, and for the 2W
                lanes (edge 1 of every row, then edge 2) the windows xw,
                their float64 sums and the statistic's flags degen, quick0
                and active, the lanes' m1, xbar and ostat, and the limit.
-  edge_keep    (K15, after K8): each lane's keep flag from K8's count, the
-               rows' keep1 and keep2, the level's edge chunks.
-  table_update (K16): split1 and split2, the appended children (writes
-               beyond S dropped), the parents' new ends and pending flags,
-               nseg, overflow, the run's tally, the level count and live.
+  keep_table   (K15 after K8, and K16, one launch): each lane's keep flag
+               from K8's count, the rows' keep1 and keep2, the level's edge
+               chunks; then split1 and split2, the appended children
+               (writes beyond S dropped), the parents' new ends and pending
+               flags, nseg, overflow, the run's tally, the level count and
+               live.
 
 The segment table and its control words are one int64 buffer, `tab` [3 S
 + CTL]: seg_c, seg_lo, seg_hi [S] each, then nseg, overflow, live, the
@@ -29,20 +30,24 @@ chunks); the pending flags are bool [S].  Every kernel of a level returns
 at once where live is 0, so a level after the run's end changes nothing.
 
 On CUDA tensors the wrappers launch csrc/cbs_level.cu (K13 two launches
-a call, its slot selection and its tiles; the others one), counted in
-LAUNCHES, and write into the caller's tensors; on CPU tensors they read
-live (a host read) and, where it is set, run the plain version and copy
-its results into them.  K13 and K15 spread each row (lane) over tiles of
-tile_layout's width, a block a tile (K13: a thread block cluster a row;
-K15: its tiles' sums in level_buffers' k15_part, added by the lane's
-last tile, counted in k15_count).  The plain versions are the torch code
-these kernels replace in ops/cbs_mega.py, each a function of the level's
-inputs returning new tensors; edge_keep divides by a 0-dim tensor, so
-its p is IEEE division on every device (torch's CUDA division by a
-Python scalar multiplies by the reciprocal).  The kernels repeat them
-operation for operation but for the order of their float64 sums: a fixed
-order over the tiles (csrc/cbs_level.cu's note on exactness), equal to
-torch's result where the sums are exact.
+a call, its slot selection and its tiles; the others one) and, for
+tail_decide, csrc/cbs_stats.cu's K11 variant, counted in LAUNCHES (and
+cbs_stats_cuda.LAUNCHES["tail_decide"]), and write into the caller's
+tensors; on CPU tensors they read live (a host read) and, where it is
+set, run the plain versions (tail_decide_plain: decide_prep_plain,
+tail_p_plain, decide_plain chained; keep_table_plain: edge_keep_plain,
+table_update_plain) and copy their results into them.  K13 and K15
+spread each row (lane) over tiles of tile_layout's width, a block a tile
+(K13: a thread block cluster a row; K15: its tiles' sums in
+level_buffers' k15_part, added by the lane's last tile, counted in
+k15_count).  The plain versions are the torch code these kernels replace
+in ops/cbs_mega.py, each a function of the level's inputs returning new
+tensors; edge_keep divides by a 0-dim tensor, so its p is IEEE division
+on every device (torch's CUDA division by a Python scalar multiplies by
+the reciprocal).  The kernels repeat them operation for operation but for
+the order of their float64 sums: a fixed order over the tiles
+(csrc/cbs_level.cu's note on exactness), equal to torch's result where
+the sums are exact.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ import ctypes
 
 import torch
 
-from canvas_tpu_torch.ops import cuda_lib
+from canvas_tpu_torch.ops import cbs_stats_cuda, cuda_lib
 from canvas_tpu_torch.ops.cbs_device import _cumsum, _gather_center
 from canvas_tpu_torch.ops.cbs_mega_cuda import _check, _fsum
 
@@ -70,8 +75,9 @@ MIN_TILE, MAX_TILE, MAX_TILES = 128, 4096, 16
 TARGET_BLOCKS = 264
 
 # launches of the kernels, counted by the wrappers (K13: two a level, its
-# slot selection and its tiles; K14 and K15: two a level each)
-LAUNCHES = {"prologue": 0, "decide": 0, "edge_setup": 0, "table": 0}
+# slot selection and its tiles; K15's set-up and keep_table one each; K11
+# carrying K14 is cbs_stats_cuda's "tail_decide")
+LAUNCHES = {"prologue": 0, "edge_setup": 0, "keep_table": 0}
 PROLOGUE_LAUNCHES = 2
 
 _P = ctypes.c_void_p
@@ -79,10 +85,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "cbs_prologue": [_P] * 17 + [_I] * 5 + [_P],
     "cbs_level_layout": [_I, _I, _P],
-    "cbs_decide": [_P] * 14 + [ctypes.c_longlong] + [_I] * 3 + [_P],
     "cbs_edge_setup": [_P] * 21 + [_I] * 3 + [_P],
-    "cbs_edge_keep": [_P] * 13 + [_I] * 2 + [_P],
-    "cbs_table": [_P] * 17 + [_I] * 3 + [_P],
+    "cbs_keep_table": [_P] * 23 + [_I] * 4 + [_P],
     "cbs_graph_nodes": [_P, _P],
 }
 
@@ -94,7 +98,7 @@ _B, _F, _D, _L, _N = (torch.bool, torch.float32, torch.float64, torch.int64,
 # rest with their shapes
 _ROWS = {"fsel": _L, "contig": _L, "seg_lo": _L, "n": _L, "pending": _B,
          "analyzable": _B, "n_eff": _L, "tss": _F, "t2": _F, "ti": _N,
-         "tj": _N, "b": _D, "ostat": _F, "hybrid": _B, "needs": _B,
+         "tj": _N, "b": _D, "p1": _D, "ostat": _F, "hybrid": _B, "needs": _B,
          "trivial": _B, "nrejc": _L, "accepted": _B, "test_both": _B,
          "keep1": _B, "keep2": _B}
 _LANES = {"wn": _L, "m1": _L, "xbar": _F, "ostat_e": _F, "degen": _B,
@@ -198,13 +202,13 @@ def prologue_plain(contigs, tab, pending0, W: int, al0: int) -> dict:
 
 
 def decide_prep_plain(t2) -> torch.Tensor:
-    """Plain version of K14's first launch: K11's input b float64."""
+    """Plain version of K14's first step: K11's input b float64."""
     return torch.sqrt(torch.clamp(t2, min=0.0)).double()
 
 
 def decide_plain(t2, ti, tj, n, analyzable, p1, alpha, n_perm: int,
                  n_min: int) -> dict:
-    """Plain version of K14's second launch: the level's decision rules
+    """Plain version of K14's rules after K11: the level's decision rules
     from the statistic t2 at the split (ti, tj) and K11's p1 float64."""
     ostat1 = torch.sqrt(torch.clamp(t2, min=0.0))
     ostat = 0.99999 * t2
@@ -223,6 +227,18 @@ def decide_plain(t2, ti, tj, n, analyzable, p1, alpha, n_perm: int,
         (alpha * float(n_perm)).to(torch.int32)).to(torch.int64)
     return {"ostat": ostat, "hybrid": hybrid, "needs": needs,
             "trivial": trivial, "nrejc": nrejc}
+
+
+def tail_decide_plain(lv: dict, alpha, kmax: int, n_grid: int, n_perm: int,
+                      n_min: int) -> dict:
+    """Plain version of K11 carrying K14, on the level's tensors lv:
+    decide_prep_plain, K11's plain version (cbs_stats_cuda.tail_p_plain at
+    n_eff) and decide_plain chained; b, p1 and the rules' outputs."""
+    b = decide_prep_plain(lv["t2"])
+    p1 = cbs_stats_cuda.tail_p_plain(b, lv["n_eff"], kmax, n_grid)
+    return {"b": b, "p1": p1, **decide_plain(
+        lv["t2"], lv["ti"], lv["tj"], lv["n"], lv["analyzable"], p1, alpha,
+        n_perm, n_min)}
 
 
 def edge_lanes_plain(x, n, i1, i2, test_both, alpha, n_perm: int,
@@ -283,8 +299,8 @@ def edge_setup_plain(x, n, ti, tj, trivial, walked, alpha, n_perm: int,
 
 def edge_keep_plain(count, cnt, degen, quick0, test_both, ti, tj, n, alpha,
                     n_perm: int) -> dict:
-    """Plain version of K15's second launch, from K8's count and cnt
-    int64 [2W]."""
+    """Plain version of K15's keep flags (keep_table's first part), from
+    K8's count and cnt int64 [2W]."""
     W = test_both.shape[0]
     p = count.to(torch.float32) / torch.full((), float(n_perm), dtype=_F,
                                              device=count.device)
@@ -310,10 +326,10 @@ def _drop_set(table, idx, val):
 
 def table_update_plain(tab, pending0, lv: dict, walked, wchunks,
                        max_levels: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K16: (tab, pending0) after the level whose rows
-    are lv's (K13's fsel, contig, seg_lo, n, pending, analyzable; K10's
-    ti, tj; K14's needs; K15's accepted, keep1, keep2, echunks) and K7's
-    walked and wchunks."""
+    """Plain version of K16 (keep_table's second part): (tab, pending0)
+    after the level whose rows are lv's (K13's fsel, contig, seg_lo, n,
+    pending, analyzable; K10's ti, tj; K14's needs; K15's accepted, keep1,
+    keep2, echunks) and K7's walked and wchunks."""
     S = pending0.shape[0]
     seg_c0, seg_lo0, seg_hi0 = tab[:S], tab[S:2 * S], tab[2 * S:3 * S]
     ctl = tab[3 * S:]
@@ -353,6 +369,18 @@ def table_update_plain(tab, pending0, lv: dict, walked, wchunks,
     head = torch.stack([nseg, overflow.to(torch.int64), live.to(torch.int64),
                         level])
     return torch.cat([seg_c0, seg_lo0, seg_hi0, head, tally]), pending0
+
+
+def keep_table_plain(tab, pending0, lv: dict, count, cnt, walked, wchunks,
+                     alpha, n_perm: int, max_levels: int):
+    """Plain version of keep_table: edge_keep_plain, then
+    table_update_plain on lv with its keep flags; (keep1, keep2 and
+    echunks, tab, pending0)."""
+    keep = edge_keep_plain(count, cnt, lv["degen"], lv["quick0"],
+                           lv["test_both"], lv["ti"], lv["tj"], lv["n"],
+                           alpha, n_perm)
+    return (keep, *table_update_plain(tab, pending0, {**lv, **keep}, walked,
+                                      wchunks, max_levels))
 
 
 # ---------------------------------------------------------------------------
@@ -423,46 +451,20 @@ def prologue(contigs, tab, pending0, lv: dict, al0: int) -> None:
     LAUNCHES["prologue"] += PROLOGUE_LAUNCHES
 
 
-def _decide(tab, S, lv, p1, alpha, n_perm, n_min, phase) -> None:
-    W = lv["t2"].shape[0]
-    _check([("tab", tab, _L, (3 * S + CTL,)), ("alpha", alpha, _F, ())])
-    _check_level(lv, ("t2", "ti", "tj", "n", "analyzable", "b", "ostat",
-                      "hybrid", "needs", "trivial", "nrejc"), W, 0, 0)
-    if p1 is not None:
-        _check([("p1", p1, _D, (W,))])
-    status = cuda_lib.launch(
-        tab.device, _lib().cbs_decide, tab[3 * S:].data_ptr(),
-        *(lv[k].data_ptr() for k in ("t2", "ti", "tj", "n", "analyzable")),
-        cuda_lib.ptr(p1), alpha.data_ptr(),
-        *(lv[k].data_ptr() for k in ("b", "ostat", "hybrid", "needs",
-                                     "trivial", "nrejc")),
-        min(int(n_min), 1 << 62), W, n_perm, phase)
-    cuda_lib.check(status, "cbs_decide")
-    LAUNCHES["decide"] += 1
-
-
-def decide_prep(tab, S: int, lv: dict, alpha) -> None:
-    """K14's first launch: lv["b"] from lv["t2"] (alpha, an f32 scalar,
-    is not read)."""
+def tail_decide(tab, S: int, lv: dict, alpha, kmax: int, n_grid: int,
+                n_perm: int, n_min: int) -> None:
+    """K11 carrying K14, one launch: lv's b (from its t2) and p1, the tail
+    probability of b at n_eff bins over n_grid points, then its ostat,
+    hybrid, needs, trivial and nrejc from its t2, ti, tj, n, analyzable,
+    p1 and alpha (f32 scalar)."""
     if _device(tab) == "cpu":
         if _host_live(tab, S):
-            lv["b"].copy_(decide_prep_plain(lv["t2"]))
+            _put(lv, tail_decide_plain(lv, alpha, kmax, n_grid, n_perm,
+                                       n_min))
         return
-    _decide(tab, S, lv, None, alpha, 0, 0, 0)
-
-
-def decide(tab, S: int, lv: dict, p1, alpha, n_perm: int,
-           n_min: int) -> None:
-    """K14's second launch: lv's ostat, hybrid, needs, trivial and nrejc
-    from its t2, ti, tj, n and analyzable, K11's p1 and alpha (f32
-    scalar)."""
-    if _device(tab) == "cpu":
-        if _host_live(tab, S):
-            _put(lv, decide_plain(lv["t2"], lv["ti"], lv["tj"], lv["n"],
-                                  lv["analyzable"], p1, alpha, n_perm,
-                                  n_min))
-        return
-    _decide(tab, S, lv, p1, alpha, n_perm, n_min, 1)
+    _check([("tab", tab, _L, (3 * S + CTL,))])
+    cbs_stats_cuda.tail_decide_launch(lv, lv["n_eff"], alpha, kmax, n_grid,
+                                      n_perm, n_min, tab[3 * S + LIVE])
 
 
 _SETUP_OUT = ("xw", "wn", "m1", "xbar", "ostat_e", "degen", "quick0",
@@ -496,60 +498,46 @@ def edge_setup(tab, S: int, lv: dict, walked, alpha, n_perm: int) -> None:
     LAUNCHES["edge_setup"] += 1
 
 
-def edge_keep(tab, S: int, lv: dict, count, cnt, alpha, n_perm: int) -> None:
-    """K15's second launch: lv's keep1, keep2 and echunks from K8's count
-    and cnt."""
-    W = lv["ti"].shape[0]
-    if _device(tab) == "cpu":
-        if _host_live(tab, S):
-            _put(lv, edge_keep_plain(count, cnt, lv["degen"], lv["quick0"],
-                                     lv["test_both"], lv["ti"], lv["tj"],
-                                     lv["n"], alpha, n_perm))
-        return
-    _check([("tab", tab, _L, (3 * S + CTL,)), ("alpha", alpha, _F, ()),
-            ("count", count, _L, (2 * W,)), ("cnt", cnt, _L, (2 * W,))])
-    _check_level(lv, ("degen", "quick0", "test_both", "ti", "tj", "n",
-                      "keep1", "keep2", "echunks"), W, 0, 0)
-    status = cuda_lib.launch(
-        tab.device, _lib().cbs_edge_keep, tab[3 * S:].data_ptr(),
-        count.data_ptr(), cnt.data_ptr(),
-        *(lv[k].data_ptr() for k in ("degen", "quick0", "test_both", "ti",
-                                     "tj", "n")),
-        alpha.data_ptr(),
-        *(lv[k].data_ptr() for k in ("keep1", "keep2", "echunks")), W,
-        n_perm)
-    cuda_lib.check(status, "cbs_edge_keep")
-    LAUNCHES["edge_setup"] += 1
+_KEEP_TABLE_IN = ("degen", "quick0", "fsel", "contig", "seg_lo", "n",
+                  "pending", "analyzable", "accepted", "test_both", "ti",
+                  "tj", "needs")
 
 
-_TABLE_IN = ("fsel", "contig", "seg_lo", "n", "pending", "analyzable",
-             "accepted", "keep1", "keep2", "ti", "tj", "needs")
-
-
-def table_update(tab, pending0, lv: dict, walked, wchunks,
-                 max_levels: int) -> None:
-    """K16: tab and pending0 updated in place after the level lv, with
-    K7's walked and wchunks."""
+def keep_table(tab, pending0, lv: dict, count, cnt, walked, wchunks, alpha,
+               n_perm: int, max_levels: int) -> None:
+    """K15's keep flags and K16, one launch: lv's keep1, keep2 and
+    echunks from K8's count and cnt, then tab and pending0 updated in
+    place after the level lv, with K7's walked and wchunks."""
     W = lv["ti"].shape[0]
     S = pending0.shape[0]
     if _device(tab) == "cpu":
         if _host_live(tab, S):
-            new_tab, new_pending = table_update_plain(
-                tab, pending0, lv, walked, wchunks, max_levels)
+            keep, new_tab, new_pending = keep_table_plain(
+                tab, pending0, lv, count, cnt, walked, wchunks, alpha,
+                n_perm, max_levels)
+            _put(lv, keep)
             tab.copy_(new_tab)
             pending0.copy_(new_pending)
         return
     S = _check_table(tab, pending0)
-    _check([("walked", walked, _B, (W,)), ("wchunks", wchunks, _L, (W,))])
-    _check_level(lv, _TABLE_IN + ("echunks",), W, 0, 0)
-    if W > S:
-        raise ValueError(f"W {W} must be at most S {S}")
+    _check([("tab", tab, _L, (3 * S + CTL,)), ("alpha", alpha, _F, ()),
+            ("count", count, _L, (2 * W,)), ("cnt", cnt, _L, (2 * W,)),
+            ("walked", walked, _B, (W,)), ("wchunks", wchunks, _L, (W,))])
+    _check_level(lv, _KEEP_TABLE_IN + ("keep1", "keep2", "echunks"), W, 0,
+                 0)
+    if W > S or 2 * W > MAX_SLOTS:
+        raise ValueError(f"W {W} must be at most S {S} and "
+                         f"{MAX_SLOTS // 2}")
     status = cuda_lib.launch(
-        tab.device, _lib().cbs_table, tab.data_ptr(), pending0.data_ptr(),
-        *(lv[k].data_ptr() for k in _TABLE_IN), walked.data_ptr(),
-        wchunks.data_ptr(), lv["echunks"].data_ptr(), S, W, max_levels)
-    cuda_lib.check(status, "cbs_table")
-    LAUNCHES["table"] += 1
+        tab.device, _lib().cbs_keep_table, tab.data_ptr(),
+        pending0.data_ptr(), count.data_ptr(), cnt.data_ptr(),
+        lv["degen"].data_ptr(), lv["quick0"].data_ptr(), alpha.data_ptr(),
+        *(lv[k].data_ptr() for k in _KEEP_TABLE_IN[2:]), walked.data_ptr(),
+        wchunks.data_ptr(),
+        *(lv[k].data_ptr() for k in ("keep1", "keep2", "echunks")), S, W,
+        n_perm, max_levels)
+    cuda_lib.check(status, "cbs_keep_table")
+    LAUNCHES["keep_table"] += 1
 
 
 def device_layout(rows: int, Tmax: int) -> tuple[int, int]:

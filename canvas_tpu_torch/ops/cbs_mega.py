@@ -46,7 +46,9 @@ Design:
     rows share an iteration.
   * The level body's glue is kernels K13-K16 (ops/cbs_level_cuda.py): the
     compaction, gathers, centring, cumsum and tier masks; the decision
-    rules; the edge tests' set-up; the table update.  The table lives in
+    rules, carried by K11's launch as the JAX package computes them in the
+    tail probability's program; the edge tests' set-up; the table update,
+    in one launch with the edge tests' keep flags.  The table lives in
     one device buffer with its control words (nseg, overflow, live, the
     level count, the tally), updated in place; every kernel of a level
     returns at once where live is 0, so a level after the run's end
@@ -101,7 +103,7 @@ from canvas_tpu_torch.config import resolve_device
 from canvas_tpu_torch.ops import arc_scan_cuda, cbs_level_cuda, cbs_mega_cuda
 from canvas_tpu_torch.ops import cbs as _cbs
 from canvas_tpu_torch.ops import cbs_stats_cuda
-from canvas_tpu_torch.ops.cbs_device import _tail_p_batch_dev, tmax_batch
+from canvas_tpu_torch.ops.cbs_device import tmax_batch
 from canvas_tpu_torch.ops.cbs_level_cuda import (CTL, LEVEL, LIVE, NSEG,
                                                  OVERFLOW, TALLY)
 
@@ -203,7 +205,8 @@ class _Engine:
 
     def level(self) -> None:
         """One level of the recursion: K13, the tiers' K9, B4 and K10
-        (each under its row mask), K14, K11, K14, K7, K15, K8, K15, K16."""
+        (each under its row mask), K11 carrying K14, K7, K15, K8, then
+        K15's keep flags with K16."""
         lv, tab, S, live = self.lv, self.tab, self.S, self.live
         cl = cbs_level_cuda
         cl.prologue(self.contigs, tab, self.pending0, lv, self.al0)
@@ -211,10 +214,9 @@ class _Engine:
             tmax_batch(lv["cs"][:, :w], lv["n_eff"], lv["tss"], w, self.al0,
                        mask=lv["in_tier"][t],
                        out=(lv["t2"], lv["ti"], lv["tj"]), live=live)
-        cl.decide_prep(tab, S, lv, self.alpha)
-        p1 = _tail_p_batch_dev(lv["b"], lv["n_eff"], self.kmax, self.n_grid,
-                               live=live)
-        cl.decide(tab, S, lv, p1, self.alpha, self.n_perm, self.n_min)
+        # --- the tail probability and the decision rules (K11 with K14) ---
+        cl.tail_decide(tab, S, lv, self.alpha, self.kmax, self.n_grid,
+                       self.n_perm, self.n_min)
         # --- sequential-stopping permutation walks (kernel K7); a walking
         # row is analysable, so its n_eff is its n and its key the chain
         # of (contig, lo, n) ---
@@ -223,16 +225,15 @@ class _Engine:
             lv["seg_lo"], lv["needs"], lv["hybrid"], lv["ostat"],
             lv["nrejc"], self.sbdry, self.n_perm, self.al0, self.kmax,
             self.n_min, live=live)
-        # --- split-location edge tests (K15, kernel K8, K15) ---
+        # --- split-location edge tests (K15, kernel K8) ---
         cl.edge_setup(tab, S, lv, walked, self.alpha, self.n_perm)
         count, cnt = cbs_mega_cuda.edge_counts(
             lv["xw"], lv["wn"], lv["m1"], lv["xbar"], lv["ostat_e"],
             lv["active"], self.key0, lv["contig"], lv["seg_lo"], lv["n"],
             lv["limit"], self.n_perm, live=live)
-        cl.edge_keep(tab, S, lv, count, cnt, self.alpha, self.n_perm)
-        # --- segment-table update (K16) ---
-        cl.table_update(tab, self.pending0, lv, walked, wchunks,
-                        self.max_levels)
+        # --- the keep flags and the segment-table update (K15, K16) ---
+        cl.keep_table(tab, self.pending0, lv, count, cnt, walked, wchunks,
+                      self.alpha, self.n_perm, self.max_levels)
 
     def capture(self) -> None:
         """Capture one level in a CUDA graph.  A dead level (live 0) first
@@ -271,7 +272,7 @@ class _Engine:
 
     def launches_a_level(self) -> dict:
         """The captured level's kernel launches by the wrappers' LAUNCHES
-        names (K14 and K15 count two each)."""
+        names (K13 counts two)."""
         return {k: v for d in self.launches for k, v in d.items() if v}
 
     def replay(self) -> None:

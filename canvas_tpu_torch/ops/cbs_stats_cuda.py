@@ -14,6 +14,10 @@ versions.
                    a [R] float64 batch (hybrid delta = (kmax + 1) / n) over
                    a grid of n_grid points, nu(x) at each by 8,192 series
                    terms and a 129-point Simpson tail (nu_plain).
+  tail_decide_launch (K11 carrying K14): for the whole-recursion engine's
+                   level, K11 with b from the level's t2 and, in the same
+                   launch, K14's decision rules from its p1
+                   (cbs_level_cuda.tail_decide is the level's wrapper).
 
 On CUDA tensors the wrappers launch csrc/cbs_stats.cu, one launch a call,
 and count it in LAUNCHES; on CPU tensors they run the plain versions; any
@@ -28,7 +32,7 @@ result; K11 is one cooperative launch whose blocks share the live grid
 points' series.  Each CUDA device keeps their counters (K9's and K10's a
 row, K11's two), K10's row keys and K9's scratch, the counters zeroed
 once and left zero by every launch, so calls on one device run on one
-stream at a time, and K11's table of sqrt(k) and 2 / k and its grid (made
+stream at a time, and K11's table of sqrt(k) and 2 / k and its grids (made
 at the device's first call).  K9 and K10 round every f32
 operation as their plain versions do and take maxima, minima and first
 indices exactly, so they are equal bit for bit.  The plain tail
@@ -67,11 +71,12 @@ _MIN_ROWS = 1024        # rows the per-device counters hold at least
 K9_TILE = 8192          # K9's positions a thread block
 _K9_EXT_WORDS = 4       # a tile's extrema: vmin, vmax, imin, imax
 
-# launches of the kernels, counted by the wrappers
-LAUNCHES = {"arc_inputs": 0, "refine": 0, "tail_p": 0}
+# launches of the kernels, counted by the wrappers (tail_decide: K11
+# carrying K14, the whole-recursion engine's)
+LAUNCHES = {"arc_inputs": 0, "refine": 0, "tail_p": 0, "tail_decide": 0}
 
-# per CUDA device: {"table", "grid", "count", "key", "k9_count", "k9_ext",
-# "k9_chunk", "rows"} (_device_state)
+# per CUDA device: {"table", "grid", "grid_decide", "count", "key",
+# "k9_count", "k9_ext", "k9_chunk", "rows"} (_device_state)
 _STATE: dict = {}
 _STATE_LOCK = threading.Lock()
 
@@ -81,8 +86,10 @@ _SIGNATURES = {
     "cbs_arc_inputs": [_P, _P, _I] + [_P] * 9 + [_I] * 4 + [_P] * 3,
     "cbs_refine": [_P, _P, _I] + [_P] * 11 + [_I] * 4 + [_P] * 3,
     "cbs_tail_table": [_P, _P],
-    "cbs_tail_grid": [_P],
+    "cbs_tail_grid": [_I, _P],
     "cbs_tail_p": [_P, _P, _I] + [_P] * 6 + [_I] * 4 + [_P] * 2,
+    "cbs_tail_decide": [_P, _I] + [_P] * 18 + [ctypes.c_longlong]
+                       + [_I] * 5 + [_P] * 2,
     "cbs_series_term": [_P, _P, _P, _I, _P],
     "cbs_erfc": [_P, _P, _I, _P],
 }
@@ -393,7 +400,8 @@ def arc_scan_inputs(cs, n, npad: int, al0: int):
 
 def _device_state(dev: torch.device, rows: int) -> dict:
     """The CUDA device's K11 series table (float64 [8,192 x 2], made on the
-    card at its first call) and K11's cooperative grid, and for at least
+    card at its first call) and K11's cooperative grids (grid, and
+    grid_decide for the variant that carries K14), and for at least
     `rows` rows, grown to a power of two: zeroed row counters (int32; K11
     counts in the first two) and K10 row keys (int64), K9's own zeroed row
     counters and its scratch of tile extrema and chunk extrema (8 tiles
@@ -407,12 +415,16 @@ def _device_state(dev: torch.device, rows: int) -> dict:
             cuda_lib.check(cuda_lib.launch(dev, lib.cbs_tail_table,
                                            table.data_ptr()),
                            "cbs_tail_table")
-            grid = ctypes.c_int(0)
-            with torch.cuda.device(dev):
-                cuda_lib.check(lib.cbs_tail_grid(ctypes.byref(grid)),
-                               "cbs_tail_grid")
-            state = _STATE[dev] = {"table": table, "grid": grid.value,
-                                   "rows": 0}
+            grids = []
+            for decide in (0, 1):
+                grid = ctypes.c_int(0)
+                with torch.cuda.device(dev):
+                    cuda_lib.check(lib.cbs_tail_grid(decide,
+                                                     ctypes.byref(grid)),
+                                   "cbs_tail_grid")
+                grids.append(grid.value)
+            state = _STATE[dev] = {"table": table, "grid": grids[0],
+                                   "grid_decide": grids[1], "rows": 0}
         if state["rows"] < rows:
             # a captured CUDA graph may hold the smaller buffers: they are
             # kept, never freed for reuse
@@ -516,6 +528,51 @@ def tail_p(b, n, kmax: int, n_grid: int, live=None):
     cuda_lib.check(status, "cbs_tail_p")
     LAUNCHES["tail_p"] += 1
     return p
+
+
+def tail_decide_launch(rows: dict, n_eff, alpha, kmax: int, n_grid: int,
+                       n_perm: int, n_min: int, live) -> None:
+    """K11 carrying K14 on CUDA tensors, one cooperative launch: the tail
+    probability p1 float64 of b = sqrt(max(t2, 0)) at n_eff int64 [R]
+    bins, and from it K14's rules.  rows holds [R] tensors: the inputs t2
+    f32, ti, tj int32, n int64 and analyzable bool, and the outputs,
+    written in place, b and p1 float64, ostat f32, hybrid, needs and
+    trivial bool, nrejc int64; alpha is an f32 scalar, live the engine's
+    int64 scalar (where it is 0 every block returns at once and nothing is
+    written).  The level's wrapper is cbs_level_cuda.tail_decide."""
+    R, dev = n_eff.shape[0], n_eff.device
+    if not 1 <= n_grid <= MAX_GRID:
+        raise ValueError(f"n_grid must be in [1, {MAX_GRID}], got {n_grid}")
+    _check_vec("n_eff", n_eff, torch.int64, R, dev)
+    for name, dt in (("t2", torch.float32), ("ti", torch.int32),
+                     ("tj", torch.int32), ("n", torch.int64),
+                     ("analyzable", torch.bool), ("b", torch.float64),
+                     ("p1", torch.float64), ("ostat", torch.float32),
+                     ("hybrid", torch.bool), ("needs", torch.bool),
+                     ("trivial", torch.bool), ("nrejc", torch.int64)):
+        _check_vec(name, rows[name], dt, R, dev)
+    cuda_lib.require_cuda_tensor("alpha", alpha, torch.float32, dev)
+    _check_gate(None, live, R, dev)
+    if live is None or alpha.dim() != 0:
+        raise ValueError("alpha and live must be scalars")
+    xs = torch.empty(R * n_grid, dtype=torch.float64, device=dev)
+    points = torch.empty(R * n_grid, dtype=torch.int32, device=dev)
+    part = torch.empty(R * n_grid * _NU_PARTS, dtype=torch.float64,
+                       device=dev)
+    state = _device_state(dev, 1)
+    lib = cuda_lib.load("cbs_stats", _SIGNATURES)
+    status = cuda_lib.launch(
+        dev, lib.cbs_tail_decide, n_eff.data_ptr(), 1,
+        state["table"].data_ptr(), xs.data_ptr(), points.data_ptr(),
+        part.data_ptr(), state["count"].data_ptr(), rows["p1"].data_ptr(),
+        *(rows[k].data_ptr() for k in ("t2", "ti", "tj", "n", "analyzable")),
+        alpha.data_ptr(),
+        *(rows[k].data_ptr() for k in ("b", "ostat", "hybrid", "needs",
+                                       "trivial", "nrejc")),
+        min(int(n_min), 1 << 62), n_perm, R, kmax, n_grid,
+        state["grid_decide"], live.data_ptr())
+    cuda_lib.check(status, "cbs_tail_decide")
+    LAUNCHES["tail_decide"] += 1
 
 
 def device_series_terms(x):

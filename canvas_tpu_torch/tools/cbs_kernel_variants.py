@@ -3,11 +3,12 @@ CUDA card, beside another build of the source: an earlier design, or the
 same source with a part taken out to see what the rest costs; with --k12,
 kernel K12 (the frontier's permutation chunks) the same way; with --k13
 and --k15, kernels K13 (the CBS level's prologue) and K15 (the edge
-tests' set-up) of csrc/cbs_level.cu.
+tests' set-up) of csrc/cbs_level.cu; with --k14 --k16, K11 carrying K14
+(csrc/cbs_stats.cu) and K15's keep flags with K16 (csrc/cbs_level.cu).
 
     python3 -m canvas_tpu_torch.tools.cbs_kernel_variants \\
         [--old PATH [--old-parts]] [--no-committed] [--reps N] [--k12]
-        [--k13] [--k15]
+        [--k13] [--k15] [--k14 --k16]
 
 The inputs are made from a seed, shaped like the first walking and
 edge-testing levels of chip_smoke.py's panel (Tumor-normal-enrichment,
@@ -43,7 +44,20 @@ plain version's outputs bit for bit.  The builds: the committed source
 and, with --old PATH, an earlier cbs_level.cu (a block a row or lane;
 its K15 takes no scratch), as it is.
 
---old PATH takes, without --k13 or --k15, a cbs_mega.cu whose entry
+--k14 --k16 time, on the same three cases' first level, K11 carrying
+K14 (one cooperative launch), K11 alone on the same rows (K14's added
+time is the difference), and K15's keep flags with K16 (one launch, its
+table and pending flags put back by two copies before each call, timed
+alone too); with --old DIR, the design before them built from DIR's
+cbs_stats.cu and cbs_level.cu (for example written by `git show
+<commit>:canvas_tpu_torch/csrc/cbs_stats.cu` and the same for
+cbs_level.cu): K14's two launches around K11, and K15's keep launch and
+K16's, the keep alone too.  Each must give the chained plain versions'
+outputs bit for bit (decide_prep_plain, tail_p_plain, decide_plain;
+edge_keep_plain, table_update_plain).  Each is timed eagerly and as a
+CUDA graph replayed, and both groups in one graph.
+
+--old PATH takes, without --k13, --k15 or --k14, a cbs_mega.cu whose entry
 points take one threefry key a row (the design that gives a whole block
 to each permutation and draws K7's keys twice), for example one written
 by `git show <commit>:canvas_tpu_torch/csrc/cbs_mega.cu`.  It is built as
@@ -460,15 +474,19 @@ def level_coverage(case: str, seed: int) -> dict:
             for c in range(192)}
 
 
+_LEVEL_WRAPPERS = ("prologue", "edge_setup", "tail_decide", "keep_table")
+
+
 def first_level_inputs(cov: dict, dev: torch.device) -> dict:
     """The arguments (cloned) of the first call of K13's and K15's
-    wrappers in an eager engine run over cov on the card."""
+    wrappers, of K11 carrying K14 (tail_decide) and of keep_table (K15's
+    keep flags with K16) in an eager engine run over cov on the card."""
     import functools
 
     from canvas_tpu_torch.ops import cbs_mega
 
     got: dict = {}
-    orig = {"prologue": cl.prologue, "edge_setup": cl.edge_setup}
+    orig = {k: getattr(cl, k) for k in _LEVEL_WRAPPERS}
 
     def recorder(name):
         def call(*args):
@@ -481,12 +499,14 @@ def first_level_inputs(cov: dict, dev: torch.device) -> dict:
 
     run = cbs_mega._mega_recurse
     cbs_mega._mega_recurse = functools.partial(run, graph=False)
-    cl.prologue, cl.edge_setup = recorder("prologue"), recorder("edge_setup")
+    for k in _LEVEL_WRAPPERS:
+        setattr(cl, k, recorder(k))
     try:
         cbs_mega.run_cbs_mega(cov, device=dev)
     finally:
         cbs_mega._mega_recurse = run
-        cl.prologue, cl.edge_setup = orig["prologue"], orig["edge_setup"]
+        for k in _LEVEL_WRAPPERS:
+            setattr(cl, k, orig[k])
     return got
 
 
@@ -584,6 +604,220 @@ def time_level(args, dev: torch.device) -> int:
                      "gathered": int(torch.clamp(n[:W], min=0).sum()),
                      "K13_tiles": cl.prologue_layout(W, Tmax),
                      "K15_tiles": cl.edge_layout(W, Tmax)}
+    print(json.dumps({"cases": shapes}), flush=True)
+    print(gpu_line(), flush=True)
+    return 0
+
+
+# the entry points of the design before K14 rode in K11's launch and K15's
+# keep flags in K16's: cbs_stats.cu's and cbs_level.cu's
+OLD_STATS_SIGNATURES = {
+    "cbs_tail_table": [_P, _P],
+    "cbs_tail_grid": [_P],
+    "cbs_tail_p": [_P, _P, _I] + [_P] * 6 + [_I] * 4 + [_P] * 2,
+}
+OLD_LEVEL_SIGNATURES = {
+    "cbs_decide": [_P] * 14 + [ctypes.c_longlong] + [_I] * 3 + [_P],
+    "cbs_edge_keep": [_P] * 13 + [_I] * 2 + [_P],
+    "cbs_table": [_P] * 17 + [_I] * 3 + [_P],
+}
+_K14_OUT = ("b", "p1", "ostat", "hybrid", "needs", "trivial", "nrejc")
+
+
+def fused_calls(inputs: dict, dev: torch.device, old_stats=None,
+                old_level=None) -> dict:
+    """On a case's first level (inputs: first_level_inputs), each call
+    into copies of the level's tensors, table and pending flags, with
+    (outputs, plain outputs) to check: "K14" K11 carrying K14 (or, given
+    the old libraries, PR 18's three launches, K14's two around K11),
+    "K11" K11 alone on the same rows (the committed tail_kernel, or the
+    old one), "K16" K15's keep flags with K16 (or the old keep launch and
+    K16's), "keep" the old keep launch alone, and "restore" the copies
+    that put the table and pending flags back before every K16 call (a
+    table update moves the table on), whose time the K16 calls include."""
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    tab14, S, lv14, alpha, kmax, n_grid, n_perm, n_min = \
+        inputs["tail_decide"]
+    args16 = inputs["keep_table"]
+    tab0, pend0, lv16 = args16[:3]
+    count, cnt, walked, wchunks, _a, _n, max_levels = args16[3:]
+    W = lv14["t2"].shape[0]
+    lv = {k: v.clone() for k, v in lv14.items()}
+    want14 = cl.tail_decide_plain(lv14, alpha, kmax, n_grid, n_perm, n_min)
+    out16 = {k: v.clone() for k, v in lv16.items()}
+    tab, pend = tab0.clone(), pend0.clone()
+    want16 = cl.keep_table_plain(tab0, pend0, lv16, count, cnt, walked,
+                                 wchunks, alpha, n_perm, max_levels)
+    live = tab14[3 * S + cl.LIVE]
+    b = want14["b"]
+
+    def restore():
+        tab.copy_(tab0)
+        pend.copy_(pend0)
+
+    calls = {"restore": (restore, None)}
+    if old_stats is None:
+        calls["K14"] = (lambda: cl.tail_decide(
+            tab14, S, lv, alpha, kmax, n_grid, n_perm, n_min),
+            (lambda: {k: lv[k] for k in _K14_OUT}, want14))
+
+        def k11():
+            st.tail_p(b, lv["n_eff"], kmax, n_grid, live=live)
+
+        def k16():
+            restore()
+            cl.keep_table(tab, pend, out16, count, cnt, walked, wchunks,
+                          alpha, n_perm, max_levels)
+    else:
+        table = torch.empty(2 * st.NU_SERIES_TERMS, dtype=torch.float64,
+                            device=dev)
+        cuda_lib.check(cuda_lib.launch(dev, old_stats.cbs_tail_table,
+                                       table.data_ptr()), "cbs_tail_table")
+        grid = ctypes.c_int(0)
+        cuda_lib.check(old_stats.cbs_tail_grid(ctypes.byref(grid)),
+                       "cbs_tail_grid")
+        nlive = torch.zeros(2, dtype=torch.int32, device=dev)
+        xs = torch.empty(W * n_grid, dtype=torch.float64, device=dev)
+        points = torch.empty(W * n_grid, dtype=torch.int32, device=dev)
+        part = torch.empty(W * n_grid * st._NU_PARTS, dtype=torch.float64,
+                           device=dev)
+        ctl = tab14[3 * S:]
+
+        def tail(b_in):
+            cuda_lib.check(cuda_lib.launch(
+                dev, old_stats.cbs_tail_p, b_in.data_ptr(),
+                lv["n_eff"].data_ptr(), 1, table.data_ptr(), xs.data_ptr(),
+                points.data_ptr(), part.data_ptr(), nlive.data_ptr(),
+                lv["p1"].data_ptr(), W, kmax, n_grid, grid.value,
+                live.data_ptr()), "cbs_tail_p")
+
+        def decide(phase):
+            cuda_lib.check(cuda_lib.launch(
+                dev, old_level.cbs_decide, ctl.data_ptr(),
+                *(lv[k].data_ptr() for k in ("t2", "ti", "tj", "n",
+                                             "analyzable", "p1")),
+                alpha.data_ptr(),
+                *(lv[k].data_ptr() for k in ("b", "ostat", "hybrid",
+                                             "needs", "trivial", "nrejc")),
+                min(int(n_min), 1 << 62), W, n_perm, phase), "cbs_decide")
+
+        def k14():
+            decide(0)
+            tail(lv["b"])
+            decide(1)
+
+        def k11():
+            tail(b)
+
+        def keep():
+            cuda_lib.check(cuda_lib.launch(
+                dev, old_level.cbs_edge_keep, tab0[3 * S:].data_ptr(),
+                count.data_ptr(), cnt.data_ptr(),
+                *(out16[k].data_ptr() for k in ("degen", "quick0",
+                                                "test_both", "ti", "tj",
+                                                "n")),
+                alpha.data_ptr(),
+                *(out16[k].data_ptr() for k in ("keep1", "keep2",
+                                                "echunks")), W, n_perm),
+                "cbs_edge_keep")
+
+        def k16():
+            restore()
+            keep()
+            cuda_lib.check(cuda_lib.launch(
+                dev, old_level.cbs_table, tab.data_ptr(), pend.data_ptr(),
+                *(out16[k].data_ptr() for k in (
+                    "fsel", "contig", "seg_lo", "n", "pending", "analyzable",
+                    "accepted", "keep1", "keep2", "ti", "tj", "needs")),
+                walked.data_ptr(), wchunks.data_ptr(),
+                out16["echunks"].data_ptr(), S, W, max_levels), "cbs_table")
+
+        calls["K14"] = (k14, (lambda: {k: lv[k] for k in _K14_OUT}, want14))
+        calls["keep"] = (keep, None)
+    calls["K11"] = (k11, None)
+    keep_names = ("keep1", "keep2", "echunks")
+    calls["K16"] = (k16, (lambda: ({k: out16[k] for k in keep_names}, tab,
+                                   pend),
+                          ({k: want16[0][k] for k in keep_names},
+                           want16[1], want16[2])))
+    return calls
+
+
+def _bits(a, b) -> bool:
+    if isinstance(a, dict):
+        return all(_bits(a[k], b[k]) for k in b)
+    if isinstance(a, tuple):
+        return all(_bits(x, y) for x, y in zip(a, b))
+    if a.dtype in (torch.float32, torch.float64):
+        w = torch.int32 if a.dtype == torch.float32 else torch.int64
+        return torch.equal(a.view(w), b.view(w))
+    return torch.equal(a, b)
+
+
+def graph_of(fns) -> "torch.cuda.CUDAGraph":
+    """The calls fns (run once eagerly first) captured in one CUDA graph."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
+    return g
+
+
+def time_k14_k16(args, dev: torch.device) -> int:
+    """--k14 --k16: K11 carrying K14 and keep_table (K15's keep flags with
+    K16), and with --old DIR PR 18's launches built from DIR's
+    cbs_stats.cu and cbs_level.cu (K14's two around K11; K15's keep and
+    K16), on each LEVEL_CASES case's first level: each checked bit for
+    bit against the chained plain versions, then timed in turns
+    (committed, old, old, committed), eagerly and as CUDA graphs replayed
+    (each group alone, and both groups in one graph: the level's part that
+    changed)."""
+    builds = {"committed": (None, None)}
+    if args.old is not None:
+        stats = variant_libs(args.old / "cbs_stats.cu", {"as it is": None},
+                             "cbs_stats_old_", OLD_STATS_SIGNATURES)
+        level = variant_libs(args.old / "cbs_level.cu", {"as it is": None},
+                             "cbs_level_old_", OLD_LEVEL_SIGNATURES)
+        builds["old"] = (stats["as it is"], level["as it is"])
+    inputs = {c: first_level_inputs(level_coverage(c, args.seed), dev)
+              for c in LEVEL_CASES}
+    timed: dict = {}
+    for label, (old_stats, old_level) in builds.items():
+        for case in LEVEL_CASES:
+            calls = fused_calls(inputs[case], dev, old_stats, old_level)
+            for name, (fn, check) in calls.items():
+                fn()
+                torch.cuda.synchronize()
+                if check is not None and not _bits(check[0](), check[1]):
+                    raise SystemExit(f"cbs_kernel_variants: {label} {name} "
+                                     f"differs from its plain versions on "
+                                     f"{case}")
+            fns = {name: fn for name, (fn, _c) in calls.items()}
+            for name, fn in fns.items():
+                timed[label, case, name, "eager"] = fn
+                timed[label, case, name, "graph"] = graph_of([fn]).replay
+            timed[label, case, "K14 and K16", "graph"] = graph_of(
+                [fns["K14"], fns["K16"]]).replay
+    times: dict = {key: [] for key in timed}
+    for label in list(builds) + list(reversed(builds)):
+        for key, fn in timed.items():
+            if key[0] == label:
+                times[key].append(cuda_ms(fn, args.reps))
+    for label in builds:
+        for case in LEVEL_CASES:
+            row = {f"{name}_{mode}_ms": t
+                   for (lb, c, name, mode), t in times.items()
+                   if lb == label and c == case}
+            print(json.dumps({"build": label, "case": case, "exact": True,
+                              **row}), flush=True)
+    shapes = {c: {"rows": inputs[c]["tail_decide"][2]["t2"].shape[0],
+                  "slots": inputs[c]["keep_table"][1].shape[0]}
+              for c in LEVEL_CASES}
     print(json.dumps({"cases": shapes}), flush=True)
     print(gpu_line(), flush=True)
     return 0
@@ -699,6 +933,13 @@ def main(argv: list[str] | None = None) -> int:
                     help="time K13 instead")
     ap.add_argument("--k15", action="store_true",
                     help="time K15 instead")
+    ap.add_argument("--k14", action="store_true",
+                    help="with --k16, time K11 carrying K14 and K15's "
+                         "keep flags with K16 instead (--old: a directory "
+                         "holding an earlier cbs_stats.cu and "
+                         "cbs_level.cu)")
+    ap.add_argument("--k16", action="store_true",
+                    help="see --k14")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -708,6 +949,8 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.set_device(dev)
     if args.k12:
         return time_k12(args, dev)
+    if args.k14 or args.k16:
+        return time_k14_k16(args, dev)
     if args.k13 or args.k15:
         return time_level(args, dev)
     walk, edge, many = panel_like(dev, args.seed)

@@ -55,10 +55,11 @@ Phases, one JSON line each; any failure exits non-zero:
              through the CLI entry point on a synthetic panel (3 contigs,
              30 Mbp, 400 bp targets every 500 bp, CN 1/3/0/4 events of
              0.8-1.6 Mb on a diploid normal) with --device cuda
-             (whole-recursion CBS engine, kernels K9, B4, K10, K11, K7,
-             K8 and K13-K16) under torch.profiler and again with --device
-             cpu (host CBS engine): identical VCFs, K7, K8, K11 and
-             K13-K16 launched at least once a level and K9 and K10 once,
+             (whole-recursion CBS engine, kernels K9, B4, K10, K11
+             carrying K14, K7, K8, K13, K15 and K15's keep flags with
+             K16) under torch.profiler and again with --device cpu (host
+             CBS engine): identical VCFs, K7, K8, K11, K13, K15 and K16
+             launched at least once a level and K9 and K10 once,
              each CBS kernel's runs on the card in the trace equal to the
              launches counted (wrappers and graph replays; the kernels
              line takes the traced runs), every planted event called with
@@ -86,8 +87,10 @@ Phases, one JSON line each; any failure exits non-zero:
              the card (cbs_mega.SYNCS, at most 2) and synchronising calls
              (those reads and the four set-up copies, none else), the
              captured level's kernel nodes equal to its counted launches
-             (K9, B4 and K10 under each tier's row mask, K11, K7, K8,
-             K13-K16) and B4's second kernel a tier; the same engine on
+             (K9, B4 and K10 under each tier's row mask, K11 carrying
+             K14, K7, K8, K13, K15, K15's keep flags with K16) and B4's
+             second kernel a tier, beside PR 18's count (NODES_BEFORE),
+             and a dead level's replay time; the same engine on
              CPU tensors with equal segments and counts (levels, walk and
              edge chunks, walks accepted and rejected); one more CUDA run
              under torch.profiler (each kernel's runs on the card equal to
@@ -96,8 +99,12 @@ Phases, one JSON line each; any failure exits non-zero:
              figures from phase CBS and the level-loop engine's (LEVEL_LOOP_ENGINE)
              beside them; K13-K16 against their plain versions on every
              level of eager runs on the panel and on bench.py's CBS
-             workload (bit for bit), each timed on its first level beside
-             its plain version, with its bound; K7 and K8 against their
+             workload (bit for bit; K11 carrying K14 against
+             decide_prep_plain, tail_p_plain and decide_plain chained,
+             keep_table against edge_keep_plain and table_update_plain;
+             dead levels left untouched), each timed on its first level
+             beside its plain versions, with its bound (K14's added time:
+             the fused launch less K11 alone); K7 and K8 against their
              plain versions on the card on the inputs of the engine's
              first level with a walk and first with an edge test, on the
              panel and on bench.py's CBS workload (flags, chunk counts
@@ -296,10 +303,11 @@ KERNEL_SOURCES = ("prefix_scan", "viterbi", "arc_scan", "cbs_mega",
 DECODE_KERNELS = ("chunk_matrix", "chunk_scan", "forward_backtrack",
                   "chunk_chase")
 # the CBS engines' kernels, by their launch counts' names: the whole-
-# recursion engine's K9, B4, K10, K11, K7, K8 and K13-K16; the frontier
-# engine's K9, B4, K10, K11 and K12
-MEGA_KERNELS = ("arc_inputs", "arc_scan", "refine", "tail_p", "walk", "edge",
-                "prologue", "decide", "edge_setup", "table")
+# recursion engine's K9, B4, K10, K11 carrying K14, K7, K8, K13, K15's
+# set-up and K15's keep flags with K16; the frontier engine's K9, B4, K10,
+# K11 and K12
+MEGA_KERNELS = ("arc_inputs", "arc_scan", "refine", "tail_decide", "walk",
+                "edge", "prologue", "edge_setup", "keep_table")
 FRONTIER_KERNELS = ("arc_inputs", "arc_scan", "refine", "tail_p", "perm")
 # the CBS kernels' launch counts' names, each with the kernel functions
 # the card runs for one counted launch (B4's second kernel, arc_scan_replay,
@@ -307,13 +315,13 @@ FRONTIER_KERNELS = ("arc_inputs", "arc_scan", "refine", "tail_p", "perm")
 KERNEL_FUNCTIONS = {"arc_inputs": ("arc_inputs_kernel",),
                     "arc_scan": ("arc_scan_blocks",),
                     "refine": ("refine_kernel",), "tail_p": ("tail_kernel",),
+                    "tail_decide": ("tail_decide_kernel",),
                     "walk": ("walk_kernel",), "edge": ("edge_kernel",),
                     "perm": ("perm_kernel",),
                     "prologue": ("prologue_rows_kernel",
                                  "prologue_tile_kernel"),
-                    "decide": ("decide_kernel",),
-                    "edge_setup": ("edge_setup_kernel", "edge_keep_kernel"),
-                    "table": ("table_kernel",)}
+                    "edge_setup": ("edge_setup_kernel",),
+                    "keep_table": ("keep_table_kernel",)}
 
 # NVIDIA H100 SXM peaks (data sheet, 700 W): device memory, and f32 outside
 # the tensor cores.  The f32 peak counts an FMA as two operations; the
@@ -1390,17 +1398,18 @@ def phase_e2e_enrichment(seed: int, workdir: Path) -> tuple[dict, dict]:
         fail(f"B4 launched {launches['arc_scan']} times over {n_levels} "
              f"levels of the whole-recursion engine")
     if min(launches["walk"], launches["edge"],
-           launches["tail_p"]) < max(n_levels, 1):
-        fail(f"K7, K8 and K11 launched {launches['walk']}, "
-             f"{launches['edge']} and {launches['tail_p']} times over "
+           launches["tail_decide"]) < max(n_levels, 1):
+        fail(f"K7, K8 and K11 (carrying K14) launched {launches['walk']}, "
+             f"{launches['edge']} and {launches['tail_decide']} times over "
              f"{n_levels} levels")
     if min(launches["arc_inputs"], launches["refine"]) < 1:
         fail(f"K9 and K10 launched {launches['arc_inputs']} and "
              f"{launches['refine']} times in the whole-recursion engine")
-    level = {k: launches[k] for k in ("prologue", "decide", "edge_setup",
-                                      "table")}
+    level = {k: launches[k] for k in ("prologue", "edge_setup",
+                                      "keep_table")}
     if min(level.values()) < max(n_levels, 1):
-        fail(f"K13-K16 launched {level} times over {n_levels} levels")
+        fail(f"K13, K15 and K16 (with K15's keep flags) launched {level} "
+             f"times over {n_levels} levels")
     body_cuda = vcf_body(workdir / "enr_cuda" / "tumor_CNV.vcf.gz")
     body_cpu = vcf_body(workdir / "enr_cpu" / "tumor_CNV.vcf.gz")
     if body_cuda != body_cpu:
@@ -1754,8 +1763,10 @@ def engine_figures(cov: dict, dev: torch.device) -> dict:
     captured (a warm run first): the capture's seconds and the captured
     level's nodes and kernel launches, then one run's wall, levels,
     replays, reads and kernel launches, and its synchronising calls
-    (CUDA's sync debug mode)."""
-    from canvas_tpu_torch.ops import cbs, cbs_mega
+    (CUDA's sync debug mode); last, the milliseconds of a replay of the
+    captured level after the run's end (live 0: every kernel returns at
+    once), over 200 replays."""
+    from canvas_tpu_torch.ops import cbs, cbs_level_cuda, cbs_mega
 
     cbs.run_cbs(cov, device=dev)
     if cbs.last_engine() != "mega":
@@ -1768,14 +1779,17 @@ def engine_figures(cov: dict, dev: torch.device) -> dict:
     t0 = time.perf_counter()
     (lens, wall), hidden = count_syncs(
         lambda: (cbs.run_cbs(cov, device=dev), time.perf_counter() - t0))
+    launches = {k: v for k, v in read_launches().items() if k in MEGA_KERNELS}
+    if int(eng.tab[3 * eng.S + cbs_level_cuda.LIVE]):
+        fail("the engine's live flag is set after its run")
+    dead_ms = cuda_ms(eng.graph.replay, reps=200, queued=True)
     return {"lens": lens, "wall_s": wall,
             "levels": cbs._LAST_ENGINE["levels"],
             "replays": cbs_mega.GRAPHS["replays"] - r0,
             "reads": cbs_mega.SYNCS["cbs_mega"] - s0,
-            "synchronising_calls": hidden,
-            "launches": {k: v for k, v in read_launches().items()
-                         if k in MEGA_KERNELS},
+            "synchronising_calls": hidden, "launches": launches,
             "capture_s": eng.capture_s, "graph_nodes": eng.nodes,
+            "dead_level_replay_ms": dead_ms,
             "launches_a_level": eng.launches_a_level(),
             "tiers": len(eng.tiers)}
 
@@ -1783,9 +1797,11 @@ def engine_figures(cov: dict, dev: torch.device) -> dict:
 def check_engine_figures(fig: dict, traced: dict, what: str) -> None:
     """At most 2 reads a run, nothing else synchronising besides the four
     set-up copies, a replay for every level; the captured level's kernel
-    nodes are its counted launches and B4's second kernel a tier; in the
-    traced run (trace_cbs) every kernel of the level ran on the card, as
-    many times as its launches were counted."""
+    nodes are its counted launches and B4's second kernel a tier, three
+    fewer than before K14 rode in K11's launch and K15's keep flags in
+    K16's (NODES_BEFORE); in the traced run (trace_cbs) every kernel of
+    the level ran on the card, as many times as its launches were
+    counted."""
     if fig["reads"] > 2:
         fail(f"{what}: {fig['reads']} reads from the card in a run")
     if fig["synchronising_calls"] != fig["reads"] + 4:
@@ -1798,6 +1814,9 @@ def check_engine_figures(fig: dict, traced: dict, what: str) -> None:
         fail(f"{what}: the captured level has "
              f"{fig['graph_nodes']['kernels']} kernel nodes, not its "
              f"{nodes} counted launches and B4's second kernels")
+    if nodes != NODES_BEFORE[what] - 3:
+        fail(f"{what}: {nodes} kernel nodes a level, not "
+             f"{NODES_BEFORE[what]} - 3")
     traced_equals_counted(traced["traced_launches"],
                           traced["counted_launches"], MEGA_KERNELS, what)
 
@@ -1926,8 +1945,7 @@ def k8_case(args) -> dict:
             "bound_share": k_bound / ms}
 
 
-LEVEL_WRAPPERS = ("prologue", "decide_prep", "decide", "edge_setup",
-                  "edge_keep", "table_update")
+LEVEL_WRAPPERS = ("prologue", "tail_decide", "edge_setup", "keep_table")
 
 
 def _clone(a):
@@ -1994,9 +2012,11 @@ def level_kernel_cases(cov: dict, dev: torch.device) -> dict:
     bit, else the smoke fails), each timed on the first level's inputs
     beside its plain version, with its bound: K13 the gathered values and
     the x and cumsum rows it writes (bytes) against its float64 operations
-    (five a position); K14 and K15 both launches of a level; K16 on a fresh
+    (five a position); K11 carrying K14 beside K11 alone on the same rows
+    (K14's added time); K15's set-up; K15's keep flags with K16 on a fresh
     copy of the table each launch."""
     from canvas_tpu_torch.ops import cbs_level_cuda as cl
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
 
     recs = record_levels(lambda: eager_mega(cov, dev))
     n_calls = len(recs["prologue"])
@@ -2027,15 +2047,13 @@ def level_kernel_cases(cov: dict, dev: torch.device) -> dict:
         check("K13", i, lv, lambda: cl.prologue_plain(
             contigs, tab, pending0, lv["x"].shape[0], al0),
             lambda: cl.prologue(contigs, tab, pending0, lv, al0))
-    for i, (tab, S, lv, alpha) in enumerate(recs["decide_prep"]):
-        check("K14", i, lv, lambda: {"b": cl.decide_prep_plain(lv["t2"])},
-              lambda: cl.decide_prep(tab, S, lv, alpha))
-    for i, (tab, S, lv, p1, alpha, n_perm, n_min) in \
-            enumerate(recs["decide"]):
-        check("K14", i, lv, lambda: cl.decide_plain(
-            lv["t2"], lv["ti"], lv["tj"], lv["n"], lv["analyzable"], p1,
-            alpha, n_perm, n_min),
-            lambda: cl.decide(tab, S, lv, p1, alpha, n_perm, n_min))
+    for i, (tab, S, lv, alpha, kmax, n_grid, n_perm, n_min) in \
+            enumerate(recs["tail_decide"]):
+        check("K11 with K14", i, lv,
+              lambda: cl.tail_decide_plain(lv, alpha, kmax, n_grid,
+                                           n_perm, n_min),
+              lambda: cl.tail_decide(tab, S, lv, alpha, kmax, n_grid,
+                                     n_perm, n_min))
     active = 0
     for i, (tab, S, lv, walked, alpha, n_perm) in \
             enumerate(recs["edge_setup"]):
@@ -2044,21 +2062,17 @@ def level_kernel_cases(cov: dict, dev: torch.device) -> dict:
             alpha, n_perm, lv["x"].shape[1]),
             lambda: cl.edge_setup(tab, S, lv, walked, alpha, n_perm))
         active += int(lv["active"].sum()) if not dead[i] else 0
-    for i, (tab, S, lv, count, cnt, alpha, n_perm) in \
-            enumerate(recs["edge_keep"]):
-        check("K15", i, lv, lambda: cl.edge_keep_plain(
-            count, cnt, lv["degen"], lv["quick0"], lv["test_both"], lv["ti"],
-            lv["tj"], lv["n"], alpha, n_perm),
-            lambda: cl.edge_keep(tab, S, lv, count, cnt, alpha, n_perm))
-    for i, (tab, pending0, lv, walked, wchunks, max_levels) in \
-            enumerate(recs["table_update"]):
-        want = (tab.clone(), pending0.clone()) if dead[i] else \
-            cl.table_update_plain(tab, pending0, lv, walked, wchunks,
-                                  max_levels)
-        cl.table_update(tab, pending0, lv, walked, wchunks, max_levels)
+    for i, args in enumerate(recs["keep_table"]):
+        tab, pending0, lv = args[:3]
+        want = ({k: lv[k].clone() for k in ("keep1", "keep2", "echunks")},
+                tab.clone(), pending0.clone()) if dead[i] else \
+            cl.keep_table_plain(*args)
+        cl.keep_table(*args)
         torch.cuda.synchronize()
-        if not (torch.equal(tab, want[0]) and torch.equal(pending0, want[1])):
-            fail(f"K16 differs from its plain version on level {i}")
+        _bits_or_fail("K15's keep with K16", lv, want[0], i)
+        if not (torch.equal(tab, want[1]) and torch.equal(pending0, want[2])):
+            fail(f"K16 (with K15's keep flags) differs from its plain "
+                 f"versions on level {i}")
     torch.cuda.synchronize()
 
     # the first level's inputs, as recorded (the checks above wrote into
@@ -2072,50 +2086,48 @@ def level_kernel_cases(cov: dict, dev: torch.device) -> dict:
         lambda: cl.prologue_plain(contigs, tab, pending0, W, al0),
         4 * gathered + 8 * W * Tmax + 8 * 3 * S + S + 60 * W,
         5 * W * Tmax, reps=20, f64=True)
-    tab14, _S, lv14, alpha = recs["decide_prep"][0]
-    _t, _S, _lv, p1, _a, n_perm, n_min = recs["decide"][0]
-
-    def k14():
-        cl.decide_prep(tab14, S, lv14, alpha)
-        cl.decide(tab14, S, lv14, p1, alpha, n_perm, n_min)
-
-    def k14_plain():
-        cl.decide_prep_plain(lv14["t2"])
-        cl.decide_plain(lv14["t2"], lv14["ti"], lv14["tj"], lv14["n"],
-                        lv14["analyzable"], p1, alpha, n_perm, n_min)
-
-    k14r = timed_pair(k14, k14_plain, 60 * W, 20 * W, reps=20)
+    tab14, _S, lv14, alpha, kmax, n_grid, n_perm, n_min = \
+        recs["tail_decide"][0]
+    k14r = timed_pair(
+        lambda: cl.tail_decide(tab14, S, lv14, alpha, kmax, n_grid, n_perm,
+                               n_min),
+        lambda: cl.tail_decide_plain(lv14, alpha, kmax, n_grid, n_perm,
+                                     n_min),
+        60 * W, 20 * W, reps=20)
+    # K11 alone on the same rows, the launch that carries K14: K14's added
+    # time is the difference
+    b, live = lv14["b"].clone(), tab14[3 * S + cl.LIVE]
+    host_ms = cuda_ms(lambda: st.tail_p(b, lv14["n_eff"], kmax, n_grid,
+                                        live=live), reps=20, queued=True)
+    k14r.update(launch="tail_decide_kernel, K11's cooperative launch",
+                host_ms=host_ms, added_ms=k14r["ms"] - host_ms)
     tab15, _S, lv15, walked, alpha, n_perm = recs["edge_setup"][0]
-    _t, _S, lvk, count, cnt, _a, _n = recs["edge_keep"][0]
     # each row's x read once up to max(tj, n); the lanes' windows written
     span = int(torch.clamp(torch.maximum(lv15["tj"].long(), lv15["n"]),
                            min=0, max=Tmax).sum())
-
-    def k15():
-        cl.edge_setup(tab15, S, lv15, walked, alpha, n_perm)
-        cl.edge_keep(tab15, S, lvk, count, cnt, alpha, n_perm)
-
-    def k15_plain():
-        cl.edge_setup_plain(lv15["x"], lv15["n"], lv15["ti"], lv15["tj"],
-                            lv15["trivial"], walked, alpha, n_perm, Tmax)
-        cl.edge_keep_plain(count, cnt, lvk["degen"], lvk["quick0"],
-                           lvk["test_both"], lvk["ti"], lvk["tj"], lvk["n"],
-                           alpha, n_perm)
-
-    k15r = timed_pair(k15, k15_plain, 4 * span + 8 * W * Tmax + 100 * W,
-                      4 * 2 * W * Tmax, reps=20, f64=True)
-    tab16, p16, lv16, walked, wchunks, max_levels = recs["table_update"][0]
-    fresh = [(tab16.clone(), p16.clone()) for _ in range(64)]
+    k15r = timed_pair(
+        lambda: cl.edge_setup(tab15, S, lv15, walked, alpha, n_perm),
+        lambda: cl.edge_setup_plain(lv15["x"], lv15["n"], lv15["ti"],
+                                    lv15["tj"], lv15["trivial"], walked,
+                                    alpha, n_perm, Tmax),
+        4 * span + 8 * W * Tmax + 100 * W, 4 * 2 * W * Tmax, reps=20,
+        f64=True)
+    k15r["keep_flags"] = "in keep_table_kernel, K16's launch"
+    args16 = recs["keep_table"][0]
+    fresh = [(args16[0].clone(), args16[1].clone()) for _ in range(64)]
     turn = iter(range(10 ** 9))
 
     def k16():
         t, p = fresh[next(turn) % len(fresh)]
-        cl.table_update(t, p, lv16, walked, wchunks, max_levels)
+        cl.keep_table(t, p, *args16[2:])
 
+    # K16's table read and written, and the keep flags' lanes: K8's count
+    # and cnt, degen and quick0 read, keep1 and keep2 written
     k16r = timed_pair(
-        k16, lambda: cl.table_update_plain(tab16, p16, lv16, walked,
-                                           wchunks, max_levels),
-        2 * (8 * (3 * S + cl.CTL) + S) + 60 * W, 10 * S, reps=20)
+        k16, lambda: cl.keep_table_plain(*args16),
+        2 * (8 * (3 * S + cl.CTL) + S) + 60 * W + 2 * W * 18 + 2 * W,
+        10 * S + 4 * W, reps=20)
+    k16r["launch"] = "keep_table_kernel, with K15's keep flags"
     return {"levels": levels, "dead_levels": n_calls - levels, "rows": W,
             "Tmax": Tmax, "slots": S, "tiles": {
                 "K13": cl.prologue_layout(W, Tmax),
@@ -2246,6 +2258,12 @@ LEVEL_LOOP_ENGINE = {"panel": {"wall_s": 0.0443, "kernel_launches": 1517,
 # 6), printed beside this run's: K12 shares its permutation, cumsum and
 # statistic code
 BEFORE_K7_MS = {"panel": 0.1577, "bench_cbs": 0.0376}
+
+
+# The captured level's kernel nodes with K14 in two launches of its own and
+# K15's keep flags in one (NVIDIA H100 80GB HBM3, 700.00 W, PERF.md section
+# 5), printed beside this run's: the fused launches take three fewer
+NODES_BEFORE = {"panel": 34, "bench.py's CBS workload": 30}
 
 
 # K13 and K15 in their earlier design, a block a row (lane), on the first
@@ -2489,6 +2507,14 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
                              BEFORE_K13_K15[k].get(w)]
                 for k in ("K13", "K15") for w in level_cases},
             "K13_K15_wide_exponents": spread,
+            "kernel_nodes_now_vs_before": {
+                "panel": [fig["graph_nodes"]["kernels"],
+                          NODES_BEFORE["panel"]],
+                "bench_cbs": [bench["engine"]["graph_nodes"]["kernels"],
+                              NODES_BEFORE["bench.py's CBS workload"]]},
+            "dead_level_replay_ms": {
+                "panel": fig["dead_level_replay_ms"],
+                "bench_cbs": bench["engine"]["dead_level_replay_ms"]},
             "K7_now_vs_PR13_ms": {
                 "panel": [k7["ms"], BEFORE_K7_MS["panel"]],
                 "bench_cbs": [bench_cases["K7_bench"].get("ms"),
@@ -2498,18 +2524,21 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
 
 def capture_stats_inputs(mega_run, frontier_run) -> dict:
     """The arguments (cloned) of K9's and K10's first call at each tier
-    width with a row under the tier's mask and of K11's first call during
-    mega_run() (an eager engine run; each as (args, keywords), the live
-    flag left out), and of K12's first call from a frontier level with a
-    row under its mask ("level") and its first continuation chunk
+    width with a row under the tier's mask during mega_run() (an eager
+    engine run; each as (args, keywords), the live flag left out) and
+    K11's of its first level there (b, n_eff, kmax, n_grid: the engine's
+    K11 carries K14 and takes b from the level's t2, so its b here is
+    decide_prep_plain's), and of K12's first call from a frontier level
+    with a row under its mask ("level") and its first continuation chunk
     ("chunk") during frontier_run(), caught by wrapping the entry points
     for those runs only."""
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
     from canvas_tpu_torch.ops import cbs_mega_cuda as mc
     from canvas_tpu_torch.ops import cbs_stats_cuda as st
 
     got: dict = {"arc_inputs": {}, "refine": {}}
     orig = {"arc_inputs": st.arc_inputs, "refine": st.refine,
-            "tail_p": st.tail_p, "perm_stats": mc.perm_stats}
+            "tail_decide": cl.tail_decide, "perm_stats": mc.perm_stats}
 
     def clone(args):
         return [a.clone() if torch.is_tensor(a) else a for a in args]
@@ -2531,9 +2560,10 @@ def capture_stats_inputs(mega_run, frontier_run) -> dict:
             got["refine"].setdefault(args[8], (clone(args), keywords(kw)))
         return orig["refine"](*args, **kw)
 
-    def tail_p(*args, **kw):
-        got.setdefault("tail_p", clone(args))
-        return orig["tail_p"](*args, **kw)
+    def tail_decide(tab, S, lv, alpha, kmax, n_grid, *rest):
+        got.setdefault("tail_p", [cl.decide_prep_plain(lv["t2"]),
+                                  lv["n_eff"].clone(), kmax, n_grid])
+        return orig["tail_decide"](tab, S, lv, alpha, kmax, n_grid, *rest)
 
     def perm_stats(*args):
         key = "level" if sys._getframe(1).f_code.co_name == "_level" \
@@ -2542,14 +2572,15 @@ def capture_stats_inputs(mega_run, frontier_run) -> dict:
             got[key] = clone(args)
         return orig["perm_stats"](*args)
 
-    st.arc_inputs, st.refine, st.tail_p = arc_inputs, refine, tail_p
-    mc.perm_stats = perm_stats
+    st.arc_inputs, st.refine = arc_inputs, refine
+    cl.tail_decide, mc.perm_stats = tail_decide, perm_stats
     try:
         mega_run()
         frontier_run()
     finally:
         st.arc_inputs, st.refine = orig["arc_inputs"], orig["refine"]
-        st.tail_p, mc.perm_stats = orig["tail_p"], orig["perm_stats"]
+        cl.tail_decide = orig["tail_decide"]
+        mc.perm_stats = orig["perm_stats"]
     return got
 
 
@@ -3647,16 +3678,34 @@ def main() -> int:
            "replaces": f"canvas_tpu/ops/cbs_device.py:{line}",
            "launches": enr["traced_launches"][name], **_timing(res)}
           for name, line, res in (("arc_inputs", 382, stats["K9_top"]),
-                                  ("refine", 421, stats["K10_top"]),
-                                  ("tail_p", 497, stats["K11"]))],
+                                  ("refine", 421, stats["K10_top"]))],
+        # K11 on the main path is the launch that carries K14; the frontier
+        # engine's (phase CBS) is K11 alone
+        {"name": "tail_p", "route": "cuda",
+         "source": "canvas_tpu_torch/csrc/cbs_stats.cu",
+         "replaces": "canvas_tpu/ops/cbs_device.py:497",
+         "launch": "tail_decide_kernel (with K14); tail_kernel (frontier)",
+         "launches": (enr["traced_launches"]["tail_decide"]
+                      + frontier["launches"]["tail_p"]),
+         **_timing(stats["K11"])},
+        {"name": "decide", "route": "cuda",
+         "source": "canvas_tpu_torch/csrc/cbs_stats.cu",
+         "replaces": "canvas_tpu/ops/cbs_mega.py:399",
+         "launch": mega["K14"]["launch"],
+         "launches": enr["traced_launches"]["tail_decide"],
+         "added_ms": mega["K14"]["added_ms"], **_timing(mega["K14"])},
         *[{"name": name, "route": "cuda",
            "source": "canvas_tpu_torch/csrc/cbs_level.cu",
            "replaces": f"canvas_tpu/ops/cbs_mega.py:{line}",
            "launches": enr["traced_launches"][name], **_timing(mega[key])}
           for name, line, key in (("prologue", 335, "K13"),
-                                  ("decide", 399, "K14"),
-                                  ("edge_setup", 174, "K15"),
-                                  ("table", 468, "K16"))],
+                                  ("edge_setup", 174, "K15"))],
+        {"name": "table", "route": "cuda",
+         "source": "canvas_tpu_torch/csrc/cbs_level.cu",
+         "replaces": "canvas_tpu/ops/cbs_mega.py:468",
+         "launch": mega["K16"]["launch"],
+         "launches": enr["traced_launches"]["keep_table"],
+         **_timing(mega["K16"])},
         {"name": "perm_stats", "route": "cuda",
          "source": "canvas_tpu_torch/csrc/cbs_mega.cu",
          "replaces": "canvas_tpu/ops/cbs_device.py:661",

@@ -192,6 +192,7 @@ def _new_level(contigs, tab, pending0, key0, sbdry, alpha, S, W, Tmax):
     dec = cl.decide_plain(t2, ti, tj, lv["n"], lv["analyzable"], p1, alpha,
                           N_PERM, N_MIN)
     out["K14"] = {"b": b, **dec}
+    out["p1"] = p1
     walked, wchunks = cbs_mega_cuda.walk(
         lv["x"], lv["n_eff"], lv["tss"], key0, lv["contig"], lv["seg_lo"],
         dec["needs"], dec["hybrid"], dec["ostat"], dec["nrejc"], sbdry,
@@ -213,6 +214,8 @@ def _new_level(contigs, tab, pending0, key0, sbdry, alpha, S, W, Tmax):
     new_tab, new_pending = cl.table_update_plain(tab, pending0, rows, walked,
                                                  wchunks, tmega._MAX_LEVELS)
     ctl = new_tab[3 * S:]
+    out["rows"] = {**rows, "p1": p1}
+    out["K7 K8"] = (walked, wchunks, count, cnt)
     out["K16"] = {"seg_c0": new_tab[:S], "seg_lo0": new_tab[S:2 * S],
                   "seg_hi0": new_tab[2 * S:3 * S], "pending0": new_pending,
                   "nseg": ctl[cl.NSEG], "overflow": ctl[cl.OVERFLOW] != 0,
@@ -254,26 +257,27 @@ def _coverage(which: str) -> dict:
 @pytest.fixture(scope="module", params=["steps", "short"])
 def levels(request):
     """Each level of an engine run on CPU tensors: its table before and
-    after, from K13's and K16's wrappers; and the run's inputs."""
+    after, from K13's and keep_table's wrappers (K15's keep flags and
+    K16); and the run's inputs."""
     cov = _coverage(request.param)
     recs, tables = [], []
-    orig_pro, orig_tab = cl.prologue, cl.table_update
+    orig_pro, orig_tab = cl.prologue, cl.keep_table
 
     def prologue(contigs, tab, pending0, lv, al0):
         recs.append((contigs.clone(), tab.clone(), pending0.clone()))
         return orig_pro(contigs, tab, pending0, lv, al0)
 
-    def table_update(tab, pending0, lv, walked, wchunks, max_levels):
-        orig_tab(tab, pending0, lv, walked, wchunks, max_levels)
+    def keep_table(tab, pending0, *args):
+        orig_tab(tab, pending0, *args)
         tables.append((tab.clone(), pending0.clone()))
 
-    cl.prologue, cl.table_update = prologue, table_update
+    cl.prologue, cl.keep_table = prologue, keep_table
     key0 = torch.tensor([0, 0])
     try:
         counts: dict = {}
         tmega.run_cbs_mega(cov, n_perm=N_PERM, device="cpu", counts=counts)
     finally:
-        cl.prologue, cl.table_update = orig_pro, orig_tab
+        cl.prologue, cl.keep_table = orig_pro, orig_tab
     sbdry = torch.as_tensor(np.asarray(_cbs.compute_boundary(
         N_PERM, _cbs.DEFAULT_ALPHA, _cbs.DEFAULT_ETA), np.int64))
     alpha = torch.tensor(_cbs.DEFAULT_ALPHA, dtype=torch.float32)
@@ -322,6 +326,78 @@ def test_engine_tables_follow_the_glue(levels):
         last = i == len(levels) - 1
         assert int(tab[3 * S + cl.LIVE]) == (0 if last else 1)
     assert not bool(levels[-1][2][1].any())     # the last level: no pending
+
+
+def _level_tensors(new, zero):
+    """The level's tensors (level_buffers on the CPU) holding a level's
+    rows as the chained plain versions left them, those named in `zero`
+    (a fused wrapper's outputs) zeroed; the table before the level."""
+    contigs, tab, pending0 = new["inputs"]
+    W, Tmax = new["K13"]["x"].shape
+    lv = cl.level_buffers(W, Tmax, len(cl.tier_widths(Tmax)),
+                          torch.device("cpu"))
+    for k, v in {**new["rows"], **new["tiers"]}.items():
+        if k in lv:
+            lv[k].copy_(v)
+    for k in zero:
+        lv[k].zero_()
+    return lv, tab.clone(), pending0.clone()
+
+
+_K14_OUT = ("b", "p1", "ostat", "hybrid", "needs", "trivial", "nrejc")
+
+
+@pytest.mark.parametrize("live", [1, 0])
+def test_tail_decide_equals_the_chain(levels, live):
+    """tail_decide (K11 carrying K14) on CPU tensors gives what the three
+    calls it replaced gave (decide_prep_plain, the tail probability,
+    decide_plain) bit for bit on every level of the run; where live is 0
+    it writes nothing."""
+    alpha = torch.tensor(_cbs.DEFAULT_ALPHA, dtype=torch.float32)
+    for _old, new, _after, S in levels:
+        lv, tab, _pending0 = _level_tensors(new, _K14_OUT)
+        tab[3 * S + cl.LIVE] = live
+        before = {k: v.clone() for k, v in lv.items()}
+        cl.tail_decide(tab, S, lv, alpha, KMAX, N_GRID, N_PERM, N_MIN)
+        want = {**new["K14"], "p1": new["p1"]} if live else before
+        for k in _K14_OUT:
+            assert _bits(lv[k], want[k]), (k, live)
+        for k, v in lv.items():
+            if k not in _K14_OUT:
+                assert _bits(v, before[k]), k
+
+
+@pytest.mark.parametrize("live", [1, 0])
+def test_keep_table_equals_the_chain(levels, live):
+    """keep_table (K15's keep flags and K16) on CPU tensors gives what
+    edge_keep_plain and table_update_plain gave, keep1, keep2, echunks,
+    the table, its control words and the pending flags, bit for bit on
+    every level of the run, and the engine's table after the level; where
+    live is 0 it writes nothing."""
+    alpha = torch.tensor(_cbs.DEFAULT_ALPHA, dtype=torch.float32)
+    for _old, new, (tab_after, pend_after), S in levels:
+        lv, tab, pending0 = _level_tensors(new, ("keep1", "keep2",
+                                                 "echunks"))
+        tab[3 * S + cl.LIVE] = live
+        tab0, pending00 = tab.clone(), pending0.clone()
+        lv0 = {k: v.clone() for k, v in lv.items()}
+        walked, wchunks, count, cnt = new["K7 K8"]
+        cl.keep_table(tab, pending0, lv, count, cnt, walked, wchunks, alpha,
+                      N_PERM, tmega._MAX_LEVELS)
+        if not live:
+            assert torch.equal(tab, tab0) and torch.equal(pending0, pending00)
+            for k, v in lv.items():
+                assert _bits(v, lv0[k]), k
+            continue
+        for k, v in new["K15 keep"].items():
+            assert _bits(lv[k], v), k
+        assert torch.equal(tab, torch.cat([new["K16"]["seg_c0"],
+                                           new["K16"]["seg_lo0"],
+                                           new["K16"]["seg_hi0"],
+                                           new["ctl"]]))
+        assert torch.equal(pending0, new["K16"]["pending0"])
+        assert torch.equal(tab, tab_after)
+        assert torch.equal(pending0, pend_after)
 
 
 def test_level_after_the_end_changes_nothing():

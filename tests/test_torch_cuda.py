@@ -1640,8 +1640,9 @@ def test_frontier_level_reads_nothing_before_its_output(dev):
 def test_engines_launch_the_statistics_kernels(dev):
     """On the card the whole-recursion engine's replayed level takes K9,
     B4 and K10 for every tier (a tier without a row returns at once) and
-    K11 once; the frontier engine the same for every bucket, and K12 for
-    its permutation chunks."""
+    K11 once, in its variant that carries K14 (tail_decide); the frontier
+    engine the same for every bucket, K11 without K14, and K12 for its
+    permutation chunks."""
     from canvas_tpu_torch.ops import (arc_scan_cuda, cbs_device, cbs_mega,
                                       cbs_mega_cuda, cbs_stats_cuda)
 
@@ -1665,13 +1666,15 @@ def test_engines_launch_the_statistics_kernels(dev):
     replays = cbs_mega.GRAPHS["replays"] - r0
     assert d["arc_inputs"] == d["refine"] == d["arc_scan"] \
         == replays * len(cbs_mega._tiers(4096))
-    assert d["tail_p"] == replays >= counts["levels"] and d["perm"] == 0
+    assert d["tail_decide"] == replays >= counts["levels"]
+    assert d["tail_p"] == 0 and d["perm"] == 0
     levels: list = []
     _lens, d = counted(lambda: cbs_device.run_cbs_device(
         cov, n_perm=1000, device=dev, levels=levels))
     buckets = sum(lv["buckets"] for lv in levels)
     assert d["arc_inputs"] == d["refine"] == d["arc_scan"] == buckets
     assert d["tail_p"] == buckets and d["perm"] >= buckets
+    assert d["tail_decide"] == 0
 
 
 def test_run_cbs_engines_on_card(dev, monkeypatch):
@@ -1984,8 +1987,7 @@ def _bench_cbs(B=24, T=16 * 1024):
     return cov
 
 
-_LEVEL_WRAPPERS = ("prologue", "decide_prep", "decide", "edge_setup",
-                   "edge_keep", "table_update")
+_LEVEL_WRAPPERS = ("prologue", "tail_decide", "edge_setup", "keep_table")
 
 
 def _run_mega(cov, dev, graph=True, **kw):
@@ -2045,7 +2047,8 @@ def _assert_bits(got: dict, want: dict, what: str):
 def test_level_kernels_match_plain(dev, which):
     """K13-K16 on every level of an eager engine run on the card (the
     card tests' panel, bench.py's CBS workload), each on its recorded
-    inputs, bit for bit equal to its plain version on the same inputs."""
+    inputs, bit for bit equal to its plain versions on the same inputs
+    (K14 carried by K11's launch, K15's keep flags and K16 one launch)."""
     from canvas_tpu_torch.ops import cbs_level_cuda as cl
 
     cov = _cbs_panel() if which == "panel" else _bench_cbs()
@@ -2057,31 +2060,137 @@ def test_level_kernels_match_plain(dev, which):
         cl.prologue(contigs, tab, pending0, lv, al0)
         _assert_bits(lv, cl.prologue_plain(contigs, tab, pending0, W, al0),
                      "K13")
-    for tab, S, lv, alpha in recs["decide_prep"]:
-        cl.decide_prep(tab, S, lv, alpha)
-        assert _bits_equal(lv["b"], cl.decide_prep_plain(lv["t2"]))
-    for tab, S, lv, p1, alpha, n_perm, n_min in recs["decide"]:
-        cl.decide(tab, S, lv, p1, alpha, n_perm, n_min)
-        _assert_bits(lv, cl.decide_plain(lv["t2"], lv["ti"], lv["tj"],
-                                         lv["n"], lv["analyzable"], p1,
-                                         alpha, n_perm, n_min), "K14")
+    for tab, S, lv, alpha, kmax, n_grid, n_perm, n_min in \
+            recs["tail_decide"]:
+        cl.tail_decide(tab, S, lv, alpha, kmax, n_grid, n_perm, n_min)
+        _assert_bits(lv, cl.tail_decide_plain(lv, alpha, kmax, n_grid,
+                                              n_perm, n_min), "K11 with K14")
     for tab, S, lv, walked, alpha, n_perm in recs["edge_setup"]:
         cl.edge_setup(tab, S, lv, walked, alpha, n_perm)
         _assert_bits(lv, cl.edge_setup_plain(
             lv["x"], lv["n"], lv["ti"], lv["tj"], lv["trivial"], walked,
             alpha, n_perm, lv["x"].shape[1]), "K15")
-    for tab, S, lv, count, cnt, alpha, n_perm in recs["edge_keep"]:
-        cl.edge_keep(tab, S, lv, count, cnt, alpha, n_perm)
-        _assert_bits(lv, cl.edge_keep_plain(
-            count, cnt, lv["degen"], lv["quick0"], lv["test_both"], lv["ti"],
-            lv["tj"], lv["n"], alpha, n_perm), "K15 keep")
-    for tab, pending0, lv, walked, wchunks, max_levels in \
-            recs["table_update"]:
-        want = cl.table_update_plain(tab, pending0, lv, walked, wchunks,
-                                     max_levels)
-        cl.table_update(tab, pending0, lv, walked, wchunks, max_levels)
-        assert torch.equal(tab, want[0]) and torch.equal(pending0, want[1])
+    for args in recs["keep_table"]:
+        tab, pending0, lv = args[:3]
+        if int(tab[3 * pending0.shape[0] + cl.LIVE]):
+            want_lv, want_tab, want_pending = cl.keep_table_plain(*args)
+        else:       # a level after the run's end: nothing changes
+            want_lv, want_tab, want_pending = (
+                {k: lv[k].clone() for k in ("keep1", "keep2", "echunks")},
+                tab.clone(), pending0.clone())
+        cl.keep_table(*args)
+        _assert_bits(lv, want_lv, "K15 keep")
+        assert torch.equal(tab, want_tab)
+        assert torch.equal(pending0, want_pending)
     torch.cuda.synchronize()
+
+
+def _wide_level(C=192, seed=9):
+    """C contigs of 1,200-2,000 bins with a step each, from the seed: a
+    table of 1,024 slots and 512 rows a level, the engine's widest W, at
+    Tmax 2,048."""
+    rng = np.random.default_rng(seed)
+    cov = {}
+    for c in range(C):
+        n = int(rng.integers(1200, 2001))
+        r = rng.normal(0, 1, n)
+        r[n // 3:n // 2] += rng.choice([0.0, 0.6, 2.5])
+        cov[f"chr{c}"] = r
+    return cov
+
+
+@pytest.mark.parametrize("which", ["panel", "bench", "widest"])
+def test_fused_level_kernels_match_chains(dev, which):
+    """K11 carrying K14 and keep_table (K15's keep flags with K16), each
+    one launch, on every level of an eager engine run on the card (the
+    card tests' panel, W 32; bench.py's CBS workload, W 64; 192 contigs,
+    W 512), bit for bit equal to the chains of plain versions they
+    replaced on the same inputs; dead levels after the run's end left
+    untouched; one launch each a level."""
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    cov = {"panel": _cbs_panel, "bench": _bench_cbs,
+           "widest": _wide_level}[which]()
+    recs = _level_records(cov, dev, n_perm=1000)
+    W = recs["tail_decide"][0][2]["t2"].shape[0]
+    assert W == {"panel": 32, "bench": 64, "widest": 512}[which]
+    live_levels = 0
+    for tab, S, lv, alpha, kmax, n_grid, n_perm, n_min in \
+            recs["tail_decide"]:
+        before = {k: v.clone() for k, v in lv.items()}
+        want = cl.tail_decide_plain(lv, alpha, kmax, n_grid, n_perm, n_min)
+        n0 = st.LAUNCHES["tail_decide"]
+        cl.tail_decide(tab, S, lv, alpha, kmax, n_grid, n_perm, n_min)
+        assert st.LAUNCHES["tail_decide"] == n0 + 1
+        if int(tab[3 * S + cl.LIVE]):
+            live_levels += 1
+            _assert_bits(lv, want, "K11 with K14")
+        else:
+            _assert_bits(lv, before, "K11 with K14, dead")
+    assert live_levels >= 2
+    for args in recs["keep_table"]:
+        tab, pending0, lv = args[:3]
+        S = pending0.shape[0]
+        live = int(tab[3 * S + cl.LIVE])
+        want = cl.keep_table_plain(*args) if live else (
+            {k: lv[k].clone() for k in ("keep1", "keep2", "echunks")},
+            tab.clone(), pending0.clone())
+        n0 = cl.LAUNCHES["keep_table"]
+        cl.keep_table(*args)
+        assert cl.LAUNCHES["keep_table"] == n0 + 1
+        _assert_bits(lv, want[0], "K15 keep")
+        assert torch.equal(tab, want[1]) and torch.equal(pending0, want[2])
+    torch.cuda.synchronize()
+
+
+def test_fused_level_kernels_leave_a_dead_level(dev):
+    """With live 0 in the table's control words, K11 carrying K14 and
+    keep_table write nothing: every level tensor, the table and the
+    pending flags keep their values (sentinels here)."""
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
+
+    recs = _level_records(_cbs_panel(), dev, n_perm=1000)
+    tab, S, lv, alpha, kmax, n_grid, n_perm, n_min = recs["tail_decide"][0]
+    args = list(recs["keep_table"][0])
+    tab = tab.clone()
+    tab[3 * S + cl.LIVE] = 0
+    for v in lv.values():
+        if v.dtype == torch.bool:
+            v.fill_(True)
+        else:
+            v.fill_(-7)
+    before = {k: v.clone() for k, v in lv.items()}
+    cl.tail_decide(tab, S, lv, alpha, kmax, n_grid, n_perm, n_min)
+    args[0], args[2] = tab, lv
+    pending0 = args[1].clone()
+    cl.keep_table(*args)
+    torch.cuda.synchronize()
+    _assert_bits(lv, before, "dead level")
+    assert int(tab[3 * S + cl.LIVE]) == 0
+    assert torch.equal(args[1], pending0)
+
+
+def test_tail_variants_cooperative_grids(dev):
+    """Each K11 variant's cooperative grid comes from its own occupancy:
+    both at least a block an SM and a multiple of the SMs, and the
+    captured level keeps 3 cooperative kernel nodes (K7, K8 and K11
+    carrying K14) with K14's two and K15's keep's launches gone."""
+    from canvas_tpu_torch.ops import cbs_mega
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    state = st._device_state(dev, 1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for k in ("grid", "grid_decide"):
+        assert state[k] >= sms and state[k] % sms == 0, (k, state[k])
+    cbs_mega._ENGINES.clear()
+    cbs_mega.run_cbs_mega(_cbs_panel(), n_perm=1000, device=dev)
+    eng = next(reversed(cbs_mega._ENGINES.values()))
+    assert eng.nodes["cooperative"] == 3
+    per_level = eng.launches_a_level()
+    assert per_level["tail_decide"] == 1 and "tail_p" not in per_level
+    assert per_level["keep_table"] == 1 and per_level["edge_setup"] == 1
+    assert eng.nodes["kernels"] == sum(per_level.values()) + len(eng.tiers)
 
 
 def test_tier_masked_tmax_equals_copied_tier(dev):
