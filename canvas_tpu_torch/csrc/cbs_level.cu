@@ -43,7 +43,9 @@
 //       split2, the exclusive cumsum of the rows' children, the parents'
 //       new ends, the appends (beyond S dropped), nseg, overflow, the run's
 //       tally, the level count, and live: some slot pending, no overflow
-//       and the level count under the engine's bound.
+//       and the level count under the engine's bound.  The tally's last
+//       word adds the level's arc pairs, n (n + 1) / 2 over its pending
+//       analysable rows: the pairs an unpruned arc scan evaluates.
 //
 // Every kernel, and every other kernel of the level, returns at once when
 // live is false, so a level after the run's end changes nothing; the host
@@ -51,7 +53,7 @@
 // each batch (ops/cbs_mega.py).  The table and its control words live in
 // one int64 buffer: seg_c, seg_lo and seg_hi [S] each, then nseg,
 // overflow, live, the level count and the tally of walks accepted and
-// rejected, walk chunks and edge chunks.
+// rejected, walk chunks, edge chunks and arc pairs.
 //
 // What bounds them on the H100.  K13 moves the level's windows: each row's
 // n values gathered, x and its cumsum written, W x Tmax x 8 bytes (8 MB
@@ -763,7 +765,7 @@ struct KeepTableArgs {
 // keep1 and keep2 and the level's edge chunks (written out too); then, one
 // barrier later, K16 from them: split1 and split2, the children's slots by
 // a block scan, the parents' new ends, the appends, nseg, overflow, the
-// tally, the level count and live.
+// tally (the level's arc pairs too), the level count and live.
 __global__ void __launch_bounds__(kThreads) keep_table_kernel(
     KeepTableArgs a) {
   __shared__ bool s_keep[kThreads];
@@ -834,6 +836,8 @@ __global__ void __launch_bounds__(kThreads) keep_table_kernel(
   const i64 acc_n = block_sum_i64(nd && wk ? 1 : 0, s_i);
   const i64 rej_n = block_sum_i64(nd && !wk ? 1 : 0, s_i);
   const i64 wch = block_sum_i64(row ? a.wchunks[t] : 0, s_i);
+  const i64 pairs = block_sum_i64(
+      row && a.pending[t] && a.analyzable[t] ? n * (n + 1) / 2 : 0, s_i);
   // every pending flag written above is visible after the barriers
   const int any = __syncthreads_or(t < S && a.pending0[t]);
   if (t == 0) {
@@ -847,6 +851,7 @@ __global__ void __launch_bounds__(kThreads) keep_table_kernel(
     ctl[kTally + 1] += rej_n;
     ctl[kTally + 2] += wch;
     ctl[kTally + 3] += echunks;
+    ctl[kTally + 4] += pairs;
     ctl[kLive] = any && !over && level < a.max_levels;
   }
 }
@@ -861,7 +866,7 @@ extern "C" int cbs_level_layout(int rows, int Tmax, int* out) {
   return 0;
 }
 
-// K13, two launches.  contigs f32 [C, Tmax]; tab int64 [3 S + 8] (the
+// K13, two launches.  contigs f32 [C, Tmax]; tab int64 [3 S + 9] (the
 // table, then ctl); pending0 bool [S]; outputs [W] (x and cs [W, Tmax],
 // in_tier [tiers, W]).  S <= 1,024, W <= S, Tmax a multiple of 1,024 of
 // at most kMaxTiles tiles (cbs_level_layout(W, Tmax)).
@@ -984,7 +989,7 @@ extern "C" int cbs_edge_setup(const void* ctl, const void* x, const void* n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K15 after K8 and K16, one launch.  tab int64 [3 S + 8] and pending0
+// K15 after K8 and K16, one launch.  tab int64 [3 S + 9] and pending0
 // bool [S], updated in place; K8's count and cnt int64 [2W], K15's degen
 // and quick0 bool [2W], alpha f32 scalar; the level's rows [W]: fsel,
 // contig, seg_lo, n int64, pending, analyzable, accepted, test_both bool,

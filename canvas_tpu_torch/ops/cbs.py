@@ -28,6 +28,7 @@ decisions.  On a CUDA device run_cbs takes the frontier engine
 from __future__ import annotations
 
 import functools
+import time
 
 import numpy as np
 import torch
@@ -35,6 +36,7 @@ from scipy import stats as sps
 
 from canvas_tpu_torch.config import resolve_device
 from canvas_tpu_torch.ops import stats
+from canvas_tpu_torch.pipeline.profiling import span
 
 DEFAULT_ALPHA = 0.01      # CBSRunner.cs:11
 DEFAULT_NPERM = 10000
@@ -52,6 +54,11 @@ DEFAULT_MIN_WIDTH = 2
 # attribute their times to the engine that actually ran.
 _LAST_ENGINE: dict[str, str | int | None] = {
     "engine": None, "host_workers": None, "levels": None}
+
+
+# stopping boundaries computed in this process (compute_boundary's cache
+# misses) and the seconds they took
+BOUNDARY = {"computed": 0, "seconds": 0.0}
 
 
 def last_engine() -> str | None:
@@ -181,7 +188,9 @@ def compute_boundary(n_perm: int = DEFAULT_NPERM, alpha: float = DEFAULT_ALPHA,
                      eta: float = DEFAULT_ETA, tol: float = 1e-2) -> np.ndarray:
     """Sequential boundary array, concatenated triangles for j = 1..maxOnes
     (GetBoundary.ComputeBoundary).  Cached: the boundary depends only on
-    (n_perm, alpha, eta), which are run-level constants."""
+    (n_perm, alpha, eta), which are run-level constants; each computation
+    is counted in BOUNDARY."""
+    t0 = time.perf_counter()
     max_ones = int(np.floor(n_perm * alpha) + 1)
     sbdry = np.zeros(max_ones * (max_ones + 1) // 2, dtype=np.uint32)
     sbdry[0] = n_perm - int(n_perm * eta)
@@ -204,6 +213,8 @@ def compute_boundary(n_perm: int = DEFAULT_NPERM, alpha: float = DEFAULT_ALPHA,
                 eta_lo, p_lo = eta0, p
         sbdry[offset:offset + j] = b
         offset += j
+    BOUNDARY["computed"] += 1
+    BOUNDARY["seconds"] += time.perf_counter() - t0
     return sbdry
 
 
@@ -769,33 +780,35 @@ def run_cbs(
     contig (the device arc scan is O(n^2) before pruning; the host
     branch-and-bound prunes harder), the host path runs.  A device
     failure raises; nothing falls back, and asking for a missing card
-    raises."""
+    raises.  The call is the span "cbs.run" of a torch profiler's trace
+    (pipeline.profiling.span)."""
     device = resolve_device(device)
-    if (device.type == "cuda" and coverage_by_contig
-            and max(len(np.asarray(v)) for v in coverage_by_contig.values())
-            <= 65536):
-        from canvas_tpu_torch.ops import cbs_device, cbs_mega
+    with span("cbs.run"):
+        if (device.type == "cuda" and coverage_by_contig
+                and max(len(np.asarray(v))
+                        for v in coverage_by_contig.values()) <= 65536):
+            from canvas_tpu_torch.ops import cbs_device, cbs_mega
 
-        counts: dict = {}
-        out = cbs_mega.run_cbs_mega(
-            coverage_by_contig, alpha=alpha, n_perm=n_perm,
-            undo_method=undo_method, seed=seed, device=device,
-            counts=counts)
-        if out is not None:
-            _LAST_ENGINE.update(engine="mega", host_workers=None,
-                                levels=counts.get("levels", 0))
+            counts: dict = {}
+            out = cbs_mega.run_cbs_mega(
+                coverage_by_contig, alpha=alpha, n_perm=n_perm,
+                undo_method=undo_method, seed=seed, device=device,
+                counts=counts)
+            if out is not None:
+                _LAST_ENGINE.update(engine="mega", host_workers=None,
+                                    levels=counts.get("levels", 0))
+                return out
+            levels: list[dict] = []
+            out = cbs_device.run_cbs_device(
+                coverage_by_contig, alpha=alpha, n_perm=n_perm,
+                undo_method=undo_method, seed=seed, device=device,
+                levels=levels)
+            _LAST_ENGINE.update(engine="frontier", host_workers=None,
+                                levels=len(levels))
             return out
-        levels: list[dict] = []
-        out = cbs_device.run_cbs_device(
-            coverage_by_contig, alpha=alpha, n_perm=n_perm,
-            undo_method=undo_method, seed=seed, device=device,
-            levels=levels)
-        _LAST_ENGINE.update(engine="frontier", host_workers=None,
-                            levels=len(levels))
-        return out
-    _LAST_ENGINE.update(engine="host", host_workers=None, levels=None)
-    return _run_cbs_host(coverage_by_contig, alpha, n_perm, undo_method,
-                         seed)
+        _LAST_ENGINE.update(engine="host", host_workers=None, levels=None)
+        return _run_cbs_host(coverage_by_contig, alpha, n_perm,
+                             undo_method, seed)
 
 
 def _run_cbs_host(coverage_by_contig, alpha, n_perm, undo_method, seed):

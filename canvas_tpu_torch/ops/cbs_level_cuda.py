@@ -25,8 +25,11 @@ torch versions.
 
 The segment table and its control words are one int64 buffer, `tab` [3 S
 + CTL]: seg_c, seg_lo, seg_hi [S] each, then nseg, overflow, live, the
-level count and the tally (walks accepted and rejected, walk chunks, edge
-chunks); the pending flags are bool [S].  Every kernel of a level returns
+level count and the run's tally (TALLY_WORDS: walks accepted and rejected,
+walk chunks, edge chunks, and arc pairs, the sum over every level's
+pending analysable rows of n (n + 1) / 2, the (i, j) pairs an unpruned arc
+scan of the row evaluates: the recursion's work, which B4's pruning does
+not change); the pending flags are bool [S].  Every kernel of a level returns
 at once where live is 0, so a level after the run's end changes nothing.
 
 On CUDA tensors the wrappers launch csrc/cbs_level.cu (K13 two launches
@@ -60,9 +63,11 @@ from canvas_tpu_torch.ops import cbs_stats_cuda, cuda_lib
 from canvas_tpu_torch.ops.cbs_device import _cumsum, _gather_center
 from canvas_tpu_torch.ops.cbs_mega_cuda import _check, _fsum
 
-# the control words after the table
+# the control words after the table: four, then the tally's
 NSEG, OVERFLOW, LIVE, LEVEL, TALLY = 0, 1, 2, 3, 4
-CTL = 8
+TALLY_WORDS = ("walks_accepted", "walks_rejected", "walk_chunks",
+               "edge_chunks", "arc_pairs")
+CTL = TALLY + len(TALLY_WORDS)
 MAX_SLOTS = 1024       # K13's compaction and K16: the table in one block
 MIN_TIER = 1024        # tier t is MIN_TIER << t wide
 
@@ -324,6 +329,14 @@ def _drop_set(table, idx, val):
     return ext[:S]
 
 
+def arc_pairs(lv: dict) -> torch.Tensor:
+    """The level's arc pairs (K16's tally word): n (n + 1) / 2 summed over
+    its pending analysable rows."""
+    n = lv["n"]
+    return torch.where(lv["pending"] & lv["analyzable"], n * (n + 1) // 2,
+                       0).sum()
+
+
 def table_update_plain(tab, pending0, lv: dict, walked, wchunks,
                        max_levels: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K16 (keep_table's second part): (tab, pending0)
@@ -342,7 +355,8 @@ def table_update_plain(tab, pending0, lv: dict, walked, wchunks,
     split2 = accepted & lv["keep2"] & (tj < n)
     tally = ctl[TALLY:] + torch.stack([(walked & needs).sum(),
                                        (needs & ~walked).sum(),
-                                       wchunks.sum(), lv["echunks"]])
+                                       wchunks.sum(), lv["echunks"],
+                                       arc_pairs(lv)])
     nsplits = split1.to(torch.int64) + split2.to(torch.int64)
     has_child = nsplits > 0
     first_cut = torch.where(split1, ti, tj)

@@ -105,7 +105,9 @@ from canvas_tpu_torch.ops import cbs as _cbs
 from canvas_tpu_torch.ops import cbs_stats_cuda
 from canvas_tpu_torch.ops.cbs_device import tmax_batch
 from canvas_tpu_torch.ops.cbs_level_cuda import (CTL, LEVEL, LIVE, NSEG,
-                                                 OVERFLOW, TALLY)
+                                                 OVERFLOW, TALLY,
+                                                 TALLY_WORDS)
+from canvas_tpu_torch.pipeline.profiling import span
 
 _MAX_LEVELS = 128      # iteration bound (depth x frontier/W chunks)
 _MAX_BINS = 65536      # the longest contig the table's tiers hold
@@ -118,12 +120,17 @@ SYNCS = {"cbs_mega": 0}
 # levels captured in a CUDA graph, and replays of them (each engine keeps
 # its capture's seconds, nodes and kernel launches a level)
 GRAPHS = {"captures": 0, "replays": 0}
+# the recursion's work, from the device's tally: runs of the engine, and
+# their walk chunks and arc pairs (cbs_level_cuda's TALLY_WORDS)
+WORK = {"calls": 0, "walk_chunks": 0, "arc_pairs": 0}
 
 
 def _read(tab: torch.Tensor) -> list[int]:
-    """The table and its control words, copied to the host in one read."""
+    """The table and its control words, copied to the host in one read
+    (the span "engine.read": the wait for the batch, then the copy)."""
     SYNCS["cbs_mega"] += 1
-    return tab.tolist()
+    with span("engine.read"):
+        return tab.tolist()
 
 
 def _tiers(Tmax: int) -> list[int]:
@@ -283,28 +290,30 @@ class _Engine:
                 d[k] += v
 
     def start(self, mat, n_c, sbdry, key0, alpha: float) -> None:
-        """The run's set-up: the inputs copied to the device (four copies)
-        and the table's first state, a slot a contig."""
+        """The run's set-up (the span "engine.start"): the inputs copied to
+        the device (four copies) and the table's first state, a slot a
+        contig."""
         S, C = self.S, self.C
-        self.contigs.copy_(torch.as_tensor(mat))
-        self.sbdry.copy_(torch.as_tensor(sbdry))
-        self.key0.copy_(torch.as_tensor(key0))
-        self.alpha.fill_(alpha)
-        slot = torch.arange(S, device=self.dev)
-        self.tab.zero_()
-        self.tab[:S].copy_(torch.where(slot < C, slot, -1))
-        seg_hi0 = self.tab[2 * S:3 * S]
-        seg_hi0[:C].copy_(torch.as_tensor(n_c))
-        self.pending0.copy_((slot < C) & (seg_hi0 > 0))
-        self.tab[3 * S + NSEG].fill_(C)
-        self.live.copy_(self.pending0.any())
+        with span("engine.start"):
+            self.contigs.copy_(torch.as_tensor(mat))
+            self.sbdry.copy_(torch.as_tensor(sbdry))
+            self.key0.copy_(torch.as_tensor(key0))
+            self.alpha.fill_(alpha)
+            slot = torch.arange(S, device=self.dev)
+            self.tab.zero_()
+            self.tab[:S].copy_(torch.where(slot < C, slot, -1))
+            seg_hi0 = self.tab[2 * S:3 * S]
+            seg_hi0[:C].copy_(torch.as_tensor(n_c))
+            self.pending0.copy_((slot < C) & (seg_hi0 > 0))
+            self.tab[3 * S + NSEG].fill_(C)
+            self.live.copy_(self.pending0.any())
 
     def run(self, mat, n_c, sbdry, key0, alpha: float,
             graph: bool) -> list[int]:
         """The recursion over the contig matrix mat [C, Tmax] with lengths
         n_c: the set-up (four copies to the device), then levels until a
-        read finds live 0.  Returns that read: the table and its control
-        words."""
+        read finds live 0, each batch of them the span "engine.batch".
+        Returns that read: the table and its control words."""
         on_card = self.dev.type == "cuda"
         S = self.S
         with self.lock, (torch.cuda.device(self.dev) if on_card
@@ -315,11 +324,12 @@ class _Engine:
             sizes = _batches(self.max_levels) if on_card \
                 else [1] * self.max_levels
             for size in sizes:
-                for _ in range(size):
-                    if graph:
-                        self.replay()
-                    else:
-                        self.level()
+                with span("engine.batch"):
+                    for _ in range(size):
+                        if graph:
+                            self.replay()
+                        else:
+                            self.level()
                 out = _read(self.tab)
                 if not out[3 * S + LIVE]:
                     break
@@ -349,10 +359,10 @@ def _mega_recurse(mat, n_c, sbdry, key0, alpha, *, device, S, Tmax, al0,
                   kmax, n_min, n_grid, n_perm, counts, graph=True):
     """The full CBS recursion on `device` over the contig matrix mat f32
     [C, Tmax] (numpy) with lengths n_c.  Returns (seg_c, seg_lo, seg_hi,
-    nseg, overflow) on the host; `counts` gains the levels, walk and edge
-    chunks, walks accepted and rejected, from the device's tally.  On the
-    card the levels are replays of the captured level, a read after each
-    batch; graph=False runs them eagerly (tests and chip_smoke.py call
+    nseg, overflow) on the host; `counts` gains the levels and the device's
+    tally (TALLY_WORDS), and WORK the run, its walk chunks and arc pairs.
+    On the card the levels are replays of the captured level, a read after
+    each batch; graph=False runs them eagerly (tests and chip_smoke.py call
     run_cbs_mega with this function so bound, to compare the two and to
     see each level's kernel inputs)."""
     C = mat.shape[0]
@@ -364,9 +374,12 @@ def _mega_recurse(mat, n_c, sbdry, key0, alpha, *, device, S, Tmax, al0,
     ctl = out[3 * S:]
     level = ctl[LEVEL]
     counts["levels"] += level
-    for k, v in zip(("walks_accepted", "walks_rejected", "walk_chunks",
-                     "edge_chunks"), ctl[TALLY:]):
+    tally = dict(zip(TALLY_WORDS, ctl[TALLY:]))
+    for k, v in tally.items():
         counts[k] += v
+    WORK["calls"] += 1
+    WORK["walk_chunks"] += tally["walk_chunks"]
+    WORK["arc_pairs"] += tally["arc_pairs"]
     return (np.asarray(out[:S]), np.asarray(out[S:2 * S]),
             np.asarray(out[2 * S:3 * S]), ctl[NSEG],
             bool(ctl[OVERFLOW]) or level >= _MAX_LEVELS)
@@ -401,42 +414,46 @@ def run_cbs_mega(
     than 65,536 bins in a contig, more than 192 contigs, more segments
     than the table holds, or the level bound reached); the caller then
     runs the frontier engine.  With `counts` given, it gains the run's
-    levels, walk chunks, edge-test chunks and walks accepted and rejected.
-    Asking for a missing card raises.  On the card the levels are replays
-    of a captured level."""
-    device = resolve_device(device)
-    names = list(coverage_by_contig)
-    rows = [np.asarray(coverage_by_contig[k], np.float64) for k in names]
-    if sum(len(r) for r in rows) == 0:
-        return {}
-    nonempty = [c for c, r in enumerate(rows) if len(r)]
-    max_len = max(len(rows[c]) for c in nonempty)
-    C = len(nonempty)
-    if max_len > _MAX_BINS or C > _MAX_CONTIGS:
-        return None
+    levels and the device's tally: walks accepted and rejected, walk
+    chunks, edge-test chunks and arc pairs.  Asking for a missing card
+    raises.  On the card the levels are replays of a captured level.  The
+    phases are spans of a torch profiler's trace: "cbs.prepare" (the
+    rows, sizes, boundary and contig matrix), the engine's "engine.start",
+    "engine.batch" and "engine.read", then "cbs.assemble"."""
+    with span("cbs.prepare"):
+        device = resolve_device(device)
+        names = list(coverage_by_contig)
+        rows = [np.asarray(coverage_by_contig[k], np.float64) for k in names]
+        if sum(len(r) for r in rows) == 0:
+            return {}
+        nonempty = [c for c, r in enumerate(rows) if len(r)]
+        max_len = max(len(rows[c]) for c in nonempty)
+        C = len(nonempty)
+        if max_len > _MAX_BINS or C > _MAX_CONTIGS:
+            return None
 
-    Tmax = _pow2(max_len, floor=1024)
-    S = _pow2(max(_MIN_SLOTS, 4 * C))
-    sbdry = _cbs.compute_boundary(n_perm, alpha, _cbs.DEFAULT_ETA)
-    if undo_method == "sdundo":
-        finite = {k: np.asarray(v, np.float64)[np.isfinite(v)]
-                  for k, v in coverage_by_contig.items()}
-        tsd = float(np.sqrt(_cbs.trimmed_variance(finite))) \
-            if any(len(v) for v in finite.values()) else 0.0
-    else:
-        tsd = 0.0
+        Tmax = _pow2(max_len, floor=1024)
+        S = _pow2(max(_MIN_SLOTS, 4 * C))
+        sbdry = np.asarray(_cbs.compute_boundary(n_perm, alpha,
+                                                 _cbs.DEFAULT_ETA), np.int64)
+        if undo_method == "sdundo":
+            finite = {k: np.asarray(v, np.float64)[np.isfinite(v)]
+                      for k, v in coverage_by_contig.items()}
+            tsd = float(np.sqrt(_cbs.trimmed_variance(finite))) \
+                if any(len(v) for v in finite.values()) else 0.0
+        else:
+            tsd = 0.0
 
-    mat = np.zeros((C, Tmax), np.float32)
-    n_c = np.zeros(C, np.int64)
-    for i, c in enumerate(nonempty):
-        mat[i, : len(rows[c])] = rows[c]
-        n_c[i] = len(rows[c])
-    key0 = np.asarray([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
-                      np.int64)     # jax.random.PRNGKey(seed)
-    run_counts = {"levels": 0, "walk_chunks": 0, "edge_chunks": 0,
-                  "walks_accepted": 0, "walks_rejected": 0}
+        mat = np.zeros((C, Tmax), np.float32)
+        n_c = np.zeros(C, np.int64)
+        for i, c in enumerate(nonempty):
+            mat[i, : len(rows[c])] = rows[c]
+            n_c[i] = len(rows[c])
+        key0 = np.asarray([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                          np.int64)     # jax.random.PRNGKey(seed)
+    run_counts = dict.fromkeys(("levels",) + TALLY_WORDS, 0)
     seg_c, seg_lo, seg_hi, nseg, overflow = _mega_recurse(
-        mat, n_c, np.asarray(sbdry, np.int64), key0, alpha, device=device,
+        mat, n_c, sbdry, key0, alpha, device=device,
         S=S, Tmax=Tmax, al0=min_width, kmax=kmax,
         n_min=n_min if p_method == "hybrid" else (1 << 30),
         n_grid=100, n_perm=n_perm, counts=run_counts)
@@ -446,25 +463,26 @@ def run_cbs_mega(
     if overflow:
         return None
 
-    # assemble leaves -> per-contig lengths; validate the partition
-    result: dict[str, np.ndarray] = {}
-    for i, c in enumerate(nonempty):
-        sel = seg_c[:nseg] == i
-        los = np.sort(seg_lo[:nseg][sel])
-        his = np.sort(seg_hi[:nseg][sel])
-        n = len(rows[c])
-        if (len(los) == 0 or los[0] != 0 or his[-1] != n
-                or np.any(los[1:] != his[:-1])):
-            raise RuntimeError(f"cbs_mega: the segment table of contig "
-                               f"{names[c]} does not tile [0, {n})")
-        lengths = (his - los).astype(np.int64)
-        if len(lengths) > 1 and undo_method == "prune":
-            lengths = _cbs._prune(rows[c], lengths, undo_prune)
-        elif len(lengths) > 1 and undo_method == "sdundo":
-            lengths = _cbs._sd_undo(rows[c], lengths, tsd, undo_sd)
-        result[names[c]] = np.asarray(lengths, np.int64)
-    # the frontier engine's empty-contig convention: lengths [0] for n == 0
-    for name in names:
-        if name not in result:
-            result[name] = np.asarray([0], np.int64)
+    with span("cbs.assemble"):
+        # assemble leaves -> per-contig lengths; validate the partition
+        result: dict[str, np.ndarray] = {}
+        for i, c in enumerate(nonempty):
+            sel = seg_c[:nseg] == i
+            los = np.sort(seg_lo[:nseg][sel])
+            his = np.sort(seg_hi[:nseg][sel])
+            n = len(rows[c])
+            if (len(los) == 0 or los[0] != 0 or his[-1] != n
+                    or np.any(los[1:] != his[:-1])):
+                raise RuntimeError(f"cbs_mega: the segment table of contig "
+                                   f"{names[c]} does not tile [0, {n})")
+            lengths = (his - los).astype(np.int64)
+            if len(lengths) > 1 and undo_method == "prune":
+                lengths = _cbs._prune(rows[c], lengths, undo_prune)
+            elif len(lengths) > 1 and undo_method == "sdundo":
+                lengths = _cbs._sd_undo(rows[c], lengths, tsd, undo_sd)
+            result[names[c]] = np.asarray(lengths, np.int64)
+        # the frontier engine's empty-contig convention: lengths [0] for n == 0
+        for name in names:
+            if name not in result:
+                result[name] = np.asarray([0], np.int64)
     return result

@@ -1,12 +1,19 @@
-"""Per-stage timing + structured run metrics (SURVEY.md §5).
+"""Per-stage timing + structured run metrics (SURVEY.md §5), and the
+program's spans.
 
 The reference scatters timestamped Console.WriteLine progress lines and two
 Stopwatch timers; here every stage runs under a `stage(...)` context that
 records wall time and peak RSS into a run-wide report that the
 orchestrator writes as JSON next to the outputs.  On a CUDA device a stage
 synchronizes the device before it reads the clock, so a stage's time holds
-the device work it queued.  torch's profiler can be layered on demand via
-`trace(...)`.
+the device work it queued.
+
+`span(name)` marks a phase inside a call (the CBS entry's preparation, the
+engine's set-up, replay batches and reads, the assembly) for a torch
+profiler that someone else runs: while one records, the span is a
+`torch.profiler.record_function` range, kept by the profiler with the
+kernels and written into its trace on their clock; while none records it
+is a shared no-op context after one check of the profiler's state.
 """
 
 from __future__ import annotations
@@ -75,19 +82,16 @@ class RunProfile:
         Path(path).write_text(json.dumps(self.report(), indent=2) + "\n")
 
 
-@contextlib.contextmanager
-def trace(log_dir: str | Path):
-    """torch.profiler trace around a block, CPU and (when present) CUDA
-    activity; writes a Chrome trace to <log_dir>/trace.json."""
-    from torch.profiler import ProfilerActivity, profile
+_NO_SPAN = contextlib.nullcontext()
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    Path(log_dir).mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+def span(name: str):
+    """A context that records `name` as a range in the torch profiler's
+    trace while a profiler records, and does nothing otherwise (no
+    record_function is entered: it costs microseconds even then)."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 _ACTIVE: RunProfile | None = None

@@ -53,8 +53,8 @@ from canvas_tpu_torch.models import somatic as somatic_caller
 from canvas_tpu_torch.models.segment_model import (
     SEGMENT_SIZE_CUTOFF, merge_segments, merge_segments_multisample,
     merge_segments_using_excluded_intervals, set_filters)
-from canvas_tpu_torch.ops import (binning, cbs, hmm, metrics, normalize,
-                                  ratio, wavelets)
+from canvas_tpu_torch.ops import (binning, cbs, cbs_mega, hmm, metrics,
+                                  normalize, ratio, wavelets)
 from canvas_tpu_torch.ops import stats as seg_stats
 from canvas_tpu_torch.ops import segments as segops
 from canvas_tpu_torch.parallel import distributed
@@ -499,6 +499,17 @@ def coverage_by_contig(bins: BinSet) -> dict[str, np.ndarray]:
             for name, sl in bins.contig_slices().items()}
 
 
+def _cbs_work() -> dict:
+    """The whole-recursion CBS engine's counters, cumulative in the
+    process (cbs_mega.WORK, GRAPHS' replays, SYNCS' reads): a stage's
+    differences are its engine runs and their work."""
+    return {"engine_calls": cbs_mega.WORK["calls"],
+            "arc_pairs": cbs_mega.WORK["arc_pairs"],
+            "walk_chunks": cbs_mega.WORK["walk_chunks"],
+            "graph_replays": cbs_mega.GRAPHS["replays"],
+            "engine_reads": cbs_mega.SYNCS["cbs_mega"]}
+
+
 def run_partition(
     ctx: WorkflowContext, samples_bins: dict[str, BinSet], method: str,
     is_germline: bool, ploidy: PloidyInfo | None = None,
@@ -887,16 +898,18 @@ def somatic_wgs(ctx: WorkflowContext, tumor: Sample,
                     f"{evenness:.4f}\n")
         except Exception:
             pass
+    work0 = _cbs_work()
     with prof.stage("CanvasPartition", bins=len(work)):
         parts = run_partition(
             ctx, {tumor.name: work},
             ctx.config.partition_method
             or ("CBS" if is_enrichment else "Wavelets"),
             is_germline=False, ploidy=ploidy)
-    if cbs.last_engine():   # attribute which CBS engine ran
+    if cbs.last_engine():   # attribute which CBS engine ran, and its work
         prof.note("CanvasPartitionCbsEngine", cbs_engine=cbs.last_engine(),
                   host_workers=cbs._LAST_ENGINE["host_workers"],
-                  frontier_levels=cbs._LAST_ENGINE["levels"])
+                  frontier_levels=cbs._LAST_ENGINE["levels"],
+                  **{k: v - work0[k] for k, v in _cbs_work().items()})
     segs_by_contig = parts[tumor.name]
     attach_alleles(ctx, tumor, segs_by_contig, vf)
     segs = _flatten(segs_by_contig, ctx.contigs)

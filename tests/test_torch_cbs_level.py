@@ -136,9 +136,13 @@ def _old_level(contigs, seg_c0, seg_lo0, seg_hi0, pending0, nseg, overflow,
     keep2 = torch.where(test_both, keep2t, at_start & ~at_end)
     split1 = accepted & keep1
     split2 = accepted & keep2 & (tj < n)
+    # the tally's last word, the arc pairs, came after K16 replaced this
+    # glue; it is added here as K16 adds it
     tally = tally + torch.stack([(walked & needs).sum(),
                                  (needs & ~walked).sum(),
-                                 wchunks.sum(), echunks])
+                                 wchunks.sum(), echunks,
+                                 (torch.where(pending & analyzable,
+                                              n * (n + 1), 0) // 2).sum()])
     nsplits = split1.to(torch.int64) + split2.to(torch.int64)
     has_child = nsplits > 0
     first_cut = torch.where(split1, ti, tj)

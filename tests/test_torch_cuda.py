@@ -2171,6 +2171,42 @@ def test_fused_level_kernels_leave_a_dead_level(dev):
     assert torch.equal(args[1], pending0)
 
 
+def _largest_shape(C=192, T=1 << 16, seed=3):
+    """The whole-recursion engine's largest shape: C contigs of T bins of
+    N(0, 1) from default_rng(seed), a table of 1,024 slots, 512 rows a
+    level, tiers 1,024 to 65,536 (chip_smoke.py's largest_coverage)."""
+    rng = np.random.default_rng(seed)
+    return {f"chr{c}": rng.normal(0.0, 1.0, size=T) for c in range(C)}
+
+
+@pytest.mark.parametrize("which", ["panel", "largest"])
+def test_keep_table_tallies_arc_pairs(dev, which):
+    """K16's arc-pair word, the tally's last, on every live level of an
+    eager engine run on the card (the card tests' panel; the engine's
+    largest shape), each on its recorded inputs: it adds n (n + 1) / 2 of
+    the level's pending analysable rows, as table_update_plain does, and
+    every other control word is the plain version's."""
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
+
+    cov = _cbs_panel() if which == "panel" else _largest_shape()
+    recs = _level_records(cov, dev, n_perm=1000)
+    live = 0
+    for args in recs["keep_table"]:
+        tab, pending0, lv = args[:3]
+        S = pending0.shape[0]
+        if not int(tab[3 * S + cl.LIVE]):
+            continue
+        live += 1
+        want = cl.keep_table_plain(*args)[1][3 * S:]
+        before = int(tab[-1])
+        cl.keep_table(*args)
+        assert cl.TALLY_WORDS[-1] == "arc_pairs"
+        assert torch.equal(tab[3 * S:], want)
+        assert int(tab[-1]) - before == int(cl.arc_pairs(lv)) > 0
+    assert live >= 2 if which == "panel" else live >= 1
+    torch.cuda.synchronize()
+
+
 def test_tail_variants_cooperative_grids(dev):
     """Each K11 variant's cooperative grid comes from its own occupancy:
     both at least a block an SM and a multiple of the SMs, and the

@@ -121,6 +121,10 @@ def test_profile_names_host_cbs_engine(runs, mode):
              if s["name"] == "CanvasPartitionCbsEngine"]
     assert notes and notes[0]["cbs_engine"] == "host"
     assert notes[0]["host_workers"] >= 1
+    # the whole-recursion engine's work in the stage: none on the host path
+    work = ("engine_calls", "arc_pairs", "walk_chunks", "graph_replays",
+            "engine_reads")
+    assert [notes[0][k] for k in work] == [0] * len(work)
 
 
 def test_cli_tumor_normal_matches_library_run(reference_dir, inputs, runs,
