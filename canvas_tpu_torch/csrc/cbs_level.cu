@@ -43,7 +43,7 @@
 //       split2, the exclusive cumsum of the rows' children, the parents'
 //       new ends, the appends (beyond S dropped), nseg, overflow, the run's
 //       tally, the level count, and live: some slot pending, no overflow
-//       and the level count under the engine's bound.  The tally's last
+//       and the level count under the engine's bound.  The tally's fifth
 //       word adds the level's arc pairs, n (n + 1) / 2 over its pending
 //       analysable rows: the pairs an unpruned arc scan evaluates.
 //
@@ -53,7 +53,8 @@
 // each batch (ops/cbs_mega.py).  The table and its control words live in
 // one int64 buffer: seg_c, seg_lo and seg_hi [S] each, then nseg,
 // overflow, live, the level count and the tally of walks accepted and
-// rejected, walk chunks, edge chunks and arc pairs.
+// rejected, walk chunks, edge chunks and arc pairs (K16's), and arc terms
+// (B4's, csrc/arc_scan.cu).
 //
 // What bounds them on the H100.  K13 moves the level's windows: each row's
 // n values gathered, x and its cumsum written, W x Tmax x 8 bytes (8 MB

@@ -97,7 +97,8 @@ def _cumsum(x):
     return torch.cumsum(x.double(), dim=-1).float()
 
 
-def tmax_batch(cs, n, tss, npad, al0, mask=None, out=None, live=None):
+def tmax_batch(cs, n, tss, npad, al0, mask=None, out=None, live=None,
+               terms=None):
     """Batched TMaxO: (t^2 f32, ti, tj int32) per row of the cumsum
     cs f32 [B, npad] with n int32 or int64 [B]: B4's inputs (K9), the B4
     arc scan for the max, then its refine over the winning 32-lag
@@ -108,12 +109,13 @@ def tmax_batch(cs, n, tss, npad, al0, mask=None, out=None, live=None):
     cs may be the first npad columns of wider rows.  With mask (bool [B])
     only the rows under it are scanned, and with out (t2, ti, tj) their
     results go into those tensors, the other rows' entries untouched; on
-    the card the other rows' blocks, and every block where live (an int64
-    scalar) is 0, return at once."""
+    the card the other rows are left out, and every block returns at once
+    where live (an int64 scalar) is 0.  terms (an int64 scalar on the card)
+    gains B4's computed pair terms (arc_scan_cuda.arc_scan)."""
     seed, lag_hi, psd2, ti0, tj0, n32 = cbs_stats_cuda.arc_inputs(
         cs, n, npad, al0, mask=mask, live=live)
     best, bl0 = arc_scan_cuda.arc_scan(cs, n32, lag_hi, seed, psd2, al0,
-                                       mask=mask, live=live)
+                                       mask=mask, live=live, terms=terms)
     return cbs_stats_cuda.refine(cs, n, tss, lag_hi, best, bl0, ti0, tj0,
                                  npad, al0, mask=mask, out=out, live=live)
 

@@ -29,7 +29,10 @@ level count and the run's tally (TALLY_WORDS: walks accepted and rejected,
 walk chunks, edge chunks, and arc pairs, the sum over every level's
 pending analysable rows of n (n + 1) / 2, the (i, j) pairs an unpruned arc
 scan of the row evaluates: the recursion's work, which B4's pruning does
-not change); the pending flags are bool [S].  Every kernel of a level returns
+not change, each added by K16; then arc terms, the (i, L) pair terms that
+B4's first phase computed, added by B4 on the card and by nothing on CPU
+tensors, so that with the arc pairs it says how much B4's pruning
+saves); the pending flags are bool [S].  Every kernel of a level returns
 at once where live is 0, so a level after the run's end changes nothing.
 
 On CUDA tensors the wrappers launch csrc/cbs_level.cu (K13 two launches
@@ -66,7 +69,8 @@ from canvas_tpu_torch.ops.cbs_mega_cuda import _check, _fsum
 # the control words after the table: four, then the tally's
 NSEG, OVERFLOW, LIVE, LEVEL, TALLY = 0, 1, 2, 3, 4
 TALLY_WORDS = ("walks_accepted", "walks_rejected", "walk_chunks",
-               "edge_chunks", "arc_pairs")
+               "edge_chunks", "arc_pairs", "arc_terms")
+ARC_TERMS = TALLY + TALLY_WORDS.index("arc_terms")     # B4's word
 CTL = TALLY + len(TALLY_WORDS)
 MAX_SLOTS = 1024       # K13's compaction and K16: the table in one block
 MIN_TIER = 1024        # tier t is MIN_TIER << t wide
@@ -353,10 +357,11 @@ def table_update_plain(tab, pending0, lv: dict, walked, wchunks,
     seg_hi = seg_hi0[fsel]
     split1 = accepted & lv["keep1"]
     split2 = accepted & lv["keep2"] & (tj < n)
+    # K16's five words; B4's arc terms as they are
     tally = ctl[TALLY:] + torch.stack([(walked & needs).sum(),
                                        (needs & ~walked).sum(),
                                        wchunks.sum(), lv["echunks"],
-                                       arc_pairs(lv)])
+                                       arc_pairs(lv), torch.zeros_like(nseg)])
     nsplits = split1.to(torch.int64) + split2.to(torch.int64)
     has_child = nsplits > 0
     first_cut = torch.where(split1, ti, tj)

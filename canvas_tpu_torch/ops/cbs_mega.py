@@ -104,8 +104,8 @@ from canvas_tpu_torch.ops import arc_scan_cuda, cbs_level_cuda, cbs_mega_cuda
 from canvas_tpu_torch.ops import cbs as _cbs
 from canvas_tpu_torch.ops import cbs_stats_cuda
 from canvas_tpu_torch.ops.cbs_device import tmax_batch
-from canvas_tpu_torch.ops.cbs_level_cuda import (CTL, LEVEL, LIVE, NSEG,
-                                                 OVERFLOW, TALLY,
+from canvas_tpu_torch.ops.cbs_level_cuda import (ARC_TERMS, CTL, LEVEL,
+                                                 LIVE, NSEG, OVERFLOW, TALLY,
                                                  TALLY_WORDS)
 from canvas_tpu_torch.pipeline.profiling import span
 
@@ -121,8 +121,9 @@ SYNCS = {"cbs_mega": 0}
 # its capture's seconds, nodes and kernel launches a level)
 GRAPHS = {"captures": 0, "replays": 0}
 # the recursion's work, from the device's tally: runs of the engine, and
-# their walk chunks and arc pairs (cbs_level_cuda's TALLY_WORDS)
-WORK = {"calls": 0, "walk_chunks": 0, "arc_pairs": 0}
+# their walk chunks, arc pairs and the arc terms B4 computed on the card
+# (cbs_level_cuda's TALLY_WORDS)
+WORK = {"calls": 0, "walk_chunks": 0, "arc_pairs": 0, "arc_terms": 0}
 
 
 def _read(tab: torch.Tensor) -> list[int]:
@@ -203,6 +204,7 @@ class _Engine:
         self.tab = torch.zeros(3 * S + CTL, dtype=torch.int64, device=dev)
         self.pending0 = torch.zeros(S, dtype=torch.bool, device=dev)
         self.live = self.tab[3 * S + LIVE]
+        self.arc_terms = self.tab[3 * S + ARC_TERMS]
         self.lv = cbs_level_cuda.level_buffers(W, Tmax, len(self.tiers), dev)
         self.graph = None
         self.launches = None          # per dict of _launch_dicts: a level's
@@ -220,7 +222,8 @@ class _Engine:
         for t, w in enumerate(self.tiers):
             tmax_batch(lv["cs"][:, :w], lv["n_eff"], lv["tss"], w, self.al0,
                        mask=lv["in_tier"][t],
-                       out=(lv["t2"], lv["ti"], lv["tj"]), live=live)
+                       out=(lv["t2"], lv["ti"], lv["tj"]), live=live,
+                       terms=self.arc_terms)
         # --- the tail probability and the decision rules (K11 with K14) ---
         cl.tail_decide(tab, S, lv, self.alpha, self.kmax, self.n_grid,
                        self.n_perm, self.n_min)
@@ -360,7 +363,8 @@ def _mega_recurse(mat, n_c, sbdry, key0, alpha, *, device, S, Tmax, al0,
     """The full CBS recursion on `device` over the contig matrix mat f32
     [C, Tmax] (numpy) with lengths n_c.  Returns (seg_c, seg_lo, seg_hi,
     nseg, overflow) on the host; `counts` gains the levels and the device's
-    tally (TALLY_WORDS), and WORK the run, its walk chunks and arc pairs.
+    tally (TALLY_WORDS), and WORK the run, its walk chunks, arc pairs and
+    arc terms.
     On the card the levels are replays of the captured level, a read after
     each batch; graph=False runs them eagerly (tests and chip_smoke.py call
     run_cbs_mega with this function so bound, to compare the two and to
@@ -380,6 +384,7 @@ def _mega_recurse(mat, n_c, sbdry, key0, alpha, *, device, S, Tmax, al0,
     WORK["calls"] += 1
     WORK["walk_chunks"] += tally["walk_chunks"]
     WORK["arc_pairs"] += tally["arc_pairs"]
+    WORK["arc_terms"] += tally["arc_terms"]
     return (np.asarray(out[:S]), np.asarray(out[S:2 * S]),
             np.asarray(out[2 * S:3 * S]), ctl[NSEG],
             bool(ctl[OVERFLOW]) or level >= _MAX_LEVELS)
@@ -415,11 +420,12 @@ def run_cbs_mega(
     than the table holds, or the level bound reached); the caller then
     runs the frontier engine.  With `counts` given, it gains the run's
     levels and the device's tally: walks accepted and rejected, walk
-    chunks, edge-test chunks and arc pairs.  Asking for a missing card
-    raises.  On the card the levels are replays of a captured level.  The
-    phases are spans of a torch profiler's trace: "cbs.prepare" (the
-    rows, sizes, boundary and contig matrix), the engine's "engine.start",
-    "engine.batch" and "engine.read", then "cbs.assemble"."""
+    chunks, edge-test chunks, arc pairs and B4's arc terms (0 on CPU
+    tensors).  Asking for a missing card raises.  On the card the levels
+    are replays of a captured level.  The phases are spans of a torch
+    profiler's trace: "cbs.prepare" (the rows, sizes, boundary and contig
+    matrix), the engine's "engine.start", "engine.batch" and
+    "engine.read", then "cbs.assemble"."""
     with span("cbs.prepare"):
         device = resolve_device(device)
         names = list(coverage_by_contig)

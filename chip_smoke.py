@@ -1219,6 +1219,27 @@ def b4_case(cs, n, npad: int, al0: int = 2, mask=None) -> dict:
             "bound_by": b4_by, "bound_share": b4_bound / ms}
 
 
+def b4_tier_rows(rng, npad: int, dev: torch.device, W: int = 32,
+                 rows=(0, 7, 31)):
+    """B4's input as the whole-recursion engine gives it at tier npad:
+    W rows, those in `rows` of the tier (lengths in (npad/2, npad], noise
+    with a step) under the mask, the others zeroed (n = 2).  (cs f32
+    [W, npad], n int64, mask) on dev."""
+    cs = np.zeros((W, npad), np.float32)
+    n = np.full(W, 2, np.int64)
+    mask = np.zeros(W, bool)
+    for r in rows:
+        L = int(rng.integers(npad // 2 + 1, npad + 1))
+        x = rng.normal(0, 1, L)
+        x[L // 3:L // 2] += 0.5
+        x -= x.mean()
+        cs[r, :L] = np.cumsum(x)
+        n[r] = L
+        mask[r] = True
+    return (torch.as_tensor(cs, device=dev), torch.as_tensor(n, device=dev),
+            torch.as_tensor(mask, device=dev))
+
+
 def phase_b4(seed: int, dev: torch.device) -> dict:
     """B4 at the frontier shapes, against its plain version on the card."""
     from canvas_tpu_torch.ops import cbs_device as cd
@@ -2170,8 +2191,10 @@ def cuda_equals_cpu(cov: dict, dev: torch.device, lens: dict,
                     what: str) -> dict:
     """The whole-recursion engine over cov on CPU tensors: its segments
     equal to lens (the CUDA run's), and its counts (levels, walk and edge
-    chunks, walks accepted and rejected) equal to a CUDA run's; returns
-    the CPU run's seconds and counts."""
+    chunks, walks accepted and rejected, arc pairs) equal to a CUDA run's;
+    B4's arc terms, its kernel's tally, are counted on the card alone (a
+    CUDA run's, between 1 and the arc pairs).  Returns the CPU run's
+    seconds and counts, with the card's arc terms."""
     from canvas_tpu_torch.ops import cbs_mega
 
     counts: dict = {}
@@ -2185,9 +2208,12 @@ def cuda_equals_cpu(cov: dict, dev: torch.device, lens: dict,
                  f"{lens_cpu[c].tolist()}")
     counts_cuda: dict = {}
     cbs_mega.run_cbs_mega(cov, device=dev, counts=counts_cuda)
-    if counts_cuda != counts:
-        fail(f"{what}: counts on the card {counts_cuda}, on the CPU {counts}")
-    return {"cpu_s": cpu_s, "counts": counts}
+    terms = counts_cuda.pop("arc_terms")
+    if counts_cuda != {k: v for k, v in counts.items() if k != "arc_terms"} \
+            or counts["arc_terms"] or not 0 < terms <= counts["arc_pairs"]:
+        fail(f"{what}: counts on the card {counts_cuda} (arc terms {terms}), "
+             f"on the CPU {counts}")
+    return {"cpu_s": cpu_s, "counts": counts, "arc_terms_cuda": terms}
 
 
 def mega_runs(cov: dict, dev: torch.device) -> dict:
@@ -2462,20 +2488,8 @@ def phase_cbs_mega(workdir: Path, dev: torch.device, frontier: dict) -> dict:
     rng = np.random.default_rng(7)
     for k in range(10, 17):
         npad = 1 << k
-        cs = np.zeros((32, npad), np.float32)
-        n = np.full(32, 2, np.int64)
-        mask = np.zeros(32, bool)
-        for r in (0, 7, 31):
-            L = int(rng.integers(npad // 2 + 1, npad + 1))
-            x = rng.normal(0, 1, L)
-            x[L // 3:L // 2] += 0.5
-            x -= x.mean()
-            cs[r, :L] = np.cumsum(x)
-            n[r] = L
-            mask[r] = True
-        tiers.append(b4_case(torch.as_tensor(cs, device=dev),
-                             torch.as_tensor(n, device=dev), npad,
-                             mask=torch.as_tensor(mask, device=dev)))
+        cs, n, mask = b4_tier_rows(rng, npad, dev)
+        tiers.append(b4_case(cs, n, npad, mask=mask))
     torch.cuda.empty_cache()
     big = largest_coverage()
     largest = largest_engine(dev, big)

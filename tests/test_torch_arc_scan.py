@@ -117,7 +117,8 @@ def test_plain_walk_counts_pair_terms(case):
     """The walk's count of visited blocks and their pair terms: every block
     in range when no bound prunes, none when the seed is above every gate,
     and with the real bounds at npad 2,048 fewer than the seed alone admits
-    (later blocks fall to the running best)."""
+    (later blocks fall to the running best).  Its seed_terms are the pair
+    terms of every block the seed admits, at least the walk's terms."""
     npad, B = 2048, 4
     _rows_, cs, n, _tss = _rows(npad + 1, npad, B, True)
     seed, lag_hi, psdiff, _psd2 = _pallas_inputs(cs, n, npad)
@@ -145,6 +146,8 @@ def test_plain_walk_counts_pair_terms(case):
             for L in range(max(k * blk, AL0),
                            min(int(lag_t[b]), k * blk + blk - 1) + 1):
                 terms += max(int(n[b]) - L, 0)
+    assert count.get("seed_terms", 0) == terms
+    assert got[1] <= count.get("seed_terms", 0)
     if case == "running_best":
         assert 0 < got[0] < blocks and 0 < got[1] < terms
     else:

@@ -136,13 +136,15 @@ def _old_level(contigs, seg_c0, seg_lo0, seg_hi0, pending0, nseg, overflow,
     keep2 = torch.where(test_both, keep2t, at_start & ~at_end)
     split1 = accepted & keep1
     split2 = accepted & keep2 & (tj < n)
-    # the tally's last word, the arc pairs, came after K16 replaced this
-    # glue; it is added here as K16 adds it
+    # the tally's last two words came after K16 replaced this glue: the
+    # arc pairs, added here as K16 adds them, and B4's arc terms, which
+    # B4's plain version leaves as they are
     tally = tally + torch.stack([(walked & needs).sum(),
                                  (needs & ~walked).sum(),
                                  wchunks.sum(), echunks,
                                  (torch.where(pending & analyzable,
-                                              n * (n + 1), 0) // 2).sum()])
+                                              n * (n + 1), 0) // 2).sum(),
+                                 torch.zeros_like(echunks)])
     nsplits = split1.to(torch.int64) + split2.to(torch.int64)
     has_child = nsplits > 0
     first_cut = torch.where(split1, ti, tj)

@@ -575,6 +575,10 @@ def test_mega_engine_on_card_equals_cpu(dev):
     for k in cov:
         np.testing.assert_array_equal(got[k], want[k])
         assert len(got[k]) >= 3
+    # B4's arc terms are the kernel's tally (its first phase's work): on
+    # the card only
+    assert counts["cuda"].pop("arc_terms") > 0
+    assert counts["cpu"].pop("arc_terms") == 0
     assert counts["cuda"] == counts["cpu"]
     assert counts["cuda"]["walk_chunks"] >= 1
     levels = counts["cuda"]["levels"]
@@ -962,6 +966,167 @@ def test_arc_scan_kernel_with_racing_floors(dev, npad):
             assert _bits_equal(best_k, best_p), (seed, _differ(best_k,
                                                                best_p))
             assert torch.equal(bl0_k, bl0_p)
+
+
+def _engine_b4_rows(npad, rows, seed, W=64, T=1 << 16):
+    """The whole-recursion engine's [W, Tmax] cumsum at Tmax 65,536 with
+    `rows` rows of the tier npad under the mask (lengths in (npad/2,
+    npad], every other row with a planted step) and the other rows of
+    other lengths, up to Tmax, outside it: (cs f32 [W, T], n int64 [W],
+    mask bool [W])."""
+    rng = np.random.default_rng(seed)
+    cs = np.zeros((W, T), np.float32)
+    n = np.zeros(W, np.int64)
+    mask = np.zeros(W, bool)
+    mask[rng.choice(W, rows, replace=False)] = True
+    for r in range(W):
+        lo, hi = (npad // 2 + 1, npad) if mask[r] else (2, T)
+        L = int(rng.integers(lo, hi + 1))
+        x = rng.normal(0, 1, L)
+        if r % 2:
+            s = int(rng.integers(0, L // 2 + 1))
+            x[s:s + L // 4] += 0.8
+        cs[r, :L] = np.cumsum(x - x.mean())
+        n[r] = L
+    return cs, n, mask
+
+
+def _b4_checked(cs, n, npad, mask=None):
+    """B4 on the card, with a live flag of 1 and a tally word, against its
+    plain version on the card on the rows under mask (every row without
+    one): best bit for bit and bl0 equal; the tally between the pair terms
+    of the blocks the plain walk visits and those of every block the seed
+    admits.  K9 computes the inputs under the same mask, so the other rows'
+    inputs are left unset, as in the engine.  Returns (tally, the plain
+    walk's count)."""
+    from canvas_tpu_torch.ops import arc_scan_cuda as ac
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    dev = cs.device
+    seed, lag_hi, psd2, _ti0, _tj0, n32 = st.arc_inputs(cs, n, npad, 2,
+                                                       mask=mask)
+    live = torch.ones((), dtype=torch.int64, device=dev)
+    terms = torch.zeros((), dtype=torch.int64, device=dev)
+    best, bl0 = ac.arc_scan(cs, n32, lag_hi, seed, psd2, 2, mask=mask,
+                            live=live, terms=terms)
+    rows = torch.arange(cs.shape[0], device=dev) if mask is None \
+        else torch.nonzero(mask)[:, 0]
+    walk: dict = {}
+    if len(rows):
+        best_p, bl0_p = ac.arc_scan_plain(
+            cs[rows], n32[rows], lag_hi[rows], seed[rows], psd2[rows], 2,
+            count=walk)
+        assert _bits_equal(best[rows], best_p), _differ(best[rows], best_p)
+        assert torch.equal(bl0[rows], bl0_p)
+    got = int(terms)
+    assert walk.get("terms", 0) <= got <= walk.get("seed_terms", 0), (
+        got, walk)
+    return got, walk
+
+
+@pytest.mark.parametrize("rows", [0, 1, 6, 64])
+@pytest.mark.parametrize("npad", [1 << k for k in range(10, 17)])
+def test_persistent_arc_scan_on_the_engine_layout(dev, npad, rows):
+    """B4's persistent grid as the whole-recursion engine launches it: the
+    first npad columns of a [64, 65,536] cumsum, 0, 1, 6 or all 64 rows
+    under the tier's mask, the others of other tiers' lengths.  Bit for
+    bit against the plain version on the rows under the mask, the tally
+    within its bounds (0 without a row)."""
+    cs, n, mask = _engine_b4_rows(npad, rows, npad + rows)
+    buf = torch.as_tensor(cs, device=dev)
+    got, walk = _b4_checked(buf[:, :npad], torch.as_tensor(n, device=dev),
+                            npad, torch.as_tensor(mask, device=dev))
+    assert (got > 0) == (rows > 0) and (walk.get("blocks", 0) > 0) == (
+        rows > 0)
+
+
+@pytest.mark.parametrize("B,npad", [(3, 8), (37, 256), (600, 1024),
+                                    (16, 8192), (5, 65536)])
+def test_persistent_arc_scan_on_frontier_buckets(dev, B, npad):
+    """B4 as the frontier engine launches it: no mask, a bucket of rows of
+    mixed lengths from 2 to npad (600 rows: more than the kernel lists at
+    a time), each a random walk with a planted step, zero past its
+    length.  Bit for bit against the plain version, the tally within its
+    bounds."""
+    rng = np.random.default_rng(B * npad)
+    cs = np.zeros((B, npad), np.float32)
+    n = rng.integers(2, npad + 1, B)
+    n[:3] = [npad, 2, min(npad, 5)][:B]
+    for r in range(B):
+        x = rng.normal(0, 1, int(n[r]))
+        x[int(n[r]) // 3:int(n[r]) // 2] += 0.8
+        cs[r, :n[r]] = np.cumsum(x - x.mean())
+    _b4_checked(torch.as_tensor(cs, device=dev),
+                torch.as_tensor(n, device=dev), npad)
+
+
+@pytest.mark.parametrize("npad", [1024, 65536])
+def test_persistent_arc_scan_on_a_dead_level(dev, npad):
+    """Where live is 0 every block of B4, and of K9 and K10 around it,
+    returns at once: tmax_batch's outputs and the tally word are left as
+    they were, under the engine's mask and without one."""
+    from canvas_tpu_torch.ops import cbs_device
+
+    cs, n, mask = _engine_b4_rows(npad, 6, npad)
+    buf = torch.as_tensor(cs, device=dev)
+    nd = torch.as_tensor(n, device=dev)
+    tss = torch.ones(64, dtype=torch.float32, device=dev)
+    live = torch.zeros((), dtype=torch.int64, device=dev)
+    for m in (torch.as_tensor(mask, device=dev), None):
+        terms = torch.full((), 17, dtype=torch.int64, device=dev)
+        out = [torch.full((64,), -7.0, device=dev),
+               torch.full((64,), -7, dtype=torch.int32, device=dev),
+               torch.full((64,), -7, dtype=torch.int32, device=dev)]
+        before = [v.clone() for v in out]
+        cbs_device.tmax_batch(buf[:, :npad], nd, tss, npad, 2, mask=m,
+                              out=out, live=live, terms=terms)
+        torch.cuda.synchronize()
+        assert int(terms) == 17
+        assert all(torch.equal(a, b) for a, b in zip(out, before))
+
+
+@pytest.mark.parametrize("W,npad,rows", [(64, 1024, 6), (64, 65536, 6),
+                                         (64, 65536, 0), (32, 4096, 32),
+                                         (600, 1024, None)])
+def test_persistent_arc_scan_grid_from_the_trace(dev, tmp_path, W, npad,
+                                                 rows):
+    """The grid of B4's first phase, read from the card's trace of its
+    launches (a live one and, under a mask, a dead one): the device's SMs
+    times the blocks an SM holds, whatever W, the tier's width and the
+    rows under the mask (None: no mask, as the frontier engine launches
+    it)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from canvas_tpu_torch.ops import arc_scan_cuda as ac
+    from canvas_tpu_torch.ops import cbs_stats_cuda as st
+
+    cs, n, mask = _engine_b4_rows(npad, rows or 0, W + npad, W=W, T=npad)
+    cs = torch.as_tensor(cs, device=dev)
+    n = torch.as_tensor(n, device=dev)
+    mask = None if rows is None else torch.as_tensor(mask, device=dev)
+    seed, lag_hi, psd2, _ti0, _tj0, n32 = st.arc_inputs(cs, n, npad, 2,
+                                                       mask=mask)
+    lives = [torch.full((), state, dtype=torch.int64, device=dev)
+             for state in ((1,) if mask is None else (1, 0))]
+    for live in lives:                      # built and loaded before
+        ac.arc_scan(cs, n32, lag_hi, seed, psd2, 2, mask=mask, live=live)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for live in lives * 3:
+            ac.arc_scan(cs, n32, lag_hi, seed, psd2, 2, mask=mask, live=live)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    grids = [ev["args"]["grid"] for ev in json.loads(path.read_text())[
+        "traceEvents"] if ev.get("cat") == "kernel"
+        and "arc_scan_blocks" in ev.get("name", "")]
+    sms, per_sm = ac.occupancy(dev)
+    assert sms == torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 1 <= per_sm <= 2048 // 128       # resident threads an SM
+    # every launch the trace holds (at least one) had the same grid
+    assert grids and all(g == [sms * per_sm, 1, 1] for g in grids), grids
 
 
 def test_tail_kernel_matches_plain(dev):
@@ -2181,16 +2346,25 @@ def _largest_shape(C=192, T=1 << 16, seed=3):
 
 @pytest.mark.parametrize("which", ["panel", "largest"])
 def test_keep_table_tallies_arc_pairs(dev, which):
-    """K16's arc-pair word, the tally's last, on every live level of an
-    eager engine run on the card (the card tests' panel; the engine's
-    largest shape), each on its recorded inputs: it adds n (n + 1) / 2 of
-    the level's pending analysable rows, as table_update_plain does, and
-    every other control word is the plain version's."""
+    """K16's arc-pair word on every live level of an eager engine run on
+    the card (the card tests' panel; the engine's largest shape), each on
+    its recorded inputs: it adds n (n + 1) / 2 of the level's pending
+    analysable rows, as table_update_plain does, and every other control
+    word is the plain version's.  The word B4 adds to, the tally's last,
+    is left as it was: the control words keep their offsets and K16 its
+    five words."""
     from canvas_tpu_torch.ops import cbs_level_cuda as cl
 
     cov = _cbs_panel() if which == "panel" else _largest_shape()
     recs = _level_records(cov, dev, n_perm=1000)
-    live = 0
+    assert (cl.NSEG, cl.OVERFLOW, cl.LIVE, cl.LEVEL, cl.TALLY) == (0, 1, 2,
+                                                                   3, 4)
+    assert cl.TALLY_WORDS == ("walks_accepted", "walks_rejected",
+                              "walk_chunks", "edge_chunks", "arc_pairs",
+                              "arc_terms")
+    assert cl.ARC_TERMS == cl.CTL - 1
+    pairs = cl.TALLY + cl.TALLY_WORDS.index("arc_pairs")
+    live, b4_terms = 0, 0
     for args in recs["keep_table"]:
         tab, pending0, lv = args[:3]
         S = pending0.shape[0]
@@ -2198,12 +2372,15 @@ def test_keep_table_tallies_arc_pairs(dev, which):
             continue
         live += 1
         want = cl.keep_table_plain(*args)[1][3 * S:]
-        before = int(tab[-1])
+        before = tab[3 * S:].clone()
         cl.keep_table(*args)
-        assert cl.TALLY_WORDS[-1] == "arc_pairs"
-        assert torch.equal(tab[3 * S:], want)
-        assert int(tab[-1]) - before == int(cl.arc_pairs(lv)) > 0
+        ctl = tab[3 * S:]
+        assert torch.equal(ctl, want)
+        assert int(ctl[pairs] - before[pairs]) == int(cl.arc_pairs(lv)) > 0
+        assert int(ctl[cl.ARC_TERMS]) == int(before[cl.ARC_TERMS])
+        b4_terms = max(b4_terms, int(before[cl.ARC_TERMS]))
     assert live >= 2 if which == "panel" else live >= 1
+    assert b4_terms > 0           # B4 ran on the levels before K16
     torch.cuda.synchronize()
 
 
@@ -2270,6 +2447,7 @@ def test_graph_replay_equals_eager(dev, which):
     segments, counts and final table (the device buffer, control words
     included) as the same levels run eagerly; at most 2 reads a run, and
     the level count from the device's tally."""
+    from canvas_tpu_torch.ops import cbs_level_cuda as cl
     from canvas_tpu_torch.ops import cbs_mega
 
     cov = _cbs_panel() if which == "panel" else _bench_cbs()
@@ -2287,6 +2465,13 @@ def test_graph_replay_equals_eager(dev, which):
              cbs_mega.SYNCS["cbs_mega"] - s0,
              cbs_mega.GRAPHS["replays"] - r0))
     assert cbs_mega.GRAPHS["captures"] == c0      # one capture a shape
+    # B4's arc terms depend on the order in which its floors rise, so
+    # they are held to be there, not equal
+    S = eng.S
+    for run in runs[True] + runs[False]:
+        assert run[1].pop("arc_terms") > 0
+        assert int(run[2][3 * S + cl.ARC_TERMS]) > 0
+        run[2][3 * S + cl.ARC_TERMS] = 0
     (g_lens, g_counts, g_tab, g_pend, g_reads, g_replays) = runs[True][1]
     (e_lens, e_counts, e_tab, e_pend, e_reads, e_replays) = runs[False][0]
     for k in cov:

@@ -127,10 +127,13 @@ def test_work_counts_the_arc_pairs_of_each_level():
     assert counts["levels"] == 2 and len(out["b"]) == 1
     want = _pairs(600) + _pairs(400) + _pairs(int(l1)) + _pairs(int(l2))
     assert counts["arc_pairs"] == want
+    # B4's arc terms are the kernel's tally: none on CPU tensors
+    assert counts["arc_terms"] == 0
     assert cbs_mega.WORK == {
         "calls": work0["calls"] + 1,
         "arc_pairs": work0["arc_pairs"] + want,
-        "walk_chunks": work0["walk_chunks"] + counts["walk_chunks"]}
+        "walk_chunks": work0["walk_chunks"] + counts["walk_chunks"],
+        "arc_terms": work0["arc_terms"]}
     note = {k: v - note0[k] for k, v in runner._cbs_work().items()}
     # on CPU tensors the levels run eagerly, a read after each
     assert note == {"engine_calls": 1, "arc_pairs": want,
@@ -140,6 +143,15 @@ def test_work_counts_the_arc_pairs_of_each_level():
 
 def _reader(name):
     return spec.load_reader(ROOT / f"cnvbench/metrics/{name}.py")
+
+
+def test_arc_terms_reader_without_the_word(monkeypatch):
+    """A program whose tally has no arc terms (before B4 kept one) reads
+    nothing, and raises nothing."""
+    monkeypatch.setattr(cbs_mega, "WORK", {
+        "calls": 4, "walk_chunks": 50, "arc_pairs": 38_000_000_000})
+    read = _reader("kernel.arc_terms_m")
+    assert read(harness.Context(trace=_card_trace())) is None
 
 
 def _card_trace():
@@ -179,11 +191,13 @@ class _Engine:
 @pytest.mark.parametrize("name,want", [
     ("cbs.boundary_s", 4.5), ("engine.capture_s", 1.25),
     ("kernel.arc_pairs_m", 9_500.0), ("kernel.walk_chunks", 12.5),
+    ("kernel.arc_terms_m", 1_250.0),
 ])
 def test_counter_readers(monkeypatch, name, want):
     monkeypatch.setattr(cbs, "BOUNDARY", {"computed": 1, "seconds": 4.5})
     monkeypatch.setattr(cbs_mega, "WORK", {
-        "calls": 4, "walk_chunks": 50, "arc_pairs": 38_000_000_000})
+        "calls": 4, "walk_chunks": 50, "arc_pairs": 38_000_000_000,
+        "arc_terms": 5_000_000_000})
     monkeypatch.setattr(cbs_mega, "_ENGINES", {
         torch.device("cuda", 0): _Engine(1.25)})
     read = _reader(name)
