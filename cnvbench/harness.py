@@ -3,11 +3,11 @@ cell's own shape, a closed loop of one client over the pool for the
 window, the metrics by their readers, then the check against the plain
 reference.
 
-The system under test is canvas_tpu_torch's CBS entry,
-`ops.cbs.run_cbs(coverage, alpha=..., device="cuda")`, one sample's
-contigs a call, as the pipeline's CanvasPartition calls it.  A call
-returns after the engine's read from the card; the harness synchronises
-once more before it reads the clock.
+What differs from one partition method to another, the pool, the system
+under test, what can be checked and the reference, comes from the cell's
+partition module (`partitions/<name>.py`, found by spec.py).  A call of
+the system returns once its answer is on the host; the harness reads the
+clock around it.
 """
 
 from __future__ import annotations
@@ -22,8 +22,7 @@ from dataclasses import dataclass, field
 import torch
 
 from cnvbench import check as checks_mod
-from cnvbench import generator, trace as trace_mod
-from cnvbench.reference import cbs as reference
+from cnvbench import trace as trace_mod
 
 WARM_CALLS = 2          # set-up: calls on the cell's own shape
 MAX_FAILED = 8          # failed calls after which the window stops
@@ -31,32 +30,6 @@ MAX_FAILED = 8          # failed calls after which the window stops
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
-
-
-class System:
-    """canvas_tpu_torch's CBS entry on one CUDA device, and its counters:
-    the engine that served the call, its levels, its CUDA graph
-    replays."""
-
-    def __init__(self, device: torch.device, alpha: float):
-        from canvas_tpu_torch.ops import cbs, cbs_mega
-
-        self.device, self.alpha = device, alpha
-        self._cbs, self._mega = cbs, cbs_mega
-
-    def __call__(self, sample: dict) -> tuple[dict | None, dict]:
-        replays = self._mega.GRAPHS["replays"]
-        out = self._cbs.run_cbs(sample, alpha=self.alpha, device=self.device)
-        torch.cuda.synchronize(self.device)
-        return out, {"engine": self._cbs.last_engine(),
-                     "levels": self._cbs._LAST_ENGINE["levels"],
-                     "replays": self._mega.GRAPHS["replays"] - replays}
-
-    def release(self) -> None:
-        """Free the engine's buffers and graph on the card."""
-        self._mega._ENGINES.clear()
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
 
 
 @dataclass
@@ -70,14 +43,15 @@ class Context:
     trace: trace_mod.Trace | None = None
 
 
-def measure(system, pool: list, seconds: float, prof=None):
+def measure(system, pool: list, seconds: float, sample_bins, prof=None):
     """The closed loop: calls over the pool in order, each started when
     the last returned, until one ends past `seconds`.  With `prof` (a
     trace.Profiled), the calls that start in the window's first
     trace.TRACE_SECONDS are traced, each in its span.  Returns (records,
-    outputs, repeats, window): a record a call, the first output of every
-    pool sample, (pool index, output) of every later call that served a
-    sample again, and the window's (start, end)."""
+    outputs, repeats, window): a record a call (its bins counted by
+    `sample_bins`), the first output of every pool sample, (pool index,
+    output) of every later call that served a sample again, and the
+    window's (start, end)."""
     records, outputs, repeats = [], {}, []
     failed = 0
     if prof is not None:
@@ -102,7 +76,7 @@ def measure(system, pool: list, seconds: float, prof=None):
             out, info, ok = None, {}, False
         t1 = time.perf_counter()
         failed += not ok
-        records.append({"k": k, "bins": generator.sample_bins(pool[k]),
+        records.append({"k": k, "bins": sample_bins(pool[k]),
                         "t0": t0, "t1": t1, "ok": ok, **info})
         if ok:
             if k in outputs:
@@ -128,10 +102,11 @@ def device_info(device: torch.device) -> dict:
 def run_cell(cell, seed: int, seconds: float, traced: bool,
              device: torch.device, t_process: float, system=None) -> dict:
     """One run: the result line's object, `checks` last."""
+    part = cell.partition
     t0 = time.perf_counter()
-    pool = generator.make_pool(cell.config, cell.mix, seed, device)
+    pool = part.make_pool(cell.config, cell.mix, seed, device)
     t1 = time.perf_counter()
-    system = system or System(device, cell.config["alpha"])
+    system = system or part.System(device, cell.config)
     for k in range(min(WARM_CALLS, len(pool))):
         system(pool[k])
     log(f"set-up: process start to the pool {t0 - t_process:.3f} s, the "
@@ -142,8 +117,8 @@ def run_cell(cell, seed: int, seconds: float, traced: bool,
     gc.collect()
     gc.disable()
     try:
-        records, outputs, repeats, window = measure(system, pool, seconds,
-                                                    prof)
+        records, outputs, repeats, window = measure(
+            system, pool, seconds, part.sample_bins, prof)
     finally:
         gc.enable()
     ctx = Context(records, window, window[0] - t_process,
@@ -161,17 +136,15 @@ def run_cell(cell, seed: int, seconds: float, traced: bool,
     if hasattr(system, "release"):
         system.release()
     failed = sum(not r["ok"] for r in records)
-    served = {r["k"] for r in records
-              if r["ok"] and r.get("engine") == "mega"}
+    served = {r["k"] for r in records if r["ok"] and part.checkable(r)}
 
     checks, info = checks_mod.check(
-        pool, outputs, repeats, served, cell.mix["check"], seed,
-        lambda sample: reference.segment(sample, device), log)
+        pool, outputs, repeats, served, cell.mix["check"], seed, part,
+        device, log)
     correct = checks_mod.passed(checks) and failed == 0 and bool(
         info["samples"])
     if not info["samples"]:
-        log("check: no timed sample was served by the whole-recursion "
-            "engine, so none could be checked")
+        log(f"check: {part.NOTHING_CHECKABLE}")
     out = {"correct": correct, "attempted": len(records), "failed": failed,
            "metrics": metrics, "device": dev}
     if traced:

@@ -19,7 +19,7 @@ def pytest_configure(config):
 class CpuSystem:
     """The system's whole-recursion engine on CPU tensors, its plain
     versions (run_cbs takes the engine only on a card), with the counters
-    harness.System reports."""
+    the cbs partition's System reports."""
 
     def __init__(self, alpha: float = 0.01):
         from canvas_tpu_torch.ops import cbs_mega
@@ -51,10 +51,11 @@ def card():
 
 def tiny_tree(tmp: Path, extra_metric: str | None = None) -> Path:
     """A benchmark tree under tmp: BENCHMARK.json with one tiny cell
-    (three contigs of 120 to 300 bins) and the cnvbench data
-    folders, copied, with the tiny configuration and mix added as files."""
+    (three contigs of 120 to 300 bins) and the cnvbench data and
+    partition folders, copied, with the tiny configuration and mix added
+    as files."""
     bench = tmp / "cnvbench"
-    for d in ("configs", "traffic", "metrics"):
+    for d in ("configs", "traffic", "metrics", "partitions"):
         shutil.copytree(BENCH / d, bench / d)
     cfg = json.loads((BENCH / "configs/somatic_lowpass_wgs.json")
                      .read_text())

@@ -7,10 +7,10 @@ import numpy as np
 import pytest
 import torch
 
-from cnvbench import check, control, spec
-from cnvbench.reference import cbs as reference
+from cnvbench import control, spec
 
 CPU = torch.device("cpu")
+CBS = spec.load_partition("cbs")
 
 
 def _planted(seed: int) -> dict:
@@ -29,10 +29,10 @@ def _planted(seed: int) -> dict:
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_control_fails_the_check(seed):
     cov = _planted(seed)
-    want = reference.segment(cov, CPU)
-    got = reference.segment(cov, CPU, reference.CONTROL)
-    assert check.contigs_off(got, want) >= 1
-    assert check.contigs_off(want, reference.segment(cov, CPU)) == 0
+    want = CBS.reference(cov, CPU)
+    got = CBS.control(cov, CPU)
+    assert CBS.off(got, want) >= 1
+    assert CBS.off(want, CBS.reference(cov, CPU)) == 0
 
 
 @pytest.mark.cuda
@@ -42,5 +42,5 @@ def test_control_fails_at_the_cells_size(card, workload):
     cell = spec.load_cell(workload)
     for seed in (11, 12, 13):
         r = control.readings(cell, seed, card, program=True)
-        assert r["control_off"] > check.LIMITS["contigs_off"]
-        assert r["program_off"] <= check.LIMITS["contigs_off"]
+        assert r["control_off"] > CBS.LIMIT
+        assert r["program_off"] <= CBS.LIMIT

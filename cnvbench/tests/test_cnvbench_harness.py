@@ -97,6 +97,8 @@ def test_repo_cells_load():
     for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]:
         c = spec.load_cell(w["name"])
         assert c.readers and c.config["contigs"] and c.mix["pool"] > 0
+        assert "partition" not in c.config
+        assert c.partition.__file__ == str(ROOT / "cnvbench/partitions/cbs.py")
 
 
 def test_import_check_compares_top_level_names_whole(monkeypatch):
@@ -112,8 +114,8 @@ def test_import_check_compares_top_level_names_whole(monkeypatch):
 
 def test_harness_loads_no_jax():
     code = ("import sys; import cnvbench.harness, cnvbench.control, "
-            "cnvbench.reference.cbs, canvas_tpu_torch.ops.cbs, "
-            "canvas_tpu_torch.ops.cbs_mega; from cnvbench import run; "
+            "canvas_tpu_torch.ops.cbs, canvas_tpu_torch.ops.cbs_mega; "
+            "from cnvbench import run, spec; spec.load_partition('cbs'); "
             "print(run.forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)

@@ -8,11 +8,11 @@ import numpy as np
 import pytest
 import torch
 
-from cnvbench import check, generator, spec
-from cnvbench.reference import cbs as reference
+from cnvbench import generator, spec
 from cnvbench.tests.conftest import CpuSystem, tiny_tree
 
 CPU = torch.device("cpu")
+CBS = spec.load_partition("cbs")
 
 
 @pytest.fixture(scope="module")
@@ -27,9 +27,9 @@ def test_reference_equals_the_engine_on_cpu_tensors(pool):
     system = CpuSystem()
     for sample in pool[:2]:
         got, info = system(sample)
-        want = reference.segment(sample, CPU)
-        assert info["engine"] == "mega"
-        assert check.contigs_off(got, want) == 0
+        want = CBS.reference(sample, CPU)
+        assert CBS.checkable(info)
+        assert CBS.off(got, want) == 0
         assert all(int(np.sum(want[c])) == len(sample[c]) for c in sample)
 
 
@@ -40,7 +40,7 @@ def test_reference_finds_planted_steps():
     w = rng.normal(100.0, 5.0, 900)
     cov = {"a": np.rint(v).astype(np.float32),
            "b": np.rint(w).astype(np.float32)}
-    out = reference.segment(cov, CPU)
+    out = CBS.reference(cov, CPU)
     assert out["a"].tolist() == [500, 300, 700]
     assert out["b"].tolist() == [900]
 
@@ -53,6 +53,6 @@ def test_reference_returns_none_past_the_table():
     for i in range(70):                       # 140 steps of 60 bins
         v[120 * i + 30:120 * i + 90] += 40.0
     t = time.perf_counter()
-    assert reference.segment({"a": np.rint(v).astype(np.float32)},
-                             CPU) is None
+    assert CBS.reference({"a": np.rint(v).astype(np.float32)},
+                         CPU) is None
     assert time.perf_counter() - t < 600
